@@ -1,0 +1,144 @@
+"""Process model: init / shutdown / rank / size / local_rank / device.
+
+Counterpart of ``horovod_tpu/basics.py`` over ``torch.distributed``: one
+process per card, as in the reference Horovod.  :func:`init` with no
+argument takes ``cuda:<local_rank>`` and NCCL and raises when there is
+no CUDA device; it never drops to the CPU on its own.
+``init(device="cpu")`` runs the same code on the CPU over gloo, which
+is how the tests run it.
+
+The world comes from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``)
+when it is set, from a process group the caller already initialised,
+or else is a world of one on a free local TCP port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import socket
+from datetime import timedelta
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from .config import Config
+
+
+class NotInitializedError(RuntimeError):
+    def __init__(self) -> None:
+        super().__init__("horovod_tpu_torch has not been initialized; "
+                         "call horovod_tpu_torch.init() first.")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Session:
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+    device: torch.device
+    config: Config
+    owns_group: bool           # False when the caller initialised it
+
+
+_session: Optional[_Session] = None
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init(device: Union[str, torch.device, None] = None) -> None:
+    """Join (or start) the process group and pick this rank's device.
+
+    ``device=None`` means ``cuda:<local_rank>`` with NCCL, and raises
+    ``RuntimeError`` without a CUDA device.  An explicit device is used
+    as given: ``"cpu"`` runs over gloo.  Idempotent."""
+    global _session
+    if _session is not None:
+        return
+    env = os.environ
+    # An adopted group without torchrun's env runs on one host.
+    local_rank = int(env.get(
+        "LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "horovod_tpu_torch.init(): no CUDA device; pass "
+                "device='cpu' to run on the CPU")
+        dev = torch.device("cuda", local_rank)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+
+    owns = not dist.is_initialized()
+    if owns:
+        kwargs = dict(backend=backend, timeout=timedelta(minutes=10))
+        if dev.type == "cuda":
+            kwargs["device_id"] = dev
+        if "RANK" in env and "WORLD_SIZE" in env:
+            dist.init_process_group(init_method="env://", **kwargs)
+        else:
+            dist.init_process_group(
+                init_method=f"tcp://127.0.0.1:{_free_port()}",
+                rank=0, world_size=1, **kwargs)
+    size = dist.get_world_size()
+    _session = _Session(
+        rank=dist.get_rank(), size=size, local_rank=local_rank,
+        local_size=int(env.get("LOCAL_WORLD_SIZE", size)), device=dev,
+        config=Config.from_env(), owns_group=owns)
+
+
+def shutdown() -> None:
+    """Leave the process group (if :func:`init` created it)."""
+    global _session
+    if _session is None:
+        return
+    if _session.owns_group and dist.is_initialized():
+        dist.destroy_process_group()
+    _session = None
+
+
+def is_initialized() -> bool:
+    return _session is not None
+
+
+def _require() -> _Session:
+    if _session is None:
+        raise NotInitializedError()
+    return _session
+
+
+def rank() -> int:
+    return _require().rank
+
+
+def size() -> int:
+    return _require().size
+
+
+def local_rank() -> int:
+    return _require().local_rank
+
+
+def local_size() -> int:
+    return _require().local_size
+
+
+def device() -> torch.device:
+    """This rank's device: ``cuda:<local_rank>`` unless :func:`init` was
+    given another."""
+    return _require().device
+
+
+def config() -> Config:
+    return _require().config

@@ -1,0 +1,143 @@
+"""Int8-quantized allreduce over ``torch.distributed``: values are int8
+on the wire only, with one f32 scale per block of ``block_size``
+elements (default 1024), and every sum is taken in f32.
+
+Counterpart of ``horovod_tpu/ops/quantization.py``, with the same block,
+pad and ``n == 1`` rules.  The allreduce is four phases:
+
+1. quantize blockwise → ``all_to_all_single`` of the int8 chunks and of
+   the f32 scale sidecar;
+2. dequantize the ``n`` contributions and sum them in f32 (average
+   divides by ``n``);
+3. requantize the shard → ``all_gather_into_tensor`` of int8 and scales;
+4. dequantize every shard → the full result.
+
+The arithmetic of phases 1–4 is the kernels' of
+:mod:`.int8_kernels`.  The JAX package has two tiers here (plain XLA,
+and Pallas under ``HVD_TPU_TOPO_KERNEL=pallas``); the port has this one
+wire.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .int8_kernels import (dequantize_accumulate, dequantize_blocks,
+                           quantize_blocks)
+
+
+def _check_op(op: str) -> None:
+    if op not in ("sum", "average"):
+        raise ValueError(
+            f"int8 transport supports op=sum/average, got {op!r} "
+            "(min/max/product need exact comparisons; drop compression)")
+
+
+def _world(group) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def int8_reducescatter(x: torch.Tensor, *, op: str = "sum", group=None,
+                       block_size: int = 1024) -> torch.Tensor:
+    """Reduce-scatter with int8 transport (phases 1–2): ``x`` is a flat
+    per-rank vector whose size divides the world; returns this rank's
+    reduced ``size / n`` shard in ``x``'s dtype."""
+    _check_op(op)
+    n = _world(group)
+    flat = x.to(torch.float32).reshape(-1)
+    if flat.numel() % n:
+        raise ValueError(f"size {flat.numel()} not divisible by group {n}")
+    if n == 1:
+        return flat.to(x.dtype)  # degenerate world
+    k = flat.numel() // n
+    b = max(1, min(block_size, k))
+    pad = (-k) % b
+    chunks = flat.reshape(n, k)
+    if pad:  # pad each destination chunk's tail to whole blocks
+        chunks = torch.cat([chunks, chunks.new_zeros((n, pad))], dim=1)
+    m = (k + pad) // b
+    q1, s1 = quantize_blocks(chunks.reshape(n * m, b))
+    # Chunk j goes to rank j: I receive m blocks of MY shard from each
+    # peer, peer-major.
+    rows = torch.empty_like(q1)
+    dist.all_to_all_single(rows, q1, group=group)
+    s_rows = torch.empty_like(s1)
+    dist.all_to_all_single(s_rows, s1, group=group)
+    partial = dequantize_accumulate(rows.reshape(n, m, b),
+                                    s_rows.reshape(n, m)).reshape(-1)
+    if pad:
+        partial = partial[:-pad]
+    if op == "average":
+        partial = partial / n
+    return partial.to(x.dtype)
+
+
+def int8_allgather(shard: torch.Tensor, *, group=None,
+                   block_size: int = 1024) -> torch.Tensor:
+    """All-gather with int8 transport (phases 3–4): returns ``[n * size]``
+    flat, rank-major, in the shard's dtype."""
+    n = _world(group)
+    flat = shard.to(torch.float32).reshape(-1)
+    if n == 1:
+        return flat.to(shard.dtype)
+    k = flat.numel()
+    b = max(1, min(block_size, k))
+    pad = (-k) % b
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    m = flat.numel() // b
+    q, s = quantize_blocks(flat.reshape(m, b))
+    q_all = q.new_empty((n * m, b))
+    dist.all_gather_into_tensor(q_all, q, group=group)
+    s_all = s.new_empty(n * m)
+    dist.all_gather_into_tensor(s_all, s, group=group)
+    out = dequantize_blocks(q_all, s_all).reshape(n, -1)
+    if pad:
+        out = out[:, :-pad]
+    return out.reshape(-1).to(shard.dtype)
+
+
+def int8_allreduce(x: torch.Tensor, *, op: str = "sum", group=None,
+                   block_size: int = 1024) -> torch.Tensor:
+    """Allreduce with int8 transport: :func:`int8_reducescatter` then
+    :func:`int8_allgather`.  ``op`` is sum or average; the result has
+    ``x``'s shape and dtype.  In a world of one it returns ``x``."""
+    _check_op(op)
+    n = _world(group)
+    if n == 1:
+        return x
+    flat = x.to(torch.float32).reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shard = int8_reducescatter(flat, op=op, group=group,
+                               block_size=block_size)
+    out = int8_allgather(shard, group=group, block_size=block_size)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def quant_dequant(x: torch.Tensor, block_size: int = 1024) -> torch.Tensor:
+    """Blockwise int8 quantize → dequantize of one tensor (flattened;
+    shape and dtype kept): the local loss of the wire's phase 1, whose
+    complement error feedback accumulates."""
+    f32 = x.to(torch.float32).reshape(-1)
+    b = max(1, min(block_size, f32.numel())) if f32.numel() else 1
+    pad = (-f32.numel()) % b
+    if pad:
+        f32 = torch.cat([f32, f32.new_zeros(pad)])
+    q, scale = quantize_blocks(f32.reshape(-1, b))
+    deq = dequantize_blocks(q, scale).reshape(-1)
+    if pad:
+        deq = deq[:-pad]
+    return deq.reshape(x.shape).to(x.dtype)
+
+
+def wire_block_size(elems_per_contributor: int, n: int,
+                    block_size: int = 1024) -> int:
+    """The block the wire quantizes with: ``min(block_size,
+    ceil(elems / n))``, since blocks never span a destination chunk."""
+    k = max(1, -(-int(elems_per_contributor) // max(1, int(n))))
+    return max(1, min(int(block_size), k))

@@ -1,0 +1,120 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on a
+card.  Every test here is marked ``cuda`` and skips where there is no
+CUDA device.  The module imports no JAX, so it runs on a GPU host
+without the reference installed; there, skip the suite's conftest
+(which sets up the JAX mesh):
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda -q
+
+TF32 is off: float32 matmuls in the plain versions run in full float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import int8_kernels as ik
+from horovod_tpu_torch.ops import kernel_common as kc
+from horovod_tpu_torch.ops import quantization as q8
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+@pytest.mark.parametrize("rows,b", [(300, 1024), (7, 33), (1, 1)])
+def test_int8_kernels_bitwise(card, rows, b):
+    rng = np.random.RandomState(rows + b)
+    x = rng.randn(rows, b) * 10.0 ** rng.uniform(-4, 2, (rows, 1))
+    x = torch.from_numpy(x.astype(np.float32)).to(card)
+    x[0, : min(b, 3)] = torch.tensor([0.5, -2.5, 1.5][: min(b, 3)])
+    kc.reset_launch_counts()
+    q, s = ik.quantize_blocks(x)
+    q_ref, s_ref = ik.quantize_blocks_plain(x)
+    assert _same_bits(q, q_ref) and _same_bits(s, s_ref)
+    out = ik.dequantize_blocks(q, s)
+    assert _same_bits(out, ik.dequantize_blocks_plain(q, s))
+    if rows % 3 == 0:
+        qn, sn = q.reshape(3, rows // 3, b), s.reshape(3, rows // 3)
+        acc = ik.dequantize_accumulate(qn, sn)
+        assert _same_bits(acc, ik.dequantize_accumulate_plain(qn, sn))
+    counts = kc.launch_counts()
+    assert counts["quantize_blocks"] == counts["dequantize_blocks"] == 1
+
+
+def test_int8_kernels_non_finite_rows(card):
+    """NaN and Inf rows: the kernel carries NaN into the scale and stores
+    a NaN payload as 0, as its plain version (and the reference) do."""
+    x = torch.randn((6, 1024), generator=torch.Generator().manual_seed(2))
+    x[0, 5], x[1, 700], x[2, 0] = float("nan"), float("inf"), -float("inf")
+    x[3, 1000], x[3, 1] = float("nan"), float("inf")
+    x = x.to(card)
+    q, s = ik.quantize_blocks(x)
+    q_ref, s_ref = ik.quantize_blocks_plain(x)
+    assert _same_bits(q, q_ref)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=0, equal_nan=True)
+    assert s[[0, 3]].isnan().all() and s[[1, 2]].isinf().all()
+    out = ik.dequantize_blocks(q, s)
+    torch.testing.assert_close(out, ik.dequantize_blocks_plain(q, s),
+                               rtol=0, atol=0, equal_nan=True)
+    assert out[:4].isnan().all() and out[4:].isfinite().all()
+
+
+def test_quant_dequant_on_card_matches_cpu(card):
+    x = torch.randn(5000, generator=torch.Generator().manual_seed(0))
+    out = q8.quant_dequant(x.to(card), block_size=300)
+    assert _same_bits(out.cpu(), q8.quant_dequant(x, block_size=300))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("t,tk,d", [(200, 200, 64), (64, 96, 16),
+                                    (130, 130, 128), (33, 33, 32)])
+def test_flash_fwd_matches_plain_version(card, dtype, atol, t, tk, d):
+    g = torch.Generator(device=card).manual_seed(t + d)
+    q3 = torch.randn((6, t, d), generator=g, device=card).to(dtype)
+    k3 = torch.randn((6, tk, d), generator=g, device=card).to(dtype)
+    v3 = torch.randn((6, tk, d), generator=g, device=card).to(dtype)
+    for causal in ((False, True) if t == tk else (False,)):
+        o, lse = fa.flash_fwd(q3, k3, v3, d ** -0.5, causal)
+        o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, d ** -0.5, causal)
+        assert o.dtype == dtype and lse.shape == (6, t)
+        assert (o.float() - o_ref.float()).abs().max().item() <= atol
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+def test_flash_attention_grads_on_card_match_cpu(card):
+    rng = np.random.RandomState(0)
+    qkv = [rng.randn(2, 80, 2, 32).astype(np.float32) for _ in range(3)]
+    grads = []
+    for dev in ("cpu", card):
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in qkv]
+        o, lse = fa.flash_attention_with_lse(*ts, causal=True)
+        (o.square().sum() + lse.sum()).backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_refuses_what_it_cannot_take(card):
+    """A CUDA tensor launches the kernel or raises: no quiet fallback to
+    the plain version."""
+    q3 = torch.randn((2, 16, 24), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q3, q3, q3, 1.0, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ik.quantize_blocks(torch.randn((8, 4), device=card).t())
