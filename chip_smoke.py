@@ -7,33 +7,55 @@
    ``horovod_tpu_torch/csrc`` (one nvcc per source, in parallel) and
    prints the build time.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
-   version, on the card, at the shapes the main path gives it.  The int8
-   kernels must match bit for bit, and on rows holding NaN or Inf as
-   well; flash attention within the bf16 tolerance (3e-2 on O, 1e-4 on
-   lse) and, row by row, within 1e-2 of the row's largest |O|.  Prints
-   each kernel's median time, its plain version's, its bound and, where
-   one PyTorch call computes the same function, that call's time as a
+   version, on the card, at the shapes the main paths give it.  The int8
+   kernels (B2-B4) and the fused apply kernels (B6, B7) must match bit
+   for bit, on rows holding NaN (and for B2-B4 Inf) as well; flash
+   attention (B1) within the bf16 tolerance (3e-2 on O, 1e-4 on lse)
+   and, row by row, within 1e-2 of the row's largest |O|; the blocked
+   matmul (B5) within twice its plain version's error against an f64
+   product plus 1e-6 of the product's largest |value|.  Prints each
+   kernel's median time, its plain version's, its bound and, where one
+   PyTorch call computes the same function, that call's time as a
    yardstick the port never calls: ``q * s[:, None]`` for the
-   dequantize, ``F.scaled_dot_product_attention`` for flash attention.
+   dequantize, ``F.scaled_dot_product_attention`` for flash attention,
+   ``torch.addcmul`` for the SGD apply, ``torch.matmul`` of the f32
+   operands for B5.
 3. Model check: a small GPT with flash attention against the same GPT
    with plain attention, f32, on the card (logits within 1e-4).
-4. Train phase: five steps of GPT-medium (24 layers, d_model 1024,
-   16 heads, seq 1024, batch 8, flash attention, bf16 activations) with
-   AdamW and the int8 wire with error feedback, in a one-rank NCCL
-   world, from a seed.  The launch counts are set to 0 just before and
-   read just after; every loss must be finite and the flash, quantize
-   and dequantize kernels must have launched.
-5. Two-rank train phase: two processes share the card over gloo (NCCL
-   refuses two ranks on one device) and take two steps of GPT-medium's
-   widths at 2 layers on the int8+EF wire, which at two ranks runs its
-   reduce-scatter and so the dequantize-accumulate kernel.  The replicas
-   must agree and every kernel must have launched.
-6. Prints the ``kernels`` JSON line, then the result line.  ``launches``
-   is the count from the one-rank train phase, and for
-   dequantize_accumulate from the two-rank phase.
+4. Train phase ("1 rank"): five data-parallel steps of GPT-medium (24
+   layers, d_model 1024, 16 heads, seq 1024, batch 8, flash attention,
+   bf16 activations) with AdamW and the int8 wire with error feedback,
+   in a one-rank NCCL world, from a seed.  Every loss must be finite and
+   the flash, quantize and dequantize kernels must have launched.
+5. ZeRO phase ("zero 1 rank"): the same model, batch and optimizer
+   through ``make_zero_train_step`` (optimizer state on the rank's flat
+   shards, int8+EF reduce-scatter wire, exact parameter all-gather), five
+   steps; the same checks, tokens/s and peak memory beside the
+   data-parallel phase's.
+6. Two-rank phases: two processes share the card over gloo (NCCL refuses
+   two ranks on one device) at GPT-medium's widths and WIRE_LAYERS
+   layers, each rank on its own batch.
+   - "2 ranks": two data-parallel steps on the int8+EF wire, whose
+     reduce-scatter runs the dequantize-accumulate kernel (B3); the
+     replicas must agree.
+   - "sharded 2 ranks": (a) two ZeRO steps on the int8+EF wire, after
+     which the replicas' parameters must be bit-identical; (b) for every
+     leaf of one backward's gradients, ``fused_quantize_reducescatter``
+     then ``fused_allgather_adam_apply`` (steps 1 and 2) and
+     ``fused_allgather_sgd_apply`` (B6, B7), each within 1e-6 abs/rel of
+     ``int8_allgather`` + the plain update, and bit for bit the same on
+     both ranks; (c) ``unshard_matmul`` (B5) on block 0's four Dense
+     layers with their real input activations against the rank's column
+     shard of the weight, held to the f64 rule of step 2.
+7. Prints the ``kernels`` JSON line (all seven kernels, with their
+   launches on every path; ``launches`` is the count on the path that
+   reaches the kernel), then the result line.  Every kernel must have
+   launched on at least one path.
 
-Exits non-zero, with no result line, on any failure or without a CUDA
-device.  TF32 is off for matmuls and convolutions.
+The launch counts are set to 0 just before each path is driven and read
+just after it, before any comparison launches a kernel again.  Exits
+non-zero, with no result line, on any failure or without a CUDA device.
+TF32 is off for matmuls and convolutions.
 """
 
 from __future__ import annotations
@@ -56,6 +78,8 @@ GPT_MEDIUM = dict(vocab_size=32000, n_layer=24, n_head=16, d_model=1024,
                   d_ff=4096, max_seq_len=1024, attention="flash")
 BATCH, SEQ, STEPS = 8, 1024, 5
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
+APPLY_LR = 0.1                   # the fused apply's, as the reference test's
+ADAMW = dict(lr=3e-4, weight_decay=1e-4)
 
 
 def log(*args) -> None:
@@ -241,12 +265,133 @@ def kernel_phase(dev, gen):
                      max_row_rel_err=err_row,
                      ms=ms, plain_ms=plain, **bnd,
                      library_ms=lib))
+    rows += apply_kernel_rows(dev, gen)
+    rows.append(matmul_kernel_row(dev, gen))
     for row in rows:
         log(f"kernel {row['name']}: {row['ms']} ms, plain {row['plain_ms']} "
             f"ms, bound {row['bound_ms']} ms ({row['bound_by']}; bytes "
             f"{row['bytes_ms']} ms, operations {row['ops_ms']} ms), library "
             f"{row['library_ms']} ms, max_abs_err {row['max_abs_err']}")
     return rows
+
+
+def apply_kernel_rows(dev, gen):
+    """B6 and B7 at GPT-medium's largest leaf, lm_head [1024, 32000], as
+    the fused apply gets it at two ranks: 2 contributors of 16000 blocks
+    of 1024.  One gradient row has a NaN scale (and a 0 payload, as B2
+    writes it), which must turn its elements NaN in kernel and plain
+    version alike."""
+    import torch
+    from horovod_tpu_torch.ops import apply_kernels as ak
+
+    n, m, b = 2, 16000, 1024
+    k = m * b
+    q = torch.randint(-127, 128, (n, m, b), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((n, m), generator=gen, device=dev) * 1e-3
+    s[1, 7], q[1, 7] = math.nan, 0
+    p = torch.randn(n * k, generator=gen, device=dev) * 0.02
+    mu = torch.randn(n * k, generator=gen, device=dev) * 1e-3
+    nu = torch.rand(n * k, generator=gen, device=dev) * 1e-6
+    rows, elems = [], n * k
+
+    def err(a, r):
+        return float((a - r).nan_to_num(0.0).abs().max())
+
+    out = ak.sgd_apply(q, s, p, lr=APPLY_LR)
+    ref = ak.sgd_apply_plain(q, s, p, lr=APPLY_LR)
+    nan_row = slice(k + 7 * b, k + 8 * b)      # contributor 1, block 7
+    if not (bitwise_equal(out, ref) and bool(out[nan_row].isnan().all())):
+        raise AssertionError("sgd_apply differs from its plain version")
+    # The one PyTorch call that takes int8 payload and scales to the SGD
+    # update, if it takes these dtypes: p + (-lr) * q * s.
+    p2, q2, s2 = p.view(n * m, b), q.view(n * m, b), s.view(n * m, 1)
+    try:
+        lib_out = torch.addcmul(p2, q2, s2, value=-APPLY_LR)
+        lib = time_ms(lambda: torch.addcmul(p2, q2, s2, value=-APPLY_LR))
+        log(f"kernel sgd_apply: torch.addcmul is {err(lib_out.view(-1), ref)}"
+            " from the plain version")
+    except RuntimeError as exc:
+        lib = None
+        log(f"kernel sgd_apply: torch.addcmul refuses int8 and f32: {exc}")
+    ms = time_ms(lambda: ak.sgd_apply(q, s, p, lr=APPLY_LR))
+    plain = time_ms(lambda: ak.sgd_apply_plain(q, s, p, lr=APPLY_LR))
+    bnd = bound(elems * (1 + 4 + 4) + n * m * 4, 3 * elems, F32_FLOPS)
+    rows.append(dict(name="sgd_apply", route="cuda",
+                     source="horovod_tpu_torch/csrc/fused_apply.cu",
+                     replaces="horovod_tpu/ops/pallas_collectives.py:329",
+                     max_abs_err=err(out, ref), ms=ms, plain_ms=plain, **bnd,
+                     library_ms=lib))
+
+    consts = dict(lr=APPLY_LR, b1=0.9, b2=0.999, eps=1e-8,
+                  bc1=1.0 - 0.9 ** 2, bc2=1.0 - 0.999 ** 2)
+    outs = ak.adam_apply(q, s, p, mu, nu, **consts)
+    refs = ak.adam_apply_plain(q, s, p, mu, nu, **consts)
+    if not all(bitwise_equal(a, r) and bool(a[nan_row].isnan().all())
+               for a, r in zip(outs, refs)):
+        raise AssertionError("adam_apply differs from its plain version")
+    ms = time_ms(lambda: ak.adam_apply(q, s, p, mu, nu, **consts))
+    plain = time_ms(lambda: ak.adam_apply_plain(q, s, p, mu, nu, **consts))
+    bnd = bound(elems * (1 + 3 * 4 + 3 * 4) + n * m * 4, 14 * elems,
+                F32_FLOPS)
+    log("kernel adam_apply: no library yardstick (no one PyTorch call "
+        "takes int8 payload and scales to an Adam update)")
+    rows.append(dict(name="adam_apply", route="cuda",
+                     source="horovod_tpu_torch/csrc/fused_apply.cu",
+                     replaces="horovod_tpu/ops/pallas_collectives.py:336",
+                     max_abs_err=max(err(a, r) for a, r in zip(outs, refs)),
+                     ms=ms, plain_ms=plain, **bnd, library_ms=None))
+    return rows
+
+
+def f64_rule(y, x, w):
+    """(kernel error, plain error, passed): B5's result against the f64
+    product, allowed twice its plain version's error plus 1e-6 of the
+    product's largest |value| (no exact equality: the sums run in other
+    orders)."""
+    from horovod_tpu_torch.ops import matmul_kernel as mk
+
+    ref = x.double() @ w.double()
+    err = float((y.double() - ref).abs().max())
+    err_plain = float((mk.matmul_plain(x, w).double() - ref).abs().max())
+    return err, err_plain, err <= 2 * err_plain + 1e-6 * float(ref.abs().max())
+
+
+def matmul_kernel_row(dev, gen):
+    """B5 at GPT-medium's ff1: the block input of B*T = 8*1024 rows, bf16,
+    @ the f32 kernel [1024, 4096], at n = 1.  The same product with an f32
+    x is held to the f64 rule too: with a bf16 output its rounding hides
+    the sum's error, with an f32 one a TF32 or bf16 sum would fail."""
+    import torch
+    from horovod_tpu_torch.ops import matmul_kernel as mk
+
+    rows, d, ff = BATCH * SEQ, GPT_MEDIUM["d_model"], GPT_MEDIUM["d_ff"]
+    x_f32 = torch.randn((rows, d), generator=gen, device=dev)
+    x = x_f32.to(torch.bfloat16)
+    w = torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
+    errs = {}
+    for name, xin in (("bf16", x), ("f32", x_f32)):
+        err, err_plain, ok = f64_rule(mk.blocked_matmul(xin, w), xin, w)
+        log(f"kernel blocked_matmul ({name} x): max |kernel - f64| {err}, "
+            f"max |plain - f64| {err_plain}")
+        if not ok:
+            raise AssertionError(f"blocked_matmul ({name} x) outside the "
+                                 "f64 rule")
+        errs[name] = (err, err_plain)
+    err, err_plain = errs["bf16"]
+    x32 = x.float()
+    ms = time_ms(lambda: mk.blocked_matmul(x, w))
+    plain = time_ms(lambda: mk.matmul_plain(x, w))
+    lib = time_ms(lambda: torch.matmul(x32, w))
+    bnd = bound(rows * d * 2 + d * ff * 4 + rows * ff * 2, 2 * rows * d * ff,
+                F32_FLOPS)
+    return dict(name="blocked_matmul", route="cuda",
+                source="horovod_tpu_torch/csrc/matmul.cu",
+                replaces="horovod_tpu/ops/pallas_collectives.py:473",
+                max_abs_err=err, max_abs_err_plain=err_plain,
+                max_abs_err_f32_x=errs["f32"][0],
+                max_abs_err_plain_f32_x=errs["f32"][1], ms=ms,
+                plain_ms=plain, **bnd, library_ms=lib)
 
 
 def model_check(dev) -> None:
@@ -272,33 +417,55 @@ def model_check(dev) -> None:
     log(f"model check: small GPT flash vs full logits max_abs_err {err}")
 
 
-def gpt_medium_step(dev, n_layer: int = GPT_MEDIUM["n_layer"],
-                    data_seed: int = 0):
-    """(model, step, batch): GPT-medium (at ``n_layer`` layers) from seed
-    0 on ``dev``, broadcast from rank 0, and its train step with AdamW on
-    the int8+EF wire, as a user of the port writes it; the batch is
-    random tokens from ``data_seed``."""
+def gpt_medium(dev, n_layer: int = GPT_MEDIUM["n_layer"],
+               data_seed: int = 0):
+    """(model, batch): GPT-medium (at ``n_layer`` layers) from seed 0 on
+    ``dev``, broadcast from rank 0, and a batch of random tokens from
+    ``data_seed``."""
     import torch
     import horovod_tpu_torch as hvd
 
     cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": n_layer})
     model = hvd.models.GPT(cfg, device=dev, seed=0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
-        compression=hvd.Compression.int8, error_feedback=True)
-    step = hvd.make_train_step(hvd.models.lm_loss_fn(model), opt)
     gen = torch.Generator(device=dev).manual_seed(data_seed)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1),
                            generator=gen, device=dev)
-    return model, step, (tokens[:, :-1], tokens[:, 1:])
+    return model, (tokens[:, :-1], tokens[:, 1:])
 
 
-def train_phase(dev, card: str):
+def dp_step(model):
+    """The data-parallel step with AdamW on the int8+EF wire, as a user
+    of the port writes it."""
     import torch
     import horovod_tpu_torch as hvd
 
-    model, step, batch = gpt_medium_step(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        compression=hvd.Compression.int8, error_feedback=True)
+    return hvd.make_train_step(hvd.models.lm_loss_fn(model), opt)
+
+
+def zero_step(model):
+    """The ZeRO-1 step with the same optimizer and wire: AdamW over this
+    rank's flat shards, the int8+EF reduce-scatter, the exact all-gather."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    return hvd.make_zero_train_step(
+        hvd.models.lm_loss_fn(model),
+        lambda shards: torch.optim.AdamW(shards, **ADAMW),
+        compression=hvd.Compression.int8, error_feedback=True)
+
+
+def timed_steps(label: str, model, step, batch, card: str):
+    """STEPS steps on one rank, with the launch counts set to 0 just
+    before and read just after: (counts, tokens/s over steps 2-STEPS,
+    peak memory in bytes).  Every loss must be finite, and the flash,
+    quantize and dequantize kernels must have launched."""
+    import torch
+    import horovod_tpu_torch as hvd
+
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -314,21 +481,169 @@ def train_phase(dev, card: str):
     peak = torch.cuda.max_memory_allocated()
 
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks"):
         if counts[name] <= 0:
-            raise AssertionError(f"{name} never launched on the train path")
+            raise AssertionError(f"{name} never launched on the {label} path")
     tok_s = BATCH * SEQ * (STEPS - 1) / sum(times[1:])
-    log(f"train: GPT-medium {n_params} params, losses {losses}")
-    log(f"train: step seconds {times}")
-    log(f"train: {tok_s:.1f} tokens/s (steps 2-{STEPS}), peak memory "
+    log(f"{label}: GPT-medium {n_params} params, losses {losses}")
+    log(f"{label}: step seconds {times}")
+    log(f"{label}: {tok_s:.1f} tokens/s (steps 2-{STEPS}), peak memory "
         f"{peak / 2**30:.2f} GiB, on {card}")
-    log(f"train: launches {counts}")
+    log(f"{label}: launches {counts}")
+    return counts, tok_s, peak
+
+
+def train_phase(dev, card: str):
+    model, batch = gpt_medium(dev)
+    return timed_steps("train", model, dp_step(model), batch, card)
+
+
+def zero_phase(dev, card: str, dp_tok_s: float, dp_peak: int):
+    model, batch = gpt_medium(dev)
+    counts, tok_s, peak = timed_steps("zero", model, zero_step(model),
+                                      batch, card)
+    log(f"zero: {tok_s:.1f} tokens/s and {peak / 2**30:.2f} GiB peak, beside "
+        f"the data-parallel step's {dp_tok_s:.1f} tokens/s and "
+        f"{dp_peak / 2**30:.2f} GiB")
     return counts
 
 
-def _wire_rank(rank: int, store: str, results) -> None:
-    """One rank of the two-rank train phase (run in its own process)."""
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests mean equal
+    bits."""
+    import hashlib
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flat_pad(t, n: int):
+    """``t`` flattened and zero padded to a multiple of ``n``."""
+    import torch
+
+    flat = t.detach().reshape(-1)
+    pad = (-flat.numel()) % n
+    return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+
+def adam_unfused(p, mu, nu, g, step: int):
+    """The reference test's unfused Adam update, in torch ops on the
+    gathered gradient (``tests/test_pallas_collectives.py``)."""
+    import torch
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m_new = b1 * mu + (1 - b1) * g
+    v_new = b2 * nu + (1 - b2) * (g * g)
+    upd = (m_new / (1.0 - b1 ** step)) / (
+        torch.sqrt(v_new / (1.0 - b2 ** step)) + eps)
+    return p - APPLY_LR * upd, m_new, v_new
+
+
+BLOCK0_DENSE = ("attn.qkv", "attn.out", "mlp.up", "mlp.down")
+
+
+def dp_two_ranks(dev, rank: int) -> dict:
+    """Path "2 ranks": data-parallel steps, each rank on its own batch."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=1 + rank)
+    step = dp_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    counts = hvd.ops.launch_counts()
+    return dict(losses=losses, counts=counts,
+                peak=torch.cuda.max_memory_allocated(),
+                params=digest(p for _, p in sorted(model.named_parameters())))
+
+
+def sharded_two_ranks(dev, rank: int) -> dict:
+    """Path "sharded 2 ranks": (a) ZeRO steps, (b) the fused all-gather +
+    apply of every leaf of one backward's gradients, (c) the unshard
+    matmul of block 0's Dense layers.  The counts are read after (c);
+    the comparisons come after that."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fused_collectives as fc
+    from horovod_tpu_torch.ops.fusion import tree_flatten
+    from horovod_tpu_torch.ops.quantization import int8_allgather
+
+    n = hvd.size()
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=1 + rank)
+    step = zero_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    params = digest(p for _, p in sorted(model.named_parameters()))
+
+    block0, inputs = model.block_0, {}
+    hooks = [block0.get_submodule(name).register_forward_hook(
+        lambda mod, args, out, name=name: inputs.__setitem__(
+            name, args[0].detach()))
+        for name in BLOCK0_DENSE]
+    model.zero_grad(set_to_none=True)
+    hvd.models.lm_loss_fn(model)(model, batch).backward()
+    for h in hooks:
+        h.remove()
+    fused = []
+    names, leaves = tree_flatten(dict(model.named_parameters()))
+    for name, p in zip(names, leaves):
+        pf = flat_pad(p, n)
+        shard = fc.fused_quantize_reducescatter(flat_pad(p.grad, n),
+                                                op="average")
+        zeros = torch.zeros_like(pf)
+        a1 = fc.fused_allgather_adam_apply(pf, zeros, zeros, shard,
+                                           lr=APPLY_LR, step=1)
+        a2 = fc.fused_allgather_adam_apply(*a1, shard, lr=APPLY_LR, step=2)
+        sgd = fc.fused_allgather_sgd_apply(pf, shard, lr=APPLY_LR)
+        fused.append((name, pf, shard, a1, a2, sgd))
+    unshard = []
+    for name in BLOCK0_DENSE:
+        # The unshard product assumes the same activation on every rank.
+        x = inputs[name].reshape(-1, inputs[name].shape[-1]).contiguous()
+        dist.broadcast(x, src=0)
+        w = block0.get_submodule(name).kernel.detach()
+        cols = w.shape[1] // n
+        y = hvd.optim.unshard_matmul(x, w[:, rank * cols:(rank + 1) * cols])
+        unshard.append((name, x, w, y))
+    counts = hvd.ops.launch_counts()
+
+    worst = 0.0
+    for name, pf, shard, a1, a2, sgd in fused:
+        g = int8_allgather(shard)
+        zeros = torch.zeros_like(pf)
+        pairs = list(zip(a1, adam_unfused(pf, zeros, zeros, g, step=1)))
+        pairs += zip(a2, adam_unfused(*a1, g, step=2))
+        pairs.append((sgd, pf - APPLY_LR * g))
+        for got, ref in pairs:
+            if not torch.allclose(got, ref, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"{name}: fused apply off the unfused "
+                                     "form by more than 1e-6")
+            worst = max(worst, float((got - ref).abs().max()))
+    errors = []
+    for name, x, w, y in unshard:
+        err, err_plain, ok = f64_rule(y, x, w)
+        if not ok:
+            raise AssertionError(f"unshard_matmul {name}: {err} against the "
+                                 f"plain version's {err_plain}")
+        errors.append((name, tuple(x.shape), tuple(w.shape), err, err_plain))
+    results = digest(t for _, _, _, a1, a2, sgd in fused
+                     for t in (*a1, *a2, sgd))
+    return dict(losses=losses, counts=counts, params=params, peak=peak,
+                results=results + digest(y for *_, y in unshard),
+                apply_err=worst, unshard=errors)
+
+
+def _two_rank_worker(rank: int, store: str, results) -> None:
+    """One rank of the two-rank phases (run in its own process)."""
     import torch
     import torch.distributed as dist
 
@@ -340,26 +655,21 @@ def _wire_rank(rank: int, store: str, results) -> None:
                             rank=rank, world_size=WIRE_RANKS)
     hvd.init(device="cuda:0")
     try:
-        # Each rank trains on its own batch.
-        model, step, batch = gpt_medium_step(
-            hvd.device(), n_layer=WIRE_LAYERS, data_seed=1 + rank)
-        hvd.ops.reset_launch_counts()
-        losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
-        counts = hvd.ops.launch_counts()
-        digest = sum(float(p.detach().double().sum())
-                     for p in model.parameters())
-        results.put((rank, losses, counts, digest))
+        dp = dp_two_ranks(hvd.device(), rank)
+        torch.cuda.empty_cache()
+        sharded = sharded_two_ranks(hvd.device(), rank)
+        results.put((rank, dp, sharded))
     finally:
         hvd.shutdown()
         dist.destroy_process_group()
 
 
-def wire_phase():
-    """The train path on two ranks, which is the only way to reach the
-    int8 wire's reduce-scatter (kernel dequantize_accumulate).  NCCL
-    refuses two ranks on one device, so the two processes share the card
-    over gloo, which stages CUDA tensors through the host.  GPT-medium's
-    widths at WIRE_LAYERS layers."""
+def two_rank_phase():
+    """The paths that only two ranks reach: the int8 wire's reduce-scatter
+    (kernel dequantize_accumulate) and the sharded optimizer's fused
+    kernels.  NCCL refuses two ranks on one device, so the two processes
+    share the card over gloo, which stages CUDA tensors through the host.
+    GPT-medium's widths at WIRE_LAYERS layers."""
     import multiprocessing as mp
     import queue
     import tempfile
@@ -367,7 +677,7 @@ def wire_phase():
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_wire_rank,
+        procs = [ctx.Process(target=_two_rank_worker,
                              args=(r, os.path.join(tmp, "store"), results))
                  for r in range(WIRE_RANKS)]
         for p in procs:
@@ -377,13 +687,13 @@ def wire_phase():
         try:
             while len(out) < WIRE_RANKS:
                 try:
-                    rank, losses, counts, digest = results.get(timeout=5)
-                    out[rank] = (losses, counts, digest)
+                    rank, dp, sharded = results.get(timeout=5)
+                    out[rank] = (dp, sharded)
                 except queue.Empty:
                     failed = [p.exitcode for p in procs if p.exitcode]
                     if failed or time.monotonic() > deadline:
                         raise AssertionError(
-                            f"two-rank train phase: no answer (exit codes "
+                            f"two-rank phase: no answer (exit codes "
                             f"{[p.exitcode for p in procs]})")
         finally:
             for p in procs:
@@ -391,17 +701,41 @@ def wire_phase():
                 if p.is_alive():
                     p.kill()
                     p.join()
-    losses, counts, digest = out[0]
-    if not all(math.isfinite(v) for v in losses + out[1][0]):
-        raise AssertionError(f"non-finite loss: {out}")
-    if out[1][2] != digest:
-        raise AssertionError(f"replicas differ after the steps: {out}")
-    for name, n in counts.items():
-        if n <= 0 or out[1][1][name] <= 0:
-            raise AssertionError(f"{name} never launched on the two-rank path")
-    log(f"train, {WIRE_RANKS} ranks on one card: {WIRE_LAYERS} layers, "
-        f"losses {losses} / {out[1][0]}, launches {counts}")
-    return counts
+    (dp0, sh0), (dp1, sh1) = out[0], out[1]
+    for path, a, b, kernels in (
+            ("2 ranks", dp0, dp1, ("flash_fwd", "quantize_blocks",
+                                   "dequantize_blocks",
+                                   "dequantize_accumulate")),
+            ("sharded 2 ranks", sh0, sh1, ("dequantize_accumulate",
+                                           "sgd_apply", "adam_apply",
+                                           "blocked_matmul"))):
+        if not all(math.isfinite(v) for v in a["losses"] + b["losses"]):
+            raise AssertionError(f"{path}: non-finite loss: {a} / {b}")
+        if a["params"] != b["params"]:
+            raise AssertionError(f"{path}: replicas differ after the steps")
+        for name in kernels:
+            if a["counts"][name] <= 0 or b["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} "
+                                     "path")
+        log(f"{path} on one card: {WIRE_LAYERS} layers, losses "
+            f"{a['losses']} / {b['losses']}, peak memory per rank "
+            f"{a['peak'] / 2**30:.2f} / {b['peak'] / 2**30:.2f} GiB, "
+            f"launches {a['counts']}")
+    if sh0["results"] != sh1["results"]:
+        raise AssertionError("sharded 2 ranks: the ranks' fused results "
+                             "differ")
+    log(f"sharded 2 ranks: fused apply within {sh0['apply_err']} of the "
+        f"unfused form (limit 1e-6 abs/rel), ranks bitwise equal")
+    for name, xs, ws, err, err_plain in sh0["unshard"]:
+        log(f"sharded 2 ranks: unshard_matmul block_0.{name} x {xs} @ w "
+            f"{ws}: max |kernel - f64| {err}, max |plain - f64| {err_plain}")
+    return dp0["counts"], sh0["counts"]
+
+
+# The path whose launches a kernel's row reports: the one that reaches it.
+PATH_OF = {"dequantize_accumulate": "2 ranks", "sgd_apply": "sharded 2 ranks",
+           "adam_apply": "sharded 2 ranks",
+           "blocked_matmul": "sharded 2 ranks"}
 
 
 def main() -> int:
@@ -428,18 +762,24 @@ def main() -> int:
         rows = kernel_phase(dev, gen)
         non_finite_check(dev)
         model_check(dev)
-        counts = train_phase(dev, card)
+        counts, dp_tok_s, dp_peak = train_phase(dev, card)
         torch.cuda.empty_cache()
-        wire_counts = wire_phase()
+        zero_counts = zero_phase(dev, card, dp_tok_s, dp_peak)
+        torch.cuda.empty_cache()
+        wire_counts, sharded_counts = two_rank_phase()
     finally:
         hvd.shutdown()
+    by_path = {"1 rank": counts, "zero 1 rank": zero_counts,
+               "2 ranks": wire_counts, "sharded 2 ranks": sharded_counts}
+    if {row["name"] for row in rows} != set(counts):
+        raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
-        # One rank never reaches the reduce-scatter: its kernel counts on
-        # the two-rank path.
-        path = "2 ranks" if row["name"] == "dequantize_accumulate" else "1 rank"
-        row["launches_by_path"] = {"1 rank": counts[row["name"]],
-                                   "2 ranks": wire_counts[row["name"]]}
-        row["launches"] = row["launches_by_path"][path]
+        row["launches_by_path"] = {path: c[row["name"]]
+                                   for path, c in by_path.items()}
+        row["launches"] = row["launches_by_path"][
+            PATH_OF.get(row["name"], "1 rank")]
+        if not any(row["launches_by_path"].values()):
+            raise AssertionError(f"{row['name']} launched on no path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

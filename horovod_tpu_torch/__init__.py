@@ -15,6 +15,12 @@ built with nvcc at first use.  Usage::
     step = hvd.make_train_step(hvd.models.lm_loss_fn(model), opt)
     loss = step(model, (inputs, targets))   # this rank's shard
 
+The ZeRO-1 step (optimizer state sharded over the ranks) is
+``hvd.make_zero_train_step(loss_fn, lambda shards: torch.optim.AdamW(
+shards, lr=3e-4), compression=hvd.Compression.int8)``; the fused
+collectives (int8 wire, all-gather + SGD/Adam apply, the FSDP unshard
+matmul ``hvd.optim.unshard_matmul``) are in ``hvd.ops``.
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
@@ -31,6 +37,9 @@ from .ops import (  # noqa: F401
 from .functions import (  # noqa: F401
     broadcast_parameters, broadcast_optimizer_state,
 )
-from .optim import DistributedOptimizer, make_train_step  # noqa: F401
+from .optim import (  # noqa: F401
+    DistributedOptimizer, make_train_step, make_zero_train_step,
+)
 from . import models  # noqa: F401
 from . import ops  # noqa: F401
+from . import optim  # noqa: F401

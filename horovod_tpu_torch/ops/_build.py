@@ -24,9 +24,10 @@ from typing import Dict, List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("int8_kernels", "flash_attention")
+SOURCES = ("int8_kernels", "flash_attention", "fused_apply", "matmul")
 
-# No --use_fast_math: the int8 kernels must round as the reference does.
+# No --use_fast_math: the int8 and apply kernels must round as the
+# reference does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

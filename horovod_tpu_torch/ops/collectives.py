@@ -41,6 +41,24 @@ def reduce_raw(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
     return out
 
 
+def reducescatter_raw(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
+    """The uncompressed reduce-scatter over dim 0 (reference:
+    ``spmd.reducescatter``): rank ``i`` gets the ``i``-th of ``n`` equal
+    dim-0 pieces of the sum, divided by ``n`` for average."""
+    if op not in (Sum, Average):
+        raise ValueError(f"reducescatter supports sum/average, got {op!r}")
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 ({x.shape[0]}) is not divisible by the "
+                         f"world ({n})")
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM,
+                               group=group)
+    if op == Average:
+        out = out / n
+    return out
+
+
 def allreduce(tensor: torch.Tensor, *, op: str = Average, compression=None,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Gradient wire compression: ``Compression.none/fp16/bf16/int8``.
 
 Counterpart of ``horovod_tpu/ops/compression.py``.  A compressor owns
-how an allreduce moves its bytes (:meth:`Compressor.spmd_allreduce`)
+how an allreduce or a reduce-scatter moves its bytes
+(:meth:`Compressor.spmd_allreduce`, :meth:`Compressor.spmd_reducescatter`)
 and what this rank's lossy transport discards
 (:meth:`Compressor.local_error`, the error-feedback residual).  The
 cast tiers compose compress → allreduce → decompress; the int8 tier
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import collectives
-from .quantization import int8_allreduce, quant_dequant
+from .quantization import int8_allreduce, int8_reducescatter, quant_dequant
 
 
 class Compressor:
@@ -37,6 +38,14 @@ class Compressor:
     def spmd_allreduce(cls, x, *, op, group=None):
         wire, ctx = cls.compress(x)
         red = collectives.reduce_raw(wire, op, group=group)
+        return cls.decompress(red, ctx)
+
+    @classmethod
+    def spmd_reducescatter(cls, x, *, op, group=None):
+        """Reduce-scatter over dim 0 on this tier's wire: this rank's
+        ``1/n`` piece of the reduction (ZeRO's gradient wire)."""
+        wire, ctx = cls.compress(x)
+        red = collectives.reducescatter_raw(wire, op, group=group)
         return cls.decompress(red, ctx)
 
 
@@ -73,7 +82,8 @@ class BF16Compressor(FP16Compressor):
 class Int8Compressor(Compressor):
     """Int8 transport with per-block f32 scales: about 4× fewer wire
     bytes than float32, every sum in f32.  The transport lives in
-    :meth:`spmd_allreduce`; ``compress``/``decompress`` are the identity
+    :meth:`spmd_allreduce` and :meth:`spmd_reducescatter`;
+    ``compress``/``decompress`` are the identity
     (the port has no in-process stack tier to simulate)."""
 
     wire_itemsize = 1
@@ -100,6 +110,23 @@ class Int8Compressor(Compressor):
         if not x.is_floating_point():
             return super().spmd_allreduce(x, op=op, group=group)
         return int8_allreduce(x, op=op, group=group)
+
+    @classmethod
+    def spmd_reducescatter(cls, x, *, op, group=None):
+        """The int8 reduce-scatter (:func:`.quantization.int8_reducescatter`).
+        Its contract is narrower than the base class's: ``x`` is a flat
+        1-D vector whose size the world divides, and the result is this
+        rank's flat shard, not a dim-0 piece of a many-dimensional
+        tensor.  Anything else raises."""
+        if not x.is_floating_point():
+            return super().spmd_reducescatter(x, op=op, group=group)
+        if x.dim() != 1:
+            raise ValueError(
+                f"Int8Compressor.spmd_reducescatter requires a flat 1-D "
+                f"input (got shape {tuple(x.shape)}); it scatters the "
+                "flattened vector, not dim 0: reshape(-1) first or use "
+                "Compression.fp16/bf16 for dim-0 semantics")
+        return int8_reducescatter(x, op=op, group=group)
 
 
 class Compression:

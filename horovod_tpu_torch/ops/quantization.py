@@ -15,7 +15,9 @@ pad and ``n == 1`` rules.  The allreduce is four phases:
 The arithmetic of phases 1–4 is the kernels' of
 :mod:`.int8_kernels`.  The JAX package has two tiers here (plain XLA,
 and Pallas under ``HVD_TPU_TOPO_KERNEL=pallas``); the port has this one
-wire.
+wire, which runs its kernels in every phase and so is the fused tier
+too (:mod:`.fused_collectives` exports it under the Pallas tier's
+names).
 """
 
 from __future__ import annotations
@@ -73,14 +75,14 @@ def int8_reducescatter(x: torch.Tensor, *, op: str = "sum", group=None,
     return partial.to(x.dtype)
 
 
-def int8_allgather(shard: torch.Tensor, *, group=None,
-                   block_size: int = 1024) -> torch.Tensor:
-    """All-gather with int8 transport (phases 3–4): returns ``[n * size]``
-    flat, rank-major, in the shard's dtype."""
+def gather_quantized(shard: torch.Tensor, *, group=None,
+                     block_size: int = 1024):
+    """Phase 3 up to the wire: quantize this rank's flat shard of ``k``
+    elements in blocks of ``min(block_size, k)`` (the tail zero padded)
+    and all-gather payload and scales: returns ``(q [n, m, b] int8,
+    s [n, m] f32, k)``, rank-major."""
     n = _world(group)
     flat = shard.to(torch.float32).reshape(-1)
-    if n == 1:
-        return flat.to(shard.dtype)
     k = flat.numel()
     b = max(1, min(block_size, k))
     pad = (-k) % b
@@ -92,10 +94,20 @@ def int8_allgather(shard: torch.Tensor, *, group=None,
     dist.all_gather_into_tensor(q_all, q, group=group)
     s_all = s.new_empty(n * m)
     dist.all_gather_into_tensor(s_all, s, group=group)
-    out = dequantize_blocks(q_all, s_all).reshape(n, -1)
-    if pad:
-        out = out[:, :-pad]
-    return out.reshape(-1).to(shard.dtype)
+    return q_all.reshape(n, m, b), s_all.reshape(n, m), k
+
+
+def int8_allgather(shard: torch.Tensor, *, group=None,
+                   block_size: int = 1024) -> torch.Tensor:
+    """All-gather with int8 transport (phases 3–4): returns ``[n * size]``
+    flat, rank-major, in the shard's dtype."""
+    n = _world(group)
+    if n == 1:
+        return shard.to(torch.float32).reshape(-1).to(shard.dtype)
+    q, s, k = gather_quantized(shard, group=group, block_size=block_size)
+    _, m, b = q.shape
+    out = dequantize_blocks(q.reshape(n * m, b), s.reshape(-1)).reshape(n, -1)
+    return out[:, :k].reshape(-1).to(shard.dtype)
 
 
 def int8_allreduce(x: torch.Tensor, *, op: str = "sum", group=None,

@@ -2,17 +2,18 @@
 """Where the device time of a GPT-medium train step of horovod_tpu_torch
 goes, on one CUDA card.
 
-    python3 scripts/torch_port_profile.py
+    python3 scripts/torch_port_profile.py [--zero]
 
 Runs the train step of ``chip_smoke.py`` (GPT-medium: 24 layers,
 d_model 1024, 16 heads, seq 1024, batch 8, flash attention, bf16
 activations, AdamW, the int8 wire with error feedback) in a one-rank NCCL
-world: two warm-up steps, then STEPS steps timed on the host clock,
-then as many under ``torch.profiler``.  Prints the card's
-name and power limit, the step time, the device time by group (the
-port's kernels, matrix products, the rest) and the device's idle share
-(one minus the device's busy time over the unprofiled step time), then
-the TOP kernels by device time, then one JSON line with the totals.
+world, the data-parallel step or, with ``--zero``, the ZeRO-1 step
+(``make_zero_train_step``): two warm-up steps, then STEPS steps timed
+on the host clock, then as many under ``torch.profiler``.  Prints the
+card's name and power limit, the step time, the device time by group
+(the port's kernels, matrix products, the rest) and the device's idle
+share (one minus the device's busy time over the unprofiled step time),
+then the TOP kernels by device time, then one JSON line with the totals.
 
 It also times one layer's attention at the step's shapes with CUDA
 events: the forward kernel alone, and the forward with the plain-torch
@@ -22,6 +23,7 @@ that the port never calls.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -85,12 +87,19 @@ def attention_times(dev) -> dict:
 
 def main() -> int:
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--zero", action="store_true",
+                        help="profile the ZeRO-1 step, not the "
+                             "data-parallel one")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
-    from chip_smoke import card_and_power_limit, gpt_medium_step
+    from chip_smoke import (card_and_power_limit, dp_step, gpt_medium,
+                            zero_step)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -103,7 +112,8 @@ def main() -> int:
     try:
         dev = hvd.device()
         attn = attention_times(dev)
-        model, step, batch = gpt_medium_step(dev)
+        model, batch = gpt_medium(dev)
+        step = (zero_step if args.zero else dp_step)(model)
         for _ in range(2):
             step(model, batch)
         torch.cuda.synchronize()
@@ -139,7 +149,8 @@ def main() -> int:
         groups[group_of(name)] += ms
     # The profiler slows the host, so the idle share is taken against the
     # step time of the same steps without it.
-    result = dict(card=card, steps=STEPS, step_ms=step_ms,
+    result = dict(card=card, step="zero" if args.zero else "data-parallel",
+                  steps=STEPS, step_ms=step_ms,
                   device_busy_ms_per_step=busy_ms / STEPS,
                   idle_share=1.0 - busy_ms / STEPS / step_ms,
                   groups_ms_per_step={g: ms / STEPS

@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import apply_kernels as ak
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import fused_collectives as fc
 from horovod_tpu_torch.ops import int8_kernels as ik
 from horovod_tpu_torch.ops import kernel_common as kc
+from horovod_tpu_torch.ops import matmul_kernel as mm
 from horovod_tpu_torch.ops import quantization as q8
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +111,79 @@ def test_flash_attention_grads_on_card_match_cpu(card):
         grads.append([t.grad.cpu() for t in ts])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def _same_bits_or_nan(a, b):
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan())) and _same_bits(
+        a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("n,k,b", [(2, 300, 1024), (2, 1000, 256),
+                                   (3, 2500, 1024), (4, 7, 3)])
+def test_apply_kernels_bitwise(card, n, k, b):
+    """B6 and B7 against their plain versions, bit for bit, on ragged
+    shards (the wire's padded last block has no leaf element) and on a
+    gradient row whose scale is NaN, which must turn its elements of p,
+    mu and nu to NaN in both."""
+    m = -(-k // b)
+    g = torch.Generator(device=card).manual_seed(n * k + b)
+    q = torch.randint(-127, 128, (n, m, b), generator=g, device=card,
+                      dtype=torch.int8)
+    s = torch.rand((n, m), generator=g, device=card) * 1e-2
+    s[n - 1, m - 1] = float("nan")
+    q[n - 1, m - 1] = 0
+    p = torch.randn(n * k, generator=g, device=card)
+    mu = torch.randn(n * k, generator=g, device=card) * 1e-2
+    nu = torch.rand(n * k, generator=g, device=card) * 1e-4
+    kc.reset_launch_counts()
+    out = ak.sgd_apply(q, s, p, lr=0.1)
+    assert _same_bits_or_nan(out, ak.sgd_apply_plain(q, s, p, lr=0.1))
+    consts = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, bc1=1 - 0.9 ** 2,
+                  bc2=1 - 0.999 ** 2)
+    got = ak.adam_apply(q, s, p, mu, nu, **consts)
+    ref = ak.adam_apply_plain(q, s, p, mu, nu, **consts)
+    for a, r in zip(got, ref):
+        assert _same_bits_or_nan(a, r)
+    last = slice((n - 1) * k + (m - 1) * b, n * k)
+    assert out[last].isnan().all() and out[: (n - 1) * k].isfinite().all()
+    assert got[1][last].isnan().all() and got[2][last].isnan().all()
+    counts = kc.launch_counts()
+    assert counts["sgd_apply"] == counts["adam_apply"] == 1
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (130, 600, 72, torch.float32), (100, 33, 129, torch.float32),
+    (257, 4096, 130, torch.bfloat16), (1, 1, 1, torch.float32),
+    (300, 1024, 520, torch.bfloat16)])
+def test_blocked_matmul_within_the_f64_rule(card, m, k, n, dtype):
+    """B5 on ragged shapes, held to an f64 product: its error may be at
+    most twice the plain version's plus 1e-6 of the largest |value|."""
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=card).to(dtype)
+    w = torch.randn((k, n), generator=g, device=card) * k ** -0.5
+    y = mm.blocked_matmul(x, w)
+    ref = x.double() @ w.double()
+    err = (y.double() - ref).abs().max().item()
+    err_plain = (mm.matmul_plain(x, w).double() - ref).abs().max().item()
+    assert y.dtype == dtype and y.shape == (m, n)
+    assert err <= 2 * err_plain + 1e-6 * ref.abs().max().item()
+
+
+def test_unshard_matmul_world_of_one_launches_b5(card):
+    """n = 1: the kernel still launches and its tile is the result."""
+    x = torch.randn((64, 48), device=card)
+    w = torch.randn((48, 40), device=card)
+    kc.reset_launch_counts()
+    y = fc.fused_matmul_allgather(x, w)
+    assert kc.launch_counts()["blocked_matmul"] == 1
+    assert _same_bits(y, mm.blocked_matmul(x, w))
+
+
+def test_blocked_matmul_refuses_gradients(card):
+    x = torch.randn((8, 16), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        mm.blocked_matmul(x, torch.randn((16, 4), device=card))
 
 
 def test_kernel_refuses_what_it_cannot_take(card):

@@ -10,6 +10,7 @@ its tests.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import queue
@@ -142,13 +143,56 @@ def broadcast_state(seed: int) -> dict:
     return state
 
 
+def _adamw(params):
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _my_rows(array: np.ndarray):
+    """This rank's rows of a global batch: ``[rank * b, (rank + 1) * b)``."""
+    import horovod_tpu_torch as hvd
+
+    b = array.shape[0] // hvd.size()
+    return torch.from_numpy(array[hvd.rank() * b:(hvd.rank() + 1) * b])
+
+
+@contextlib.contextmanager
+def _knobs(env: dict):
+    """Run with the environment knobs ``env`` set: the port reads them at
+    ``init``, so this re-initialises around the block (the gloo group,
+    created before ``init``, stays)."""
+    import horovod_tpu_torch as hvd
+
+    if not env:
+        yield
+        return
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+        hvd.shutdown()
+        hvd.init(device="cpu")
+
+
 def train_gpt(config: dict, params: dict, tokens: np.ndarray,
               compression: str, error_feedback: bool, steps: int,
-              wrap: bool = True) -> dict:
+              wrap: bool = True, zero: bool = False,
+              env: dict = None) -> dict:
     """``steps`` data-parallel AdamW steps of the port's GPT from the
     given flax-layout params; this rank trains on its half of the global
-    batch (rows ``[rank * b, (rank + 1) * b)``).  ``wrap=False`` hands
-    the step a plain torch optimizer, so the step itself allreduces."""
+    batch.  ``wrap=False`` hands the step a plain torch optimizer, so the
+    step itself allreduces; ``zero=True`` takes ZeRO-1 steps
+    (``make_zero_train_step``) and also returns the shapes of this
+    rank's optimizer state.  ``env`` sets knobs (``HOROVOD_*``) for these
+    steps only."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import GPT, GPTConfig, load_jax_params
 
@@ -156,18 +200,97 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
     model = GPT(cfg)
     load_jax_params(model, params)
     comp = getattr(hvd.Compression, compression)
-    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=1e-4)
     loss_fn = hvd.models.lm_loss_fn(model)
-    if wrap:
+    if zero:
+        step = hvd.make_zero_train_step(
+            loss_fn, _adamw, compression=comp, error_feedback=error_feedback)
+    elif wrap:
         step = hvd.make_train_step(loss_fn, hvd.DistributedOptimizer(
-            opt, compression=comp, error_feedback=error_feedback))
+            _adamw(model.parameters()), compression=comp,
+            error_feedback=error_feedback))
     else:
-        step = hvd.make_train_step(loss_fn, opt, compression=comp)
-    b = tokens.shape[0] // hvd.size()
-    mine = torch.from_numpy(tokens[hvd.rank() * b:(hvd.rank() + 1) * b])
+        step = hvd.make_train_step(loss_fn, _adamw(model.parameters()),
+                                   compression=comp)
+    mine = _my_rows(tokens)
     batch = (mine[:, :-1], mine[:, 1:])
-    losses = [float(step(model, batch)) for _ in range(steps)]
+    with _knobs(env or {}):
+        losses = [float(step(model, batch)) for _ in range(steps)]
+    out = {"losses": losses,
+           "params": {n: p.detach().numpy().copy()
+                      for n, p in model.named_parameters()}}
+    if zero:
+        out["state_shapes"] = {
+            name: {key: tuple(v.shape)
+                   for key, v in step.optimizer.state[shard].items()
+                   if v.dim()}
+            for name, shard in step.shards.items()}
+        out["buckets"] = len(step.buckets)
+    return out
+
+
+class _Toy(torch.nn.Module):
+    """A module holding the given named leaves as parameters."""
+
+    def __init__(self, leaves: dict) -> None:
+        super().__init__()
+        for name, value in leaves.items():
+            self.register_parameter(name, torch.nn.Parameter(
+                torch.from_numpy(value[0]).to(getattr(torch, value[1]))))
+
+
+def zero_toy(problem: str, leaves: dict, data: dict, lr: float, steps: int,
+             compression: str) -> dict:
+    """ZeRO SGD steps on the toy problems of ``tests/test_zero.py``:
+    ``mixed`` (bf16, f32 and zero-size leaves) and ``tanh`` (a two-layer
+    regression).  Each rank takes its rows of ``data``."""
+    import horovod_tpu_torch as hvd
+
+    model = _Toy(leaves)
+    x, y = (_my_rows(data[k]) for k in ("x", "y"))
+
+    def loss_fn(module, batch):
+        bx, by = batch
+        if problem == "mixed":
+            pred = bx @ (module.w16.float() + module.w32)
+            return ((pred - by) ** 2).mean() + module.empty.sum()
+        return ((torch.tanh(bx @ module.w) @ module.v - by) ** 2).mean()
+
+    step = hvd.make_zero_train_step(
+        loss_fn, lambda ps: torch.optim.SGD(ps, lr=lr),
+        compression=getattr(hvd.Compression, compression),
+        error_feedback=False)
+    losses = [float(step(model, (x, y))) for _ in range(steps)]
     return {"losses": losses,
-            "params": {n: p.detach().numpy().copy()
+            "params": {n: (p.detach().float().numpy().copy(), str(p.dtype))
                        for n, p in model.named_parameters()}}
+
+
+def fused_apply(param: np.ndarray, mu: np.ndarray, nu: np.ndarray,
+                shard: np.ndarray, lr: float, step: int,
+                block_size: int) -> dict:
+    """The fused all-gather + SGD and + Adam applies of this rank's
+    gradient shard."""
+    from horovod_tpu_torch.ops import fused_collectives as fc
+
+    p, m, v, g = (torch.from_numpy(a) for a in (param, mu, nu, shard))
+    adam = fc.fused_allgather_adam_apply(p, m, v, g, lr=lr, step=step,
+                                         block_size=block_size)
+    sgd = fc.fused_allgather_sgd_apply(p, g, lr=lr, block_size=block_size)
+    return {"sgd": sgd.numpy(), "adam": [a.numpy() for a in adam]}
+
+
+def fused_matmul(x: np.ndarray, w_shard: np.ndarray) -> np.ndarray:
+    import horovod_tpu_torch as hvd
+
+    return hvd.optim.unshard_matmul(torch.from_numpy(x),
+                                    torch.from_numpy(w_shard)).numpy()
+
+
+def fused_wire(x: np.ndarray, shard: np.ndarray, op: str) -> dict:
+    """The int8 wire under the Pallas tier's names."""
+    from horovod_tpu_torch.ops import fused_collectives as fc
+
+    return {"rs": fc.fused_quantize_reducescatter(torch.from_numpy(x),
+                                                   op=op).numpy(),
+            "ag": fc.fused_quantize_allgather(torch.from_numpy(shard)).numpy(),
+            "ar": fc.fused_allreduce(torch.from_numpy(x), op=op).numpy()}
