@@ -10,23 +10,27 @@
    version, on the card, at the shapes the main paths give it.  The int8
    kernels (B2-B4) and the fused apply kernels (B6, B7) must match bit
    for bit, on rows holding NaN (and for B2-B4 Inf) as well; flash
-   attention (B1) within the bf16 tolerance (3e-2 on O, 1e-4 on lse)
-   and, row by row, within 1e-2 of the row's largest |O|; the blocked
-   matmul (B5) within twice its plain version's error against an f64
-   product plus 1e-6 of the product's largest |value|.  Prints each
+   attention (B1, the bf16 tensor-core kernel) within the bf16 tolerance
+   (3e-2 on O, 1e-4 on lse) and, row by row, within 1e-2 of the row's
+   largest |O|, on normal and on peaky (q * 8) scores; the blocked
+   matmul (B5) with a bf16 and with an f32 x within twice its plain
+   version's error against an f64 product plus 1e-6 of the product's
+   largest |value|.  B1 and B5 also print their TFLOP/s beside the
+   yardstick's.  Prints each
    kernel's median time, its plain version's, its bound and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick the port never calls: ``q * s[:, None]`` for the
    dequantize, ``F.scaled_dot_product_attention`` for flash attention,
    ``torch.addcmul`` for the SGD apply, ``torch.matmul`` of the f32
    operands for B5.
-3. Model check: a small GPT with flash attention against the same GPT
-   with plain attention, f32, on the card (logits within 1e-4).
+3. Model check: small GPTs with flash attention against the same GPTs
+   with plain attention, on the card: f32 (logits within 1e-4) and bf16
+   at head dim 64 (within 5e-2).
 4. Train phase ("1 rank"): five data-parallel steps of GPT-medium (24
    layers, d_model 1024, 16 heads, seq 1024, batch 8, flash attention,
    bf16 activations) with AdamW and the int8 wire with error feedback,
-   in a one-rank NCCL world, from a seed.  Every loss must be finite and
-   the flash, quantize and dequantize kernels must have launched.
+   in a one-rank NCCL world, from a seed.  Every loss must be finite,
+   and the flash, quantize and dequantize kernels must have launched.
 5. ZeRO phase ("zero 1 rank"): the same model, batch and optimizer
    through ``make_zero_train_step`` (optimizer state on the rank's flat
    shards, int8+EF reduce-scatter wire, exact parameter all-gather), five
@@ -47,7 +51,11 @@
      both ranks; (c) ``unshard_matmul`` (B5) on block 0's four Dense
      layers with their real input activations against the rank's column
      shard of the weight, held to the f64 rule of step 2.
-7. Prints the ``kernels`` JSON line (all seven kernels, with their
+7. Route check: the profiler's device trace must show a bf16
+   flash_fwd call at the step's shape run the tensor-core kernel
+   (flash_fwd_wgmma) and an f32 one the CUDA-core kernel.  It runs last,
+   so that the profiler touches none of the timed phases.
+8. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel), then the result line.  Every kernel must have
    launched on at least one path.
@@ -166,8 +174,6 @@ def non_finite_check(dev) -> None:
 
 def kernel_phase(dev, gen):
     import torch
-    import torch.nn.functional as F
-    from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import int8_kernels as ik
 
     rows = []
@@ -231,11 +237,56 @@ def kernel_phase(dev, gen):
                      ms=ms, plain_ms=plain, **bnd,
                      library_ms=None))
 
-    # B1 at GPT-medium: B*H = 8*16, T = 1024, D = 64, causal, bf16.
-    bh, t, d = BATCH * GPT_MEDIUM["n_head"], SEQ, 64
-    q3, k3, v3 = (torch.randn((bh, t, d), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(3))
-    scale = d ** -0.5
+    rows.append(flash_kernel_row(dev, gen))
+    rows += apply_kernel_rows(dev, gen)
+    rows.append(matmul_kernel_row(dev, gen))
+    for row in rows:
+        log(f"kernel {row['name']}: {row['ms']} ms, plain {row['plain_ms']} "
+            f"ms, bound {row['bound_ms']} ms ({row['bound_by']}; bytes "
+            f"{row['bytes_ms']} ms, operations {row['ops_ms']} ms), library "
+            f"{row['library_ms']} ms, max_abs_err {row['max_abs_err']}")
+    return rows
+
+
+def device_kernels(fn):
+    """(``fn()``, the names of the CUDA kernels it launched, as the
+    profiler's device trace records them): which kernel really ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+
+
+def route_check(dev) -> None:
+    """Which flash kernel each dtype really launches, read from the
+    profiler's device trace: at the GPT step's shape a bf16 call must run
+    flash_fwd_wgmma and an f32 call only the CUDA-core flash_fwd.  It
+    runs after the timed phases, so that the profiler touches none."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q3 = torch.randn((BATCH * GPT_MEDIUM["n_head"], SEQ, 64), device=dev)
+    for x, tensor_cores in ((q3.bfloat16(), True), (q3, False)):
+        _, names = device_kernels(lambda: fa.flash_fwd(x, x, x, 0.125, True))
+        wgmma = any("flash_fwd_wgmma" in n for n in names)
+        cores = any("flash_fwd" in n and "wgmma" not in n for n in names)
+        if (wgmma, cores) != (tensor_cores, not tensor_cores):
+            raise AssertionError(f"{x.dtype} flash_fwd launched {names}")
+        log(f"route check: {x.dtype} flash_fwd ran "
+            f"{[n for n in names if 'flash_fwd' in n]}")
+
+
+def flash_errors(q3, k3, v3, scale: float):
+    """(O, lse, row-relative) error of the kernel against its plain
+    version, causal, and whether all three are inside the bf16 limits."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
     o, lse = fa.flash_fwd(q3, k3, v3, scale, True)
     o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, scale, True)
     diff = (o.float() - o_ref.float()).abs()
@@ -247,32 +298,51 @@ def kernel_phase(dev, gen):
     # so they may differ by one bf16 ulp, at most 2**-7 of the row's
     # largest |O|: the 1e-2 limit leaves room for that and no more.
     err_row = float((diff.amax(-1) / o_ref.float().abs().amax(-1)).max())
-    if not (err_o <= 3e-2 and err_lse <= 1e-4 and err_row <= 1e-2):
-        raise AssertionError(f"flash_fwd off its plain version: O {err_o}, "
-                             f"lse {err_lse}, row-relative {err_row}")
+    return err_o, err_lse, err_row, (err_o <= 3e-2 and err_lse <= 1e-4
+                                     and err_row <= 1e-2)
+
+
+def flash_kernel_row(dev, gen):
+    """B1 at GPT-medium: B*H = 8*16, T = 1024, D = 64, causal, bf16, the
+    tensor-core kernel.  Held to the bf16 limits on normal scores and on
+    peaky ones (q * 8: the running max moves by many units between key
+    tiles, so the rescale of O and of the denominator is exercised)."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    bh, t, d = BATCH * GPT_MEDIUM["n_head"], SEQ, 64
+    q3, k3, v3 = (torch.randn((bh, t, d), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    errs = {}
+    for name, q in (("normal", q3), ("peaky", (q3.float() * 8).bfloat16())):
+        err_o, err_lse, err_row, ok = flash_errors(q, k3, v3, scale)
+        log(f"kernel flash_fwd ({name} scores): O {err_o}, lse {err_lse}, "
+            f"row-relative {err_row}")
+        if not ok:
+            raise AssertionError(f"flash_fwd ({name} scores) off its plain "
+                                 f"version: O {err_o}, lse {err_lse}, "
+                                 f"row-relative {err_row}")
+        errs[name] = (err_o, err_lse, err_row)
     ms = time_ms(lambda: fa.flash_fwd(q3, k3, v3, scale, True))
     plain = time_ms(lambda: fa.flash_fwd_plain(q3, k3, v3, scale, True))
     q4, k4, v4 = (y.reshape(BATCH, -1, t, d) for y in (q3, k3, v3))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True))
     pairs = t * (t + 1) // 2                      # causal (q, k) pairs
-    bnd = bound(4 * bh * t * d * 2 + bh * t * 4, 4 * bh * pairs * d,
-                BF16_FLOPS)
-    rows.append(dict(name="flash_fwd", route="cuda",
-                     source="horovod_tpu_torch/csrc/flash_attention.cu",
-                     replaces="horovod_tpu/ops/pallas_attention.py:38",
-                     max_abs_err=err_o, max_abs_err_lse=err_lse,
-                     max_row_rel_err=err_row,
-                     ms=ms, plain_ms=plain, **bnd,
-                     library_ms=lib))
-    rows += apply_kernel_rows(dev, gen)
-    rows.append(matmul_kernel_row(dev, gen))
-    for row in rows:
-        log(f"kernel {row['name']}: {row['ms']} ms, plain {row['plain_ms']} "
-            f"ms, bound {row['bound_ms']} ms ({row['bound_by']}; bytes "
-            f"{row['bytes_ms']} ms, operations {row['ops_ms']} ms), library "
-            f"{row['library_ms']} ms, max_abs_err {row['max_abs_err']}")
-    return rows
+    flops = 4 * bh * pairs * d
+    bnd = bound(4 * bh * t * d * 2 + bh * t * 4, flops, BF16_FLOPS)
+    log(f"kernel flash_fwd: {flops / ms / 1e9} TFLOP/s, SDPA "
+        f"{flops / lib / 1e9} TFLOP/s")
+    (err_o, err_lse, err_row), peaky = errs["normal"], errs["peaky"]
+    return dict(name="flash_fwd", route="cuda",
+                source="horovod_tpu_torch/csrc/flash_attention.cu",
+                replaces="horovod_tpu/ops/pallas_attention.py:38",
+                max_abs_err=err_o, max_abs_err_lse=err_lse,
+                max_row_rel_err=err_row, peaky_errs=peaky,
+                tflops=flops / ms / 1e9, library_tflops=flops / lib / 1e9,
+                ms=ms, plain_ms=plain, **bnd, library_ms=lib)
 
 
 def apply_kernel_rows(dev, gen):
@@ -361,7 +431,9 @@ def matmul_kernel_row(dev, gen):
     """B5 at GPT-medium's ff1: the block input of B*T = 8*1024 rows, bf16,
     @ the f32 kernel [1024, 4096], at n = 1.  The same product with an f32
     x is held to the f64 rule too: with a bf16 output its rounding hides
-    the sum's error, with an f32 one a TF32 or bf16 sum would fail."""
+    the sum's error, with an f32 one a lost bf16 piece or a TF32 sum would
+    fail.  The bound is that of the products the kernel runs on the bf16
+    tensor cores: 3 of 2·M·N·K for a bf16 x (6 for an f32 one)."""
     import torch
     from horovod_tpu_torch.ops import matmul_kernel as mk
 
@@ -381,40 +453,59 @@ def matmul_kernel_row(dev, gen):
     err, err_plain = errs["bf16"]
     x32 = x.float()
     ms = time_ms(lambda: mk.blocked_matmul(x, w))
+    ms_f32_x = time_ms(lambda: mk.blocked_matmul(x_f32, w))
     plain = time_ms(lambda: mk.matmul_plain(x, w))
     lib = time_ms(lambda: torch.matmul(x32, w))
-    bnd = bound(rows * d * 2 + d * ff * 4 + rows * ff * 2, 2 * rows * d * ff,
-                F32_FLOPS)
+    flops = 2 * rows * d * ff
+    bnd = bound(rows * d * 2 + d * ff * 4 + rows * ff * 2, 3 * flops,
+                BF16_FLOPS)
+    bnd_f32_x = bound(rows * d * 4 + d * ff * 4 + rows * ff * 4, 6 * flops,
+                      BF16_FLOPS)["bound_ms"]
+    log(f"kernel blocked_matmul: {flops / ms / 1e9} TFLOP/s of the f32 "
+        f"product (bf16 x; {flops / ms_f32_x / 1e9} with an f32 x, "
+        f"{ms_f32_x} ms against a bound of {bnd_f32_x} ms for its 6 bf16 "
+        f"piece products), torch.matmul f32 {flops / lib / 1e9} TFLOP/s")
     return dict(name="blocked_matmul", route="cuda",
                 source="horovod_tpu_torch/csrc/matmul.cu",
                 replaces="horovod_tpu/ops/pallas_collectives.py:473",
                 max_abs_err=err, max_abs_err_plain=err_plain,
                 max_abs_err_f32_x=errs["f32"][0],
                 max_abs_err_plain_f32_x=errs["f32"][1], ms=ms,
+                ms_f32_x=ms_f32_x, bound_ms_f32_x=bnd_f32_x,
+                tflops=flops / ms / 1e9,
+                library_tflops=flops / lib / 1e9,
                 plain_ms=plain, **bnd, library_ms=lib)
 
 
 def model_check(dev) -> None:
-    """Small f32 GPT: flash attention on the card against plain
-    attention, same weights, a length that is not a tile multiple."""
+    """Small GPTs, flash attention on the card against plain attention,
+    same weights, a length that is not a tile multiple: in f32 (the
+    CUDA-core kernel, logits within 1e-4) and in bf16 at D = 64 (the
+    tensor-core kernel, logits within 5e-2, the bf16 model tests'
+    limit)."""
     import torch
     import horovod_tpu_torch as hvd
 
-    small = dict(vocab_size=512, n_layer=2, n_head=2, d_model=128, d_ff=256,
-                 max_seq_len=256, dtype=torch.float32)
-    flash = hvd.models.GPT(hvd.models.GPTConfig(attention="flash", **small),
-                           device=dev, seed=1)
-    full = hvd.models.GPT(hvd.models.GPTConfig(attention="full", **small),
-                          device=dev, seed=1)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, 512, (2, 200), generator=gen, device=dev)
-    with torch.no_grad():
-        a, b = flash(tokens), full(tokens)
-    err = float((a - b).abs().max())
-    if not (torch.isfinite(a).all() and a.shape == (2, 200, 512)
-            and err <= 1e-4):
-        raise AssertionError(f"small GPT flash vs full: max_abs_err {err}")
-    log(f"model check: small GPT flash vs full logits max_abs_err {err}")
+    for dtype, limit, route in ((torch.float32, 1e-4, "cuda_cores"),
+                                (torch.bfloat16, 5e-2, "wgmma")):
+        small = dict(vocab_size=512, n_layer=2, n_head=2, d_model=128,
+                     d_ff=256, max_seq_len=256, dtype=dtype)
+        flash = hvd.models.GPT(hvd.models.GPTConfig(attention="flash",
+                                                    **small),
+                               device=dev, seed=1)
+        full = hvd.models.GPT(hvd.models.GPTConfig(attention="full", **small),
+                              device=dev, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, 512, (2, 200), generator=gen, device=dev)
+        with torch.no_grad():
+            a, b = flash(tokens), full(tokens)
+        err = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and a.shape == (2, 200, 512)
+                and err <= limit):
+            raise AssertionError(f"small {dtype} GPT flash vs full: "
+                                 f"max_abs_err {err}")
+        log(f"model check: small {dtype} GPT flash ({route}) vs full logits "
+            f"max_abs_err {err} (limit {limit})")
 
 
 def gpt_medium(dev, n_layer: int = GPT_MEDIUM["n_layer"],
@@ -461,7 +552,9 @@ def zero_step(model):
 def timed_steps(label: str, model, step, batch, card: str):
     """STEPS steps on one rank, with the launch counts set to 0 just
     before and read just after: (counts, tokens/s over steps 2-STEPS,
-    peak memory in bytes).  Every loss must be finite, and the flash,
+    peak memory in bytes).  Also logs the tokens/s over steps 3-STEPS
+    and each step's new device allocations (the caching allocator's
+    cudaMalloc calls).  Every loss must be finite, and the flash,
     quantize and dequantize kernels must have launched."""
     import torch
     import horovod_tpu_torch as hvd
@@ -470,12 +563,18 @@ def timed_steps(label: str, model, step, batch, card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hvd.ops.reset_launch_counts()
-    losses, times = [], []
+    losses, times, mallocs = [], [], []
+
+    def device_allocs() -> int:
+        return torch.cuda.memory_stats().get("num_device_alloc", -1)
+
     for _ in range(STEPS):
+        n0 = device_allocs()
         t0 = time.perf_counter()
         loss = step(model, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        mallocs.append(device_allocs() - n0)
         losses.append(float(loss))
     counts = hvd.ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -486,10 +585,11 @@ def timed_steps(label: str, model, step, batch, card: str):
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the {label} path")
     tok_s = BATCH * SEQ * (STEPS - 1) / sum(times[1:])
+    steady = BATCH * SEQ * (STEPS - 2) / sum(times[2:])
     log(f"{label}: GPT-medium {n_params} params, losses {losses}")
-    log(f"{label}: step seconds {times}")
-    log(f"{label}: {tok_s:.1f} tokens/s (steps 2-{STEPS}), peak memory "
-        f"{peak / 2**30:.2f} GiB, on {card}")
+    log(f"{label}: step seconds {times}, device allocations {mallocs}")
+    log(f"{label}: {tok_s:.1f} tokens/s (steps 2-{STEPS}; {steady:.1f} over "
+        f"steps 3-{STEPS}), peak memory {peak / 2**30:.2f} GiB, on {card}")
     log(f"{label}: launches {counts}")
     return counts, tok_s, peak
 
@@ -767,6 +867,7 @@ def main() -> int:
         zero_counts = zero_phase(dev, card, dp_tok_s, dp_peak)
         torch.cuda.empty_cache()
         wire_counts, sharded_counts = two_rank_phase()
+        route_check(dev)
     finally:
         hvd.shutdown()
     by_path = {"1 rank": counts, "zero 1 rank": zero_counts,

@@ -50,12 +50,24 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32
 
 
+def _default_device() -> torch.device:
+    """This rank's device after :func:`init`, else the current CUDA
+    device; never the CPU unless the caller asks for it."""
+    if basics.is_initialized():
+        return basics.device()
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "GPT: no CUDA device and init() has not run; pass "
+            "device='cpu' to build the model on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class _Init:
     """Parameter factory: one generator, one device, one dtype."""
 
     def __init__(self, cfg: GPTConfig, device, seed: int) -> None:
         if device is None:
-            device = basics.device() if basics.is_initialized() else "cpu"
+            device = _default_device()
         self.device = torch.device(device)
         self.dtype = cfg.param_dtype
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -183,7 +195,9 @@ class GPT(nn.Module):
     """Decoder-only LM: ``model(tokens [B, T])`` → f32 logits
     ``[B, T, V]``.  Parameters are made on ``device`` from ``seed``;
     ``device`` defaults to this rank's device once :func:`init` has run,
-    and to the CPU before."""
+    and to the current CUDA device before.  With no card and no
+    ``init()`` it raises: the CPU is used only when ``device="cpu"``
+    asks for it."""
 
     def __init__(self, config: GPTConfig, *, device=None,
                  seed: int = 0) -> None:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``_build/lib<name>-<hash>.so``, loaded through ``ctypes``.
-The hash covers the source and the flags, so a changed source rebuilds
-and an unchanged one is loaded as it is.  :func:`build` starts one nvcc
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source or header rebuilds and an unchanged one is
+loaded as it is.  :func:`build` starts one nvcc
 for each missing library, all at once, and waits for them all.
 
 A build that fails raises with nvcc's own error output: there is no
@@ -54,9 +55,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu``'s library lives.  The hash covers the
+    source, every ``csrc/*.cuh`` header it could include and the flags, so
+    a changed header rebuilds every library."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> Dict[str, Path]:

@@ -4,10 +4,12 @@ Counterpart of ``horovod_tpu/ops/pallas_attention.py``, with the same
 contract: q/k/v ``[B, T, H, D]`` → ``[B, T, H, D]``, and the row
 logsumexp as ``[B, H, T]`` float32.  The forward is kernel
 :func:`flash_fwd` (``csrc/flash_attention.cu``, replacing
-``_fwd_kernel``); what bounds it on the card is in the note at the top
-of the CUDA source.  The backward is a port of ``_flash_bwd``: plain
-torch ops, chunked over key blocks, recomputing the probabilities from
-the saved lse in float32, with the lse cotangent folded into Δ.
+``_fwd_kernel``): bfloat16 inputs run on the tensor cores (wgmma, TMA),
+float32 ones on the CUDA cores; what bounds each on the card is in the
+note at the top of the CUDA source.  The backward is a port of
+``_flash_bwd``: plain torch ops, chunked over key blocks, recomputing the
+probabilities from the saved lse in float32, with the lse cotangent
+folded into Δ.
 
 The kernel masks its own ragged edge, so any sequence length runs
 without padding; :func:`flash_attention_padded` keeps its name for the
@@ -71,8 +73,9 @@ def flash_fwd_plain(q3, k3, v3, scale: float, causal: bool,
 def flash_fwd(q3, k3, v3, scale: float, causal: bool):
     """Flash-attention forward on ``[BH, T, D]`` q and ``[BH, Tk, D]``
     k/v (bfloat16 or float32): O in the input type and lse f32.
-    Its work: 4·BH·T·Tk·D FLOPs (about half when causal), which this
-    version runs in f32 on the CUDA cores, so operations bound it."""
+    Its work: 4·BH·T·Tk·D FLOPs (about half when causal).  bfloat16
+    launches the tensor-core kernel (``flash_fwd_wgmma``, the bf16
+    limits), float32 the CUDA-core one (``flash_fwd``, the f32 limits)."""
     if not on_card(q3):
         return flash_fwd_plain(q3, k3, v3, scale, causal)
     for name, t in (("q", q3), ("k", k3), ("v", v3)):
@@ -90,6 +93,10 @@ def flash_fwd(q3, k3, v3, scale: float, causal: bool):
         raise ValueError(f"batch*heads {bh} exceeds the grid's 65535")
     if tk == 0:
         raise ValueError("no keys")
+    # The bf16 kernel reads q, k and v through TMA, which wants 16-byte
+    # aligned bases; a fresh copy is.
+    q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
+                  for x in (q3, k3, v3))
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     lib = _build.load("flash_attention", _signatures)

@@ -88,6 +88,10 @@ def test_quant_dequant_on_card_matches_cpu(card):
 @pytest.mark.parametrize("t,tk,d", [(200, 200, 64), (64, 96, 16),
                                     (130, 130, 128), (33, 33, 32)])
 def test_flash_fwd_matches_plain_version(card, dtype, atol, t, tk, d):
+    """Both kernels (bf16: tensor cores, f32: CUDA cores) on ragged
+    lengths at every head dim.  Besides the absolute limits, each row of
+    O within 1e-2 of its largest |O| (both sides round O to the input
+    type, one bf16 ulp being 2**-7 of it)."""
     g = torch.Generator(device=card).manual_seed(t + d)
     q3 = torch.randn((6, t, d), generator=g, device=card).to(dtype)
     k3 = torch.randn((6, tk, d), generator=g, device=card).to(dtype)
@@ -98,6 +102,60 @@ def test_flash_fwd_matches_plain_version(card, dtype, atol, t, tk, d):
         assert o.dtype == dtype and lse.shape == (6, t)
         assert (o.float() - o_ref.float()).abs().max().item() <= atol
         assert (lse - lse_ref).abs().max().item() <= 1e-4
+        assert _row_relative(o, o_ref) <= 1e-2
+
+
+def _row_relative(o, o_ref):
+    diff = (o.float() - o_ref.float()).abs()
+    return (diff.amax(-1) / o_ref.float().abs().amax(-1)).max().item()
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+def test_flash_fwd_bf16_at_gpt_medium(card, peak):
+    """The GPT step's shape (B*H 128, T 1024, D 64, causal, bf16) on the
+    tensor-core kernel; ``peak`` 8 multiplies q, so the running max moves
+    between key tiles and the rescale of O and the denominator shows."""
+    g = torch.Generator(device=card).manual_seed(11)
+    q3, k3, v3 = (torch.randn((128, 1024, 64), generator=g, device=card)
+                  for _ in range(3))
+    q3, k3, v3 = ((q3 * peak).bfloat16(), k3.bfloat16(), v3.bfloat16())
+    (o, lse), names = _device_kernels(
+        lambda: fa.flash_fwd(q3, k3, v3, 0.125, True))
+    o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, 0.125, True)
+    assert any("flash_fwd_wgmma" in n for n in names), names
+    assert (o.float() - o_ref.float()).abs().max().item() <= 3e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert _row_relative(o, o_ref) <= 1e-2
+
+
+def _device_kernels(fn):
+    """(``fn()``, the CUDA kernels it launched, as the profiler's device
+    trace names them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+
+
+def test_flash_fwd_route_follows_dtype(card):
+    """A bf16 CUDA tensor launches the tensor-core kernel, an f32 one the
+    CUDA-core kernel, as the device trace names them; each counts one
+    launch."""
+    q3 = torch.randn((2, 70, 64), device=card)
+    b3 = q3.bfloat16()
+    kc.reset_launch_counts()
+    _, names = _device_kernels(lambda: fa.flash_fwd(b3, b3, b3, 0.125, True))
+    flash = [n for n in names if "flash_fwd" in n]
+    assert flash and all("flash_fwd_wgmma" in n for n in flash), names
+    _, names = _device_kernels(lambda: fa.flash_fwd(q3, q3, q3, 0.125, True))
+    flash = [n for n in names if "flash_fwd" in n]
+    assert flash and not any("wgmma" in n for n in flash), names
+    assert kc.launch_counts()["flash_fwd"] == 2
 
 
 def test_flash_attention_grads_on_card_match_cpu(card):
@@ -155,10 +213,13 @@ def test_apply_kernels_bitwise(card, n, k, b):
 @pytest.mark.parametrize("m,k,n,dtype", [
     (130, 600, 72, torch.float32), (100, 33, 129, torch.float32),
     (257, 4096, 130, torch.bfloat16), (1, 1, 1, torch.float32),
-    (300, 1024, 520, torch.bfloat16)])
+    (300, 1024, 520, torch.bfloat16), (8192, 1024, 4096, torch.bfloat16),
+    (8192, 1024, 4096, torch.float32)])
 def test_blocked_matmul_within_the_f64_rule(card, m, k, n, dtype):
-    """B5 on ragged shapes, held to an f64 product: its error may be at
-    most twice the plain version's plus 1e-6 of the largest |value|."""
+    """B5 on ragged shapes and at ff1 ([8192, 1024] @ [1024, 4096]), held
+    to an f64 product: its error may be at most twice the plain version's
+    plus 1e-6 of the largest |value|.  With an f32 x the output keeps the
+    sum's error, so a lost bf16 piece would show."""
     g = torch.Generator(device=card).manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g, device=card).to(dtype)
     w = torch.randn((k, n), generator=g, device=card) * k ** -0.5

@@ -35,7 +35,8 @@ def _pair(attention, t, seed=0):
         0, CFG["vocab_size"], (2, t + 1)).astype(np.int32)
     params = jmodel.init(jax.random.PRNGKey(seed),
                          jnp.asarray(tokens[:, :-1]))["params"]
-    model = GPT(GPTConfig(**CFG, attention=attention, dtype=torch.float32))
+    model = GPT(GPTConfig(**CFG, attention=attention, dtype=torch.float32),
+                device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, params))
     return jmodel, params, model, tokens
 
@@ -96,7 +97,7 @@ def test_bf16_activations_stay_close_to_f32():
     f32 head, as the reference: logits keep f32 dtype and stay within
     bf16's ~3 significant digits of the f32 model's."""
     _, params, model32, tokens = _pair("flash", 64, seed=3)
-    model16 = GPT(GPTConfig(**CFG, attention="flash"))
+    model16 = GPT(GPTConfig(**CFG, attention="flash"), device="cpu")
     load_jax_params(model16, jax.tree.map(np.asarray, params))
     x = torch.from_numpy(tokens[:, :-1]).long()
     with torch.no_grad():
@@ -107,7 +108,9 @@ def test_bf16_activations_stay_close_to_f32():
 
 def test_default_device_follows_init(monkeypatch):
     """With no ``device``, GPT builds on this rank's device once ``init``
-    has run (the card, by default), and on the CPU before."""
+    has run; before it, on the current CUDA device, and where there is no
+    card it raises, naming ``device="cpu"``: it never falls back to the
+    CPU on its own."""
     from horovod_tpu_torch import basics
 
     asked = []
@@ -117,10 +120,14 @@ def test_default_device_follows_init(monkeypatch):
         return torch.device("cpu")
 
     monkeypatch.setattr(basics, "device", rank_device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = GPTConfig(**{**CFG, "n_layer": 1})
     assert not basics.is_initialized()
-    GPT(small)
+    with pytest.raises(RuntimeError, match='device=.cpu.'):
+        GPT(small)
     assert not asked
+    explicit = GPT(small, device="cpu")
+    assert all(p.device.type == "cpu" for p in explicit.parameters())
     monkeypatch.setattr(basics, "is_initialized", lambda: True)
     model = GPT(small)
     assert asked and all(p.device.type == "cpu" for p in model.parameters())
