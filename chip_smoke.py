@@ -22,7 +22,12 @@
    yardstick the port never calls: ``q * s[:, None]`` for the
    dequantize, ``F.scaled_dot_product_attention`` for flash attention,
    ``torch.addcmul`` for the SGD apply, ``torch.matmul`` of the f32
-   operands for B5.
+   operands for B5.  B4 and B3 run their vector route at the main
+   shapes, B3 also at the two-rank paths' 2 contributors (bitwise, NaN
+   and Inf rows, timed); their scalar route (bitwise too) is timed at a
+   ragged block of nearly the same bytes (b = 1023), and a device copy
+   of the same bytes, and the vector route once more after a flush that
+   leaves the L2 clean, show what limits them.
 3. Model check: small GPTs with flash attention against the same GPTs
    with plain attention, on the card: f32 (logits within 1e-4) and bf16
    at head dim 64 (within 5e-2).
@@ -45,7 +50,9 @@
    - "sharded 2 ranks": (a) two ZeRO steps on the int8+EF wire, after
      which the replicas' parameters must be bit-identical; (b) for every
      leaf of one backward's gradients, ``fused_quantize_reducescatter``
-     then ``fused_allgather_adam_apply`` (steps 1 and 2) and
+     (bit for bit the plain versions of B2 and B3 applied to every
+     rank's gradient, gathered exactly) then
+     ``fused_allgather_adam_apply`` (steps 1 and 2) and
      ``fused_allgather_sgd_apply`` (B6, B7), each within 1e-6 abs/rel of
      ``int8_allgather`` + the plain update, and bit for bit the same on
      both ranks; (c) ``unshard_matmul`` (B5) on block 0's four Dense
@@ -53,11 +60,14 @@
      shard of the weight, held to the f64 rule of step 2.
 7. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
-   (flash_fwd_wgmma) and an f32 one the CUDA-core kernel.  It runs last,
-   so that the profiler touches none of the timed phases.
+   (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, and B4 and B3
+   at rows of 1024 run their vector kernel and at rows of 1023 only
+   their scalar one.  It runs last, so that the profiler touches none of
+   the timed phases.
 8. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
-   reaches the kernel), then the result line.  Every kernel must have
+   reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
+   a ``scalar_route``), then the result line.  Every kernel must have
    launched on at least one path.
 
 The launch counts are set to 0 just before each path is driven and read
@@ -102,13 +112,17 @@ def card_and_power_limit() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            dirty_l2: bool = True) -> float:
     """Median device time of one call of ``fn``, in ms.
 
     Each call sits between its own pair of CUDA events, after a write of
     L2_FLUSH_BYTES that evicts the 50 MB L2 (the main path finds these
-    operands cold).  The stream is held back while the host enqueues every
-    call, so the host's time between launches is not counted."""
+    operands cold, and the L2 full of other kernels' dirty lines).  With
+    ``dirty_l2=False`` the flush reads those bytes instead, so the L2
+    holds only clean lines and ``fn`` pays no write-back of the flush's.
+    The stream is held back while the host enqueues every call, so the
+    host's time between launches is not counted."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -119,7 +133,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(HOLD_CYCLES)
     for start, end in events:
-        flush.zero_()
+        if dirty_l2:
+            flush.zero_()
+        else:
+            flush.max()
         start.record()
         fn()
         end.record()
@@ -197,46 +214,8 @@ def kernel_phase(dev, gen):
                      ms=ms, plain_ms=plain, **bnd,
                      library_ms=None))
 
-    out = ik.dequantize_blocks(q, s)
-    ref = ik.dequantize_blocks_plain(q, s)
-    if not bitwise_equal(out, ref):
-        raise AssertionError("dequantize_blocks differs from its plain version")
-    # One PyTorch call computes the same product: int8 * f32 promotes to
-    # f32 inside a single elementwise kernel, rounded once.
-    if not bitwise_equal(torch.mul(q, s[:, None]), out):
-        raise AssertionError("q * s[:, None] differs from dequantize_blocks")
-    ms = time_ms(lambda: ik.dequantize_blocks(q, s))
-    plain = time_ms(lambda: ik.dequantize_blocks_plain(q, s))
-    lib = time_ms(lambda: torch.mul(q, s[:, None]))
-    bnd = bound(r * b + r * 4 + r * b * 4, r * b, F32_FLOPS)
-    rows.append(dict(name="dequantize_blocks", route="cuda",
-                     source="horovod_tpu_torch/csrc/int8_kernels.cu",
-                     replaces="horovod_tpu/ops/pallas_collectives.py:85",
-                     max_abs_err=float((out - ref).abs().max()),
-                     ms=ms, plain_ms=plain, **bnd,
-                     library_ms=lib))
-
-    # B3 with 8 contributors: one 64 MiB f32 fusion bucket over 8 ranks is
-    # a shard of 2048 blocks of 1024.
-    n, m = 8, 2048
-    qn = torch.randint(-127, 128, (n, m, b), generator=gen, device=dev,
-                       dtype=torch.int8)
-    sn = torch.rand((n, m), generator=gen, device=dev) * 1e-2
-    out = ik.dequantize_accumulate(qn, sn)
-    ref = ik.dequantize_accumulate_plain(qn, sn)
-    if not bitwise_equal(out, ref):
-        raise AssertionError(
-            "dequantize_accumulate differs from its plain version")
-    ms = time_ms(lambda: ik.dequantize_accumulate(qn, sn))
-    plain = time_ms(lambda: ik.dequantize_accumulate_plain(qn, sn))
-    bnd = bound(n * m * b + n * m * 4 + m * b * 4, 2 * n * m * b, F32_FLOPS)
-    rows.append(dict(name="dequantize_accumulate", route="cuda",
-                     source="horovod_tpu_torch/csrc/int8_kernels.cu",
-                     replaces="horovod_tpu/ops/pallas_collectives.py:90",
-                     max_abs_err=float((out - ref).abs().max()),
-                     ms=ms, plain_ms=plain, **bnd,
-                     library_ms=None))
-
+    rows.append(dequantize_row(dev, gen, q, s))
+    rows.append(dequantize_accumulate_row(dev, gen))
     rows.append(flash_kernel_row(dev, gen))
     rows += apply_kernel_rows(dev, gen)
     rows.append(matmul_kernel_row(dev, gen))
@@ -245,7 +224,160 @@ def kernel_phase(dev, gen):
             f"ms, bound {row['bound_ms']} ms ({row['bound_by']}; bytes "
             f"{row['bytes_ms']} ms, operations {row['ops_ms']} ms), library "
             f"{row['library_ms']} ms, max_abs_err {row['max_abs_err']}")
+        if "scalar_route" in row:
+            sc = row["scalar_route"]
+            log(f"kernel {row['name']}: vector route {row['ms']} ms "
+                f"({row['ms_clean_l2']} with a clean L2), a copy of the same "
+                f"bytes {row['copy_ms']} ms ({row['copy_ms_clean_l2']}); "
+                f"scalar route at {sc['shape']} {sc['ms']} ms, plain "
+                f"{sc['plain_ms']} ms, bound {sc['bound_ms']} ms, library "
+                f"{sc['library_ms']} ms")
+        if "two_ranks" in row:
+            tr = row["two_ranks"]
+            log(f"kernel {row['name']}: at {tr['shape']} (two ranks) "
+                f"{tr['ms']} ms, plain {tr['plain_ms']} ms, bound "
+                f"{tr['bound_ms']} ms, bitwise with NaN/Inf rows")
     return rows
+
+
+def copy_times(nbytes: int, dev) -> dict:
+    """A device copy moving ``nbytes`` (half read, half written), the rate
+    this card reaches for that many bytes under the same timing, after a
+    flush that leaves the L2 dirty (``copy_ms``) and one that leaves it
+    clean (``copy_ms_clean_l2``)."""
+    import torch
+
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return dict(copy_ms=time_ms(lambda: dst.copy_(src)),
+                copy_ms_clean_l2=time_ms(lambda: dst.copy_(src),
+                                         dirty_l2=False))
+
+
+def scalar_route(fn, plain, args, nbytes: int, flops: int, lib=None) -> dict:
+    """The scalar route of B4 or B3 at a ragged block (b = 1023, the bytes
+    of the main shape less a 1024th): bitwise against the plain version,
+    then its times, bound and, where given, the library call's time."""
+    out = fn(*args)
+    if not bitwise_equal(out, plain(*args)):
+        raise AssertionError(f"{fn.__name__}'s scalar route differs from "
+                             "its plain version")
+    return dict(shape=list(args[0].shape), ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                **bound(nbytes, flops, F32_FLOPS),
+                library_ms=None if lib is None else time_ms(
+                    lambda: lib(*args)))
+
+
+def dequantize_row(dev, gen, q, s) -> dict:
+    """B4 on its vector route at lm_head's [32000, 1024] (B2's output),
+    bitwise against its plain version and against ``q * s[:, None]``,
+    which one PyTorch call computes (int8 * f32 promotes to f32 inside a
+    single elementwise kernel, rounded once); its scalar route at [32000,
+    1023]; a copy of the same bytes."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+
+    r, b = q.shape
+    out = ik.dequantize_blocks(q, s)
+    ref = ik.dequantize_blocks_plain(q, s)
+    if not bitwise_equal(out, ref):
+        raise AssertionError("dequantize_blocks differs from its plain version")
+    if not bitwise_equal(torch.mul(q, s[:, None]), out):
+        raise AssertionError("q * s[:, None] differs from dequantize_blocks")
+
+    def mul(qq, ss):
+        return torch.mul(qq, ss[:, None])
+
+    nbytes = r * b + r * 4 + r * b * 4
+    row = dict(name="dequantize_blocks", route="cuda", kernel_route="vector",
+               source="horovod_tpu_torch/csrc/int8_kernels.cu",
+               replaces="horovod_tpu/ops/pallas_collectives.py:85",
+               max_abs_err=float((out - ref).abs().max()),
+               ms=time_ms(lambda: ik.dequantize_blocks(q, s)),
+               ms_clean_l2=time_ms(lambda: ik.dequantize_blocks(q, s),
+                                   dirty_l2=False),
+               plain_ms=time_ms(lambda: ik.dequantize_blocks_plain(q, s)),
+               **bound(nbytes, r * b, F32_FLOPS),
+               library_ms=time_ms(lambda: mul(q, s)),
+               **copy_times(nbytes, dev))
+    rb = b - 1
+    qr = torch.randint(-127, 128, (r, rb), generator=gen, device=dev,
+                       dtype=torch.int8)
+    row["scalar_route"] = scalar_route(
+        ik.dequantize_blocks, ik.dequantize_blocks_plain, (qr, s),
+        r * rb * 5 + r * 4, r * rb, lib=mul)
+    return row
+
+
+def dequantize_accumulate_row(dev, gen) -> dict:
+    """B3 with 8 contributors on its vector route: one 64 MiB f32 fusion
+    bucket over 8 ranks is a shard of 2048 blocks of 1024; its scalar
+    route at [8, 2048, 1023]; a copy of the same bytes."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+
+    n, m, b = 8, 2048, 1024
+    qn = torch.randint(-127, 128, (n, m, b), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sn = torch.rand((n, m), generator=gen, device=dev) * 1e-2
+    out = ik.dequantize_accumulate(qn, sn)
+    ref = ik.dequantize_accumulate_plain(qn, sn)
+    if not bitwise_equal(out, ref):
+        raise AssertionError(
+            "dequantize_accumulate differs from its plain version")
+    nbytes = n * m * b + n * m * 4 + m * b * 4
+    row = dict(name="dequantize_accumulate", route="cuda",
+               kernel_route="vector",
+               source="horovod_tpu_torch/csrc/int8_kernels.cu",
+               replaces="horovod_tpu/ops/pallas_collectives.py:90",
+               max_abs_err=float((out - ref).abs().max()),
+               ms=time_ms(lambda: ik.dequantize_accumulate(qn, sn)),
+               ms_clean_l2=time_ms(lambda: ik.dequantize_accumulate(qn, sn),
+                                   dirty_l2=False),
+               plain_ms=time_ms(
+                   lambda: ik.dequantize_accumulate_plain(qn, sn)),
+               **bound(nbytes, 2 * n * m * b, F32_FLOPS),
+               library_ms=None, **copy_times(nbytes, dev))
+    rb = b - 1
+    qr = torch.randint(-127, 128, (n, m, rb), generator=gen, device=dev,
+                       dtype=torch.int8)
+    row["scalar_route"] = scalar_route(
+        ik.dequantize_accumulate, ik.dequantize_accumulate_plain, (qr, sn),
+        n * m * rb + n * m * 4 + m * rb * 4, 2 * n * m * rb)
+    row["two_ranks"] = two_rank_accumulate(dev)
+    return row
+
+
+def two_rank_accumulate(dev) -> dict:
+    """B3 as the two-rank paths run it: 2 contributors, a 64 MiB f32
+    fusion bucket's shard of 8192 blocks of 1024, on its vector route,
+    bitwise against its plain version with NaN, +Inf and -Inf scales in
+    either contributor's rows; then its times and bound."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, m, b = 2, 8192, 1024
+    q = torch.randint(-127, 128, (n, m, b), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand((n, m), generator=gen, device=dev) * 1e-2
+    s[0, 1], s[1, 2], s[0, 3], s[1, 3] = math.nan, math.inf, -math.inf, 1.0
+    out = ik.dequantize_accumulate(q, s)
+    if ik._dequant_route(b, q.data_ptr(), out.data_ptr(),
+                         out.numel()) != "vector":
+        raise AssertionError("two-rank dequantize_accumulate left the "
+                             "vector route")
+    ref = ik.dequantize_accumulate_plain(q, s)
+    if not (bitwise_equal(out, ref) and bool(out[1:3].isnan().any())
+            and bool(out[0].isfinite().all())):
+        raise AssertionError("dequantize_accumulate at 2 contributors "
+                             "differs from its plain version")
+    nbytes = n * m * b + n * m * 4 + m * b * 4
+    return dict(shape=[n, m, b],
+                ms=time_ms(lambda: ik.dequantize_accumulate(q, s)),
+                plain_ms=time_ms(lambda: ik.dequantize_accumulate_plain(q, s)),
+                **bound(nbytes, 2 * n * m * b, F32_FLOPS))
 
 
 def device_kernels(fn):
@@ -264,12 +396,16 @@ def device_kernels(fn):
 
 
 def route_check(dev) -> None:
-    """Which flash kernel each dtype really launches, read from the
-    profiler's device trace: at the GPT step's shape a bf16 call must run
-    flash_fwd_wgmma and an f32 call only the CUDA-core flash_fwd.  It
-    runs after the timed phases, so that the profiler touches none."""
+    """Which kernel each call really launches, read from the profiler's
+    device trace: at the GPT step's shape a bf16 flash_fwd must run
+    flash_fwd_wgmma and an f32 one only the CUDA-core flash_fwd; B4 at
+    lm_head's rows of 1024 and B3 at a two-rank bucket's shard must run
+    their vector route, and at a ragged block (1023) only their scalar
+    route.  It runs after the timed phases, so that the profiler touches
+    none."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import int8_kernels as ik
 
     q3 = torch.randn((BATCH * GPT_MEDIUM["n_head"], SEQ, 64), device=dev)
     for x, tensor_cores in ((q3.bfloat16(), True), (q3, False)):
@@ -280,6 +416,19 @@ def route_check(dev) -> None:
             raise AssertionError(f"{x.dtype} flash_fwd launched {names}")
         log(f"route check: {x.dtype} flash_fwd ran "
             f"{[n for n in names if 'flash_fwd' in n]}")
+    for wrapper, lead in (("dequantize_blocks", (32000,)),
+                          ("dequantize_accumulate", (2, 8192))):
+        for b, route in ((1024, "vector"), (1023, "scalar")):
+            q = torch.zeros(lead + (b,), dtype=torch.int8, device=dev)
+            s = torch.ones(lead, device=dev)
+            fn = getattr(ik, wrapper)
+            _, names = device_kernels(lambda: fn(q, s))
+            ran = ik.routes_run(names, wrapper)
+            if ran != {route}:
+                raise AssertionError(f"{wrapper} at {tuple(q.shape)} ran "
+                                     f"{ran}, not {route}: {names}")
+            log(f"route check: {wrapper} at {tuple(q.shape)} ran {route} "
+                f"{[n for n in names if 'quantize' in n]}")
 
 
 def flash_errors(q3, k3, v3, scale: float):
@@ -663,6 +812,30 @@ def dp_two_ranks(dev, rank: int) -> dict:
                 params=digest(p for _, p in sorted(model.named_parameters())))
 
 
+def plain_reducescatter(flats, rank: int):
+    """Rank ``rank``'s shard of the int8 wire's average of ``flats`` (one
+    flat f32 vector a rank, in rank order), from the plain versions of B2
+    and B3 with the wire's block and pad rules: what
+    ``fused_quantize_reducescatter`` must return, bit for bit."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+
+    n = len(flats)
+    k = flats[0].numel() // n
+    b = max(1, min(1024, k))
+    pad = (-k) % b
+    qs, ss = [], []
+    for flat in flats:
+        chunk = flat[rank * k:(rank + 1) * k]
+        if pad:
+            chunk = torch.cat([chunk, chunk.new_zeros(pad)])
+        q, s = ik.quantize_blocks_plain(chunk.reshape(-1, b))
+        qs.append(q)
+        ss.append(s)
+    acc = ik.dequantize_accumulate_plain(torch.stack(qs), torch.stack(ss))
+    return acc.reshape(-1)[:k] / n
+
+
 def sharded_two_ranks(dev, rank: int) -> dict:
     """Path "sharded 2 ranks": (a) ZeRO steps, (b) the fused all-gather +
     apply of every leaf of one backward's gradients, (c) the unshard
@@ -716,6 +889,13 @@ def sharded_two_ranks(dev, rank: int) -> dict:
         unshard.append((name, x, w, y))
     counts = hvd.ops.launch_counts()
 
+    for (name, _, shard, *_), p in zip(fused, leaves):
+        grad = flat_pad(p.grad, n)
+        grads = [torch.empty_like(grad) for _ in range(n)]
+        dist.all_gather(grads, grad)
+        if not bitwise_equal(shard, plain_reducescatter(grads, rank)):
+            raise AssertionError(f"{name}: the int8 reduce-scatter differs "
+                                 "from its plain form")
     worst = 0.0
     for name, pf, shard, a1, a2, sgd in fused:
         g = int8_allgather(shard)
@@ -742,8 +922,13 @@ def sharded_two_ranks(dev, rank: int) -> dict:
                 apply_err=worst, unshard=errors)
 
 
-def _two_rank_worker(rank: int, store: str, results) -> None:
-    """One rank of the two-rank phases (run in its own process)."""
+WORKER_FLAG = "--two-rank-worker"
+
+
+def two_rank_worker(rank: int, tmp: str) -> None:
+    """One rank of the two-rank phases, run as
+    ``chip_smoke.py --two-rank-worker RANK DIR``: joins the gloo world
+    through ``DIR/store`` and writes its results to ``DIR/rank<RANK>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -751,17 +936,30 @@ def _two_rank_worker(rank: int, store: str, results) -> None:
     import horovod_tpu_torch as hvd
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"file://{store}",
+    dist.init_process_group("gloo",
+                            init_method=f"file://{os.path.join(tmp, 'store')}",
                             rank=rank, world_size=WIRE_RANKS)
     hvd.init(device="cuda:0")
     try:
         dp = dp_two_ranks(hvd.device(), rank)
         torch.cuda.empty_cache()
         sharded = sharded_two_ranks(hvd.device(), rank)
-        results.put((rank, dp, sharded))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(dp=dp, sharded=sharded), f)
     finally:
         hvd.shutdown()
         dist.destroy_process_group()
+
+
+def child_processes() -> list:
+    """The pids of this process's living children (Linux ``/proc``)."""
+    import glob
+
+    pids = []
+    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+        with open(path) as f:
+            pids += [int(p) for p in f.read().split()]
+    return pids
 
 
 def two_rank_phase():
@@ -769,38 +967,35 @@ def two_rank_phase():
     (kernel dequantize_accumulate) and the sharded optimizer's fused
     kernels.  NCCL refuses two ranks on one device, so the two processes
     share the card over gloo, which stages CUDA tensors through the host.
-    GPT-medium's widths at WIRE_LAYERS layers."""
-    import multiprocessing as mp
-    import queue
+    GPT-medium's widths at WIRE_LAYERS layers.  The ranks are plain
+    subprocesses of this script (multiprocessing would leave its resource
+    tracker running), each waited for or killed before this returns."""
     import tempfile
 
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    script = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_two_rank_worker,
-                             args=(r, os.path.join(tmp, "store"), results))
+        procs = [subprocess.Popen([sys.executable, script, WORKER_FLAG,
+                                   str(r), tmp])
                  for r in range(WIRE_RANKS)]
-        for p in procs:
-            p.start()
-        out = {}
         deadline = time.monotonic() + 600
         try:
-            while len(out) < WIRE_RANKS:
-                try:
-                    rank, dp, sharded = results.get(timeout=5)
-                    out[rank] = (dp, sharded)
-                except queue.Empty:
-                    failed = [p.exitcode for p in procs if p.exitcode]
-                    if failed or time.monotonic() > deadline:
-                        raise AssertionError(
-                            f"two-rank phase: no answer (exit codes "
-                            f"{[p.exitcode for p in procs]})")
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.returncode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(1)
         finally:
             for p in procs:
-                p.join(timeout=60)
-                if p.is_alive():
+                if p.poll() is None:
                     p.kill()
-                    p.join()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise AssertionError(f"two-rank phase: exit codes {codes}")
+        out = {}
+        for r in range(WIRE_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            out[r] = (res["dp"], res["sharded"])
     (dp0, sh0), (dp1, sh1) = out[0], out[1]
     for path, a, b, kernels in (
             ("2 ranks", dp0, dp1, ("flash_fwd", "quantize_blocks",
@@ -881,6 +1076,8 @@ def main() -> int:
             PATH_OF.get(row["name"], "1 rank")]
         if not any(row["launches_by_path"].values()):
             raise AssertionError(f"{row['name']} launched on no path")
+    if child_processes():
+        raise AssertionError(f"processes left running: {child_processes()}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -889,4 +1086,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [WORKER_FLAG]:
+        two_rank_worker(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

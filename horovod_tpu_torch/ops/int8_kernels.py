@@ -21,7 +21,10 @@ order, which is the only order that matches the reference's
 
 All three kernels are bound by device memory (bytes, not operations);
 see the note at the top of the CUDA source for what their design does
-about it.
+about it.  The dequantize and the dequantize-accumulate each have two
+CUDA kernels, a vector route and a scalar one, chosen by
+:func:`_dequant_route`; both give the same bits, and either counts one
+launch.
 """
 
 from __future__ import annotations
@@ -42,14 +45,53 @@ INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
 _P = ctypes.c_void_p
 _signatures = {
     "hvd_quantize_blocks": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-    "hvd_dequantize_blocks": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "hvd_dequantize_blocks": [_P, _P, _P, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_int, _P],
     "hvd_dequantize_accumulate": [_P, _P, _P, ctypes.c_int, ctypes.c_int64,
-                                  ctypes.c_int, _P],
+                                  ctypes.c_int, ctypes.c_int, _P],
+}
+# The vector route's group index is divided as a 32-bit number.
+_MAX_VECTOR_GROUPS = 2 ** 31
+# The CUDA kernel behind each route of B4 and B3, as the profiler's device
+# trace names it (each scalar name is a prefix of its vector name).
+ROUTE_KERNELS = {
+    "dequantize_blocks": {"vector": "dequantize_rows_vec4",
+                          "scalar": "dequantize_rows"},
+    "dequantize_accumulate": {"vector": "dequantize_accumulate_vec4",
+                              "scalar": "dequantize_accumulate_rows"},
 }
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("int8_kernels", _signatures)
+
+
+def _dequant_route(b: int, q_ptr: int, out_ptr: int, out_numel: int) -> str:
+    """Which kernel dequantizes rows of ``b`` int8 at address ``q_ptr``
+    into ``out_numel`` f32 at ``out_ptr``: ``"vector"`` (char4 loads,
+    float4 stores) when a group of 4 never straddles two rows
+    (``b % 4 == 0``), both pointers are aligned for those accesses and
+    the output's groups of 4 number fewer than 2**31; otherwise
+    ``"scalar"`` (one element a thread), which takes any ``b`` and any
+    address.  The CUDA entry points trust this choice."""
+    if (b % 4 == 0 and q_ptr % 4 == 0 and out_ptr % 16 == 0
+            and out_numel // 4 < _MAX_VECTOR_GROUPS):
+        return "vector"
+    return "scalar"
+
+
+def routes_run(kernel_names, wrapper: str) -> set:
+    """The routes of ``wrapper`` (``"dequantize_blocks"`` or
+    ``"dequantize_accumulate"``) whose CUDA kernels appear in
+    ``kernel_names``, the names a profiler's device trace records."""
+    vector = ROUTE_KERNELS[wrapper]["vector"]
+    scalar = ROUTE_KERNELS[wrapper]["scalar"]
+    ran = set()
+    if any(vector in n for n in kernel_names):
+        ran.add("vector")
+    if any(scalar in n and vector not in n for n in kernel_names):
+        ran.add("scalar")
+    return ran
 
 
 # --- plain versions -----------------------------------------------------------
@@ -109,8 +151,10 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor):
         raise ValueError(f"{rows} rows but {scales.shape[0]} scales")
     out = torch.empty((rows, b), dtype=torch.float32, device=q.device)
     if rows and b:
+        vector = _dequant_route(b, q.data_ptr(), out.data_ptr(),
+                                out.numel()) == "vector"
         rc = _lib().hvd_dequantize_blocks(q.data_ptr(), scales.data_ptr(),
-                                          out.data_ptr(), rows, b,
+                                          out.data_ptr(), rows, b, vector,
                                           stream_of(q))
         raise_on_error(rc, "dequantize_blocks")
         dequantize_blocks.launches += 1
@@ -132,8 +176,10 @@ def dequantize_accumulate(q: torch.Tensor, scales: torch.Tensor):
         raise ValueError(f"scales {tuple(scales.shape)} for q {(n, m, b)}")
     out = torch.empty((m, b), dtype=torch.float32, device=q.device)
     if n and m and b:
+        vector = _dequant_route(b, q.data_ptr(), out.data_ptr(),
+                                out.numel()) == "vector"
         rc = _lib().hvd_dequantize_accumulate(q.data_ptr(), scales.data_ptr(),
-                                              out.data_ptr(), n, m, b,
+                                              out.data_ptr(), n, m, b, vector,
                                               stream_of(q))
         raise_on_error(rc, "dequantize_accumulate")
         dequantize_accumulate.launches += 1

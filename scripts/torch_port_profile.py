@@ -30,14 +30,22 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from horovod_tpu_torch.ops.int8_kernels import ROUTE_KERNELS  # noqa: E402
+
 STEPS = 2      # profiled steps, after as many timed without the profiler
 TOP = 25       # kernels listed by device time
 
 # Device-time groups, by substrings of the CUDA kernel's name; the first
-# group that matches takes the kernel.
+# group that matches takes the kernel.  "quantize_rows" (B2) is a
+# substring of "dequantize_rows" (B4), so B4 comes first.
 GROUPS = (
     ("flash_fwd kernel (B1)", ("flash_fwd",)),
-    ("int8 kernels (B2-B4)", ("quantize_rows", "dequantize_accumulate_rows")),
+    ("B3 dequantize_accumulate (both routes)",
+     tuple(ROUTE_KERNELS["dequantize_accumulate"].values())),
+    ("B4 dequantize_blocks (both routes)",
+     tuple(ROUTE_KERNELS["dequantize_blocks"].values())),
+    ("B2 quantize_blocks", ("quantize_rows",)),
     ("f32 products (cuBLAS, CUDA cores)", ("f32f32", "sgemm")),
     ("other products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("AdamW (multi_tensor_apply)", ("multi_tensor_apply",)),
@@ -96,7 +104,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
     from chip_smoke import (card_and_power_limit, dp_step, gpt_medium,
                             zero_step)

@@ -77,6 +77,84 @@ def test_int8_kernels_non_finite_rows(card):
     assert out[:4].isnan().all() and out[4:].isfinite().all()
 
 
+def _payload(card, shape, seed, offset=0):
+    """Random int8 payload of ``shape`` and f32 scales of its leading
+    dims (the first three rows' scales NaN, +Inf and -Inf when there are
+    more than three).  ``offset`` > 0 makes the payload a contiguous view
+    that starts ``offset`` bytes into its buffer."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    numel = int(np.prod(shape))
+    buf = torch.randint(-127, 128, (offset + numel,), generator=g,
+                        device=card, dtype=torch.int8)
+    q = buf[offset:].view(shape)
+    s = torch.rand(shape[:-1], generator=g, device=card) * 1e-2
+    flat = s.view(-1)
+    if flat.numel() > 3:
+        flat[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    return q, s
+
+
+def _route(q, out):
+    return ik._dequant_route(q.shape[-1], q.data_ptr(), out.data_ptr(),
+                             out.numel())
+
+
+@pytest.mark.parametrize("rows,b,offset,route", [
+    (300, 4, 0, "vector"), (1000, 16, 0, "vector"),
+    (32000, 1024, 0, "vector"), (77, 1, 0, "scalar"),
+    (301, 15, 0, "scalar"), (129, 33, 0, "scalar"),
+    (129, 33, 3, "scalar"), (64, 1024, 1, "scalar")])
+def test_dequantize_blocks_both_routes_bitwise(card, rows, b, offset, route):
+    """B4 bit for bit against its plain version on the vector route (b a
+    multiple of 4, aligned) and the scalar one (any other b, and a view
+    starting inside its buffer), NaN and Inf scales included."""
+    q, s = _payload(card, (rows, b), rows + b, offset)
+    kc.reset_launch_counts()
+    out = ik.dequantize_blocks(q, s)
+    assert _route(q, out) == route
+    assert _same_bits_or_nan(out, ik.dequantize_blocks_plain(q, s))
+    assert kc.launch_counts()["dequantize_blocks"] == 1
+    if rows > 3:
+        assert out[0].isnan().all()
+        nonzero = q[1:3] != 0
+        assert out[1:3][nonzero].isinf().all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("m,b,offset,route", [
+    (257, 4, 0, "vector"), (300, 1024, 0, "vector"), (129, 15, 0, "scalar"),
+    (65, 33, 5, "scalar"), (40, 1024, 2, "scalar")])
+def test_dequantize_accumulate_both_routes_bitwise(card, n, m, b, offset,
+                                                   route):
+    """B3 bit for bit against its plain version (rank order from 0.0f) on
+    both routes, for contributor counts that take each chunk size of the
+    vector kernel alone (1, 2, 4, 8) and mixed (3 = 2 + 1, 9 = 8 + 1),
+    with NaN and Inf scales."""
+    q, s = _payload(card, (n, m, b), 10 * n + b, offset)
+    kc.reset_launch_counts()
+    out = ik.dequantize_accumulate(q, s)
+    assert _route(q, out) == route
+    assert _same_bits_or_nan(out, ik.dequantize_accumulate_plain(q, s))
+    assert kc.launch_counts()["dequantize_accumulate"] == 1
+
+
+@pytest.mark.parametrize("wrapper,shape,offset,route", [
+    ("dequantize_blocks", (1024, 1024), 0, "vector"),
+    ("dequantize_blocks", (1024, 1023), 0, "scalar"),
+    ("dequantize_blocks", (1024, 1024), 1, "scalar"),
+    ("dequantize_accumulate", (2, 512, 1024), 0, "vector"),
+    ("dequantize_accumulate", (8, 512, 1024), 0, "vector"),
+    ("dequantize_accumulate", (2, 512, 1023), 0, "scalar")])
+def test_int8_route_in_device_trace(card, wrapper, shape, offset, route):
+    """Each shape runs the route it should, and only that one, as the
+    profiler's device trace names the kernels."""
+    q, s = _payload(card, shape, 7, offset)
+    fn = getattr(ik, wrapper)
+    out, names = _device_kernels(lambda: fn(q, s))
+    assert _route(q, out) == route
+    assert ik.routes_run(names, wrapper) == {route}, names
+
+
 def test_quant_dequant_on_card_matches_cpu(card):
     x = torch.randn(5000, generator=torch.Generator().manual_seed(0))
     out = q8.quant_dequant(x.to(card), block_size=300)

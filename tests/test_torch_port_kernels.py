@@ -97,7 +97,10 @@ class TestQuantizeBlocks:
 
 
 class TestDequantizeBlocks:
-    @pytest.mark.parametrize("rows,b", [(9, 1024), (5, 33), (1, 1)])
+    # b = 3, 15, 17 take the card's scalar route, 4 and 16 its vector
+    # route: the reference both routes are held to on the card.
+    @pytest.mark.parametrize("rows,b", [(9, 1024), (5, 33), (1, 1), (4, 3),
+                                        (6, 4), (3, 15), (5, 16), (2, 17)])
     def test_bitwise_vs_reference(self, rows, b):
         x = _blocks(rows, b, seed=rows + b)
         q, s = jax_q._quantize_blocks(jnp.asarray(x))
@@ -113,8 +116,11 @@ class TestDequantizeAccumulate:
     """B3 is held to the SPMD wire (``quantization.int8_reducescatter``):
     the reference's Pallas tier is up to 1 ulp off it under jax 0.9."""
 
+    # Wire blocks of 1024 and 100 (the card's vector route), 1023, 15 and
+    # 2 (its scalar route).
     @pytest.mark.parametrize("op", ["sum", "average"])
-    @pytest.mark.parametrize("size", [8 * 3000, 8 * 100])
+    @pytest.mark.parametrize("size", [8 * 3000, 8 * 100, 8 * 1023, 8 * 15,
+                                      8 * 2])
     def test_bitwise_vs_int8_reducescatter(self, world_size, size, op):
         n = world_size
         rng = np.random.RandomState(size)
@@ -146,6 +152,73 @@ class TestDequantizeAccumulate:
         out = ik.dequantize_accumulate(torch.zeros(0, 2, 3, dtype=torch.int8),
                                        torch.zeros(0, 2))
         assert out.shape == (2, 3) and not out.any()
+
+
+class TestDequantRoute:
+    """The pure choice between the card's two dequantize kernels: vector
+    (char4 loads, float4 stores) only when b % 4 == 0, q is 4-byte and
+    out 16-byte aligned, and the output's groups of 4 number fewer than
+    2**31."""
+
+    @pytest.mark.parametrize("b,route", [(1, "scalar"), (2, "scalar"),
+                                         (3, "scalar"), (4, "vector"),
+                                         (15, "scalar"), (16, "vector"),
+                                         (33, "scalar"), (1023, "scalar"),
+                                         (1024, "vector")])
+    def test_block_size(self, b, route):
+        assert ik._dequant_route(b, 4096, 8192, 64 * b) == route
+
+    @pytest.mark.parametrize("q_off,out_off,route", [
+        (0, 0, "vector"), (4, 16, "vector"), (1, 0, "scalar"),
+        (2, 0, "scalar"), (3, 0, "scalar"), (0, 4, "scalar"),
+        (0, 8, "scalar"), (0, 12, "scalar"), (8, 32, "vector")])
+    def test_pointer_offsets(self, q_off, out_off, route):
+        assert ik._dequant_route(1024, 256 + q_off, 512 + out_off,
+                                 1024) == route
+
+    @pytest.mark.parametrize("out_numel,route", [
+        (4 * (2 ** 31 - 1), "vector"), (4 * 2 ** 31, "scalar")])
+    def test_group_count(self, out_numel, route):
+        """The bound is on the output's groups, which the kernel divides
+        in 32 bits, not on every contributor's."""
+        assert ik._dequant_route(1024, 0, 0, out_numel) == route
+
+    def test_view_inside_a_buffer(self):
+        """``buf[k:]`` starts k bytes into its buffer: only k % 4 == 0
+        keeps the vector route."""
+        buf = torch.zeros(4096 + 16, dtype=torch.int8)
+        out = torch.empty(4096)
+        routes = [ik._dequant_route(16, buf[k:].data_ptr(), out.data_ptr(),
+                                    4096) for k in range(4)]
+        assert routes[1:] == ["scalar"] * 3
+        assert routes[0] == ("vector" if buf.data_ptr() % 4 == 0
+                             and out.data_ptr() % 16 == 0 else "scalar")
+
+    # Kernel names as a device trace records them.
+    _VEC4 = ("(anonymous namespace)::dequantize_rows_vec4(char4 const*, "
+             "float const*, float4*, long, (anonymous namespace)::FastDiv)")
+    _ROWS = ("(anonymous namespace)::dequantize_rows(signed char const*, "
+             "float const*, float*, int)")
+    _ACC4 = ("(anonymous namespace)::dequantize_accumulate_vec4(char4 "
+             "const*, float const*, float4*, int, long, long, "
+             "(anonymous namespace)::FastDiv)")
+    _ACCR = ("(anonymous namespace)::dequantize_accumulate_rows(signed char "
+             "const*, float const*, float*, int, long, int)")
+    _QUANT = ("(anonymous namespace)::quantize_rows(float const*, signed "
+              "char*, float*, int)")
+
+    @pytest.mark.parametrize("wrapper,names,ran", [
+        ("dequantize_blocks", [_VEC4], {"vector"}),
+        ("dequantize_blocks", [_ROWS], {"scalar"}),
+        ("dequantize_blocks", [_ROWS, _VEC4], {"vector", "scalar"}),
+        ("dequantize_blocks", [_QUANT, _ACC4, _ACCR], set()),
+        ("dequantize_accumulate", [_ACC4, _QUANT], {"vector"}),
+        ("dequantize_accumulate", [_ACCR], {"scalar"}),
+        ("dequantize_accumulate", [_VEC4, _ROWS], set())])
+    def test_routes_run(self, wrapper, names, ran):
+        """Which routes a device trace shows: a scalar kernel's name is a
+        prefix of its vector kernel's, and B2's of B4's."""
+        assert ik.routes_run(names, wrapper) == ran
 
 
 class TestQuantDequant:
