@@ -58,13 +58,34 @@
      both ranks; (c) ``unshard_matmul`` (B5) on block 0's four Dense
      layers with their real input activations against the rank's column
      shard of the weight, held to the f64 rule of step 2.
-7. Route check: the profiler's device trace must show a bf16
+7. "4 ranks": four processes share the card over gloo, at GPT-medium's
+   widths and WIRE_LAYERS layers, each rank on its own batch.  The
+   process sets {0, 2} and {1, 3} run at the same time.  (a) The eager
+   API on CUDA tensors: the int8 allreduce of lm_head's gradient shape
+   over the global set (async: ``poll`` before and after the wait) and
+   over each pair, bit for bit the tier's plain form (plain B2 and B3
+   over the gathered inputs); ragged allgather and alltoall, broadcast,
+   reducescatter, barrier and join against what the inputs give; a call
+   on the other pair must raise.  (b) One model per pair on the int8+EF
+   wire over the pair: the grouped int8 allreduce of one backward's
+   gradient leaves, bit for bit the plain form of each fusion bucket,
+   then WIRE_STEPS steps; replicas within a pair bitwise equal, the two
+   pairs' models different.  (c) ``op=Adasum``: WIRE_STEPS steps over
+   all four ranks, the first step's combined gradient of every leaf
+   within rtol 1e-4 and atol 1e-5 of a float64 numpy Adasum tree of the
+   ranks' gradients, then WIRE_STEPS over {0, 1, 2} (pre-fold and
+   post-scatter; rank 3 stays out); replicas bitwise equal.  (d)
+   ``backward_passes_per_step=2`` over each pair: after call 1 the
+   parameters keep their bits, after call 2 they have moved.  B1-B4
+   must have launched; prints the phase's seconds and each rank's peak
+   memory.
+8. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, and B4 and B3
    at rows of 1024 run their vector kernel and at rows of 1023 only
    their scalar one.  It runs last, so that the profiler touches none of
    the timed phases.
-8. Prints the ``kernels`` JSON line (all seven kernels, with their
+9. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -96,6 +117,7 @@ GPT_MEDIUM = dict(vocab_size=32000, n_layer=24, n_head=16, d_model=1024,
                   d_ff=4096, max_seq_len=1024, attention="flash")
 BATCH, SEQ, STEPS = 8, 1024, 5
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
+SET_RANKS = 4                    # the "4 ranks" phase's world
 APPLY_LR = 0.1                   # the fused apply's, as the reference test's
 ADAMW = dict(lr=3e-4, weight_decay=1e-4)
 
@@ -658,16 +680,18 @@ def model_check(dev) -> None:
 
 
 def gpt_medium(dev, n_layer: int = GPT_MEDIUM["n_layer"],
-               data_seed: int = 0):
+               data_seed: int = 0, broadcast: bool = True):
     """(model, batch): GPT-medium (at ``n_layer`` layers) from seed 0 on
-    ``dev``, broadcast from rank 0, and a batch of random tokens from
+    ``dev``, broadcast from rank 0 unless ``broadcast`` is False (a path
+    that not every rank takes), and a batch of random tokens from
     ``data_seed``."""
     import torch
     import horovod_tpu_torch as hvd
 
     cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": n_layer})
     model = hvd.models.GPT(cfg, device=dev, seed=0)
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    if broadcast:
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     gen = torch.Generator(device=dev).manual_seed(data_seed)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1),
                            generator=gen, device=dev)
@@ -922,13 +946,395 @@ def sharded_two_ranks(dev, rank: int) -> dict:
                 apply_err=worst, unshard=errors)
 
 
+def plain_stack_allreduce(xs, op: str):
+    """The eager int8 tier's plain form over the contributions ``xs`` (in
+    rank order within the set): each quantized once by the plain B2 in
+    blocks of ``wire_block_size(numel, n)`` from element 0, summed by the
+    plain B3, divided by n for average.  What ``hvd.allreduce(x,
+    compression=Compression.int8)`` must return, bit for bit."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+    from horovod_tpu_torch.ops.quantization import wire_block_size
+
+    n, numel = len(xs), xs[0].numel()
+    b = wire_block_size(numel, n)
+    qs, ss = zip(*(ik.quantize_blocks_plain(flat_pad(x, b).reshape(-1, b))
+                   for x in xs))
+    acc = ik.dequantize_accumulate_plain(torch.stack(qs), torch.stack(ss))
+    acc = acc.reshape(-1)[:numel].reshape(xs[0].shape)
+    return acc / n if op == "average" else acc
+
+
+def adasum_tree_f64(rows):
+    """The Adasum of ``rows`` (float64 numpy vectors, in rank order) by
+    the reference's tree: the extra members fold into the first, then
+    distance doubling; every product and sum in float64."""
+    import numpy as np
+
+    def pair(a, b):
+        dot, asq, bsq = np.dot(a, b), np.dot(a, a), np.dot(b, b)
+        return ((1.0 - (dot / (2 * asq) if asq > 0 else 0.0)) * a
+                + (1.0 - (dot / (2 * bsq) if bsq > 0 else 0.0)) * b)
+
+    n = len(rows)
+    p = 1 << (n.bit_length() - 1)
+    vals = list(rows)
+    for e in range(n - p):
+        vals[e] = pair(vals[e], vals[p + e])
+    d = 1
+    while d < p:
+        for i in range(0, p, 2 * d):
+            vals[i] = pair(vals[i], vals[i + d])
+        d *= 2
+    return vals[0]
+
+
+def gather_world(t):
+    """Every rank's ``t`` (the same shape on each), ``[world, *shape]``,
+    by an exact all-gather."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    out = t.new_empty(world * t.numel())
+    dist.all_gather_into_tensor(out, t.contiguous().reshape(-1))
+    return out.reshape((world,) + tuple(t.shape))
+
+
+def ragged_rows(rank: int, dev):
+    """Rank ``rank``'s ragged input: 3 * (rank + 1) rows of 5."""
+    import torch
+
+    k = 3 * (rank + 1)
+    return torch.arange(k * 5, dtype=torch.float32, device=dev).reshape(
+        k, 5) + 1000 * rank
+
+
+def ragged_splits(rank: int, n: int):
+    k = 3 * (rank + 1)
+    return [(k * (j + 1)) // n - (k * j) // n for j in range(n)]
+
+
+def eager_api(dev, rank: int, sets: dict) -> dict:
+    """(a) The eager API on CUDA tensors over the global set and over the
+    rank's pair ({0, 2} or {1, 3}, both at once): the int8 allreduce of
+    lm_head's gradient shape (async over the global set), ragged
+    allgather and alltoall, broadcast, reducescatter, barrier, join, and
+    a call on the other pair, which must raise.  Returns the results,
+    checked by :func:`check_eager` after the launch counts are read."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    mine, other = sets["pair"], sets["other pair"]
+    gen = torch.Generator(device=dev).manual_seed(10 + rank)
+    x = torch.randn((GPT_MEDIUM["vocab_size"], GPT_MEDIUM["d_model"]),
+                    generator=gen, device=dev) * (1 + rank)
+    int8 = hvd.Compression.int8
+    h = hvd.allreduce_async(x, compression=int8, name="lm_head.global")
+    poll_before = hvd.poll(h)
+    glob = hvd.synchronize(h)
+    in_pair = hvd.allreduce(x, op=hvd.Sum, compression=int8,
+                            process_set=mine)
+    n = mine.size()
+    ragged = ragged_rows(rank, dev)
+    out = dict(x=x, glob=glob, in_pair=in_pair, poll_before=poll_before,
+               poll_after=hvd.poll(h),
+               gathered=hvd.allgather(ragged, process_set=mine),
+               a2a=hvd.alltoall(ragged, ragged_splits(rank, n),
+                                process_set=mine),
+               bcast=hvd.broadcast(x[:4], mine.ranks[-1], process_set=mine),
+               rs=hvd.reducescatter(x[:8], op=hvd.Average))
+    hvd.barrier(process_set=mine)
+    out["join"] = hvd.join()
+    try:
+        hvd.allreduce(x[:2], process_set=other)
+        out["non_member"] = "no error"
+    except ValueError as exc:
+        out["non_member"] = str(exc)
+    return out
+
+
+def check_eager(rank: int, sets: dict, got: dict) -> dict:
+    """(a)'s checks: the int8 results bit for bit against the tier's plain
+    form over the gathered inputs, the rest against what every rank's
+    inputs give."""
+    import torch
+
+    mine = sets["pair"]
+    xs = gather_world(got["x"])
+    ok = {
+        "int8_global": bitwise_equal(
+            got["glob"], plain_stack_allreduce(list(xs), "average")),
+        "int8_pair": bitwise_equal(
+            got["in_pair"], plain_stack_allreduce([xs[r] for r in mine.ranks],
+                                                  "sum")),
+        "poll_after": got["poll_after"],
+        "join": got["join"] == SET_RANKS - 1,
+        "non_member": "not a member" in got["non_member"],
+    }
+    dev = xs.device
+    ok["ragged_allgather"] = torch.equal(got["gathered"], torch.cat(
+        [ragged_rows(r, dev) for r in mine.ranks]))
+    me, n = mine.ranks.index(rank), mine.size()
+    parts = []
+    for s in mine.ranks:
+        sp = ragged_splits(s, n)
+        parts.append(ragged_rows(s, dev)[sum(sp[:me]):sum(sp[:me + 1])])
+    gathered, received = got["a2a"]
+    ok["ragged_alltoall"] = (torch.equal(gathered, torch.cat(parts)) and
+                             received.tolist() == [ragged_splits(s, n)[me]
+                                                   for s in mine.ranks])
+    ok["broadcast"] = torch.equal(got["bcast"], xs[mine.ranks[-1]][:4])
+    mean = xs[:, :8].sum(0) / SET_RANKS
+    ok["reducescatter"] = torch.allclose(
+        got["rs"], mean[2 * rank:2 * rank + 2], rtol=1e-6, atol=1e-5)
+    return dict(ok=ok, poll_before=got["poll_before"])
+
+
+def set_dp(dev, rank: int, sets: dict) -> dict:
+    """(b) Process-set data parallelism: one model per pair, each rank on
+    its own batch, the int8+EF wire over the pair; first the int8
+    grouped allreduce of one backward's gradient leaves over the pair,
+    then WIRE_STEPS steps."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import tree_flatten
+
+    mine = sets["pair"]
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=20 + rank)
+    loss_fn = hvd.models.lm_loss_fn(model)
+    loss_fn(model, batch).backward()
+    _, grads = tree_flatten({n: p.grad for n, p in model.named_parameters()})
+    grads = [g.clone() for g in grads]
+    grouped = hvd.grouped_allreduce(grads, compression=hvd.Compression.int8,
+                                    process_set=mine)
+    model.zero_grad(set_to_none=True)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        compression=hvd.Compression.int8, error_feedback=True,
+        process_set=mine)
+    step = hvd.make_train_step(loss_fn, opt, process_set=mine)
+    losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    return dict(losses=losses, grads=grads, grouped=grouped,
+                params=digest(p for _, p in sorted(model.named_parameters())))
+
+
+def check_grouped(mine, grads, grouped) -> dict:
+    """(b)'s grouped int8 allreduce, bucket by bucket (the fusion plan the
+    call ran): bit for bit the tier's plain form over the pair's fused
+    buckets, gathered exactly."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import plan_fused_buckets
+
+    buckets = plan_fused_buckets(grads, hvd.config().fusion_threshold)
+    for members in buckets:
+        fused = torch.cat([grads[i].reshape(-1) for i in members])
+        rows = hvd.allgather(fused, process_set=mine).reshape(mine.size(), -1)
+        got = torch.cat([grouped[i].reshape(-1) for i in members])
+        if not bitwise_equal(got, plain_stack_allreduce(list(rows),
+                                                        "average")):
+            raise AssertionError("grouped int8 allreduce differs from its "
+                                 "plain form")
+    return dict(digest=digest(grouped), buckets=len(buckets))
+
+
+def adasum_steps(dev, rank: int, sets: dict) -> dict:
+    """(c) op=Adasum: WIRE_STEPS steps over all ranks (the first taken by
+    hand, so each rank's gradient is kept for the check), then
+    WIRE_STEPS over the set {0, 1, 2} (pre-fold and post-scatter), which
+    rank 3 stays out of."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=30 + rank)
+    loss_fn = hvd.models.lm_loss_fn(model)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW), op=hvd.Adasum,
+        named_parameters=model.named_parameters())
+    loss_fn(model, batch).backward()
+    out["local"] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.step()
+    out["combined"] = {n: p.grad.clone()
+                       for n, p in model.named_parameters()}
+    step = hvd.make_train_step(loss_fn, opt)
+    out["losses"] = [float(step(model, batch))
+                     for _ in range(WIRE_STEPS - 1)]
+    out["params"] = digest(p for _, p in sorted(model.named_parameters()))
+    del model, opt, step
+    three = sets["first three"]
+    if three.included():
+        model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS,
+                                  data_seed=40 + rank, broadcast=False)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), **ADAMW), op=hvd.Adasum,
+            process_set=three)
+        step = hvd.make_train_step(hvd.models.lm_loss_fn(model), opt,
+                                   process_set=three)
+        out["losses_three"] = [float(step(model, batch))
+                               for _ in range(WIRE_STEPS)]
+        out["params_three"] = digest(
+            p for _, p in sorted(model.named_parameters()))
+    return out
+
+
+def check_adasum(rank: int, local: dict, combined: dict) -> float:
+    """(c)'s first step: every leaf's combined gradient against the
+    float64 numpy Adasum tree of the ranks' gradients, rtol 1e-4 and atol
+    1e-5 (``tests/test_adasum.py``'s).  Every rank joins the gathers;
+    rank 0 checks.  Returns the largest error over the limit's scale."""
+    import numpy as np
+
+    worst = 0.0
+    for name in sorted(local):
+        rows = gather_world(local[name].reshape(-1))
+        if rank:
+            continue
+        rows = rows.double().cpu().numpy()
+        want = adasum_tree_f64(list(rows))
+        got = combined[name].reshape(-1).double().cpu().numpy()
+        scale = 1e-5 + 1e-4 * np.abs(want)
+        ratio = float((np.abs(got - want) / scale).max())
+        if ratio > 1.0:
+            raise AssertionError(f"Adasum of {name} off the float64 tree: "
+                                 f"{ratio} x the tolerance")
+        worst = max(worst, ratio)
+    return worst
+
+
+def accumulation(dev, rank: int, sets: dict) -> dict:
+    """(d) backward_passes_per_step=2 over the pair: call 1 only adds the
+    gradients up (the parameters keep their bits), call 2 reduces and
+    steps."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    mine = sets["pair"]
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=50 + rank)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        backward_passes_per_step=2, process_set=mine)
+    step = hvd.make_train_step(hvd.models.lm_loss_fn(model), opt,
+                               process_set=mine)
+
+    def params():
+        return digest(p for _, p in sorted(model.named_parameters()))
+
+    digests = [params()]
+    losses = []
+    for _ in range(2):
+        losses.append(float(step(model, batch)))
+        digests.append(params())
+    return dict(losses=losses, digests=digests)
+
+
+def set_ranks(dev, rank: int) -> dict:
+    """Path "4 ranks": (a)-(d) with the launch counts set to 0 just before
+    and read just after, then the checks."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    sets = {"pair": None, "other pair": None}
+    for ranks in ([0, 2], [1, 3]):             # collective, in this order
+        ps = hvd.add_process_set(ranks)
+        sets["pair" if rank in ranks else "other pair"] = ps
+    sets["first three"] = hvd.add_process_set([0, 1, 2])
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = eager_api(dev, rank, sets)
+    dp = set_dp(dev, rank, sets)
+    ada = adasum_steps(dev, rank, sets)
+    acc = accumulation(dev, rank, sets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    eager_ok = check_eager(rank, sets, eager)
+    grouped = check_grouped(sets["pair"], dp.pop("grads"), dp.pop("grouped"))
+    adasum_err = check_adasum(rank, ada.pop("local"), ada.pop("combined"))
+    hvd.barrier()                 # leave together: rank 0 checked last
+    return dict(counts=counts, seconds=seconds, peak=peak, eager=eager_ok,
+                dp=dp, grouped=grouped, adasum=ada, adasum_err=adasum_err,
+                acc=acc, pair=list(sets["pair"].ranks))
+
+
+def four_rank_phase():
+    """Path "4 ranks": the collective API, process-set data parallelism,
+    Adasum and gradient accumulation (``set_ranks``), four processes
+    sharing the card over gloo.  Returns rank 0's launch counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(SET_WORKER_FLAG, SET_RANKS)
+    return check_four_ranks(res, time.perf_counter() - t0)
+
+
+def check_four_ranks(res: list, seconds: float):
+    """The "4 ranks" checks across the ranks' results; logs them and
+    returns rank 0's launch counts."""
+    for r, out in enumerate(res):
+        bad = [k for k, v in out["eager"]["ok"].items() if not v]
+        if bad:
+            raise AssertionError(f"4 ranks: rank {r}'s eager API failed {bad}")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks",
+                     "dequantize_accumulate"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the 4 ranks "
+                                     f"path (rank {r})")
+        losses = (out["dp"]["losses"] + out["adasum"]["losses"]
+                  + out["acc"]["losses"]
+                  + out["adasum"].get("losses_three", []))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"4 ranks: non-finite loss on rank {r}")
+        d = out["acc"]["digests"]
+        if not (d[1] == d[0] and d[2] != d[0]):
+            raise AssertionError("4 ranks: backward_passes_per_step=2 moved "
+                                 "the parameters on call 1 or not on call 2")
+
+    def same(key, ranks):
+        return len({key(res[r]) for r in ranks}) == 1
+
+    for pair in ([0, 2], [1, 3]):
+        for what, key in (("params", lambda o: o["dp"]["params"]),
+                          ("grouped", lambda o: o["grouped"]["digest"]),
+                          ("accumulation", lambda o: o["acc"]["digests"][2])):
+            if not same(key, pair):
+                raise AssertionError(f"4 ranks: set {pair}'s replicas differ "
+                                     f"({what})")
+    if res[0]["dp"]["params"] == res[1]["dp"]["params"]:
+        raise AssertionError("4 ranks: the two sets' models should differ")
+    if not same(lambda o: o["adasum"]["params"], range(SET_RANKS)):
+        raise AssertionError("4 ranks: Adasum replicas differ")
+    if not same(lambda o: o["adasum"]["params_three"], range(3)):
+        raise AssertionError("4 ranks: Adasum replicas of {0, 1, 2} differ")
+    r0 = res[0]
+    shape = [GPT_MEDIUM["vocab_size"], GPT_MEDIUM["d_model"]]
+    log(f"4 ranks: eager int8 allreduce of {shape} bitwise "
+        f"its plain form over the global set and both pairs; poll before "
+        f"the wait {[o['eager']['poll_before'] for o in res]}, after True")
+    log(f"4 ranks: pair DP losses {[o['dp']['losses'] for o in res]}; "
+        f"grouped int8 allreduce of the gradient leaves bitwise its plain "
+        f"form over {r0['grouped']['buckets']} fusion buckets")
+    log(f"4 ranks: Adasum losses {r0['adasum']['losses']}, over {{0, 1, 2}} "
+        f"{r0['adasum']['losses_three']}; first step within "
+        f"{r0['adasum_err']} of the float64 tree's tolerance (limit 1)")
+    log(f"4 ranks: accumulation losses {[o['acc']['losses'] for o in res]}")
+    log(f"4 ranks: {seconds:.1f} s for the phase, {[round(o['seconds'], 1) for o in res]} "
+        f"s of path per rank; peak memory per rank "
+        f"{[round(o['peak'] / 2**30, 2) for o in res]} GiB; launches "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
 WORKER_FLAG = "--two-rank-worker"
+SET_WORKER_FLAG = "--four-rank-worker"
 
 
-def two_rank_worker(rank: int, tmp: str) -> None:
-    """One rank of the two-rank phases, run as
-    ``chip_smoke.py --two-rank-worker RANK DIR``: joins the gloo world
-    through ``DIR/store`` and writes its results to ``DIR/rank<RANK>.json``."""
+def rank_worker(flag: str, rank: int, tmp: str) -> None:
+    """One rank of a multi-rank phase, run as ``chip_smoke.py FLAG RANK
+    DIR``: joins the gloo world of the flag's size through ``DIR/store``,
+    runs the phase's path and writes its results to
+    ``DIR/rank<RANK>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -936,16 +1342,20 @@ def two_rank_worker(rank: int, tmp: str) -> None:
     import horovod_tpu_torch as hvd
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    world = WIRE_RANKS if flag == WORKER_FLAG else SET_RANKS
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
-                            rank=rank, world_size=WIRE_RANKS)
+                            rank=rank, world_size=world)
     hvd.init(device="cuda:0")
     try:
-        dp = dp_two_ranks(hvd.device(), rank)
-        torch.cuda.empty_cache()
-        sharded = sharded_two_ranks(hvd.device(), rank)
+        if flag == WORKER_FLAG:
+            dp = dp_two_ranks(hvd.device(), rank)
+            torch.cuda.empty_cache()
+            res = dict(dp=dp, sharded=sharded_two_ranks(hvd.device(), rank))
+        else:
+            res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-            json.dump(dict(dp=dp, sharded=sharded), f)
+            json.dump(res, f)
     finally:
         hvd.shutdown()
         dist.destroy_process_group()
@@ -962,21 +1372,18 @@ def child_processes() -> list:
     return pids
 
 
-def two_rank_phase():
-    """The paths that only two ranks reach: the int8 wire's reduce-scatter
-    (kernel dequantize_accumulate) and the sharded optimizer's fused
-    kernels.  NCCL refuses two ranks on one device, so the two processes
-    share the card over gloo, which stages CUDA tensors through the host.
-    GPT-medium's widths at WIRE_LAYERS layers.  The ranks are plain
-    subprocesses of this script (multiprocessing would leave its resource
-    tracker running), each waited for or killed before this returns."""
+def spawn_ranks(flag: str, world: int) -> list:
+    """Run ``world`` ranks of a phase as plain subprocesses of this script
+    (multiprocessing would leave its resource tracker running), each
+    waited for or killed before this returns; their results in rank
+    order.  NCCL refuses several ranks on one device, so they share the
+    card over gloo, which stages CUDA tensors through the host."""
     import tempfile
 
     script = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen([sys.executable, script, WORKER_FLAG,
-                                   str(r), tmp])
-                 for r in range(WIRE_RANKS)]
+        procs = [subprocess.Popen([sys.executable, script, flag, str(r), tmp])
+                 for r in range(world)]
         deadline = time.monotonic() + 600
         try:
             while (any(p.poll() is None for p in procs)
@@ -990,12 +1397,20 @@ def two_rank_phase():
                 p.wait()
         codes = [p.returncode for p in procs]
         if any(codes):
-            raise AssertionError(f"two-rank phase: exit codes {codes}")
-        out = {}
-        for r in range(WIRE_RANKS):
+            raise AssertionError(f"{flag}: exit codes {codes}")
+        out = []
+        for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                res = json.load(f)
-            out[r] = (res["dp"], res["sharded"])
+                out.append(json.load(f))
+    return out
+
+
+def two_rank_phase():
+    """The paths that only two ranks reach: the int8 wire's reduce-scatter
+    (kernel dequantize_accumulate) and the sharded optimizer's fused
+    kernels, at GPT-medium's widths and WIRE_LAYERS layers."""
+    out = {r: (res["dp"], res["sharded"])
+           for r, res in enumerate(spawn_ranks(WORKER_FLAG, WIRE_RANKS))}
     (dp0, sh0), (dp1, sh1) = out[0], out[1]
     for path, a, b, kernels in (
             ("2 ranks", dp0, dp1, ("flash_fwd", "quantize_blocks",
@@ -1062,11 +1477,13 @@ def main() -> int:
         zero_counts = zero_phase(dev, card, dp_tok_s, dp_peak)
         torch.cuda.empty_cache()
         wire_counts, sharded_counts = two_rank_phase()
+        set_counts = four_rank_phase()
         route_check(dev)
     finally:
         hvd.shutdown()
     by_path = {"1 rank": counts, "zero 1 rank": zero_counts,
-               "2 ranks": wire_counts, "sharded 2 ranks": sharded_counts}
+               "2 ranks": wire_counts, "sharded 2 ranks": sharded_counts,
+               "4 ranks": set_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -1086,7 +1503,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == [WORKER_FLAG]:
-        two_rank_worker(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] in ([WORKER_FLAG], [SET_WORKER_FLAG]):
+        rank_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -21,21 +21,42 @@ shards, lr=3e-4), compression=hvd.Compression.int8)``; the fused
 collectives (int8 wire, all-gather + SGD/Adam apply, the FSDP unshard
 matmul ``hvd.optim.unshard_matmul``) are in ``hvd.ops``.
 
+The Horovod collective API runs over process sets: ``ps =
+hvd.add_process_set([0, 2])`` (collective: every rank calls it), then
+``hvd.allreduce(x, process_set=ps)``, ``hvd.allreduce_async`` +
+``hvd.synchronize``, ``hvd.grouped_allreduce``, ``op=hvd.Adasum`` and
+the rest; ``DistributedOptimizer`` takes ``process_set=``,
+``op=hvd.Adasum`` and ``backward_passes_per_step=``.
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
 
 from .basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
-    device, config, NotInitializedError,
+    cross_rank, cross_size, is_homogeneous, device, config,
+    NotInitializedError, nccl_built, gloo_built, mpi_built, cuda_built,
+    rocm_built, ccl_built, ddl_built, xla_built, gloo_enabled, mpi_enabled,
+    xla_enabled, mpi_threads_supported,
 )
 from .config import Config  # noqa: F401
+from .process_sets import (  # noqa: F401
+    ProcessSet, add_process_set, remove_process_set, global_process_set,
+)
 from .ops import (  # noqa: F401
-    Average, Sum, Min, Max, Product,
-    allreduce, allgather, alltoall, broadcast, Compression,
+    Average, Sum, Adasum, Min, Max, Product, Compression, Handle,
+    synchronize, poll,
+    allreduce, allreduce_async, allreduce_, allreduce_async_,
+    grouped_allreduce, grouped_allreduce_async, grouped_allreduce_,
+    grouped_allreduce_async_, sparse_allreduce_async,
+    allgather, allgather_async, grouped_allgather, grouped_allgather_async,
+    broadcast, broadcast_async, broadcast_, broadcast_async_,
+    alltoall, alltoall_async, reducescatter, reducescatter_async,
+    grouped_reducescatter, grouped_reducescatter_async, barrier, join,
 )
 from .functions import (  # noqa: F401
-    broadcast_parameters, broadcast_optimizer_state,
+    broadcast_parameters, broadcast_optimizer_state, broadcast_object,
+    allgather_object,
 )
 from .optim import (  # noqa: F401
     DistributedOptimizer, make_train_step, make_zero_train_step,

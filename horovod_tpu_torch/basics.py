@@ -1,4 +1,5 @@
-"""Process model: init / shutdown / rank / size / local_rank / device.
+"""Process model: init / shutdown / rank / size / local_rank / device,
+the node layout (``cross_rank``, ``cross_size``) and the feature matrix.
 
 Counterpart of ``horovod_tpu/basics.py`` over ``torch.distributed``: one
 process per card, as in the reference Horovod.  :func:`init` with no
@@ -8,9 +9,12 @@ no CUDA device; it never drops to the CPU on its own.
 is how the tests run it.
 
 The world comes from torchrun's environment (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``)
-when it is set, from a process group the caller already initialised,
-or else is a world of one on a free local TCP port.
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``/``GROUP_WORLD_SIZE``
+for the node, ``MASTER_ADDR``/``MASTER_PORT``) when it is set, from a
+process group the caller already initialised, or else is a world of one
+on a free local TCP port.  A world without the node variables is one
+node.  The session owns the process-set table
+(:mod:`horovod_tpu_torch.process_sets`); :func:`shutdown` clears it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from .config import Config
+from .process_sets import ProcessSetTable
 
 
 class NotInitializedError(RuntimeError):
@@ -39,9 +44,12 @@ class _Session:
     size: int
     local_rank: int
     local_size: int
+    cross_rank: int
+    cross_size: int
     device: torch.device
     config: Config
     owns_group: bool           # False when the caller initialised it
+    process_sets: ProcessSetTable
 
 
 _session: Optional[_Session] = None
@@ -92,17 +100,22 @@ def init(device: Union[str, torch.device, None] = None) -> None:
                 init_method=f"tcp://127.0.0.1:{_free_port()}",
                 rank=0, world_size=1, **kwargs)
     size = dist.get_world_size()
+    local_size = int(env.get("LOCAL_WORLD_SIZE", size))
     _session = _Session(
         rank=dist.get_rank(), size=size, local_rank=local_rank,
-        local_size=int(env.get("LOCAL_WORLD_SIZE", size)), device=dev,
-        config=Config.from_env(), owns_group=owns)
+        local_size=local_size, cross_rank=int(env.get("GROUP_RANK", 0)),
+        cross_size=int(env.get("GROUP_WORLD_SIZE", -(-size // local_size))),
+        device=dev, config=Config.from_env(), owns_group=owns,
+        process_sets=ProcessSetTable(size))
 
 
 def shutdown() -> None:
-    """Leave the process group (if :func:`init` created it)."""
+    """Drop the process sets and leave the process group (if :func:`init`
+    created it)."""
     global _session
     if _session is None:
         return
+    _session.process_sets.clear()
     if _session.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _session = None
@@ -134,6 +147,23 @@ def local_size() -> int:
     return _require().local_size
 
 
+def cross_rank() -> int:
+    """This rank's node (torchrun's ``GROUP_RANK``; 0 on one node)."""
+    return _require().cross_rank
+
+
+def cross_size() -> int:
+    """The number of nodes (``GROUP_WORLD_SIZE``, else ``size /
+    local_size``)."""
+    return _require().cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every node runs ``local_size`` ranks."""
+    s = _require()
+    return s.size == s.local_size * s.cross_size
+
+
 def device() -> torch.device:
     """This rank's device: ``cuda:<local_rank>`` unless :func:`init` was
     given another."""
@@ -142,3 +172,69 @@ def device() -> torch.device:
 
 def config() -> Config:
     return _require().config
+
+
+# --- feature matrix (reference: hvd.nccl_built() and friends): what this
+#     torch build and session really have ---------------------------------
+
+def nccl_built() -> int:
+    """NCCL's version code (``NCCL_VERSION_CODE``: 22105 for 2.21.5) when
+    torch has NCCL, else 0."""
+    if not (dist.is_nccl_available() and torch.cuda.is_available()):
+        return 0
+    major, minor, patch = torch.cuda.nccl.version()[:3]
+    if (major, minor) >= (2, 9):
+        return major * 10000 + minor * 100 + patch
+    return major * 1000 + minor * 100 + patch
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def ccl_built() -> bool:
+    """False: the port runs no oneCCL backend."""
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    """False: collectives run over ``torch.distributed``, not XLA."""
+    return False
+
+
+def _backend() -> str:
+    _require()
+    return str(dist.get_backend()).lower()
+
+
+def gloo_enabled() -> bool:
+    return _backend() == "gloo"
+
+
+def mpi_enabled() -> bool:
+    return _backend() == "mpi"
+
+
+def xla_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    """False: the port drives no MPI library of its own."""
+    return False

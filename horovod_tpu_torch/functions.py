@@ -1,18 +1,23 @@
-"""Start every rank from the root's parameters and optimizer state.
+"""Start every rank from the root's parameters and optimizer state, and
+move Python objects between ranks.
 
 Counterpart of ``horovod_tpu/functions.py`` (reference:
 ``horovod/torch/functions.py``): tensors are broadcast in place, one by
-one, from ``root_rank``.
+one, from ``root_rank``; an object is pickled into a uint8 tensor on the
+rank's device and rides :func:`~.ops.collectives.broadcast` (its length
+first) or the ragged :func:`~.ops.collectives.allgather`.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Tuple, Union
+import pickle
+from typing import Any, Iterable, List, Mapping, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from . import basics
+from .ops import collectives as C
 
 
 def broadcast_parameters(
@@ -51,3 +56,38 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     dist.broadcast_object_list(box, src=root_rank)
     for group, root_group in zip(optimizer.param_groups, box[0]):
         group.update(root_group)
+
+
+def _to_bytes(obj: Any) -> torch.Tensor:
+    return torch.frombuffer(bytearray(pickle.dumps(obj)),
+                            dtype=torch.uint8).to(basics.device())
+
+
+def _from_bytes(t: torch.Tensor) -> Any:
+    return pickle.loads(t.cpu().numpy().tobytes())
+
+
+def broadcast_object(obj: Any, root_rank: int = 0, *, process_set=None,
+                     name: str = "broadcast_object") -> Any:
+    """Reference: ``hvd.broadcast_object``: every member gets (an
+    unpickled copy of) ``root_rank``'s ``obj``."""
+    payload = _to_bytes(obj) if basics.rank() == root_rank else None
+    length = torch.tensor([0 if payload is None else payload.numel()],
+                          dtype=torch.int64, device=basics.device())
+    length = C.broadcast(length, root_rank, process_set=process_set,
+                         name=f"{name}.length")
+    if payload is None:
+        payload = torch.empty(int(length.item()), dtype=torch.uint8,
+                              device=basics.device())
+    return _from_bytes(C.broadcast(payload, root_rank,
+                                   process_set=process_set, name=name))
+
+
+def allgather_object(obj: Any, *, process_set=None,
+                     name: str = "allgather_object") -> List[Any]:
+    """Reference: ``hvd.allgather_object``: the list of every member's
+    ``obj``, in member order (the pickles may differ in length)."""
+    handle, lengths = C.allgather_start(
+        _to_bytes(obj), C.set_group(process_set, name), name)
+    return [_from_bytes(part)
+            for part in torch.split(handle.wait(), lengths)]

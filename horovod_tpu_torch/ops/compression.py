@@ -1,20 +1,31 @@
-"""Gradient wire compression: ``Compression.none/fp16/bf16/int8``.
+"""Wire compression: ``Compression.none/fp16/bf16/int8``.
 
 Counterpart of ``horovod_tpu/ops/compression.py``.  A compressor owns
-how an allreduce or a reduce-scatter moves its bytes
-(:meth:`Compressor.spmd_allreduce`, :meth:`Compressor.spmd_reducescatter`)
-and what this rank's lossy transport discards
-(:meth:`Compressor.local_error`, the error-feedback residual).  The
-cast tiers compose compress → allreduce → decompress; the int8 tier
-runs its own quantized decomposition (:mod:`.quantization`).
+how an allreduce or a reduce-scatter moves its bytes and what this
+rank's lossy transport discards (:meth:`Compressor.local_error`, the
+error-feedback residual).  It has two allreduce tiers, as the reference
+has:
+
+- the gradient wire, :meth:`Compressor.spmd_allreduce` (and
+  :meth:`Compressor.spmd_reducescatter`), which the train steps run;
+- the eager tier, :meth:`Compressor.eager_allreduce_async`, which
+  ``hvd.allreduce`` and ``hvd.grouped_allreduce`` run.
+
+The cast tiers compose compress → allreduce → decompress on both.  On
+int8 the gradient wire is the quantized reduce-scatter + all-gather
+(:func:`.quantization.int8_allreduce`) and the eager tier the stack
+tier (:func:`.quantization.int8_stack_allreduce_async`): each rank's
+tensor quantized once, gathered, and summed in f32.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from . import collectives
-from .quantization import int8_allreduce, int8_reducescatter, quant_dequant
+from .quantization import (int8_allreduce, int8_reducescatter,
+                           int8_stack_allreduce_async, quant_dequant)
 
 
 class Compressor:
@@ -47,6 +58,24 @@ class Compressor:
         wire, ctx = cls.compress(x)
         red = collectives.reducescatter_raw(wire, op, group=group)
         return cls.decompress(red, ctx)
+
+    @classmethod
+    def eager_allreduce_async(cls, x, *, op, group=None):
+        """The eager Sum/Average (reference: ``_reduce_stack``): the sum
+        on this tier's wire, then decompress, then (Average) the divide
+        by ``n`` in ``x``'s dtype, in the handle's finish step."""
+        n = dist.get_world_size(group)
+        wire, ctx = cls.compress(x)
+        out = wire.clone().contiguous()
+        work = dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group,
+                               async_op=True)
+
+        def finish():
+            r = cls.decompress(out, ctx)
+            r = collectives.divide(r, n) if op == collectives.Average else r
+            return r.to(x.dtype)
+
+        return collectives.Handle([work], finish)
 
 
 class NoneCompressor(Compressor):
@@ -82,9 +111,9 @@ class BF16Compressor(FP16Compressor):
 class Int8Compressor(Compressor):
     """Int8 transport with per-block f32 scales: about 4× fewer wire
     bytes than float32, every sum in f32.  The transport lives in
-    :meth:`spmd_allreduce` and :meth:`spmd_reducescatter`;
-    ``compress``/``decompress`` are the identity
-    (the port has no in-process stack tier to simulate)."""
+    :meth:`spmd_allreduce`, :meth:`spmd_reducescatter` and
+    :meth:`eager_allreduce_async`; ``compress``/``decompress`` are the
+    identity."""
 
     wire_itemsize = 1
 
@@ -110,6 +139,12 @@ class Int8Compressor(Compressor):
         if not x.is_floating_point():
             return super().spmd_allreduce(x, op=op, group=group)
         return int8_allreduce(x, op=op, group=group)
+
+    @classmethod
+    def eager_allreduce_async(cls, x, *, op, group=None):
+        if not x.is_floating_point():
+            return super().eager_allreduce_async(x, op=op, group=group)
+        return int8_stack_allreduce_async(x, op=op, group=group)
 
     @classmethod
     def spmd_reducescatter(cls, x, *, op, group=None):

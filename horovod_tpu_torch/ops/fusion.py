@@ -52,27 +52,36 @@ def tree_flatten(tree: Mapping[str, torch.Tensor],
     return names, [tree[n] for n in names]
 
 
-def fused_apply(leaves: Sequence[torch.Tensor],
-                collective_1d: Callable[[torch.Tensor], torch.Tensor],
-                threshold: int) -> List[torch.Tensor]:
-    """Apply ``collective_1d`` to ``leaves`` with fusion: per dtype (in
-    order of first appearance), bucket by bytes, concatenate, reduce
-    once, split back to each leaf's shape."""
-    out: List[torch.Tensor] = [None] * len(leaves)  # type: ignore[list-item]
+def plan_fused_buckets(leaves: Sequence[torch.Tensor],
+                       threshold: int) -> List[List[int]]:
+    """The fusion plan of ``leaves``: per dtype (in order of first
+    appearance), their indices bucketed greedily in order by bytes."""
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, leaf in enumerate(leaves):
         by_dtype.setdefault(leaf.dtype, []).append(i)
+    plan = []
     for dtype, idxs in by_dtype.items():
         itemsize = torch.empty((), dtype=dtype).element_size()
         sizes = [leaves[i].numel() * itemsize for i in idxs]
-        for bucket in plan_buckets_py(sizes, threshold):
-            members = [idxs[j] for j in bucket]
-            flats = [leaves[i].reshape(-1) for i in members]
-            fused = torch.cat(flats) if len(flats) > 1 else flats[0]
-            reduced = collective_1d(fused)
-            pieces = torch.split(reduced, [f.numel() for f in flats])
-            for i, piece in zip(members, pieces):
-                out[i] = piece.reshape(leaves[i].shape)
+        plan += [[idxs[j] for j in bucket]
+                 for bucket in plan_buckets_py(sizes, threshold)]
+    return plan
+
+
+def fused_apply(leaves: Sequence[torch.Tensor],
+                collective_1d: Callable[[torch.Tensor], torch.Tensor],
+                threshold: int) -> List[torch.Tensor]:
+    """Apply ``collective_1d`` to ``leaves`` with fusion
+    (:func:`plan_fused_buckets`): concatenate each bucket, reduce it
+    once, split it back to each leaf's shape."""
+    out: List[torch.Tensor] = [None] * len(leaves)  # type: ignore[list-item]
+    for members in plan_fused_buckets(leaves, threshold):
+        flats = [leaves[i].reshape(-1) for i in members]
+        fused = torch.cat(flats) if len(flats) > 1 else flats[0]
+        reduced = collective_1d(fused)
+        pieces = torch.split(reduced, [f.numel() for f in flats])
+        for i, piece in zip(members, pieces):
+            out[i] = piece.reshape(leaves[i].shape)
     return out
 
 

@@ -13,7 +13,14 @@ pad and ``n == 1`` rules.  The allreduce is four phases:
 4. dequantize every shard → the full result.
 
 The arithmetic of phases 1–4 is the kernels' of
-:mod:`.int8_kernels`.  The JAX package has two tiers here (plain XLA,
+:mod:`.int8_kernels`.
+
+The eager ``hvd.allreduce(compression=Compression.int8)`` runs another
+tier, :func:`int8_stack_allreduce_async`, with the numerics of the
+reference's eager API (``simulate_int8_stack_reduce``): each rank's
+whole tensor is quantized **once**, in blocks counted from its element 0,
+gathered, and summed in f32, at ``n == 1`` too.  It cannot reuse the
+reduce-scatter, whose blocks are counted per destination chunk.  The JAX package has two tiers here (plain XLA,
 and Pallas under ``HVD_TPU_TOPO_KERNEL=pallas``); the port has this one
 wire, which runs its kernels in every phase and so is the fused tier
 too (:mod:`.fused_collectives` exports it under the Pallas tier's
@@ -25,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .collectives import Handle
 from .int8_kernels import (dequantize_accumulate, dequantize_blocks,
                            quantize_blocks)
 
@@ -129,6 +137,45 @@ def int8_allreduce(x: torch.Tensor, *, op: str = "sum", group=None,
     if pad:
         out = out[:-pad]
     return out.reshape(x.shape).to(x.dtype)
+
+
+def int8_stack_allreduce_async(x: torch.Tensor, *, op: str = "sum",
+                               group=None, block_size: int = 1024) -> Handle:
+    """Start the eager int8 allreduce over ``group`` (reference:
+    ``Int8Compressor.compress_stack`` → ``simulate_int8_stack_reduce``
+    → the f32 sum): quantize this rank's flat tensor (B2) in blocks of
+    ``wire_block_size(numel, n)`` from element 0, the tail zero padded;
+    all-gather payload and scales; in the handle's finish step sum the
+    ``n`` contributions in rank order (B3) and divide by ``n`` for
+    Average.  Every member ends with the same f32 bits; the result has
+    ``x``'s shape and dtype."""
+    _check_op(op)
+    n = _world(group)
+    flat = x.detach().to(torch.float32).reshape(-1)
+    numel = flat.numel()
+    b = wire_block_size(numel, n, block_size)
+    pad = (-numel) % b
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    m = flat.numel() // b
+    q, s = quantize_blocks(flat.reshape(m, b))
+    works = []
+    if n > 1:
+        q_all, s_all = q.new_empty((n * m, b)), s.new_empty(n * m)
+        works = [dist.all_gather_into_tensor(q_all, q, group=group,
+                                             async_op=True),
+                 dist.all_gather_into_tensor(s_all, s, group=group,
+                                             async_op=True)]
+        q, s = q_all, s_all
+
+    def finish():
+        acc = dequantize_accumulate(q.reshape(n, m, b),
+                                    s.reshape(n, m)).reshape(-1)[:numel]
+        if op == "average":
+            acc = acc / n
+        return acc.reshape(x.shape).to(x.dtype)
+
+    return Handle(works, finish)
 
 
 def quant_dequant(x: torch.Tensor, block_size: int = 1024) -> torch.Tensor:

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""The "4 ranks" path of ``chip_smoke.py`` over NCCL, one rank per card.
+
+    python3 scripts/torch_port_sets_nccl.py      # on a host with 4 cards
+
+``chip_smoke.py`` runs its four ranks on one card over gloo, since NCCL
+refuses several ranks on one device.  This script runs the same path
+(``chip_smoke.set_ranks``: the eager collective API over the global set
+and the pairs {0, 2} and {1, 3}, data parallelism per pair on the int8+EF
+wire, Adasum over all four and over {0, 1, 2},
+``backward_passes_per_step=2``) with ``hvd.init()``'s own backend, NCCL,
+one process per card with the environment torchrun would give it, and
+holds the results to the same checks (``chip_smoke.check_four_ranks``).
+It prints each card's name and power limit, and exits non-zero, with no
+result line, on a failure or with fewer than four cards.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER_FLAG = "--nccl-worker"
+
+
+def worker(rank: int, tmp: str) -> None:
+    sys.path.insert(0, ROOT)
+    import torch
+    import chip_smoke as cs
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()                                   # cuda:<LOCAL_RANK>, NCCL
+    try:
+        res = cs.set_ranks(hvd.device(), rank)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        hvd.shutdown()
+
+
+def main() -> int:
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        print("torch_port_sets_nccl: needs 4 CUDA cards", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import horovod_tpu_torch as hvd
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    hvd.ops.build_kernels()                      # once, before the ranks
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = cs.SET_RANKS
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), WORKER_FLAG,
+                 str(r), tmp], env=env))
+        deadline = time.monotonic() + 600
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.returncode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            print(f"torch_port_sets_nccl: exit codes {codes}", file=sys.stderr)
+            return 1
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        counts = cs.check_four_ranks(res, time.perf_counter() - t0)
+    print(json.dumps({"backend": "nccl", "cards": world, "launches": counts,
+                      "seconds_per_rank": [o["seconds"] for o in res],
+                      "peak_bytes": [o["peak"] for o in res]}))
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == [WORKER_FLAG]:
+        worker(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    sys.exit(main())

@@ -333,3 +333,31 @@ def test_kernel_refuses_what_it_cannot_take(card):
         fa.flash_fwd(q3, q3, q3, 1.0, False)
     with pytest.raises(ValueError, match="contiguous"):
         ik.quantize_blocks(torch.randn((8, 4), device=card).t())
+
+
+def _eager_int8_plain(x, n=1):
+    """The eager int8 tier's plain form at n = 1: the plain B2 over blocks
+    of wire_block_size(numel, 1) from element 0, the plain B3 of the one
+    contribution, divided by n."""
+    flat = x.reshape(-1)
+    b = q8.wire_block_size(flat.numel(), n)
+    padded, pad = kc.pad_dim(flat, b)
+    q, s = ik.quantize_blocks_plain(padded.reshape(-1, b))
+    acc = ik.dequantize_accumulate_plain(q[None], s[None]).reshape(-1)
+    return (acc[:flat.numel()] / n).reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape", [(3000,), (10001,), (33, 1024)])
+def test_eager_int8_tier_world_of_one_bitwise(card, shape):
+    """The eager int8 allreduce's tier with no process group (n = 1, as a
+    world of one runs it) on ragged and whole blocks: B2 and B3 launch
+    once each, and the result is its plain form's bits and the CPU's."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(len(shape)))
+    kc.reset_launch_counts()
+    out = q8.int8_stack_allreduce_async(x.to(card), op="average").wait()
+    counts = kc.launch_counts()
+    assert counts["quantize_blocks"] == counts["dequantize_accumulate"] == 1
+    assert _same_bits(out, _eager_int8_plain(x.to(card)))
+    assert _same_bits(out.cpu(),
+                      q8.int8_stack_allreduce_async(x, op="average").wait())
+    assert (out.cpu() - x).abs().max().item() > 0

@@ -118,7 +118,7 @@ def collectives(x: np.ndarray, splits) -> dict:
         "bf16": hvd.allreduce(t, compression=hvd.Compression.bf16).numpy(),
         "max": hvd.allreduce(t, op=hvd.Max).numpy(),
         "allgather": hvd.allgather(t).numpy(),
-        "alltoall": hvd.alltoall(t, splits=splits).numpy(),
+        "alltoall": hvd.alltoall(t, splits=splits)[0].numpy(),
         "broadcast": hvd.broadcast(t, root_rank=1).numpy(),
     }
 
@@ -185,14 +185,18 @@ def _knobs(env: dict):
 def train_gpt(config: dict, params: dict, tokens: np.ndarray,
               compression: str, error_feedback: bool, steps: int,
               wrap: bool = True, zero: bool = False,
-              env: dict = None) -> dict:
+              env: dict = None, op: str = "average", sets=None,
+              backward_passes_per_step: int = 1) -> dict:
     """``steps`` data-parallel AdamW steps of the port's GPT from the
-    given flax-layout params; this rank trains on its half of the global
+    given flax-layout params; this rank trains on its rows of the global
     batch.  ``wrap=False`` hands the step a plain torch optimizer, so the
     step itself allreduces; ``zero=True`` takes ZeRO-1 steps
     (``make_zero_train_step``) and also returns the shapes of this
     rank's optimizer state.  ``env`` sets knobs (``HOROVOD_*``) for these
-    steps only."""
+    steps only.  ``op``, ``sets`` (this rank reduces over its set of
+    them) and ``backward_passes_per_step`` go to the DistributedOptimizer
+    and the step; ``moved`` says after each step whether any parameter
+    changed."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import GPT, GPTConfig, load_jax_params
 
@@ -201,21 +205,29 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
     load_jax_params(model, params)
     comp = getattr(hvd.Compression, compression)
     loss_fn = hvd.models.lm_loss_fn(model)
+    ps = _mine(sets) if sets else None
     if zero:
         step = hvd.make_zero_train_step(
             loss_fn, _adamw, compression=comp, error_feedback=error_feedback)
     elif wrap:
         step = hvd.make_train_step(loss_fn, hvd.DistributedOptimizer(
             _adamw(model.parameters()), compression=comp,
-            error_feedback=error_feedback))
+            error_feedback=error_feedback, op=op, process_set=ps,
+            backward_passes_per_step=backward_passes_per_step),
+            process_set=ps)
     else:
         step = hvd.make_train_step(loss_fn, _adamw(model.parameters()),
                                    compression=comp)
     mine = _my_rows(tokens)
     batch = (mine[:, :-1], mine[:, 1:])
+    losses, moved = [], []
     with _knobs(env or {}):
-        losses = [float(step(model, batch)) for _ in range(steps)]
-    out = {"losses": losses,
+        for _ in range(steps):
+            before = [p.detach().clone() for p in model.parameters()]
+            losses.append(float(step(model, batch)))
+            moved.append(any(not torch.equal(a, p) for a, p in
+                             zip(before, model.parameters())))
+    out = {"losses": losses, "moved": moved,
            "params": {n: p.detach().numpy().copy()
                       for n, p in model.named_parameters()}}
     if zero:
@@ -294,3 +306,171 @@ def fused_wire(x: np.ndarray, shard: np.ndarray, op: str) -> dict:
                                                    op=op).numpy(),
             "ag": fc.fused_quantize_allgather(torch.from_numpy(shard)).numpy(),
             "ar": fc.fused_allreduce(torch.from_numpy(x), op=op).numpy()}
+
+
+# --- process sets and the eager API -------------------------------------------
+
+_SETS = {}
+
+
+def _set(ranks):
+    """The registered process set of ``ranks`` (the global set for every
+    rank).  Registering is collective, so every rank calls this for the
+    same ranks in the same order."""
+    import horovod_tpu_torch as hvd
+
+    ranks = tuple(sorted(ranks))
+    if len(ranks) == hvd.size():
+        return hvd.global_process_set()
+    ps = _SETS.get(ranks)
+    if ps is None or ps.process_set_id is None:
+        ps = _SETS[ranks] = hvd.add_process_set(list(ranks))
+    return ps
+
+
+def _mine(sets):
+    """Register every set of ``sets`` (in order) and return the one that
+    holds this rank, or None."""
+    import horovod_tpu_torch as hvd
+
+    registered = [_set(s) for s in sets]
+    return next((ps for ps in registered if ps.included()), None)
+
+
+def eager_int8(x: np.ndarray, leaves: list, op: str, sets) -> dict:
+    """The eager int8 allreduce and grouped allreduce over this rank's
+    set of ``sets``."""
+    import horovod_tpu_torch as hvd
+
+    ps = _mine(sets)
+    int8 = hvd.Compression.int8
+    return {
+        "allreduce": hvd.allreduce(torch.from_numpy(x), op=op,
+                                   compression=int8, process_set=ps).numpy(),
+        "grouped": [r.numpy() for r in hvd.grouped_allreduce(
+            [torch.from_numpy(v) for v in leaves], op=op, compression=int8,
+            process_set=ps)]}
+
+
+def eager_ops(x: np.ndarray, y: np.ndarray, ints: np.ndarray,
+              ragged: np.ndarray, splits: list, sets) -> dict:
+    """Every eager op over this rank's set of ``sets``, its async,
+    grouped and in-place forms, and the errors a rank meets outside its
+    set."""
+    import horovod_tpu_torch as hvd
+
+    ps = _mine(sets)
+    others = [_set(s) for s in sets if hvd.rank() not in s]
+    t, u = torch.from_numpy(x), torch.from_numpy(y)
+    root = ps.ranks[-1]
+    out = {"members": list(ps.ranks)}
+    for op in ("sum", "average", "min", "max", "product"):
+        out[op] = hvd.allreduce(t, op=op, process_set=ps).numpy()
+    out["scaled"] = hvd.allreduce(t, op=hvd.Sum, prescale_factor=0.5,
+                                  postscale_factor=3.0, process_set=ps).numpy()
+    for comp in ("fp16", "bf16"):
+        out[comp] = hvd.allreduce(
+            t, compression=getattr(hvd.Compression, comp),
+            process_set=ps).numpy()
+    out["int_average"] = hvd.allreduce(torch.from_numpy(ints),
+                                       process_set=ps).numpy()
+    out["grouped"] = [r.numpy() for r in hvd.grouped_allreduce(
+        [t, torch.from_numpy(ints), u], op=hvd.Sum, process_set=ps)]
+    out["allgather"] = hvd.allgather(t, process_set=ps).numpy()
+    out["broadcast"] = hvd.broadcast(t, root, process_set=ps).numpy()
+    out["alltoall"] = hvd.alltoall(t, process_set=ps).numpy()
+    out["reducescatter"] = hvd.reducescatter(t, process_set=ps).numpy()
+    out["reducescatter_avg"] = hvd.reducescatter(t, op=hvd.Average,
+                                                 process_set=ps).numpy()
+    out["grouped_reducescatter"] = [r.numpy() for r in
+                                    hvd.grouped_reducescatter(
+                                        [t, u], process_set=ps)]
+    # ragged: dim 0 differs by rank
+    out["ragged_allgather"] = hvd.allgather(torch.from_numpy(ragged),
+                                            process_set=ps).numpy()
+    gathered, received = hvd.alltoall(torch.from_numpy(ragged), splits,
+                                      process_set=ps)
+    out["ragged_alltoall"] = (gathered.numpy(), received.tolist())
+    # async and in-place forms
+    h = hvd.allreduce_async(t, op=hvd.Sum, process_set=ps)
+    out["poll_before"] = hvd.poll(h)
+    out["async_sum"] = hvd.synchronize(h).numpy()
+    out["poll_after"] = hvd.poll(h)
+    inplace = t.clone()
+    same = hvd.allreduce_(inplace, op=hvd.Sum, process_set=ps)
+    out["allreduce_"] = (same is inplace, inplace.numpy())
+    inplace = t.clone()
+    h = hvd.broadcast_async_(inplace, root, process_set=ps)
+    out["broadcast_async_"] = (hvd.synchronize(h) is inplace, inplace.numpy())
+    pair = [t.clone(), u.clone()]
+    h = hvd.grouped_allreduce_async_(pair, op=hvd.Sum, process_set=ps)
+    out["grouped_allreduce_async_"] = [r.numpy() for r in hvd.synchronize(h)]
+    out["grouped_inplace_is_input"] = all(
+        a is b for a, b in zip(hvd.synchronize(h), pair))
+    h = hvd.grouped_allgather_async([t, torch.from_numpy(ragged)],
+                                    process_set=ps)
+    out["grouped_allgather"] = [r.numpy() for r in hvd.synchronize(h)]
+    h = hvd.grouped_reducescatter_async([t, u], op=hvd.Average,
+                                        process_set=ps)
+    out["grouped_reducescatter_avg"] = [r.numpy() for r in
+                                        hvd.synchronize(h)]
+    h = hvd.alltoall_async(torch.from_numpy(ragged), splits, process_set=ps)
+    out["alltoall_async"] = hvd.synchronize(h)[0].numpy()
+    sparse = torch.sparse_coo_tensor(
+        torch.tensor([[hvd.rank(), 4]]), torch.tensor([1.0, 2.0]), (6,))
+    out["sparse"] = hvd.synchronize(hvd.sparse_allreduce_async(
+        sparse, op=hvd.Sum, process_set=ps)).to_dense().numpy()
+    # objects, barrier, join
+    out["broadcast_object"] = hvd.broadcast_object(
+        {"from": hvd.rank()}, root_rank=root, process_set=ps)
+    out["allgather_object"] = hvd.allgather_object(
+        ["rank", hvd.rank()] * (hvd.rank() + 1), process_set=ps)
+    hvd.barrier(process_set=ps)
+    out["join"] = hvd.join()
+    # what a rank outside a set meets: ValueError, before any call
+    errors = []
+    for other in others:
+        for fn in (lambda: hvd.allreduce(t, process_set=other),
+                   lambda: hvd.allgather(t, process_set=other),
+                   lambda: hvd.barrier(process_set=other)):
+            try:
+                fn()
+                errors.append("no error")
+            except ValueError as exc:
+                errors.append(str(exc))
+    if others:
+        w = torch.nn.Parameter(torch.ones(3))
+        w.grad = torch.ones(3)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                       named_parameters=[("w", w)],
+                                       process_set=others[0])
+        try:
+            opt.step()
+            errors.append("no error")
+        except ValueError as exc:
+            errors.append(str(exc))
+        try:
+            hvd.broadcast(t, others[0].ranks[0], process_set=ps)
+            errors.append("no error")
+        except ValueError as exc:
+            errors.append(str(exc))
+    out["errors"] = errors
+    out["ids"] = [p.process_set_id for p in [ps] + others]
+    return out
+
+
+def adasum(xs: list, sets) -> list:
+    """``op=Adasum`` over this rank's set of ``sets`` (None outside
+    every set): the allreduce of each of ``xs``, then their grouped
+    allreduce."""
+    import horovod_tpu_torch as hvd
+
+    ps = _mine(sets)
+    if ps is None:
+        return None
+    ts = [torch.from_numpy(x) for x in xs]
+    single = [hvd.allreduce(t, op=hvd.Adasum, process_set=ps).numpy()
+              for t in ts]
+    grouped = [r.numpy() for r in hvd.grouped_allreduce(
+        ts, op=hvd.Adasum, process_set=ps)]
+    return [single, grouped]
