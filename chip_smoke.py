@@ -36,6 +36,10 @@
    bf16 activations) with AdamW and the int8 wire with error feedback,
    in a one-rank NCCL world, from a seed.  Every loss must be finite,
    and the flash, quantize and dequantize kernels must have launched.
+   Then the chunked LM head on the same model: one forward and backward
+   with the dense loss and one with ``vocab_chunk_size=1024``, the losses
+   within rtol 1e-5 and lm_head's gradient within rtol 1e-4 / atol 1e-6,
+   each one's peak memory printed.
 5. ZeRO phase ("zero 1 rank"): the same model, batch and optimizer
    through ``make_zero_train_step`` (optimizer state on the rank's flat
    shards, int8+EF reduce-scatter wire, exact parameter all-gather), five
@@ -64,7 +68,10 @@
    API on CUDA tensors: the int8 allreduce of lm_head's gradient shape
    over the global set (async: ``poll`` before and after the wait) and
    over each pair, bit for bit the tier's plain form (plain B2 and B3
-   over the gathered inputs); ragged allgather and alltoall, broadcast,
+   over the gathered inputs), and of its bf16 cast over the global set,
+   bit for bit the reference's rounding in plain form (plain B2 and B4,
+   each contribution rounded to bf16, an f32 sum in rank order rounded
+   once, the divide in bf16); ragged allgather and alltoall, broadcast,
    reducescatter, barrier and join against what the inputs give; a call
    on the other pair must raise.  (b) One model per pair on the int8+EF
    wire over the pair: the grouped int8 allreduce of one backward's
@@ -79,13 +86,28 @@
    parameters keep their bits, after call 2 they have moved.  B1-B4
    must have launched; prints the phase's seconds and each rank's peak
    memory.
-8. Route check: the profiler's device trace must show a bf16
+8. "microbatch 2 ranks": two processes share the card over gloo, at
+   GPT-medium's full width and depth, each rank on its own batch of 8:
+   ``make_train_step(lm_loss_fn(model, vocab_chunk_size=1024),
+   AdamW, compression=int8, microbatches=4)`` (the overlap wire: each
+   microbatch's reduce-scatter started before the next one's backward,
+   one all-gather at the update), 3 steps.  (a) Step 1's reduced
+   gradient bit for bit the plain B2-B4 composition over the captured
+   per-microbatch gradients (each microbatch's reduce-scatter added into
+   accumulators from zero, one all-gather, / 4); (b) one step with
+   ``two_phase=True`` and one microbatch from the same weights, its
+   reduced gradients bit for bit the single-phase int8 allreduce of the
+   same gradients; (c) replicas bitwise equal after every step; (d)
+   finite losses; (e) B1-B4 launched.  Prints the phase's seconds, each
+   rank's peak memory and the step times with the overlap wire and with
+   ``overlap=False`` (gloo on one card: not a wire's time).
+9. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, and B4 and B3
    at rows of 1024 run their vector kernel and at rows of 1023 only
    their scalar one.  It runs last, so that the profiler touches none of
    the timed phases.
-9. Prints the ``kernels`` JSON line (all seven kernels, with their
+10. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -118,6 +140,8 @@ GPT_MEDIUM = dict(vocab_size=32000, n_layer=24, n_head=16, d_model=1024,
 BATCH, SEQ, STEPS = 8, 1024, 5
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
 SET_RANKS = 4                    # the "4 ranks" phase's world
+MICROBATCHES, MB_STEPS = 4, 3    # the "microbatch 2 ranks" phase's
+VOCAB_CHUNK = 1024               # tokens a chunk of the chunked LM head
 APPLY_LR = 0.1                   # the fused apply's, as the reference test's
 ADAMW = dict(lr=3e-4, weight_decay=1e-4)
 
@@ -181,8 +205,10 @@ def bitwise_equal(a, b) -> bool:
     """Same shape and bits; NaN matches NaN whatever its payload."""
     import torch
 
-    if a.shape != b.shape:
+    if a.shape != b.shape or a.dtype != b.dtype:
         return False
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
     if a.dtype == torch.float32:
         nan = a.isnan()
         if not torch.equal(nan, b.isnan()):
@@ -965,6 +991,28 @@ def plain_stack_allreduce(xs, op: str):
     return acc / n if op == "average" else acc
 
 
+def plain_half_stack_allreduce(xs, op: str):
+    """The eager int8 tier's plain form for bf16 or f16 contributions
+    ``xs`` (in rank order): each quantized once by the plain B2 as
+    :func:`plain_stack_allreduce` does, dequantized by the plain B4 and
+    rounded to the dtype; the rounded rows added in f32 in rank order
+    from zero, the sum rounded to the dtype once, divided by n in the
+    dtype for average (the reference's rounding, ROADMAP F4)."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+    from horovod_tpu_torch.ops.quantization import wire_block_size
+
+    n, numel, dtype = len(xs), xs[0].numel(), xs[0].dtype
+    b = wire_block_size(numel, n)
+    acc = torch.zeros(numel, dtype=torch.float32, device=xs[0].device)
+    for x in xs:
+        q, s = ik.quantize_blocks_plain(flat_pad(x.float(), b).reshape(-1, b))
+        row = ik.dequantize_blocks_plain(q, s).reshape(-1)[:numel].to(dtype)
+        acc = acc + row.float()
+    r = acc.to(dtype)
+    return (r / n if op == "average" else r).reshape(xs[0].shape)
+
+
 def adasum_tree_f64(rows):
     """The Adasum of ``rows`` (float64 numpy vectors, in rank order) by
     the reference's tree: the extra members fold into the first, then
@@ -1034,9 +1082,12 @@ def eager_api(dev, rank: int, sets: dict) -> dict:
     glob = hvd.synchronize(h)
     in_pair = hvd.allreduce(x, op=hvd.Sum, compression=int8,
                             process_set=mine)
+    half = hvd.allreduce(x.to(torch.bfloat16), compression=int8,
+                         name="lm_head.bf16")
     n = mine.size()
     ragged = ragged_rows(rank, dev)
-    out = dict(x=x, glob=glob, in_pair=in_pair, poll_before=poll_before,
+    out = dict(x=x, glob=glob, in_pair=in_pair, half=half,
+               poll_before=poll_before,
                poll_after=hvd.poll(h),
                gathered=hvd.allgather(ragged, process_set=mine),
                a2a=hvd.alltoall(ragged, ragged_splits(rank, n),
@@ -1067,6 +1118,9 @@ def check_eager(rank: int, sets: dict, got: dict) -> dict:
         "int8_pair": bitwise_equal(
             got["in_pair"], plain_stack_allreduce([xs[r] for r in mine.ranks],
                                                   "sum")),
+        "int8_bf16_global": bitwise_equal(
+            got["half"], plain_half_stack_allreduce(
+                list(xs.to(torch.bfloat16)), "average")),
         "poll_after": got["poll_after"],
         "join": got["join"] == SET_RANKS - 1,
         "non_member": "not a member" in got["non_member"],
@@ -1310,8 +1364,10 @@ def check_four_ranks(res: list, seconds: float):
     r0 = res[0]
     shape = [GPT_MEDIUM["vocab_size"], GPT_MEDIUM["d_model"]]
     log(f"4 ranks: eager int8 allreduce of {shape} bitwise "
-        f"its plain form over the global set and both pairs; poll before "
-        f"the wait {[o['eager']['poll_before'] for o in res]}, after True")
+        f"its plain form over the global set and both pairs, and of its "
+        f"bf16 cast over the global set (each contribution rounded to bf16 "
+        f"before the f32 sum); poll before the wait "
+        f"{[o['eager']['poll_before'] for o in res]}, after True")
     log(f"4 ranks: pair DP losses {[o['dp']['losses'] for o in res]}; "
         f"grouped int8 allreduce of the gradient leaves bitwise its plain "
         f"form over {r0['grouped']['buckets']} fusion buckets")
@@ -1326,8 +1382,264 @@ def check_four_ranks(res: list, seconds: float):
     return r0["counts"]
 
 
+def xent_check(dev) -> None:
+    """Part of "1 rank": the chunked LM head on the full-depth model.
+    One forward and backward with the dense ``lm_loss_fn`` and one with
+    ``vocab_chunk_size=VOCAB_CHUNK``, same weights and batch: the losses
+    within rtol 1e-5 and lm_head's gradient within rtol 1e-4 / atol 1e-6
+    (``tests/test_xent.py``'s tolerances); logs each one's peak memory."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    model, batch = gpt_medium(dev)
+    runs = {}
+    for chunk in (0, VOCAB_CHUNK):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = hvd.models.lm_loss_fn(model, vocab_chunk_size=chunk)(model,
+                                                                    batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[chunk] = (float(loss.detach()),
+                       model.lm_head.kernel.grad.clone(),
+                       torch.cuda.max_memory_allocated(), base)
+    (dense, g_dense, peak_dense, base), (chunked, g_chunked, peak_chunked,
+                                         _) = runs[0], runs[VOCAB_CHUNK]
+    err = float((g_chunked - g_dense).abs().max())
+    if not (math.isfinite(dense) and abs(chunked - dense) <= 1e-5 * abs(dense)
+            and torch.allclose(g_chunked, g_dense, rtol=1e-4, atol=1e-6)):
+        raise AssertionError(f"chunked LM head: loss {chunked} against the "
+                             f"dense {dense}, lm_head gradient off by {err}")
+    log(f"xent: GPT-medium batch {BATCH}, loss dense {dense} chunked "
+        f"{chunked} (chunk {VOCAB_CHUNK}), lm_head gradient max_abs_err "
+        f"{err}; peak memory dense {peak_dense / 2**30:.3f} GiB, chunked "
+        f"{peak_chunked / 2**30:.3f} GiB ({(peak_dense - peak_chunked) / 2**30:.3f}"
+        f" GiB saved; {base / 2**30:.3f} GiB held before each)")
+
+
+def plain_allgather(shards):
+    """The int8 all-gather's plain form over every rank's shard (in rank
+    order): each quantized by the plain B2 in blocks of min(1024, k), the
+    tail zero padded, and dequantized by the plain B4."""
+    import torch
+    from horovod_tpu_torch.ops import int8_kernels as ik
+
+    out = []
+    for shard in shards:
+        k = shard.numel()
+        b = max(1, min(1024, k))
+        q, s = ik.quantize_blocks_plain(flat_pad(shard, b).reshape(-1, b))
+        out.append(ik.dequantize_blocks_plain(q, s).reshape(-1)[:k])
+    return torch.cat(out)
+
+
+def plain_overlap_grads(captured, plan, dev):
+    """Step 1's reduced gradients built from the plain versions of B2-B4
+    over the per-microbatch gradient leaves this rank captured (every
+    rank's, gathered exactly, bucket by bucket): each microbatch's
+    reduce-scatter of every rank's shard added into accumulators from
+    zero in microbatch order, then one all-gather, then / MICROBATCHES.
+    What the overlap wire must give, bit for bit."""
+    import torch
+
+    n = plan.n
+    out = [None] * len(captured[0])
+    for bi, members in enumerate(plan.members):
+        acc = [torch.zeros(plan.shard_elems[bi], device=dev)
+               for _ in range(n)]
+        for leaves in captured:
+            flat = torch.cat([leaves[j].reshape(-1) for j in members]).to(dev)
+            flats = list(gather_world(flat_pad(flat, n)))
+            acc = [a + plain_reducescatter(flats, r)
+                   for r, a in enumerate(acc)]
+        full = plain_allgather(acc)[:plan.payload[bi]]
+        for j, piece in zip(members, torch.split(full, plan.cols[bi])):
+            out[j] = piece.reshape(captured[0][j].shape) / MICROBATCHES
+    return out
+
+
+def mb_step(model, **kwargs):
+    """The slice's step: AdamW, the int8 wire, MICROBATCHES microbatches
+    (the overlap wire unless ``overlap=False``) and the chunked LM head."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    kwargs.setdefault("microbatches", MICROBATCHES)
+    return hvd.make_train_step(
+        hvd.models.lm_loss_fn(model, vocab_chunk_size=VOCAB_CHUNK),
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        compression=hvd.Compression.int8, **kwargs)
+
+
+def microbatch_ranks(dev, rank: int) -> dict:
+    """Path "microbatch 2 ranks" (and, over NCCL on four cards,
+    ``scripts/torch_port_sets_nccl.py --microbatch``): MB_STEPS steps of :func:`mb_step` on
+    full-depth GPT-medium, each rank on its own batch of BATCH rows, the
+    launch counts set to 0 just before and read just after; step 1's
+    per-microbatch gradients are captured at the overlap wire's entry.
+    Then (a) step 1's reduced gradients against
+    :func:`plain_overlap_grads`; (b) one step with ``two_phase=True``
+    and one microbatch from the starting weights, its reduced gradients
+    against the single-phase int8 allreduce of the same gradients; and
+    the step time with ``overlap=False``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.fusion import tree_flatten
+
+    model, batch = gpt_medium(dev, data_seed=1 + rank)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = mb_step(model)
+    captured, plans = [], []
+    wire = fusion.overlap_reduce_scatter
+
+    def capture(leaves, plan, **kwargs):
+        if len(captured) < MICROBATCHES:
+            captured.append([g.detach().cpu() for g in leaves])
+            plans.append(plan)
+        return wire(leaves, plan, **kwargs)
+
+    losses, digests, times = [], [], []
+    fusion.overlap_reduce_scatter = capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hvd.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(MB_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(model, batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                reduced = [p.grad.detach().clone() for p in tree_flatten(
+                    dict(model.named_parameters()))[1]]
+            digests.append(digest(p for _, p in
+                                  sorted(model.named_parameters())))
+        seconds = time.perf_counter() - t0
+        counts = hvd.ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        fusion.overlap_reduce_scatter = wire
+
+    # (a) the overlap wire against the plain composition.
+    want = plain_overlap_grads(captured, plans[0], dev)
+    plan_ok = all(p == plans[0] for p in plans)
+    a_bad = [j for j, (g, w) in enumerate(zip(reduced, want))
+             if not bitwise_equal(g, w)]
+    buckets = len(plans[0].members)
+    del captured, want, reduced
+
+    # (b) two-phase against single-phase, on the same gradients.
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+    del start
+    seen = {}
+    two_phase = fusion.fused_two_phase_apply
+
+    def capture_two_phase(leaves, **kwargs):
+        seen["in"] = [g.detach().clone() for g in leaves]
+        seen["out"] = two_phase(leaves, **kwargs)
+        seen["threshold"] = kwargs["threshold"]
+        return seen["out"]
+
+    fusion.fused_two_phase_apply = capture_two_phase
+    try:
+        tp_loss = float(mb_step(model, microbatches=1, two_phase=True)(
+            model, batch))
+    finally:
+        fusion.fused_two_phase_apply = two_phase
+    single = fusion.fused_apply(
+        seen["in"], lambda f: hvd.Compression.int8.spmd_allreduce(
+            f, op="average"), seen["threshold"])
+    b_bad = [j for j, (g, w) in enumerate(zip(seen["out"], single))
+             if not bitwise_equal(g, w)]
+    sizes = [sum(seen["in"][i].numel() * 4 for i in bucket)
+             for bucket in fusion.plan_fused_buckets(seen["in"],
+                                                     seen["threshold"])]
+    flags = fusion.plan_two_phase_flags(
+        sizes, hvd.size(), hvd.config().cost_alpha_us,
+        hvd.config().cost_beta_gbps)
+    del seen, single
+
+    # The same step without the overlap wire, timed.
+    off = mb_step(model, overlap=False)
+    off_times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        float(off(model, batch))
+        torch.cuda.synchronize()
+        off_times.append(time.perf_counter() - t)
+    return dict(losses=losses, digests=digests, times=times,
+                off_times=off_times, seconds=seconds, counts=counts,
+                peak=peak, plan_ok=plan_ok, a_bad=a_bad, buckets=buckets,
+                b_bad=b_bad, two_phase_buckets=sum(flags),
+                tp_loss=tp_loss)
+
+
+def microbatch_phase():
+    """Path "microbatch 2 ranks", two processes sharing the card over
+    gloo (:func:`microbatch_ranks`, :func:`check_microbatch`).  Returns
+    rank 0's launch counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(MB_WORKER_FLAG, WIRE_RANKS)
+    return check_microbatch(res, time.perf_counter() - t0,
+                            "microbatch 2 ranks",
+                            "gloo staging through the host, both ranks on "
+                            "one card: not a wire's time")
+
+
+def check_microbatch(res: list, seconds: float, label: str, wire: str):
+    """The checks across every rank's results of :func:`microbatch_ranks`;
+    logs them (the step times with ``wire``, what carried the
+    collectives) and returns rank 0's launch counts."""
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"] + [out["tp_loss"]]):
+            raise AssertionError(f"{label}: non-finite loss on "
+                                 f"rank {r}: {out['losses']}")
+        if not out["plan_ok"] or out["a_bad"]:
+            raise AssertionError(
+                f"{label}: step 1's reduced gradient differs from "
+                f"the plain composition on rank {r} (leaves {out['a_bad']})")
+        if out["b_bad"]:
+            raise AssertionError(
+                f"{label}: two-phase differs from single-phase on "
+                f"rank {r} (leaves {out['b_bad']})")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_accumulate",
+                     "dequantize_blocks"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"{label} path (rank {r})")
+    if any(out["digests"] != res[0]["digests"] for out in res):
+        raise AssertionError(f"{label}: replicas differ")
+    r0 = res[0]
+    log(f"{label}: GPT-medium, all {GPT_MEDIUM['n_layer']} layers, "
+        f"batch {BATCH} a rank in {MICROBATCHES} microbatches, int8 overlap "
+        f"wire over {r0['buckets']} buckets, chunked head ({VOCAB_CHUNK}); "
+        f"losses {[o['losses'] for o in res]}; replicas bitwise equal after "
+        f"every step")
+    log(f"{label}: (a) step 1's reduced gradient bitwise the plain "
+        f"B2-B4 composition (accumulate from zero, one all-gather, "
+        f"/ {MICROBATCHES}); (b) two_phase=True bitwise the single-phase "
+        f"int8 allreduce ({r0['two_phase_buckets']} buckets decomposed)")
+    log(f"{label}: {seconds:.1f} s for the phase, "
+        f"{[round(o['seconds'], 1) for o in res]} s of path per rank; peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"launches {r0['counts']}")
+    log(f"{label}: step seconds with the overlap wire "
+        f"{[o['times'] for o in res]}, with overlap=False "
+        f"{[o['off_times'] for o in res]} ({wire})")
+    return r0["counts"]
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
+MB_WORKER_FLAG = "--microbatch-worker"
+WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -1342,7 +1654,7 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
     import horovod_tpu_torch as hvd
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    world = WIRE_RANKS if flag == WORKER_FLAG else SET_RANKS
+    world = SET_RANKS if flag == SET_WORKER_FLAG else WIRE_RANKS
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
                             rank=rank, world_size=world)
@@ -1352,6 +1664,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             dp = dp_two_ranks(hvd.device(), rank)
             torch.cuda.empty_cache()
             res = dict(dp=dp, sharded=sharded_two_ranks(hvd.device(), rank))
+        elif flag == MB_WORKER_FLAG:
+            res = microbatch_ranks(hvd.device(), rank)
         else:
             res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -1474,16 +1788,19 @@ def main() -> int:
         model_check(dev)
         counts, dp_tok_s, dp_peak = train_phase(dev, card)
         torch.cuda.empty_cache()
+        xent_check(dev)
+        torch.cuda.empty_cache()
         zero_counts = zero_phase(dev, card, dp_tok_s, dp_peak)
         torch.cuda.empty_cache()
         wire_counts, sharded_counts = two_rank_phase()
         set_counts = four_rank_phase()
+        mb_counts = microbatch_phase()
         route_check(dev)
     finally:
         hvd.shutdown()
     by_path = {"1 rank": counts, "zero 1 rank": zero_counts,
                "2 ranks": wire_counts, "sharded 2 ranks": sharded_counts,
-               "4 ranks": set_counts}
+               "4 ranks": set_counts, "microbatch 2 ranks": mb_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -1503,7 +1820,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in ([WORKER_FLAG], [SET_WORKER_FLAG]):
+    if sys.argv[1:2] and sys.argv[1] in WORKER_FLAGS:
         rank_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     sys.exit(main())

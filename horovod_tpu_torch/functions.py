@@ -39,22 +39,47 @@ def broadcast_parameters(
 
 
 def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
-    """Overwrite ``optimizer``'s tensor state (moments, step counts) and
-    hyperparameters with ``root_rank``'s.  State the root has not
-    created yet (before the first step) is left as it is."""
+    """Overwrite ``optimizer``'s state (moments, step counts) and
+    hyperparameters with ``root_rank``'s.
+
+    The root's layout goes first (``broadcast_object``): for every
+    parameter with state, each entry's key and, for a tensor, its shape,
+    dtype and whether it lives on the parameter's device.  A rank that
+    lacks an entry (it has not stepped yet, while the root resumed)
+    creates it, so every rank then broadcasts the same tensors in the
+    same order, sorted by parameter index and key.  Entries the root has
+    not created yet are left as they are."""
     basics._require()
-    state = optimizer.state_dict()
-    tensors = {}
-    for pid, pstate in state["state"].items():
-        for key, val in pstate.items():
-            if torch.is_tensor(val):
-                tensors[f"{pid}.{key}"] = val
-    broadcast_parameters(tensors, root_rank)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    layout = {}
+    if basics.rank() == root_rank:
+        for i, p in enumerate(params):
+            for key, val in optimizer.state.get(p, {}).items():
+                layout.setdefault(i, {})[key] = (
+                    (tuple(val.shape), val.dtype, val.device == p.device)
+                    if torch.is_tensor(val) else ("value", val))
     groups = [{k: v for k, v in g.items() if k != "params"}
-              for g in state["param_groups"]]
-    box = [groups]
-    dist.broadcast_object_list(box, src=root_rank)
-    for group, root_group in zip(optimizer.param_groups, box[0]):
+              for g in optimizer.param_groups]
+    layout, groups = broadcast_object((layout, groups), root_rank)
+    tensors = {}
+    for i in sorted(layout):
+        p = params[i]
+        state = optimizer.state[p]
+        for key in sorted(layout[i]):
+            spec = layout[i][key]
+            if spec[0] == "value":
+                state[key] = spec[1]
+                continue
+            shape, dtype, on_param = spec
+            val = state.get(key)
+            if not (torch.is_tensor(val) and tuple(val.shape) == shape
+                    and val.dtype == dtype):
+                val = state[key] = torch.zeros(
+                    shape, dtype=dtype,
+                    device=p.device if on_param else "cpu")
+            tensors[f"{i:09d}.{key}"] = val
+    broadcast_parameters(tensors, root_rank)
+    for group, root_group in zip(optimizer.param_groups, groups):
         group.update(root_group)
 
 

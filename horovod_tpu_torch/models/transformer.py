@@ -211,21 +211,41 @@ class GPT(nn.Module):
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, init)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, torch.float32, init)
 
-    def forward(self, tokens):
+    def forward(self, tokens, return_hidden: bool = False):
+        """Logits, or with ``return_hidden`` the pre-head activations
+        ``[B, T, d_model]`` (after ``ln_f``), for the chunked loss
+        (:mod:`..ops.xent`), which runs the head product itself."""
         cfg = self.config
         t = tokens.shape[1]
         x = self.embed(tokens) + self.pos_embed[None, :t].to(cfg.dtype)
         for i in range(cfg.n_layer):
             x = getattr(self, f"block_{i}")(x)
-        return self.lm_head(self.ln_f(x))
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x)
 
 
-def lm_loss_fn(model: GPT) -> Callable:
+def lm_loss_fn(model: GPT, *, vocab_chunk_size: int = 0) -> Callable:
     """Next-token cross-entropy: ``loss_fn(model, (inputs, targets))``
     with both ``[B, T]`` (targets pre-shifted), the mean over tokens of
     ``-log_softmax(logits)[target]``.  The step passes the model it
-    trains, as the reference's step passes its params."""
+    trains, as the reference's step passes its params.
+
+    ``vocab_chunk_size > 0`` takes the chunked head
+    (:func:`..ops.xent.chunked_lm_xent`): the ``[B, T, V]`` logits are
+    never materialized; equal to the dense loss at f32 tolerance."""
     del model  # the module in training is the step's argument
+    if vocab_chunk_size:
+        from ..ops.xent import chunked_lm_xent
+
+        def chunked_loss_fn(module: nn.Module, batch) -> torch.Tensor:
+            inputs, targets = batch
+            hidden = module(inputs, return_hidden=True)
+            return chunked_lm_xent(hidden, module.lm_head.kernel, targets,
+                                   chunk_size=vocab_chunk_size)
+
+        return chunked_loss_fn
 
     def loss_fn(module: nn.Module, batch) -> torch.Tensor:
         inputs, targets = batch

@@ -163,13 +163,6 @@ def reduce_raw(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
     return divide(out, dist.get_world_size(group)) if op == Average else out
 
 
-def reducescatter_raw(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
-    """The exact reduce-scatter over dim 0 (reference:
-    ``spmd.reducescatter``): rank ``i`` gets the ``i``-th of ``n`` equal
-    dim-0 pieces of the sum, divided by ``n`` for Average."""
-    return _reducescatter_start(x, op, group, "reducescatter").wait()
-
-
 # --- allreduce ------------------------------------------------------------------
 
 def _reduce_start(x: torch.Tensor, op: str, group, compression) -> Handle:
@@ -428,8 +421,11 @@ def alltoall(tensor: torch.Tensor, splits=None, **kwargs):
 
 # --- reducescatter --------------------------------------------------------------
 
-def _reducescatter_start(x: torch.Tensor, op: str, group,
-                         name: str) -> Handle:
+def reducescatter_start(x: torch.Tensor, op: str, group,
+                        name: str) -> Handle:
+    """Start the exact reduce-scatter of ``x`` over dim 0 and ``group``
+    (reference: ``spmd.reducescatter``): rank ``i`` gets the ``i``-th of
+    ``n`` equal dim-0 pieces of the sum, divided by ``n`` for Average."""
     if op not in (Sum, Average):
         raise ValueError(f"{name} supports Sum/Average, got {op!r}")
     n = dist.get_world_size(group)
@@ -449,8 +445,8 @@ def reducescatter_async(tensor: torch.Tensor, *, op: str = Sum,
                         name: str = "reducescatter") -> Handle:
     """Reference: ``hvd.reducescatter``: reduce, then this member keeps
     its dim-0 piece (dim 0 must divide by the set's size)."""
-    return _reducescatter_start(tensor, op, set_group(process_set, name),
-                                name)
+    return reducescatter_start(tensor, op, set_group(process_set, name),
+                               name)
 
 
 def reducescatter(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -477,7 +473,7 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor], *,
     started = []
     for members in plan_fused_buckets(xs, basics.config().fusion_threshold):
         fused = torch.cat([xs[i].reshape(n, -1) for i in members], dim=1)
-        started.append((members, _reducescatter_start(
+        started.append((members, reducescatter_start(
             fused.reshape(-1), op, group, name)))
 
     def finish():

@@ -6,8 +6,10 @@ rank's lossy transport discards (:meth:`Compressor.local_error`, the
 error-feedback residual).  It has two allreduce tiers, as the reference
 has:
 
-- the gradient wire, :meth:`Compressor.spmd_allreduce` (and
-  :meth:`Compressor.spmd_reducescatter`), which the train steps run;
+- the gradient wire, :meth:`Compressor.spmd_allreduce` (and its two
+  phases :meth:`Compressor.spmd_reducescatter` and
+  :meth:`Compressor.spmd_allgather`, each with an ``_async`` form
+  returning a :class:`.collectives.Handle`), which the train steps run;
 - the eager tier, :meth:`Compressor.eager_allreduce_async`, which
   ``hvd.allreduce`` and ``hvd.grouped_allreduce`` run.
 
@@ -24,7 +26,8 @@ import torch
 import torch.distributed as dist
 
 from . import collectives
-from .quantization import (int8_allreduce, int8_reducescatter,
+from .quantization import (int8_allgather_start, int8_allreduce,
+                           int8_reducescatter_start,
                            int8_stack_allreduce_async, quant_dequant)
 
 
@@ -55,9 +58,35 @@ class Compressor:
     def spmd_reducescatter(cls, x, *, op, group=None):
         """Reduce-scatter over dim 0 on this tier's wire: this rank's
         ``1/n`` piece of the reduction (ZeRO's gradient wire)."""
+        return cls.spmd_reducescatter_async(x, op=op, group=group).wait()
+
+    @classmethod
+    def spmd_reducescatter_async(cls, x, *, op, group=None):
+        """:meth:`spmd_reducescatter` started: a :class:`Handle` whose
+        result is the piece (the two-phase and overlap wires keep
+        several in flight)."""
         wire, ctx = cls.compress(x)
-        red = collectives.reducescatter_raw(wire, op, group=group)
-        return cls.decompress(red, ctx)
+        return collectives.reducescatter_start(
+            wire, op, group, "spmd_reducescatter").then(
+            lambda red: cls.decompress(red, ctx))
+
+    @classmethod
+    def spmd_allgather(cls, x, *, group=None):
+        """The all-gather phase of the two-phase (reduce-scatter →
+        all-gather) allreduce: compress this rank's shard, gather every
+        rank's on the narrow wire along dim 0, decompress once."""
+        return cls.spmd_allgather_async(x, group=group).wait()
+
+    @classmethod
+    def spmd_allgather_async(cls, x, *, group=None):
+        """:meth:`spmd_allgather` started: a :class:`Handle`."""
+        wire, ctx = cls.compress(x)
+        wire = wire.contiguous()
+        n = dist.get_world_size(group)
+        full = wire.new_empty((n * wire.shape[0],) + tuple(wire.shape[1:]))
+        work = dist.all_gather_into_tensor(full, wire, group=group,
+                                           async_op=True)
+        return collectives.Handle([work], lambda: cls.decompress(full, ctx))
 
     @classmethod
     def eager_allreduce_async(cls, x, *, op, group=None):
@@ -147,21 +176,31 @@ class Int8Compressor(Compressor):
         return int8_stack_allreduce_async(x, op=op, group=group)
 
     @classmethod
-    def spmd_reducescatter(cls, x, *, op, group=None):
-        """The int8 reduce-scatter (:func:`.quantization.int8_reducescatter`).
-        Its contract is narrower than the base class's: ``x`` is a flat
-        1-D vector whose size the world divides, and the result is this
-        rank's flat shard, not a dim-0 piece of a many-dimensional
-        tensor.  Anything else raises."""
+    def spmd_reducescatter_async(cls, x, *, op, group=None):
+        """The int8 reduce-scatter, started
+        (:func:`.quantization.int8_reducescatter_start`).  Its contract
+        is narrower than the base class's: ``x`` is a flat 1-D vector
+        whose size the world divides, and the result is this rank's flat
+        shard, not a dim-0 piece of a many-dimensional tensor.  Anything
+        else raises."""
         if not x.is_floating_point():
-            return super().spmd_reducescatter(x, op=op, group=group)
+            return super().spmd_reducescatter_async(x, op=op, group=group)
         if x.dim() != 1:
             raise ValueError(
                 f"Int8Compressor.spmd_reducescatter requires a flat 1-D "
                 f"input (got shape {tuple(x.shape)}); it scatters the "
                 "flattened vector, not dim 0: reshape(-1) first or use "
                 "Compression.fp16/bf16 for dim-0 semantics")
-        return int8_reducescatter(x, op=op, group=group)
+        return int8_reducescatter_start(x, op=op, group=group)
+
+    @classmethod
+    def spmd_allgather_async(cls, x, *, group=None):
+        """The int8 all-gather, started
+        (:func:`.quantization.int8_allgather_start`: B2, the gather of
+        payload and scales, B4); exact for a non-floating shard."""
+        if not x.is_floating_point():
+            return super().spmd_allgather_async(x, group=group)
+        return int8_allgather_start(x, group=group)
 
 
 class Compression:

@@ -18,8 +18,20 @@ and loses nothing.
 ``op=Adasum`` reduces each gradient on its own (:mod:`..ops.adasum`) on
 the exact wire; ``process_set`` reduces over that set's group;
 ``backward_passes_per_step=k`` adds ``k`` calls' gradients up and
-reduces and steps on every ``k``-th.  The microbatch scan, the overlap
-wire and autotuning are not ported yet.
+reduces and steps on every ``k``-th; ``two_phase`` and
+``pipeline_depth`` put the fused buckets on the pipelined reduce-scatter
++ all-gather wire (:func:`..ops.fusion.fused_two_phase_apply`).
+
+Every named parameter that requires a gradient is reduced, a zero
+gradient standing in where this rank's backward left ``.grad`` None, so
+every rank has the same fusion plan (the reference's ``jax.grad`` gives
+zeros for an unused leaf); the reduced gradient is written back.
+
+``make_train_step(microbatches=k)`` accumulates ``k`` microbatches'
+gradients in a Python loop (the reference's scan).  With the overlap
+wire, each microbatch's bucketed reduce-scatter is started before the
+next microbatch's forward and backward, the shards accumulate, and one
+all-gather runs at the update.  Autotuning is not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +43,9 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
+from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
 from ..ops import collectives as C
+from ..ops import fusion
 from ..ops.adasum import adasum_pytree
 from ..ops.compression import Compression
 from ..ops.fusion import fused_allreduce_pytree, tree_flatten
@@ -39,6 +53,7 @@ from ..ops.quantization import wire_block_size
 
 logger = logging.getLogger(__name__)
 _adasum_comp_warned = False
+_snap_warned: set = set()
 
 
 def _check_reduce_args(op: str, compression=None) -> None:
@@ -69,7 +84,9 @@ def _threshold(fusion_threshold: Optional[int]) -> int:
 
 
 def _reduce_grads(grads: Dict[str, torch.Tensor], *, op: str, group, comp,
-                  threshold: int) -> Dict[str, torch.Tensor]:
+                  threshold: int, two_phase: Optional[bool] = None,
+                  pipeline_depth: Optional[int] = None,
+                  ) -> Dict[str, torch.Tensor]:
     """The gradient reduction over ``group``: Adasum leaf by leaf on the
     exact wire (a tier from ``HVD_TPU_COMPRESSION`` is ignored, with one
     warning), else the fused allreduce on ``comp``."""
@@ -84,7 +101,9 @@ def _reduce_grads(grads: Dict[str, torch.Tensor], *, op: str, group, comp,
         names, leaves = tree_flatten(grads)
         return adasum_pytree(dict(zip(names, leaves)), group)
     return fused_allreduce_pytree(grads, op=op, threshold=threshold,
-                                  group=group, compression=comp)
+                                  group=group, compression=comp,
+                                  two_phase=two_phase,
+                                  pipeline_depth=pipeline_depth)
 
 
 def _write_back(grads: Dict[str, torch.Tensor],
@@ -92,6 +111,21 @@ def _write_back(grads: Dict[str, torch.Tensor],
     for name, g in grads.items():
         if reduced[name] is not g:
             g.copy_(reduced[name])
+
+
+def _filled_grads(named: Iterable[Tuple[str, torch.Tensor]],
+                  ) -> Dict[str, torch.Tensor]:
+    """``{name: p.grad}`` for every parameter that requires a gradient,
+    a zero ``.grad`` set where the backward left none, so every rank
+    reduces the same leaves."""
+    grads = {}
+    for name, p in named:
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads[name] = p.grad
+    return grads
 
 
 class DistributedOptimizer:
@@ -109,6 +143,8 @@ class DistributedOptimizer:
     wires and under ``op=Adasum``.
 
     ``process_set`` reduces over that set (a rank outside it raises).
+    ``two_phase`` and ``pipeline_depth`` (None: the live config) select
+    the pipelined two-phase wire of the fused buckets.
     ``backward_passes_per_step=k``: each :meth:`step` adds the
     ``.grad``s into an accumulator; every ``k``-th divides it by ``k``
     (``average_aggregated_gradients``), reduces it and steps the wrapped
@@ -124,6 +160,8 @@ class DistributedOptimizer:
                  average_aggregated_gradients: bool = True,
                  process_set=None,
                  fusion_threshold: Optional[int] = None,
+                 two_phase: Optional[bool] = None,
+                 pipeline_depth: Optional[int] = None,
                  error_feedback: Optional[bool] = None) -> None:
         _check_reduce_args(op, compression)
         if backward_passes_per_step < 1:
@@ -135,6 +173,8 @@ class DistributedOptimizer:
         self.average_aggregated_gradients = average_aggregated_gradients
         self.process_set = process_set
         self.fusion_threshold = fusion_threshold
+        self.two_phase = two_phase
+        self.pipeline_depth = pipeline_depth
         self.error_feedback = error_feedback
         self._names: Optional[Dict[torch.Tensor, str]] = None
         self.residual: Dict[str, torch.Tensor] = {}
@@ -189,8 +229,7 @@ class DistributedOptimizer:
             raise ValueError(
                 "DistributedOptimizer needs the parameters' names: pass "
                 "named_parameters=, or step it through make_train_step")
-        return {name: p.grad for p, name in self._names.items()
-                if p.grad is not None}
+        return _filled_grads((name, p) for p, name in self._names.items())
 
     def synchronize(self) -> None:
         """Reduce every parameter's ``.grad`` in place over the set."""
@@ -208,7 +247,8 @@ class DistributedOptimizer:
                     g, block_size=wire_block_size(g.numel(), n))
         _write_back(grads, _reduce_grads(
             grads, op=self.op, group=group, comp=comp,
-            threshold=_threshold(self.fusion_threshold)))
+            threshold=_threshold(self.fusion_threshold),
+            two_phase=self.two_phase, pipeline_depth=self.pipeline_depth))
 
     def step(self, closure=None):
         """Reduce and step; with ``backward_passes_per_step=k``, only on
@@ -232,42 +272,197 @@ class DistributedOptimizer:
         return self.optimizer.step(closure)
 
 
+def snap_microbatches(requested: int, rows: int) -> int:
+    """Largest divisor of ``rows`` that is <= ``requested``: the
+    snapping rule for a config-driven microbatch count."""
+    mb = min(max(1, int(requested)), max(1, int(rows)))
+    while rows % mb:
+        mb -= 1
+    return mb
+
+
+def _batch_leaves(batch) -> List[torch.Tensor]:
+    if torch.is_tensor(batch):
+        return [batch]
+    if isinstance(batch, dict):
+        return [t for k in sorted(batch) for t in _batch_leaves(batch[k])]
+    if isinstance(batch, (tuple, list)):
+        return [t for item in batch for t in _batch_leaves(item)]
+    return []
+
+
+def _microbatch(batch, i: int, mb: int):
+    """Microbatch ``i`` of ``mb``: rows ``[i * b / mb, (i + 1) * b / mb)``
+    of every tensor of ``batch`` (a tensor, or tuples, lists and dicts of
+    them)."""
+    if torch.is_tensor(batch):
+        rows = batch.shape[0] // mb
+        return batch[i * rows:(i + 1) * rows]
+    if isinstance(batch, dict):
+        return {k: _microbatch(v, i, mb) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_microbatch(v, i, mb) for v in batch)
+    return batch
+
+
+def _resolve_microbatches(requested: Optional[int], batch) -> int:
+    """The microbatch count of this step: the explicit argument, else
+    ``HVD_TPU_MICROBATCHES``.  It must divide the per-rank batch rows:
+    an explicit non-divisor raises, while a config-driven count snaps
+    down to the largest divisor, with one warning per shape."""
+    leaves = _batch_leaves(batch)
+    if not leaves:
+        return 1
+    shape = leaves[0].shape
+    b = int(shape[0]) if len(shape) else 1
+    mb = requested
+    if mb is None:
+        mb = basics.config().microbatches if basics.is_initialized() else 1
+    mb = int(mb)
+    if mb <= 1:
+        return 1
+    if requested is not None and (mb > b or b % mb):
+        raise ValueError(
+            f"microbatches={mb} does not divide the per-rank batch of "
+            f"{b} rows; pick a divisor (or pad the batch)")
+    if b <= 1:
+        return 1
+    snapped = snap_microbatches(mb, b)
+    if snapped != mb:
+        key = (mb, snapped, b)
+        if key not in _snap_warned:
+            _snap_warned.add(key)
+            logger.warning(
+                "HVD_TPU_MICROBATCHES=%d does not divide the per-rank "
+                "batch of %d rows; snapping to %d", mb, b, snapped)
+    return snapped
+
+
+def _microbatch_grads(model, loss_fn, batch, mb: int,
+                      params: List[torch.Tensor], *, overlap: bool = False,
+                      op: str = C.Average, group=None, compression=None,
+                      threshold: int = fusion.DEFAULT_THRESHOLD,
+                      alpha_us: float = DEFAULT_COST_ALPHA_US,
+                      beta_gbps: float = DEFAULT_COST_BETA_GBPS):
+    """Gradients of ``params`` accumulated over ``mb`` microbatches of
+    ``batch``, in microbatch order: ``(loss, grads, reduced)``, the loss
+    and gradients averaged over the microbatches and ``reduced`` True
+    when the overlap wire already reduced them over ``group``.
+
+    With ``overlap`` and more than one rank, after microbatch *i*'s
+    backward its gradients (zero where ``.grad`` is None) start their
+    bucketed reduce-scatter (:func:`..ops.fusion.overlap_reduce_scatter`),
+    microbatch *i+1*'s forward and backward run, and then the shards are
+    waited and added into accumulators that start from zeros; after the
+    last microbatch's reduce-scatter, one all-gather rebuilds the
+    gradients, divided by ``mb``.  Without it, ``((g0 + g1) + ...) /
+    mb``."""
+    def grads_of(i):
+        for p in params:
+            p.grad = None
+        loss = loss_fn(model, _microbatch(batch, i, mb))
+        loss.backward()
+        # The list keeps this microbatch's gradients alive while their
+        # reduce-scatter is in flight and the next backward runs.
+        return loss.detach(), [p.grad if p.grad is not None
+                               else torch.zeros_like(p) for p in params]
+
+    n = fusion._uniform_group_width(group)
+    use_overlap = bool(overlap) and n > 1
+    loss_sum, g0 = grads_of(0)
+    if use_overlap:
+        plan = fusion.plan_overlap_buckets(
+            g0, threshold, world_size=n, alpha_us=alpha_us,
+            beta_gbps=beta_gbps)
+        acc = fusion.zero_overlap_shards(plan, device=params[0].device)
+        pending = g0
+        for i in range(1, mb):
+            started = fusion.overlap_reduce_scatter(
+                pending, plan, op=op, group=group, compression=compression)
+            loss_i, pending = grads_of(i)
+            acc = tuple(a + s for a, s in zip(acc, started.wait()))
+            loss_sum = loss_sum + loss_i
+        last = fusion.overlap_reduce_scatter(
+            pending, plan, op=op, group=group, compression=compression)
+        acc = tuple(a + s for a, s in zip(acc, last.wait()))
+        full = fusion.overlap_all_gather(acc, plan, g0, group=group,
+                                         compression=compression)
+        grads = [g / mb for g in full]
+    else:
+        acc = g0
+        for i in range(1, mb):
+            loss_i, g_i = grads_of(i)
+            acc = [a + g for a, g in zip(acc, g_i)]
+            loss_sum = loss_sum + loss_i
+        grads = [a / mb for a in acc]
+    return loss_sum / mb, grads, use_overlap
+
+
 def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
                     compression=None, process_set=None,
                     fusion_threshold: Optional[int] = None,
-                    microbatches: Optional[int] = None) -> Callable:
+                    two_phase: Optional[bool] = None,
+                    pipeline_depth: Optional[int] = None,
+                    microbatches: Optional[int] = None,
+                    overlap: Optional[bool] = None) -> Callable:
     """Build the training step (reference: ``make_train_step``).
 
     ``loss_fn(model, batch) -> loss``.  The returned
     ``step(model, batch)`` computes this rank's gradients, reduces them
-    over ``process_set`` with ``op``, ``compression`` and
-    ``fusion_threshold`` (unless ``optimizer`` is a
-    :class:`DistributedOptimizer`, which does it itself), steps the
-    optimizer, updates ``model`` in place and returns the loss averaged
-    over ``process_set``'s ranks (every rank by default).  Each rank
-    passes its own shard of the batch.  ``microbatches > 1`` is not
-    ported yet."""
+    over ``process_set`` with ``op``, ``compression``,
+    ``fusion_threshold``, ``two_phase`` and ``pipeline_depth`` (unless
+    ``optimizer`` is a :class:`DistributedOptimizer`, which does it
+    itself), steps the optimizer, updates ``model`` in place and returns
+    the loss averaged over ``process_set``'s ranks (every rank by
+    default).  Each rank passes its own shard of the batch.
+
+    ``microbatches`` (None: ``HVD_TPU_MICROBATCHES``) accumulates that
+    many microbatches of the batch (:func:`_microbatch_grads`).  With
+    ``overlap`` (None: ``HVD_TPU_OVERLAP_REDUCE``, on by default), which
+    applies when this step reduces (``optimizer`` is not a
+    :class:`DistributedOptimizer`), ``op`` is not Adasum and the set has
+    more than one rank, each microbatch's reduce-scatter is started
+    before the next microbatch's forward and backward and the
+    all-gather runs once at the update.  With a
+    :class:`DistributedOptimizer` the microbatches accumulate locally
+    and the optimizer reduces once, error feedback included."""
     _check_reduce_args(op, compression)
-    if microbatches is not None and microbatches > 1:
-        raise NotImplementedError(
-            "microbatches > 1 is not ported yet: its scan runs the overlap "
-            "wire, which needs the bucket planner of ROADMAP queue A item 3")
     is_dist = isinstance(optimizer, DistributedOptimizer)
+
+    def overlap_on() -> bool:
+        if overlap is not None:
+            return bool(overlap)
+        return basics.config().overlap_reduce
 
     def step(model: torch.nn.Module, batch) -> torch.Tensor:
         group = C.set_group(process_set, "make_train_step")
         if is_dist and not optimizer.named:
             optimizer.name_parameters(model.named_parameters())
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        if not is_dist:
-            grads = {name: p.grad for name, p in model.named_parameters()
-                     if p.grad is not None}
+        comp = _resolve_compression(compression)
+        threshold = _threshold(fusion_threshold)
+        names, params = tree_flatten({name: p for name, p
+                                      in model.named_parameters()
+                                      if p.requires_grad})
+        mb = _resolve_microbatches(microbatches, batch)
+        reduced = False
+        if mb > 1:
+            cfg = basics.config()
+            loss, grads, reduced = _microbatch_grads(
+                model, loss_fn, batch, mb, params,
+                overlap=overlap_on() and not is_dist and op != C.Adasum,
+                op=op, group=group, compression=comp, threshold=threshold,
+                alpha_us=cfg.cost_alpha_us, beta_gbps=cfg.cost_beta_gbps)
+            for p, g in zip(params, grads):
+                p.grad = g
+        else:
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch)
+            loss.backward()
+        if not is_dist and not reduced:
+            grads = _filled_grads(zip(names, params))
             _write_back(grads, _reduce_grads(
-                grads, op=op, group=group,
-                comp=_resolve_compression(compression),
-                threshold=_threshold(fusion_threshold)))
+                grads, op=op, group=group, comp=comp, threshold=threshold,
+                two_phase=two_phase, pipeline_depth=pipeline_depth))
         optimizer.step()
         return C.reduce_raw(loss.detach(), C.Average, group=group)
 

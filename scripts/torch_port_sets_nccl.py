@@ -2,6 +2,7 @@
 """The "4 ranks" path of ``chip_smoke.py`` over NCCL, one rank per card.
 
     python3 scripts/torch_port_sets_nccl.py      # on a host with 4 cards
+    python3 scripts/torch_port_sets_nccl.py --microbatch
 
 ``chip_smoke.py`` runs its four ranks on one card over gloo, since NCCL
 refuses several ranks on one device.  This script runs the same path
@@ -11,6 +12,11 @@ wire, Adasum over all four and over {0, 1, 2},
 ``backward_passes_per_step=2``) with ``hvd.init()``'s own backend, NCCL,
 one process per card with the environment torchrun would give it, and
 holds the results to the same checks (``chip_smoke.check_four_ranks``).
+With ``--microbatch`` it runs ``chip_smoke.py``'s "microbatch 2 ranks"
+path instead (``chip_smoke.microbatch_ranks``: full-depth GPT-medium,
+four microbatches on the int8 overlap wire, the chunked head, with its
+checks against the plain B2-B4 composition and the two-phase wire) on
+four ranks, held to ``chip_smoke.check_microbatch``.
 It prints each card's name and power limit, and exits non-zero, with no
 result line, on a failure or with fewer than four cards.
 """
@@ -29,7 +35,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_FLAG = "--nccl-worker"
 
 
-def worker(rank: int, tmp: str) -> None:
+MICROBATCH_FLAG = "--microbatch"
+
+
+def worker(rank: int, tmp: str, microbatch: bool) -> None:
     sys.path.insert(0, ROOT)
     import torch
     import chip_smoke as cs
@@ -38,14 +47,15 @@ def worker(rank: int, tmp: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     hvd.init()                                   # cuda:<LOCAL_RANK>, NCCL
     try:
-        res = cs.set_ranks(hvd.device(), rank)
+        path = cs.microbatch_ranks if microbatch else cs.set_ranks
+        res = path(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         hvd.shutdown()
 
 
-def main() -> int:
+def main(microbatch: bool) -> int:
     import torch
 
     if torch.cuda.device_count() < 4:
@@ -72,7 +82,8 @@ def main() -> int:
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), WORKER_FLAG,
-                 str(r), tmp], env=env))
+                 str(r), tmp] + ([MICROBATCH_FLAG] if microbatch else []),
+                env=env))
         deadline = time.monotonic() + 600
         try:
             while (any(p.poll() is None for p in procs)
@@ -92,8 +103,15 @@ def main() -> int:
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 res.append(json.load(f))
-        counts = cs.check_four_ranks(res, time.perf_counter() - t0)
-    print(json.dumps({"backend": "nccl", "cards": world, "launches": counts,
+        seconds = time.perf_counter() - t0
+        if microbatch:
+            counts = cs.check_microbatch(res, seconds, "microbatch 4 ranks",
+                                         "NCCL, one rank a card")
+        else:
+            counts = cs.check_four_ranks(res, seconds)
+    print(json.dumps({"backend": "nccl", "cards": world,
+                      "path": "microbatch" if microbatch else "sets",
+                      "launches": counts,
                       "seconds_per_rank": [o["seconds"] for o in res],
                       "peak_bytes": [o["peak"] for o in res]}))
     return 0
@@ -101,6 +119,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == [WORKER_FLAG]:
-        worker(int(sys.argv[2]), sys.argv[3])
+        worker(int(sys.argv[2]), sys.argv[3], MICROBATCH_FLAG in sys.argv)
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(MICROBATCH_FLAG in sys.argv[1:]))

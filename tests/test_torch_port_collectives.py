@@ -13,6 +13,7 @@ alltoall exist in the reference only on its multi-process tier
 (``hostops``), so they are held to a numpy oracle of that contract.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -137,6 +138,43 @@ def test_int8_allreduce_matches_reference_eager(world, sets, op, shape):
             ref_grouped = [np.asarray(g) for g in jhvd.grouped_allreduce(
                 [_stack(v, members) for v in leaves], op=op, process_set=ps,
                 compression=int8)]
+        for r in members:
+            np.testing.assert_array_equal(_bits(out[r]["allreduce"]),
+                                          _bits(ref))
+            for got, want in zip(out[r]["grouped"], ref_grouped):
+                np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("sets", [PAIRS, WHOLE], ids=["pairs", "whole"])
+@pytest.mark.parametrize("op", ["sum", "average"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_int8_allreduce_half_precision_matches_reference(world, sets, op,
+                                                         dtype):
+    """bf16 and f16 inputs at 2 and 4 members: the reference rounds each
+    contribution's dequantized values to the input dtype, sums them and
+    divides in that dtype; the port's eager tier holds the same bits
+    (F4), alone and grouped."""
+    jdt = getattr(jnp, dtype)
+    x = _contributions((3000,), seed=len(sets[0]) + 40)
+    leaves = [_contributions((300,), 8), _contributions((40, 37), 9)]
+    out = world.run("eager_int8", op=op, sets=sets, dtype=dtype,
+                    per_rank=[{"x": x[r], "leaves": [v[r] for v in leaves]}
+                              for r in range(N)])
+    int8 = JaxCompression.int8
+
+    def half(stack):
+        return jnp.asarray(stack).astype(jdt)
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    for members in sets:
+        with _RefSet(members) as ps:
+            ref = f32(jhvd.allreduce(half(_stack(x, members)), op=op,
+                                     process_set=ps, compression=int8))
+            ref_grouped = [f32(g) for g in jhvd.grouped_allreduce(
+                [half(_stack(v, members)) for v in leaves], op=op,
+                process_set=ps, compression=int8)]
         for r in members:
             np.testing.assert_array_equal(_bits(out[r]["allreduce"]),
                                           _bits(ref))

@@ -361,3 +361,21 @@ def test_eager_int8_tier_world_of_one_bitwise(card, shape):
     assert _same_bits(out.cpu(),
                       q8.int8_stack_allreduce_async(x, op="average").wait())
     assert (out.cpu() - x).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_eager_int8_tier_half_precision_world_of_one_bitwise(card, dtype):
+    """The eager int8 tier on a bf16 or f16 tensor at n = 1: the
+    contribution is dequantized by B4 (B3 does not run: its f32 sum
+    would skip the rounding to the dtype that the reference applies
+    before the sum), and the result is the CPU's bits."""
+    x = torch.randn(3000, generator=torch.Generator().manual_seed(7))
+    x = x.to(dtype)
+    kc.reset_launch_counts()
+    out = q8.int8_stack_allreduce_async(x.to(card), op="average").wait()
+    counts = kc.launch_counts()
+    assert counts["quantize_blocks"] == counts["dequantize_blocks"] == 1
+    assert counts["dequantize_accumulate"] == 0
+    assert out.dtype == dtype
+    assert _same_bits(out.cpu(),
+                      q8.int8_stack_allreduce_async(x, op="average").wait())

@@ -170,9 +170,6 @@ def test_adasum_refuses_explicit_compression_and_ignores_the_knob(
     with pytest.raises(ValueError, match="compression is not supported"):
         thvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1), op="adasum",
                                   compression=thvd.Compression.int8)
-    with pytest.raises(NotImplementedError, match="microbatches"):
-        thvd.make_train_step(lambda m, b: m, torch.optim.SGD([w], lr=0.1),
-                             microbatches=2)
     monkeypatch.setenv("HVD_TPU_COMPRESSION", "int8")
     monkeypatch.setattr(port_opt, "_adasum_comp_warned", False)
     thvd.init(device="cpu")
@@ -189,5 +186,15 @@ def test_adasum_refuses_explicit_compression_and_ignores_the_knob(
             w.detach().numpy(),
             np.float32(1) - 2 * np.float32(0.5) * np.float32([0.1, -0.3,
                                                               1e-4]))
+        # Microbatches with Adasum: accumulated locally (no overlap
+        # wire), then the one Adasum reduction of their mean.
+        model = torch.nn.Module()
+        model.v = torch.nn.Parameter(torch.ones(3))
+        step = thvd.make_train_step(
+            lambda m, b: (m.v * b).sum(), torch.optim.SGD([model.v], lr=0.5),
+            op="adasum", microbatches=2)
+        step(model, torch.tensor([[1.0, 2.0, 3.0], [3.0, 2.0, 1.0]]))
+        np.testing.assert_array_equal(model.v.detach().numpy(),
+                                      np.zeros(3, np.float32))
     finally:
         thvd.shutdown()

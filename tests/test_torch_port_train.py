@@ -104,6 +104,33 @@ class TestCollectives:
             np.testing.assert_array_equal(out[1][key], out[0][key])
         assert out[1]["lr"] == out[0]["lr"] == 1e-3
 
+    def test_optimizer_state_only_on_the_root(self, world):
+        """A root that resumed with AdamW state and a rank that starts
+        fresh: the broadcast creates the missing entries first, so both
+        ranks broadcast the same tensors, and every rank ends with the
+        root's state (F6)."""
+        out = world.run("root_only_state", timeout=60)
+        assert set(out[0]) == set(out[1])
+        assert {"0.step", "0.exp_avg", "0.exp_avg_sq"} <= set(out[0])
+        for key in out[0]:
+            np.testing.assert_array_equal(out[1][key], out[0][key])
+        assert out[1]["lr"] == out[0]["lr"] == 1e-3
+
+
+@pytest.mark.parametrize("wrap", [True, False],
+                         ids=["distributed_optimizer", "make_train_step"])
+def test_parameter_unused_on_one_rank(world, wrap):
+    """Rank 1's forward never uses ``b``: its zero gradient still joins
+    the fusion plan, so both ranks reduce the same buckets, the steps
+    finish, and the replicas stay equal, ``b``'s reduced gradient
+    non-zero on both (F5)."""
+    out = world.run("unused_parameter", wrap=wrap, steps=2, timeout=60)
+    for name, p in out[0]["params"].items():
+        np.testing.assert_array_equal(out[1]["params"][name], p)
+    for name, g in out[0]["grads"].items():
+        np.testing.assert_array_equal(out[1]["grads"][name], g)
+    assert np.abs(out[0]["grads"]["b.weight"]).max() > 0
+
 
 # --- GPT train steps against JAX make_train_step ------------------------------
 

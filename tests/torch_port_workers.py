@@ -186,7 +186,8 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
               compression: str, error_feedback: bool, steps: int,
               wrap: bool = True, zero: bool = False,
               env: dict = None, op: str = "average", sets=None,
-              backward_passes_per_step: int = 1) -> dict:
+              backward_passes_per_step: int = 1,
+              microbatches: int = None, vocab_chunk_size: int = 0) -> dict:
     """``steps`` data-parallel AdamW steps of the port's GPT from the
     given flax-layout params; this rank trains on its rows of the global
     batch.  ``wrap=False`` hands the step a plain torch optimizer, so the
@@ -195,7 +196,8 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
     rank's optimizer state.  ``env`` sets knobs (``HOROVOD_*``) for these
     steps only.  ``op``, ``sets`` (this rank reduces over its set of
     them) and ``backward_passes_per_step`` go to the DistributedOptimizer
-    and the step; ``moved`` says after each step whether any parameter
+    and the step, ``microbatches`` to the step, ``vocab_chunk_size`` to
+    the loss; ``moved`` says after each step whether any parameter
     changed."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import GPT, GPTConfig, load_jax_params
@@ -204,7 +206,7 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
     model = GPT(cfg)
     load_jax_params(model, params)
     comp = getattr(hvd.Compression, compression)
-    loss_fn = hvd.models.lm_loss_fn(model)
+    loss_fn = hvd.models.lm_loss_fn(model, vocab_chunk_size=vocab_chunk_size)
     ps = _mine(sets) if sets else None
     if zero:
         step = hvd.make_zero_train_step(
@@ -214,10 +216,11 @@ def train_gpt(config: dict, params: dict, tokens: np.ndarray,
             _adamw(model.parameters()), compression=comp,
             error_feedback=error_feedback, op=op, process_set=ps,
             backward_passes_per_step=backward_passes_per_step),
-            process_set=ps)
+            process_set=ps, microbatches=microbatches)
     else:
         step = hvd.make_train_step(loss_fn, _adamw(model.parameters()),
-                                   compression=comp)
+                                   compression=comp,
+                                   microbatches=microbatches)
     mine = _my_rows(tokens)
     batch = (mine[:, :-1], mine[:, 1:])
     losses, moved = [], []
@@ -337,19 +340,26 @@ def _mine(sets):
     return next((ps for ps in registered if ps.included()), None)
 
 
-def eager_int8(x: np.ndarray, leaves: list, op: str, sets) -> dict:
+def eager_int8(x: np.ndarray, leaves: list, op: str, sets,
+               dtype: str = "float32") -> dict:
     """The eager int8 allreduce and grouped allreduce over this rank's
-    set of ``sets``."""
+    set of ``sets``, the inputs cast to ``dtype`` (the results come back
+    as float32 arrays, exactly)."""
     import horovod_tpu_torch as hvd
 
     ps = _mine(sets)
     int8 = hvd.Compression.int8
+    dt = getattr(torch, dtype)
+
+    def f32(t):
+        return t.to(torch.float32).numpy()
+
     return {
-        "allreduce": hvd.allreduce(torch.from_numpy(x), op=op,
-                                   compression=int8, process_set=ps).numpy(),
-        "grouped": [r.numpy() for r in hvd.grouped_allreduce(
-            [torch.from_numpy(v) for v in leaves], op=op, compression=int8,
-            process_set=ps)]}
+        "allreduce": f32(hvd.allreduce(torch.from_numpy(x).to(dt), op=op,
+                                       compression=int8, process_set=ps)),
+        "grouped": [f32(r) for r in hvd.grouped_allreduce(
+            [torch.from_numpy(v).to(dt) for v in leaves], op=op,
+            compression=int8, process_set=ps)]}
 
 
 def eager_ops(x: np.ndarray, y: np.ndarray, ints: np.ndarray,
@@ -474,3 +484,160 @@ def adasum(xs: list, sets) -> list:
     grouped = [r.numpy() for r in hvd.grouped_allreduce(
         ts, op=hvd.Adasum, process_set=ps)]
     return [single, grouped]
+
+
+# --- two-phase fusion, the overlap wire, microbatches -------------------------
+
+def _group(sets):
+    """This rank's torch group among ``sets`` (None for the global set)."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    return C.set_group(_mine(sets), "test")
+
+
+def two_phase(leaves: list, op: str, compression: str, depths: list,
+              threshold: int, sets, alpha_us: float = 1e-6,
+              beta_gbps: float = 1.0) -> dict:
+    """``fused_two_phase_apply`` of ``leaves`` over this rank's set at
+    each pipeline depth of ``depths``, and the single-phase fused
+    allreduce of the same leaves."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+
+    group = _group(sets)
+    comp = getattr(hvd.Compression, compression)
+    ts = [torch.from_numpy(np.asarray(v)) for v in leaves]
+    out = {}
+    for depth in depths:
+        out[depth] = [r.numpy() for r in fusion.fused_two_phase_apply(
+            ts, op=op, group=group, compression=comp, threshold=threshold,
+            pipeline_depth=depth, alpha_us=alpha_us, beta_gbps=beta_gbps)]
+    one = fusion.fused_allreduce_pytree(
+        {f"{i:02d}": t for i, t in enumerate(ts)}, op=op, group=group,
+        compression=comp, threshold=threshold, two_phase=False)
+    out["one"] = [one[f"{i:02d}"].numpy() for i in range(len(ts))]
+    return out
+
+
+def overlap_wire(microbatches: list, op: str, compression: str,
+                 threshold: int, sets) -> dict:
+    """The overlap wire over this rank's set: one reduce-scatter pass a
+    microbatch of gradient leaves, the shards added from zeros, one
+    all-gather."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+
+    group = _group(sets)
+    comp = getattr(hvd.Compression, compression)
+    mbs = [[torch.from_numpy(np.asarray(v)) for v in leaves]
+           for leaves in microbatches]
+    n = fusion._uniform_group_width(group)
+    plan = fusion.plan_overlap_buckets(mbs[0], threshold, world_size=n)
+    acc = fusion.zero_overlap_shards(plan)
+    for leaves in mbs:
+        shards = fusion.overlap_reduce_scatter(
+            leaves, plan, op=op, group=group, compression=comp).wait()
+        acc = tuple(a + s for a, s in zip(acc, shards))
+    full = fusion.overlap_all_gather(acc, plan, mbs[0], group=group,
+                                     compression=comp)
+    return {"full": [f.numpy() for f in full],
+            "shards": [a.numpy() for a in acc], "order": list(plan.order)}
+
+
+class _Linear(torch.nn.Module):
+    """``x @ w + b``, the toy regression of ``tests/test_microbatch.py``."""
+
+    def __init__(self, d: int) -> None:
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(d))
+        self.b = torch.nn.Parameter(torch.zeros(()))
+
+
+def _mse(module, batch):
+    x, y = batch
+    return ((x @ module.w + module.b - y) ** 2).mean()
+
+
+def toy_steps(x: np.ndarray, y: np.ndarray, optimizer: str, lr: float,
+              steps: int, microbatches=None, overlap=None,
+              compression: str = "none", wrap: bool = False,
+              env: dict = None) -> dict:
+    """``steps`` steps of the toy regression on this rank's rows, with a
+    plain torch optimizer (the step reduces) or, with ``wrap``, a
+    DistributedOptimizer; returns the losses, the parameters and the
+    optimizer's state tensors."""
+    import horovod_tpu_torch as hvd
+
+    model = _Linear(x.shape[1])
+    opt = (torch.optim.Adam(model.parameters(), lr=lr) if optimizer == "adam"
+           else torch.optim.SGD(model.parameters(), lr=lr))
+    comp = getattr(hvd.Compression, compression)
+    if wrap:
+        opt = hvd.DistributedOptimizer(opt, compression=comp)
+    batch = (_my_rows(x), _my_rows(y))
+    with _knobs(env or {}):
+        step = hvd.make_train_step(_mse, opt, compression=comp,
+                                   microbatches=microbatches,
+                                   overlap=overlap)
+        losses = [float(step(model, batch)) for _ in range(steps)]
+    state = {f"{name}.{key}": v.numpy().copy()
+             for name, p in model.named_parameters()
+             for key, v in opt.state[p].items() if v.dim()}
+    return {"losses": losses, "state": state,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def unused_parameter(wrap: bool, steps: int) -> dict:
+    """Two ``Linear(4, 4)``; rank 1's forward never uses the second.  The
+    steps must finish and leave the ranks' parameters equal; the first
+    step's reduced gradients are returned."""
+    import horovod_tpu_torch as hvd
+
+    torch.manual_seed(0)
+    model = torch.nn.ModuleDict({"a": torch.nn.Linear(4, 4),
+                                 "b": torch.nn.Linear(4, 4)})
+
+    def loss_fn(module, x):
+        y = module["a"](x)
+        if hvd.rank() == 0:
+            y = module["b"](y)
+        return (y ** 2).mean()
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    if wrap:
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+    step = hvd.make_train_step(loss_fn, opt)
+    x = torch.randn(8, 4, generator=torch.Generator().manual_seed(
+        1 + hvd.rank()))
+    grads = None
+    for _ in range(steps):
+        step(model, x)
+        if grads is None:
+            grads = {n: p.grad.numpy().copy()
+                     for n, p in model.named_parameters()}
+    return {"grads": grads,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def root_only_state() -> dict:
+    """Only rank 0 has stepped its AdamW (a root that resumed, the others
+    fresh); after ``broadcast_optimizer_state`` every rank's state must
+    be the root's."""
+    import horovod_tpu_torch as hvd
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 3)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3 * (1 + hvd.rank()))
+    if hvd.rank() == 0:
+        for _ in range(2):
+            model(torch.randn(2, 4)).sum().backward()
+            opt.step()
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    state = {f"{i}.{key}": (v.numpy().copy() if torch.is_tensor(v) else v)
+             for i, p in enumerate(model.parameters())
+             for key, v in opt.state[p].items()}
+    state["lr"] = opt.param_groups[0]["lr"]
+    return state
