@@ -12,7 +12,8 @@
    for bit, on rows holding NaN (and for B2-B4 Inf) as well; flash
    attention (B1, the bf16 tensor-core kernel) within the bf16 tolerance
    (3e-2 on O, 1e-4 on lse) and, row by row, within 1e-2 of the row's
-   largest |O|, on normal and on peaky (q * 8) scores; the blocked
+   largest |O|, on normal and on peaky (q * 8) scores, at GPT-medium's
+   causal shape and at BERT-Large's non-causal one; the blocked
    matmul (B5) with a bf16 and with an f32 x within twice its plain
    version's error against an f64 product plus 1e-6 of the product's
    largest |value|.  B1 and B5 also print their TFLOP/s beside the
@@ -101,13 +102,41 @@
    finite losses; (e) B1-B4 launched.  Prints the phase's seconds, each
    rank's peak memory and the step times with the overlap wire and with
    ``overlap=False`` (gloo on one card: not a wire's time).
-9. Route check: the profiler's device trace must show a bf16
+9. "resnet50 1 rank": ``bench.py``'s full preset, ResNet-50 (1000
+   classes, bf16 activations, f32 parameters, BatchNorm in train mode)
+   on NHWC [256, 224, 224, 3] seeded images, SGD(0.1, momentum 0.9) in
+   a DistributedOptimizer through ``make_train_step``: five steps on
+   the int8 + error-feedback wire (B2 and B4 must launch), then five on
+   the fp16 wire (``bench.py --fp16-allreduce``); finite losses,
+   images/s over steps 2-5, peak memory, B2/B4 launches a step.
+10. "resnet50 2 ranks": two processes share the card over gloo, full
+   ResNet-50, 32 images a rank, every BatchNorm synchronised over both
+   ranks, the int8 + EF wire, 3 steps: parameters and running
+   statistics bitwise equal on both ranks after every step, B2-B4
+   launched; then an f32 ResNet-50 with the same starting weights,
+   synchronised, against one process's forward of the 64 images with
+   plain BatchNorm: logits within 1e-3 of their scale, running
+   statistics within 1e-3 of each buffer's scale.
+11. "bert-large 1 rank": ``benchmarks/bert_finetune_bench.py``'s
+   configuration (BERT-Large, flash attention, seq 128, batch 32,
+   AdamW(2e-5, weight decay 1e-4) on the fp16 wire), 5 steps: B1 must
+   launch 24 times a step, each non-causal; seqs/s, peak memory.  Then
+   ``BertForMaskedLM`` at BERT-Large's size in f32, one forward and
+   backward with the dense and with the chunked head: losses within
+   rtol 1e-5, the tied embedding's gradient within rtol 1e-4 / atol
+   1e-6, both peaks printed.
+12. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
+   inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
+   step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
+   gradient of 102.8 M elements is the wire's largest leaf).
+13. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
-   (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, and B4 and B3
-   at rows of 1024 run their vector kernel and at rows of 1023 only
-   their scalar one.  It runs last, so that the profiler touches none of
-   the timed phases.
-10. Prints the ``kernels`` JSON line (all seven kernels, with their
+   (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
+   non-causal one at BERT-Large's shape the tensor-core kernel, and B4
+   and B3 at rows of 1024 run their vector kernel and at rows of 1023
+   only their scalar one.  It runs last, so that the profiler touches
+   none of the timed phases.
+14. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -141,6 +170,14 @@ BATCH, SEQ, STEPS = 8, 1024, 5
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
 SET_RANKS = 4                    # the "4 ranks" phase's world
 MICROBATCHES, MB_STEPS = 4, 3    # the "microbatch 2 ranks" phase's
+IMAGE_CLASSES = 1000
+IMAGE_SIDE = {"resnet50": 224, "vgg16": 224, "inception3": 299}  # bench.py
+RESNET_BATCH, RESNET_STEPS = 256, 5          # bench.py's full preset
+RESNET_RANK_BATCH, RESNET_RANK_STEPS = 32, 3  # "resnet50 2 ranks"
+CONVNET_BATCH = 128                          # bench.py's VGG/Inception
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 5  # bert_finetune_bench.py
+SGD_MOMENTUM = dict(lr=0.1, momentum=0.9)    # optax.sgd(0.1, momentum=0.9)
+BERT_ADAMW = dict(lr=2e-5, weight_decay=1e-4)  # optax.adamw(2e-5)
 VOCAB_CHUNK = 1024               # tokens a chunk of the chunked LM head
 APPLY_LR = 0.1                   # the fused apply's, as the reference test's
 ADAMW = dict(lr=3e-4, weight_decay=1e-4)
@@ -280,6 +317,13 @@ def kernel_phase(dev, gen):
                 f"scalar route at {sc['shape']} {sc['ms']} ms, plain "
                 f"{sc['plain_ms']} ms, bound {sc['bound_ms']} ms, library "
                 f"{sc['library_ms']} ms")
+        if "bert_large" in row:
+            bl = row["bert_large"]
+            log(f"kernel {row['name']}: at {bl['shape']} non-causal "
+                f"(BERT-Large) {bl['ms']} ms, plain {bl['plain_ms']} ms, "
+                f"bound {bl['bound_ms']} ms ({bl['bound_by']}; bytes "
+                f"{bl['bytes_ms']} ms, operations {bl['ops_ms']} ms), SDPA "
+                f"{bl['library_ms']} ms")
         if "two_ranks" in row:
             tr = row["two_ranks"]
             log(f"kernel {row['name']}: at {tr['shape']} (two ranks) "
@@ -446,7 +490,8 @@ def device_kernels(fn):
 def route_check(dev) -> None:
     """Which kernel each call really launches, read from the profiler's
     device trace: at the GPT step's shape a bf16 flash_fwd must run
-    flash_fwd_wgmma and an f32 one only the CUDA-core flash_fwd; B4 at
+    flash_fwd_wgmma and an f32 one only the CUDA-core flash_fwd, and at
+    BERT-Large's non-causal shape a bf16 one flash_fwd_wgmma; B4 at
     lm_head's rows of 1024 and B3 at a two-rank bucket's shard must run
     their vector route, and at a ragged block (1023) only their scalar
     route.  It runs after the timed phases, so that the profiler touches
@@ -456,14 +501,17 @@ def route_check(dev) -> None:
     from horovod_tpu_torch.ops import int8_kernels as ik
 
     q3 = torch.randn((BATCH * GPT_MEDIUM["n_head"], SEQ, 64), device=dev)
-    for x, tensor_cores in ((q3.bfloat16(), True), (q3, False)):
-        _, names = device_kernels(lambda: fa.flash_fwd(x, x, x, 0.125, True))
+    qb = torch.randn((BERT_BATCH * 16, BERT_SEQ, 64), device=dev).bfloat16()
+    for x, causal, tensor_cores in ((q3.bfloat16(), True, True),
+                                    (q3, True, False), (qb, False, True)):
+        _, names = device_kernels(
+            lambda: fa.flash_fwd(x, x, x, 0.125, causal))
         wgmma = any("flash_fwd_wgmma" in n for n in names)
         cores = any("flash_fwd" in n and "wgmma" not in n for n in names)
         if (wgmma, cores) != (tensor_cores, not tensor_cores):
             raise AssertionError(f"{x.dtype} flash_fwd launched {names}")
-        log(f"route check: {x.dtype} flash_fwd ran "
-            f"{[n for n in names if 'flash_fwd' in n]}")
+        log(f"route check: {x.dtype} {tuple(x.shape)} causal={causal} "
+            f"flash_fwd ran {[n for n in names if 'flash_fwd' in n]}")
     for wrapper, lead in (("dequantize_blocks", (32000,)),
                           ("dequantize_accumulate", (2, 8192))):
         for b, route in ((1024, "vector"), (1023, "scalar")):
@@ -479,13 +527,13 @@ def route_check(dev) -> None:
                 f"{[n for n in names if 'quantize' in n]}")
 
 
-def flash_errors(q3, k3, v3, scale: float):
+def flash_errors(q3, k3, v3, scale: float, causal: bool = True):
     """(O, lse, row-relative) error of the kernel against its plain
-    version, causal, and whether all three are inside the bf16 limits."""
+    version, and whether all three are inside the bf16 limits."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    o, lse = fa.flash_fwd(q3, k3, v3, scale, True)
-    o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, scale, True)
+    o, lse = fa.flash_fwd(q3, k3, v3, scale, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, scale, causal)
     diff = (o.float() - o_ref.float()).abs()
     err_o = float(diff.max())
     err_lse = float((lse - lse_ref).abs().max())
@@ -499,47 +547,63 @@ def flash_errors(q3, k3, v3, scale: float):
                                      and err_row <= 1e-2)
 
 
-def flash_kernel_row(dev, gen):
-    """B1 at GPT-medium: B*H = 8*16, T = 1024, D = 64, causal, bf16, the
-    tensor-core kernel.  Held to the bf16 limits on normal scores and on
-    peaky ones (q * 8: the running max moves by many units between key
-    tiles, so the rescale of O and of the denominator is exercised)."""
+def flash_case(dev, gen, batch: int, heads: int, t: int, causal: bool,
+               label: str) -> dict:
+    """B1 at ``[batch * heads, t, 64]`` bf16 (the tensor-core kernel),
+    held to the bf16 limits on normal scores and on peaky ones (q * 8:
+    the running max moves by many units between key tiles, so the
+    rescale of O and of the denominator is exercised); then its time,
+    its plain version's, SDPA's and its bound (4·BH·pairs·D FLOPs,
+    pairs the (q, k) pairs the mask keeps)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    bh, t, d = BATCH * GPT_MEDIUM["n_head"], SEQ, 64
+    bh, d = batch * heads, 64
     q3, k3, v3 = (torch.randn((bh, t, d), generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(3))
     scale = d ** -0.5
     errs = {}
     for name, q in (("normal", q3), ("peaky", (q3.float() * 8).bfloat16())):
-        err_o, err_lse, err_row, ok = flash_errors(q, k3, v3, scale)
-        log(f"kernel flash_fwd ({name} scores): O {err_o}, lse {err_lse}, "
-            f"row-relative {err_row}")
+        err_o, err_lse, err_row, ok = flash_errors(q, k3, v3, scale, causal)
+        log(f"kernel flash_fwd ({label}, {name} scores): O {err_o}, lse "
+            f"{err_lse}, row-relative {err_row}")
         if not ok:
-            raise AssertionError(f"flash_fwd ({name} scores) off its plain "
-                                 f"version: O {err_o}, lse {err_lse}, "
-                                 f"row-relative {err_row}")
+            raise AssertionError(f"flash_fwd ({label}, {name} scores) off "
+                                 f"its plain version: O {err_o}, lse "
+                                 f"{err_lse}, row-relative {err_row}")
         errs[name] = (err_o, err_lse, err_row)
-    ms = time_ms(lambda: fa.flash_fwd(q3, k3, v3, scale, True))
-    plain = time_ms(lambda: fa.flash_fwd_plain(q3, k3, v3, scale, True))
-    q4, k4, v4 = (y.reshape(BATCH, -1, t, d) for y in (q3, k3, v3))
+    ms = time_ms(lambda: fa.flash_fwd(q3, k3, v3, scale, causal))
+    plain = time_ms(lambda: fa.flash_fwd_plain(q3, k3, v3, scale, causal))
+    q4, k4, v4 = (y.reshape(batch, heads, t, d) for y in (q3, k3, v3))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    pairs = t * (t + 1) // 2                      # causal (q, k) pairs
+        q4, k4, v4, is_causal=causal))
+    pairs = t * (t + 1) // 2 if causal else t * t
     flops = 4 * bh * pairs * d
     bnd = bound(4 * bh * t * d * 2 + bh * t * 4, flops, BF16_FLOPS)
-    log(f"kernel flash_fwd: {flops / ms / 1e9} TFLOP/s, SDPA "
+    log(f"kernel flash_fwd ({label}): {flops / ms / 1e9} TFLOP/s, SDPA "
         f"{flops / lib / 1e9} TFLOP/s")
     (err_o, err_lse, err_row), peaky = errs["normal"], errs["peaky"]
+    return dict(shape=[bh, t, d], causal=causal, max_abs_err=err_o,
+                max_abs_err_lse=err_lse, max_row_rel_err=err_row,
+                peaky_errs=peaky, tflops=flops / ms / 1e9,
+                library_tflops=flops / lib / 1e9, ms=ms, plain_ms=plain,
+                **bnd, library_ms=lib)
+
+
+def flash_kernel_row(dev, gen):
+    """B1 at GPT-medium (B*H = 8*16, T = 1024, D = 64, causal, bf16), the
+    row's main shape, and at BERT-Large's (B*H = 32*16, T = Tk = 128,
+    D = 64, non-causal, bf16) as its ``bert_large`` shape."""
+    row = flash_case(dev, gen, BATCH, GPT_MEDIUM["n_head"], SEQ, True,
+                     "GPT-medium")
+    bert = flash_case(dev, gen, BERT_BATCH, 16, BERT_SEQ, False,
+                      "BERT-Large")
+    del row["shape"], row["causal"]
     return dict(name="flash_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attention.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:38",
-                max_abs_err=err_o, max_abs_err_lse=err_lse,
-                max_row_rel_err=err_row, peaky_errs=peaky,
-                tflops=flops / ms / 1e9, library_tflops=flops / lib / 1e9,
-                ms=ms, plain_ms=plain, **bnd, library_ms=lib)
+                **row, bert_large=bert)
 
 
 def apply_kernel_rows(dev, gen):
@@ -748,45 +812,51 @@ def zero_step(model):
         compression=hvd.Compression.int8, error_feedback=True)
 
 
-def timed_steps(label: str, model, step, batch, card: str):
-    """STEPS steps on one rank, with the launch counts set to 0 just
-    before and read just after: (counts, tokens/s over steps 2-STEPS,
-    peak memory in bytes).  Also logs the tokens/s over steps 3-STEPS
-    and each step's new device allocations (the caching allocator's
-    cudaMalloc calls).  Every loss must be finite, and the flash,
-    quantize and dequantize kernels must have launched."""
+def run_steps(label: str, step, model, batch, steps: int) -> dict:
+    """``steps`` steps with the launch counts set to 0 just before and
+    read just after: losses, step seconds (host clock, each step ending
+    in a synchronise), each step's new device allocations (the caching
+    allocator's cudaMalloc calls), counts and peak memory.  Every loss
+    must be finite."""
     import torch
     import horovod_tpu_torch as hvd
-
-    n_params = sum(p.numel() for p in model.parameters())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    hvd.ops.reset_launch_counts()
-    losses, times, mallocs = [], [], []
 
     def device_allocs() -> int:
         return torch.cuda.memory_stats().get("num_device_alloc", -1)
 
-    for _ in range(STEPS):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    losses, times, mallocs = [], [], []
+    for _ in range(steps):
         n0 = device_allocs()
         t0 = time.perf_counter()
-        loss = step(model, batch)
+        losses.append(float(step(model, batch)))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         mallocs.append(device_allocs() - n0)
-        losses.append(float(loss))
     counts = hvd.ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
+    return dict(losses=losses, times=times, mallocs=mallocs, counts=counts,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def timed_steps(label: str, model, step, batch, card: str):
+    """STEPS GPT-medium steps on one rank (:func:`run_steps`): (counts,
+    tokens/s over steps 2-STEPS, peak memory in bytes).  Also logs the
+    tokens/s over steps 3-STEPS and each step's new device allocations.
+    The flash, quantize and dequantize kernels must have launched."""
+    n_params = sum(p.numel() for p in model.parameters())
+    run = run_steps(label, step, model, batch, STEPS)
+    counts, times, peak = run["counts"], run["times"], run["peak"]
     for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks"):
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on the {label} path")
     tok_s = BATCH * SEQ * (STEPS - 1) / sum(times[1:])
     steady = BATCH * SEQ * (STEPS - 2) / sum(times[2:])
-    log(f"{label}: GPT-medium {n_params} params, losses {losses}")
-    log(f"{label}: step seconds {times}, device allocations {mallocs}")
+    log(f"{label}: GPT-medium {n_params} params, losses {run['losses']}")
+    log(f"{label}: step seconds {times}, device allocations {run['mallocs']}")
     log(f"{label}: {tok_s:.1f} tokens/s (steps 2-{STEPS}; {steady:.1f} over "
         f"steps 3-{STEPS}), peak memory {peak / 2**30:.2f} GiB, on {card}")
     log(f"{label}: launches {counts}")
@@ -1382,16 +1452,13 @@ def check_four_ranks(res: list, seconds: float):
     return r0["counts"]
 
 
-def xent_check(dev) -> None:
-    """Part of "1 rank": the chunked LM head on the full-depth model.
-    One forward and backward with the dense ``lm_loss_fn`` and one with
-    ``vocab_chunk_size=VOCAB_CHUNK``, same weights and batch: the losses
-    within rtol 1e-5 and lm_head's gradient within rtol 1e-4 / atol 1e-6
-    (``tests/test_xent.py``'s tolerances); logs each one's peak memory."""
+def dense_and_chunked(model, loss_fn_for, batch, param):
+    """One forward and backward of ``model`` with ``loss_fn_for(0)`` (the
+    dense head) and one with ``loss_fn_for(VOCAB_CHUNK)`` (the chunked
+    head), same weights and batch: ``{chunk: (loss, param's gradient,
+    peak memory, memory held before)}``."""
     import torch
-    import horovod_tpu_torch as hvd
 
-    model, batch = gpt_medium(dev)
     runs = {}
     for chunk in (0, VOCAB_CHUNK):
         model.zero_grad(set_to_none=True)
@@ -1399,20 +1466,46 @@ def xent_check(dev) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        loss = hvd.models.lm_loss_fn(model, vocab_chunk_size=chunk)(model,
-                                                                    batch)
+        loss = loss_fn_for(chunk)(model, batch)
         loss.backward()
         torch.cuda.synchronize()
-        runs[chunk] = (float(loss.detach()),
-                       model.lm_head.kernel.grad.clone(),
+        runs[chunk] = (float(loss.detach()), param().grad.clone(),
                        torch.cuda.max_memory_allocated(), base)
-    (dense, g_dense, peak_dense, base), (chunked, g_chunked, peak_chunked,
-                                         _) = runs[0], runs[VOCAB_CHUNK]
+    return runs
+
+
+def heads_agree(label: str, runs: dict) -> tuple:
+    """The chunked head's loss within rtol 1e-5 of the dense one's and
+    its gradient within rtol 1e-4 / atol 1e-6 (``tests/test_xent.py``'s
+    tolerances): (dense, chunked, gradient error); raises otherwise."""
+    import torch
+
+    (dense, g_dense, _, _), (chunked, g_chunked, _, _) = \
+        runs[0], runs[VOCAB_CHUNK]
     err = float((g_chunked - g_dense).abs().max())
     if not (math.isfinite(dense) and abs(chunked - dense) <= 1e-5 * abs(dense)
             and torch.allclose(g_chunked, g_dense, rtol=1e-4, atol=1e-6)):
-        raise AssertionError(f"chunked LM head: loss {chunked} against the "
-                             f"dense {dense}, lm_head gradient off by {err}")
+        raise AssertionError(f"{label}: chunked loss {chunked} against the "
+                             f"dense {dense}, gradient off by {err}")
+    return dense, chunked, err
+
+
+def xent_check(dev) -> None:
+    """Part of "1 rank": the chunked LM head on the full-depth model.
+    One forward and backward with the dense ``lm_loss_fn`` and one with
+    ``vocab_chunk_size=VOCAB_CHUNK``, same weights and batch: the losses
+    and lm_head's gradient held by :func:`heads_agree`; logs each one's
+    peak memory."""
+    import horovod_tpu_torch as hvd
+
+    model, batch = gpt_medium(dev)
+    runs = dense_and_chunked(
+        model, lambda chunk: hvd.models.lm_loss_fn(
+            model, vocab_chunk_size=chunk), batch,
+        lambda: model.lm_head.kernel)
+    dense, chunked, err = heads_agree("chunked LM head", runs)
+    peak_dense, base = runs[0][2], runs[0][3]
+    peak_chunked = runs[VOCAB_CHUNK][2]
     log(f"xent: GPT-medium batch {BATCH}, loss dense {dense} chunked "
         f"{chunked} (chunk {VOCAB_CHUNK}), lm_head gradient max_abs_err "
         f"{err}; peak memory dense {peak_dense / 2**30:.3f} GiB, chunked "
@@ -1636,10 +1729,335 @@ def check_microbatch(res: list, seconds: float, label: str, wire: str):
     return r0["counts"]
 
 
+# --- the model zoo: ResNet-50, BERT-Large, VGG-16, Inception-V3 -------------
+
+def image_loss(module, batch):
+    """``bench.py``'s loss: softmax cross-entropy of the f32 logits."""
+    import torch
+
+    images, labels = batch
+    logp = torch.log_softmax(module(images).float(), dim=-1)
+    return -torch.gather(logp, -1, labels[:, None]).mean()
+
+
+def images_batch(dev, batch: int, side: int, seed: int):
+    """Synthetic NHWC bf16 images and labels from a seeded generator on
+    the card, as ``bench.py`` makes them."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn((batch, side, side, 3), generator=gen, device=dev)
+    labels = torch.randint(0, IMAGE_CLASSES, (batch,), generator=gen,
+                           device=dev)
+    return images.to(torch.bfloat16), labels
+
+
+def sgd_step(model, compression: str):
+    """``bench.py``'s optimizer, ``optax.sgd(0.1, momentum=0.9)`` (torch's
+    SGD with momentum 0.9), in a DistributedOptimizer on ``compression``
+    (error feedback with int8) through ``make_train_step``."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), **SGD_MOMENTUM),
+        compression=getattr(hvd.Compression, compression),
+        error_feedback=compression == "int8")
+    return hvd.make_train_step(image_loss, opt)
+
+
+def per_second(items: int, run: dict) -> float:
+    """Items a second on the host clock over the steps after the first."""
+    return items * (len(run["times"]) - 1) / sum(run["times"][1:])
+
+
+def resnet_phase(dev, card: str):
+    """Path "resnet50 1 rank": ``bench.py``'s full preset, ResNet-50 at
+    1000 classes in bf16 with f32 parameters, BatchNorm in train mode,
+    NHWC [RESNET_BATCH, 224, 224, 3] images, SGD-momentum; RESNET_STEPS
+    steps on the int8 + error-feedback wire (B2 and B4 at n = 1), then
+    as many on the fp16 wire (``bench.py --fp16-allreduce``).  Returns
+    the two runs' launch counts."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    model = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                dtype=torch.bfloat16, device=dev, seed=0)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    side = IMAGE_SIDE["resnet50"]
+    batch = images_batch(dev, RESNET_BATCH, side, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    runs = {}
+    for wire in ("int8", "fp16"):
+        runs[wire] = run_steps(f"resnet50 1 rank ({wire})",
+                               sgd_step(model, wire), model, batch,
+                               RESNET_STEPS)
+        torch.cuda.empty_cache()
+    int8 = runs["int8"]["counts"]
+    for name in ("quantize_blocks", "dequantize_blocks"):
+        if int8[name] <= 0:
+            raise AssertionError(f"{name} never launched on the resnet50 "
+                                 "1 rank path")
+    for wire, run in runs.items():
+        log(f"resnet50 1 rank ({wire} wire): ResNet-50 {n_params} params, "
+            f"batch {RESNET_BATCH} at {side}x{side} bf16, losses "
+            f"{run['losses']}, "
+            f"step seconds {run['times']}, {per_second(RESNET_BATCH, run)} "
+            f"images/s (steps 2-{RESNET_STEPS}), peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB, on {card}")
+    log(f"resnet50 1 rank: B2 {int8['quantize_blocks'] / RESNET_STEPS} and "
+        f"B4 {int8['dequantize_blocks'] / RESNET_STEPS} launches a step on "
+        f"the int8 wire; launches {int8}; fp16 wire {runs['fp16']['counts']}")
+    return int8, runs["fp16"]["counts"]
+
+
+def resnet_ranks(dev, rank: int) -> dict:
+    """Path "resnet50 2 ranks": full ResNet-50 (bf16), every BatchNorm
+    synchronised over the global set, RESNET_RANK_BATCH images a rank,
+    SGD-momentum on the int8 + EF wire, RESNET_RANK_STEPS steps (the
+    counts set to 0 just before and read just after), the digests of
+    the parameters and of the running statistics after every step.
+    Then the oracle for the synchronised statistics: an f32 ResNet-50
+    with the same starting weights, synchronised, forwards this rank's
+    images in train mode; rank 0 forwards every rank's images, gathered,
+    through the same model with plain BatchNorm."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    ps = hvd.global_process_set()
+    model = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                dtype=torch.bfloat16, bn_process_set=ps,
+                                device=dev, seed=0)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    batch = images_batch(dev, RESNET_RANK_BATCH, IMAGE_SIDE["resnet50"],
+                         seed=100 + rank)
+    step = sgd_step(model, "int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, params, stats = [], [], []
+    for _ in range(RESNET_RANK_STEPS):
+        losses.append(float(step(model, batch)))
+        params.append(digest(p for _, p in sorted(model.named_parameters())))
+        stats.append(digest(b for _, b in sorted(model.named_buffers())))
+    seconds = time.perf_counter() - t0
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del model, step
+    torch.cuda.empty_cache()
+
+    images = batch[0].float()
+    with torch.no_grad():
+        synced = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                     bn_process_set=ps, device=dev, seed=0)
+        logits = synced(images)
+        synced_stats = {n: b.clone() for n, b in synced.named_buffers()}
+        del synced
+        everyone = gather_world(images).reshape(-1, *images.shape[1:])
+        all_logits = gather_world(logits)
+        oracle = dict(err=None, scale=None, stats_err=None)
+        if rank == 0:
+            plain = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                        device=dev, seed=0)
+            want = plain(everyone)
+            got = all_logits.reshape(want.shape)
+            oracle = dict(
+                err=float((got - want).abs().max()),
+                scale=float(want.abs().max()),
+                stats_err=max(float((synced_stats[n] - b).abs().max()
+                                    / b.abs().max())
+                              for n, b in plain.named_buffers()))
+    return dict(losses=losses, params=params, stats=stats, counts=counts,
+                seconds=seconds, peak=peak, oracle=oracle)
+
+
+def resnet_two_rank_phase():
+    """Path "resnet50 2 ranks" (:func:`resnet_ranks`), two processes on
+    one card over gloo: replicas and running statistics bitwise equal
+    after every step, B2-B4 launched, finite losses, and step 1's
+    logits of the synchronised f32 model within 1e-3 of their scale of
+    the one-process forward over the concatenated batch with plain
+    BatchNorm (the statistics differ by f32 rounding only; a rank that
+    normalised with its own statistics would be off by tens of percent),
+    every running statistic within 1e-3 of its buffer's largest |value|.
+    Returns rank 0's launch counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(RESNET_WORKER_FLAG, WIRE_RANKS)
+    seconds = time.perf_counter() - t0
+    label = "resnet50 2 ranks"
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{label}: non-finite loss on rank {r}")
+        for name in ("quantize_blocks", "dequantize_accumulate",
+                     "dequantize_blocks"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {label} "
+                                     f"path (rank {r})")
+    for key in ("params", "stats", "losses"):
+        if any(out[key] != res[0][key] for out in res):
+            raise AssertionError(f"{label}: the ranks' {key} differ")
+    oracle = res[0]["oracle"]
+    if not (oracle["err"] <= 1e-3 * oracle["scale"]
+            and oracle["stats_err"] <= 1e-3):
+        raise AssertionError(f"{label}: synchronised BatchNorm off the "
+                             f"concatenated-batch oracle: {oracle}")
+    r0 = res[0]
+    log(f"{label}: ResNet-50 bf16, SyncBN over both ranks, batch "
+        f"{RESNET_RANK_BATCH} a rank, int8+EF wire, losses {r0['losses']}; "
+        f"parameters and running statistics bitwise equal on both ranks "
+        f"after every step")
+    log(f"{label}: f32 oracle, step 1's weights: synchronised logits within "
+        f"{oracle['err']} of the one-process forward of "
+        f"{WIRE_RANKS * RESNET_RANK_BATCH} images with plain BatchNorm "
+        f"(scale {oracle['scale']}, limit 1e-3 of it); running statistics "
+        f"within {oracle['stats_err']} of each buffer's scale (limit 1e-3)")
+    log(f"{label}: {seconds:.1f} s for the phase, "
+        f"{[round(o['seconds'], 1) for o in res]} s of steps per rank; peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"launches {r0['counts']} (gloo staging through the host)")
+    return r0["counts"]
+
+
+def bert_phase(dev, card: str):
+    """Path "bert-large 1 rank": ``benchmarks/bert_finetune_bench.py``'s
+    configuration, ``BertForSequenceClassification(BertConfig.large(
+    attention="flash"), num_classes=2)``, seq BERT_SEQ, batch
+    BERT_BATCH, AdamW(2e-5, weight decay 1e-4) in a DistributedOptimizer
+    on the fp16 wire, BERT_STEPS steps: B1 must launch once a layer a
+    step, every call non-causal.  Then the masked-LM head, dense and
+    chunked (:func:`mlm_check`).  Returns the counts."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    cfg = hvd.models.BertConfig.large(attention="flash")
+    model = hvd.models.BertForSequenceClassification(cfg, num_classes=2,
+                                                     device=dev, seed=0)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                        generator=gen, device=dev)
+    labels = torch.randint(0, 2, (BERT_BATCH,), generator=gen, device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **BERT_ADAMW),
+        compression=hvd.Compression.fp16)
+    step = hvd.make_train_step(hvd.models.classification_loss_fn(model), opt)
+    flash, causal = fa._Flash3, set()
+
+    class Recording(flash):
+        """The attention's autograd function, recording each call's
+        causal flag (the kernel wrapper and its count are untouched)."""
+
+        @staticmethod
+        def forward(ctx, q3, k3, v3, scale, is_causal):
+            causal.add(bool(is_causal))
+            return flash.forward(ctx, q3, k3, v3, scale, is_causal)
+
+    fa._Flash3 = Recording
+    try:
+        run = run_steps("bert-large 1 rank", step, model, (ids, labels),
+                        BERT_STEPS)
+    finally:
+        fa._Flash3 = flash
+    counts = run["counts"]
+    if counts["flash_fwd"] != cfg.n_layer * BERT_STEPS or causal != {False}:
+        raise AssertionError(f"bert-large: flash_fwd launched "
+                             f"{counts['flash_fwd']} times (want "
+                             f"{cfg.n_layer * BERT_STEPS}), causal {causal}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"bert-large 1 rank: BERT-Large {n_params} params, seq {BERT_SEQ}, "
+        f"batch {BERT_BATCH}, fp16 wire, losses {run['losses']}, step "
+        f"seconds {run['times']}, {per_second(BERT_BATCH, run)} seqs/s "
+        f"(steps 2-{BERT_STEPS}), peak memory {run['peak'] / 2**30:.2f} "
+        f"GiB, on {card}")
+    log(f"bert-large 1 rank: flash_fwd {counts['flash_fwd'] / BERT_STEPS} "
+        f"launches a step, every one non-causal; launches {counts}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    mlm_check(dev)
+    return counts
+
+
+def mlm_check(dev) -> None:
+    """Part of "bert-large 1 rank": ``BertForMaskedLM`` at BERT-Large's
+    widths and depth, one forward and backward with the dense
+    ``masked_lm_loss_fn`` and one with ``vocab_chunk_size=VOCAB_CHUNK``,
+    same weights and batch (15% of the positions labelled).  In f32
+    activations, so that the two heads compute one function: with bf16
+    ones the dense head's tied product rounds its logits to bf16 and
+    the chunked head's f32 product does not (the reference's contract
+    too).  The losses and the tied embedding's gradient held by
+    :func:`heads_agree`; logs each one's peak memory."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    cfg = hvd.models.BertConfig.large(attention="flash",
+                                      dtype=torch.float32)
+    model = hvd.models.BertForMaskedLM(cfg, device=dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                        generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                            generator=gen, device=dev)
+    mask = (torch.rand((BERT_BATCH, BERT_SEQ), generator=gen, device=dev)
+            < 0.15).float()
+    runs = dense_and_chunked(
+        model, lambda chunk: hvd.models.masked_lm_loss_fn(
+            model, vocab_chunk_size=chunk), (ids, targets, mask),
+        lambda: model.bert.tok_embed.embedding)
+    dense, chunked, err = heads_agree("masked LM head", runs)
+    log(f"bert-large mlm: f32, batch {BERT_BATCH} x {BERT_SEQ}, loss dense "
+        f"{dense} chunked {chunked} (chunk {VOCAB_CHUNK}), tied embedding "
+        f"gradient max_abs_err {err}; peak memory dense "
+        f"{runs[0][2] / 2**30:.3f} GiB, chunked "
+        f"{runs[VOCAB_CHUNK][2] / 2**30:.3f} GiB")
+
+
+def convnet_phase(dev, card: str):
+    """Paths "vgg16 1 rank" and "inception3 1 rank": ``bench.py``'s
+    shapes (224 and 299 inputs, 1000 classes, bf16), CONVNET_BATCH
+    images, one warm-up step, then one step on the int8 + EF wire with
+    the counts set to 0 just before and read just after.  VGG's fc6
+    gradient (25088 x 4096) is the largest leaf the wire carries.
+    Returns ``{path: counts}``."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    counts = {}
+    for name, cls in (("vgg16", hvd.models.VGG16),
+                      ("inception3", hvd.models.InceptionV3)):
+        side = IMAGE_SIDE[name]
+        kwargs = dict(image_size=side) if name == "vgg16" else {}
+        model = cls(num_classes=IMAGE_CLASSES, dtype=torch.bfloat16,
+                    device=dev, seed=0, **kwargs)
+        batch = images_batch(dev, CONVNET_BATCH, side, seed=1)
+        step = sgd_step(model, "int8")
+        float(step(model, batch))
+        run = run_steps(f"{name} 1 rank", step, model, batch, 1)
+        c = run["counts"]
+        for k in ("quantize_blocks", "dequantize_blocks"):
+            if c[k] <= 0:
+                raise AssertionError(f"{k} never launched on {name}")
+        largest = max(p.numel() for p in model.parameters())
+        log(f"{name} 1 rank: {sum(p.numel() for p in model.parameters())} "
+            f"params (largest leaf {largest}), batch {CONVNET_BATCH} at "
+            f"{side}x{side} bf16, int8+EF step after a warm-up: loss "
+            f"{run['losses'][0]}, {run['times'][0]} s, "
+            f"{CONVNET_BATCH / run['times'][0]} images/s, peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB, launches {c}, on {card}")
+        counts[f"{name} 1 rank"] = c
+        del model, step
+        torch.cuda.empty_cache()
+    return counts
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
-WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG)
+RESNET_WORKER_FLAG = "--resnet-worker"
+WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
+                RESNET_WORKER_FLAG)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -1654,6 +2072,7 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
     import horovod_tpu_torch as hvd
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     world = SET_RANKS if flag == SET_WORKER_FLAG else WIRE_RANKS
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
@@ -1666,6 +2085,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             res = dict(dp=dp, sharded=sharded_two_ranks(hvd.device(), rank))
         elif flag == MB_WORKER_FLAG:
             res = microbatch_ranks(hvd.device(), rank)
+        elif flag == RESNET_WORKER_FLAG:
+            res = resnet_ranks(hvd.device(), rank)
         else:
             res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -1775,7 +2196,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_and_power_limit()
     log(card)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     hvd.ops.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
@@ -1795,12 +2216,22 @@ def main() -> int:
         wire_counts, sharded_counts = two_rank_phase()
         set_counts = four_rank_phase()
         mb_counts = microbatch_phase()
+        resnet_counts, resnet_fp16_counts = resnet_phase(dev, card)
+        torch.cuda.empty_cache()
+        resnet_ranks_counts = resnet_two_rank_phase()
+        bert_counts = bert_phase(dev, card)
+        torch.cuda.empty_cache()
+        convnet_counts = convnet_phase(dev, card)
         route_check(dev)
     finally:
         hvd.shutdown()
     by_path = {"1 rank": counts, "zero 1 rank": zero_counts,
                "2 ranks": wire_counts, "sharded 2 ranks": sharded_counts,
-               "4 ranks": set_counts, "microbatch 2 ranks": mb_counts}
+               "4 ranks": set_counts, "microbatch 2 ranks": mb_counts,
+               "resnet50 1 rank": resnet_counts,
+               "resnet50 1 rank fp16": resnet_fp16_counts,
+               "resnet50 2 ranks": resnet_ranks_counts,
+               "bert-large 1 rank": bert_counts, **convnet_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -1812,6 +2243,7 @@ def main() -> int:
             raise AssertionError(f"{row['name']} launched on no path")
     if child_processes():
         raise AssertionError(f"processes left running: {child_processes()}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

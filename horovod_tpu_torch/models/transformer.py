@@ -7,6 +7,8 @@ layout and names, so a flax param tree loads into this model one to one
 applied as ``x @ kernel``; names are the flax paths joined by dots
 (``block_0.attn.qkv.kernel``, ``embed.embedding``, ``pos_embed``).
 
+The layers (``Dense``, ``LayerNorm``, ``Embed``) and
+:func:`load_jax_params` live in :mod:`.layers`, shared with the zoo.
 Numerics follow flax: activations in ``cfg.dtype`` (bfloat16 by
 default) with f32 parameters; LayerNorm with ε = 1e-6 and f32
 statistics (mean of x and of x², as flax's fast variance); the tanh
@@ -19,21 +21,15 @@ serving are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable, Mapping
+from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import basics
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import full_attention
-
-# Flax's lecun_normal: a normal truncated at two standard deviations,
-# rescaled by this constant so the variance is 1/fan_in.
-_TRUNC_STD = 0.87962566103423978
+from .layers import Dense, Embed, Init, LayerNorm, load_jax_params  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,99 +46,8 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32
 
 
-def _default_device() -> torch.device:
-    """This rank's device after :func:`init`, else the current CUDA
-    device; never the CPU unless the caller asks for it."""
-    if basics.is_initialized():
-        return basics.device()
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "GPT: no CUDA device and init() has not run; pass "
-            "device='cpu' to build the model on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-class _Init:
-    """Parameter factory: one generator, one device, one dtype."""
-
-    def __init__(self, cfg: GPTConfig, device, seed: int) -> None:
-        if device is None:
-            device = _default_device()
-        self.device = torch.device(device)
-        self.dtype = cfg.param_dtype
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
-
-    def empty(self, *shape) -> nn.Parameter:
-        return nn.Parameter(torch.empty(shape, dtype=self.dtype,
-                                        device=self.device))
-
-    def lecun_normal(self, d_in: int, d_out: int) -> nn.Parameter:
-        p = self.empty(d_in, d_out)
-        std = math.sqrt(1.0 / d_in) / _TRUNC_STD
-        with torch.no_grad():
-            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
-                                  generator=self.gen)
-        return p
-
-    def normal(self, std: float, *shape) -> nn.Parameter:
-        p = self.empty(*shape)
-        with torch.no_grad():
-            p.normal_(0.0, std, generator=self.gen)
-        return p
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense(use_bias=False)``: ``x @ kernel`` in ``dtype``."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 init: _Init) -> None:
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = init.lecun_normal(d_in, d_out)
-
-    def forward(self, x):
-        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: f32 statistics, ε = 1e-6, output in
-    ``dtype``."""
-
-    def __init__(self, d: int, dtype: torch.dtype, init: _Init,
-                 eps: float = 1e-6) -> None:
-        super().__init__()
-        self.dtype = dtype
-        self.eps = eps
-        self.scale = init.empty(d)
-        self.bias = init.empty(d)
-        with torch.no_grad():
-            self.scale.fill_(1.0)
-            self.bias.zero_()
-
-    def forward(self, x):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=-1, keepdim=True)
-        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
-        var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return ((xf - mean) * mul + self.bias).to(self.dtype)
-
-
-class Embed(nn.Module):
-    """flax ``nn.Embed``: rows of ``embedding`` in ``dtype``."""
-
-    def __init__(self, vocab: int, d: int, dtype: torch.dtype,
-                 init: _Init) -> None:
-        super().__init__()
-        self.dtype = dtype
-        self.embedding = init.normal(d ** -0.5, vocab, d)
-
-    def forward(self, tokens):
-        return F.embedding(tokens, self.embedding).to(self.dtype)
-
-
 class Attention(nn.Module):
-    def __init__(self, cfg: GPTConfig, init: _Init) -> None:
+    def __init__(self, cfg: GPTConfig, init: Init) -> None:
         super().__init__()
         self.cfg = cfg
         c = cfg.d_model
@@ -169,7 +74,7 @@ class Attention(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, init: _Init) -> None:
+    def __init__(self, cfg: GPTConfig, init: Init) -> None:
         super().__init__()
         self.up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, init)
         self.down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, init)
@@ -179,7 +84,7 @@ class MlpBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, init: _Init) -> None:
+    def __init__(self, cfg: GPTConfig, init: Init) -> None:
         super().__init__()
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, init)
         self.attn = Attention(cfg, init)
@@ -203,7 +108,7 @@ class GPT(nn.Module):
                  seed: int = 0) -> None:
         super().__init__()
         self.config = cfg = config
-        init = _Init(cfg, device, seed)
+        init = Init(cfg.param_dtype, device, seed)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, init)
         self.pos_embed = init.normal(0.02, cfg.max_seq_len, cfg.d_model)
         for i in range(cfg.n_layer):
@@ -254,34 +159,3 @@ def lm_loss_fn(model: GPT, *, vocab_chunk_size: int = 0) -> Callable:
         return -ll.mean()
 
     return loss_fn
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> dict:
-    flat = {}
-    for key, val in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(val, Mapping):
-            flat.update(_flatten(val, name + "."))
-        else:
-            flat[name] = val
-    return flat
-
-
-def load_jax_params(model: nn.Module, params: Mapping) -> None:
-    """Copy a flax param tree (nested dicts of numpy arrays, as
-    ``jax.tree.map(np.asarray, params)`` gives) into ``model``'s
-    parameters, name for name.  Raises on a missing, extra or
-    mis-shaped leaf."""
-    flat = _flatten(params)
-    own = dict(model.named_parameters())
-    if set(flat) != set(own):
-        raise ValueError(
-            f"param trees differ: missing {sorted(set(own) - set(flat))}, "
-            f"extra {sorted(set(flat) - set(own))}")
-    with torch.no_grad():
-        for name, p in own.items():
-            src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(src)

@@ -338,16 +338,49 @@ def _resolve_microbatches(requested: Optional[int], batch) -> int:
     return snapped
 
 
+def _loss_and_aux(loss_fn, model, batch, has_aux: bool):
+    """``loss_fn(model, batch)`` as ``(loss, aux)``: with ``has_aux`` the
+    function returns both (aux detached here), else aux is None."""
+    out = loss_fn(model, batch)
+    if not has_aux:
+        return out, None
+    loss, aux = out
+    return loss, _map_tensors(lambda t: t.detach(), aux)
+
+
+def _map_tensors(fn, tree):
+    """``fn`` on every leaf of a tree of tuples, lists and dicts; a
+    non-tensor leaf becomes a tensor first."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(torch.as_tensor(tree))
+
+
+def _stack_aux(auxes: list):
+    """Per-microbatch aux trees stacked leaf by leaf: ``[mb, ...]``."""
+    first = auxes[0]
+    if isinstance(first, dict):
+        return {k: _stack_aux([a[k] for a in auxes]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_aux([a[i] for a in auxes])
+                           for i in range(len(first)))
+    return torch.stack(auxes)
+
+
 def _microbatch_grads(model, loss_fn, batch, mb: int,
-                      params: List[torch.Tensor], *, overlap: bool = False,
+                      params: List[torch.Tensor], *, has_aux: bool = False,
+                      overlap: bool = False,
                       op: str = C.Average, group=None, compression=None,
                       threshold: int = fusion.DEFAULT_THRESHOLD,
                       alpha_us: float = DEFAULT_COST_ALPHA_US,
                       beta_gbps: float = DEFAULT_COST_BETA_GBPS):
     """Gradients of ``params`` accumulated over ``mb`` microbatches of
-    ``batch``, in microbatch order: ``(loss, grads, reduced)``, the loss
-    and gradients averaged over the microbatches and ``reduced`` True
-    when the overlap wire already reduced them over ``group``.
+    ``batch``, in microbatch order: ``(loss, grads, aux, reduced)``, the
+    loss and gradients averaged over the microbatches, ``aux`` (with
+    ``has_aux``) stacked ``[mb, ...]``, and ``reduced`` True when the
+    overlap wire already reduced the gradients over ``group``.
 
     With ``overlap`` and more than one rank, after microbatch *i*'s
     backward its gradients (zero where ``.grad`` is None) start their
@@ -360,13 +393,16 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
     def grads_of(i):
         for p in params:
             p.grad = None
-        loss = loss_fn(model, _microbatch(batch, i, mb))
+        loss, aux = _loss_and_aux(loss_fn, model, _microbatch(batch, i, mb),
+                                  has_aux)
         loss.backward()
+        auxes.append(aux)
         # The list keeps this microbatch's gradients alive while their
         # reduce-scatter is in flight and the next backward runs.
         return loss.detach(), [p.grad if p.grad is not None
                                else torch.zeros_like(p) for p in params]
 
+    auxes = []
     n = fusion._uniform_group_width(group)
     use_overlap = bool(overlap) and n > 1
     loss_sum, g0 = grads_of(0)
@@ -395,7 +431,8 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
             acc = [a + g for a, g in zip(acc, g_i)]
             loss_sum = loss_sum + loss_i
         grads = [a / mb for a in acc]
-    return loss_sum / mb, grads, use_overlap
+    aux = _stack_aux(auxes) if has_aux else None
+    return loss_sum / mb, grads, aux, use_overlap
 
 
 def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
@@ -404,7 +441,8 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
                     two_phase: Optional[bool] = None,
                     pipeline_depth: Optional[int] = None,
                     microbatches: Optional[int] = None,
-                    overlap: Optional[bool] = None) -> Callable:
+                    overlap: Optional[bool] = None,
+                    has_aux: bool = False) -> Callable:
     """Build the training step (reference: ``make_train_step``).
 
     ``loss_fn(model, batch) -> loss``.  The returned
@@ -415,6 +453,12 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     itself), steps the optimizer, updates ``model`` in place and returns
     the loss averaged over ``process_set``'s ranks (every rank by
     default).  Each rank passes its own shard of the batch.
+
+    ``has_aux``: ``loss_fn`` returns ``(loss, aux)`` (a tensor, or tuples,
+    lists and dicts of them) and the step returns ``(loss, aux)``, aux
+    this rank's, detached, and stacked ``[microbatches, ...]`` when the
+    step accumulates microbatches (the reference's contract, whose aux
+    comes back stacked over the slots).
 
     ``microbatches`` (None: ``HVD_TPU_MICROBATCHES``) accumulates that
     many microbatches of the batch (:func:`_microbatch_grads`).  With
@@ -447,8 +491,8 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
         reduced = False
         if mb > 1:
             cfg = basics.config()
-            loss, grads, reduced = _microbatch_grads(
-                model, loss_fn, batch, mb, params,
+            loss, grads, aux, reduced = _microbatch_grads(
+                model, loss_fn, batch, mb, params, has_aux=has_aux,
                 overlap=overlap_on() and not is_dist and op != C.Adasum,
                 op=op, group=group, compression=comp, threshold=threshold,
                 alpha_us=cfg.cost_alpha_us, beta_gbps=cfg.cost_beta_gbps)
@@ -456,7 +500,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
                 p.grad = g
         else:
             optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(model, batch)
+            loss, aux = _loss_and_aux(loss_fn, model, batch, has_aux)
             loss.backward()
         if not is_dist and not reduced:
             grads = _filled_grads(zip(names, params))
@@ -464,6 +508,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
                 grads, op=op, group=group, comp=comp, threshold=threshold,
                 two_phase=two_phase, pipeline_depth=pipeline_depth))
         optimizer.step()
-        return C.reduce_raw(loss.detach(), C.Average, group=group)
+        loss = C.reduce_raw(loss.detach(), C.Average, group=group)
+        return (loss, aux) if has_aux else loss
 
     return step

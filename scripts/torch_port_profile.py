@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Where the device time of a GPT-medium train step of horovod_tpu_torch
-goes, on one CUDA card.
+"""Where the device time of a train step of horovod_tpu_torch goes, on
+one CUDA card.
 
-    python3 scripts/torch_port_profile.py [--zero]
+    python3 scripts/torch_port_profile.py [--zero] [--model resnet50]
 
-Runs the train step of ``chip_smoke.py`` (GPT-medium: 24 layers,
-d_model 1024, 16 heads, seq 1024, batch 8, flash attention, bf16
-activations, AdamW, the int8 wire with error feedback) in a one-rank NCCL
-world, the data-parallel step or, with ``--zero``, the ZeRO-1 step
-(``make_zero_train_step``): two warm-up steps, then STEPS steps timed
-on the host clock, then as many under ``torch.profiler``.  Prints the
-card's name and power limit, the step time, the device time by group
-(the port's kernels, matrix products, the rest) and the device's idle
+Runs a train step of ``chip_smoke.py`` in a one-rank NCCL world: by
+default GPT-medium's (24 layers, d_model 1024, 16 heads, seq 1024,
+batch 8, flash attention, bf16 activations, AdamW, the int8 wire with
+error feedback), the data-parallel step or, with ``--zero``, the ZeRO-1
+step (``make_zero_train_step``); with ``--model resnet50`` the
+"resnet50 1 rank" step (``bench.py``'s ResNet-50 at batch 256, bf16,
+BatchNorm in train mode, SGD-momentum on the int8 + error-feedback
+wire).  Two warm-up steps, then STEPS steps timed on the host clock,
+then as many under ``torch.profiler``.  Prints the card's name and
+power limit, the step time, the device time by group (the port's
+kernels, convolutions, matrix products, the rest) and the device's idle
 share (one minus the device's busy time over the unprofiled step time),
 then the TOP kernels by device time, then one JSON line with the totals.
 
-It also times one layer's attention at the step's shapes with CUDA
-events: the forward kernel alone, and the forward with the plain-torch
-backward, each beside ``F.scaled_dot_product_attention`` as a yardstick
-that the port never calls.
+For GPT it also times one layer's attention at the step's shapes with
+CUDA events: the forward kernel alone, and the forward with the
+plain-torch backward, each beside ``F.scaled_dot_product_attention`` as
+a yardstick that the port never calls.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ TOP = 25       # kernels listed by device time
 # substring of "dequantize_rows" (B4), so B4 comes first.
 GROUPS = (
     ("flash_fwd kernel (B1)", ("flash_fwd",)),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
+    ("layout transposes (nchwToNhwc, nhwcToNchw)", ("nchwToNhwc",
+                                                    "nhwcToNchw")),
     ("B3 dequantize_accumulate (both routes)",
      tuple(ROUTE_KERNELS["dequantize_accumulate"].values())),
     ("B4 dequantize_blocks (both routes)",
@@ -48,7 +54,7 @@ GROUPS = (
     ("B2 quantize_blocks", ("quantize_rows",)),
     ("f32 products (cuBLAS, CUDA cores)", ("f32f32", "sgemm")),
     ("other products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
-    ("AdamW (multi_tensor_apply)", ("multi_tensor_apply",)),
+    ("optimizer (multi_tensor_apply)", ("multi_tensor_apply",)),
     ("log-softmax", ("SoftMax",)),
 )
 OTHER = "other (elementwise, reductions, copies)"
@@ -100,13 +106,19 @@ def main() -> int:
     parser.add_argument("--zero", action="store_true",
                         help="profile the ZeRO-1 step, not the "
                              "data-parallel one")
+    parser.add_argument("--model", choices=["gpt-medium", "resnet50"],
+                        default="gpt-medium",
+                        help="the model whose step is profiled")
     args = parser.parse_args()
+    if args.zero and args.model != "gpt-medium":
+        parser.error("--zero profiles GPT-medium's ZeRO step only")
     if not torch.cuda.is_available():
         print("torch_port_profile: no CUDA device", file=sys.stderr)
         return 1
     import horovod_tpu_torch as hvd
-    from chip_smoke import (card_and_power_limit, dp_step, gpt_medium,
-                            zero_step)
+    from chip_smoke import (IMAGE_CLASSES, IMAGE_SIDE, RESNET_BATCH,
+                            card_and_power_limit, dp_step, gpt_medium,
+                            images_batch, sgd_step, zero_step)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -118,9 +130,17 @@ def main() -> int:
     hvd.init()
     try:
         dev = hvd.device()
-        attn = attention_times(dev)
-        model, batch = gpt_medium(dev)
-        step = (zero_step if args.zero else dp_step)(model)
+        if args.model == "resnet50":
+            attn = None
+            model = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                        dtype=torch.bfloat16, device=dev)
+            batch = images_batch(dev, RESNET_BATCH, IMAGE_SIDE["resnet50"],
+                                 seed=0)
+            step = sgd_step(model, "int8")
+        else:
+            attn = attention_times(dev)
+            model, batch = gpt_medium(dev)
+            step = (zero_step if args.zero else dp_step)(model)
         for _ in range(2):
             step(model, batch)
         torch.cuda.synchronize()
@@ -156,19 +176,25 @@ def main() -> int:
         groups[group_of(name)] += ms
     # The profiler slows the host, so the idle share is taken against the
     # step time of the same steps without it.
-    result = dict(card=card, step="zero" if args.zero else "data-parallel",
+    result = dict(card=card, model=args.model,
+                  step="zero" if args.zero else "data-parallel",
                   steps=STEPS, step_ms=step_ms,
                   device_busy_ms_per_step=busy_ms / STEPS,
                   idle_share=1.0 - busy_ms / STEPS / step_ms,
                   groups_ms_per_step={g: ms / STEPS
                                       for g, ms in groups.items()},
                   attention_one_layer=attn)
+    if args.model == "resnet50":
+        result["images_per_s"] = RESNET_BATCH / (step_ms / 1e3)
 
     print(f"step {step_ms} ms, device busy {result['device_busy_ms_per_step']}"
-          f" ms, idle share {result['idle_share']}")
+          f" ms, idle share {result['idle_share']}"
+          + (f", {result['images_per_s']} images/s"
+             if "images_per_s" in result else ""))
     for g, ms in result["groups_ms_per_step"].items():
         print(f"  {g}: {ms} ms per step")
-    print(f"attention, one layer: {attn}")
+    if attn is not None:
+        print(f"attention, one layer: {attn}")
     print(f"the {TOP} largest kernels: ms per step, launches per step, "
           "group, name")
     for ms, count, name in kernels[:TOP]:

@@ -206,6 +206,60 @@ def test_flash_fwd_bf16_at_gpt_medium(card, peak):
     assert _row_relative(o, o_ref) <= 1e-2
 
 
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+def test_flash_fwd_bf16_non_causal_at_bert_large(card, peak):
+    """BERT-Large's shape (B*H 32*16, T = Tk = 128, D 64, bf16,
+    non-causal: the encoder's route) on the tensor-core kernel, held to
+    the bf16 limits of the causal case on normal and peaky scores."""
+    g = torch.Generator(device=card).manual_seed(12)
+    q3, k3, v3 = (torch.randn((512, 128, 64), generator=g, device=card)
+                  for _ in range(3))
+    q3, k3, v3 = ((q3 * peak).bfloat16(), k3.bfloat16(), v3.bfloat16())
+    kc.reset_launch_counts()
+    (o, lse), names = _device_kernels(
+        lambda: fa.flash_fwd(q3, k3, v3, 0.125, False))
+    o_ref, lse_ref = fa.flash_fwd_plain(q3, k3, v3, 0.125, False)
+    assert kc.launch_counts()["flash_fwd"] == 1
+    assert any("flash_fwd_wgmma" in n for n in names), names
+    assert (o.float() - o_ref.float()).abs().max().item() <= 3e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert _row_relative(o, o_ref) <= 1e-2
+
+
+def test_resnet18_step_on_the_int8_wire_launches_b2_b4(card):
+    """One data-parallel step of a narrow bf16 ResNet-18 on the card in a
+    world of one, SGD-momentum in a DistributedOptimizer on the int8
+    wire with error feedback: the loss is finite, the parameters move,
+    and the quantize (B2) and dequantize (B4) kernels launch."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        model = hvd.models.ResNet18(num_classes=10, width=16,
+                                    dtype=torch.bfloat16, seed=1)
+        g = torch.Generator(device=card).manual_seed(3)
+        images = torch.randn((8, 32, 32, 3), generator=g, device=card)
+        labels = torch.randint(0, 10, (8,), generator=g, device=card)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            compression=hvd.Compression.int8, error_feedback=True)
+
+        def loss_fn(module, batch):
+            logp = torch.log_softmax(module(batch[0].bfloat16()), -1)
+            return -logp.gather(-1, batch[1][:, None]).mean()
+
+        step = hvd.make_train_step(loss_fn, opt)
+        before = model.head.kernel.detach().clone()
+        kc.reset_launch_counts()
+        loss = step(model, (images, labels))
+        counts = kc.launch_counts()
+    finally:
+        hvd.shutdown()
+    assert torch.isfinite(loss)
+    assert not torch.equal(before, model.head.kernel.detach())
+    assert counts["quantize_blocks"] > 0 and counts["dequantize_blocks"] > 0
+
+
 def _device_kernels(fn):
     """(``fn()``, the CUDA kernels it launched, as the profiler's device
     trace names them)."""

@@ -9,7 +9,9 @@ overlap wire) and through ``DistributedOptimizer`` (it reduces once);
 the bf16 and int8 overlap wires stay close to exact; an explicit count
 that does not divide the batch raises and a config-driven one snaps
 down.  ``TestBoundedRecompile`` counts jax retraces and has no
-counterpart (ROADMAP R3).  Each case is also held to the reference's
+counterpart (ROADMAP R3).  ``make_train_step(has_aux=True)`` returns
+each rank's aux, stacked per microbatch, as the reference's per-slot
+aux.  Each case is also held to the reference's
 ``make_train_step`` on the first two devices of the CPU mesh, each rank
 on its rows of the global batch; a narrow GPT takes microbatched steps
 on the int8 wire at ``tests/test_torch_port_train.py``'s tolerances.
@@ -173,6 +175,46 @@ class TestMicrobatchEquivalence:
             _resolve_microbatches(24, batch)
         assert [snap_microbatches(r, 12) for r in (1, 5, 7, 12, 40)] \
             == [1, 4, 6, 12, 12]
+
+
+def _jax_aux_loss(params, batch):
+    x, y = batch
+    pred = x @ params["w"] + params["b"]
+    return jnp.mean((pred - y) ** 2), {"pred_mean": jnp.mean(pred),
+                                       "residual": (pred - y) ** 2}
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_has_aux_returns_this_ranks_aux(world, microbatches):
+    """``loss_fn`` returns ``(loss, aux)``; the step returns ``(loss,
+    aux)`` with this rank's aux, stacked ``[microbatches, ...]`` when it
+    accumulates: the reference's per-slot aux (``[slots, ...]`` or
+    ``[slots, microbatches, ...]``) at this rank's index, over two SGD
+    steps; parameters and losses as the reference's.  Tolerance: f32
+    toy regression, 1e-6 (``TOL``)."""
+    x, y = _data(n=16)
+    params = {"w": jnp.zeros((5,), jnp.float32),
+              "b": jnp.zeros((), jnp.float32)}
+    tx = optax.sgd(0.1)
+    step = jax_make_train_step(_jax_aux_loss, tx, mesh=_mesh(), donate=False,
+                               has_aux=True, microbatches=microbatches)
+    state, ref_losses, ref_aux = tx.init(params), [], []
+    for _ in range(2):
+        params, state, loss, aux = step(params, state, (x, y))
+        ref_losses.append(float(loss))
+        ref_aux.append({k: np.asarray(v) for k, v in aux.items()})
+    out = world.run("aux_steps", x=x, y=y, lr=0.1, steps=2,
+                    microbatches=microbatches)
+    _replicas_equal(out)
+    for r in range(N):
+        np.testing.assert_allclose(out[r]["losses"], ref_losses, **TOL)
+        for got, want in zip(out[r]["aux"], ref_aux):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert got[k].shape == want[k][r].shape, k
+                np.testing.assert_allclose(got[k], want[k][r], **TOL)
+    _close(out[0]["params"], {k: np.asarray(v) for k, v in params.items()},
+           **TOL)
 
 
 # --- a narrow GPT: microbatches on the int8 wire ----------------------------------

@@ -641,3 +641,148 @@ def root_only_state() -> dict:
              for key, v in opt.state[p].items()}
     state["lr"] = opt.param_groups[0]["lr"]
     return state
+
+
+# --- the model zoo: SyncBatchNorm, ResNet and BERT data parallelism -----------
+
+def _rows(array: np.ndarray, dtype=None) -> torch.Tensor:
+    t = _my_rows(array)
+    return t if dtype is None else t.to(dtype)
+
+
+def _tensors_by_name(pairs) -> dict:
+    return {n: t.detach().numpy().copy() for n, t in pairs}
+
+
+def sync_batch_norm(config: dict, params: dict, batch_stats: dict,
+                    x: np.ndarray, labels: np.ndarray) -> dict:
+    """A narrow ResNet with every BatchNorm synchronised over the global
+    set, from the given flax variables, one train-mode forward and
+    backward of this rank's rows: its logits, running statistics and
+    the gradients of its parameters and of its input."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import load_jax_params
+    from horovod_tpu_torch.models import resnet
+
+    model = resnet.ResNet(**config, block=resnet.BasicBlock,
+                          bn_process_set=hvd.global_process_set(),
+                          device="cpu")
+    load_jax_params(model, params, batch_stats)
+    xs = _rows(x).requires_grad_(True)
+    logits = model(xs)
+    loss = -torch.log_softmax(logits, -1).gather(
+        -1, _rows(labels).long()[:, None]).mean()
+    loss.backward()
+    return {"logits": logits.detach().numpy(), "x_grad": xs.grad.numpy(),
+            "grads": _tensors_by_name((n, p.grad)
+                                      for n, p in model.named_parameters()),
+            "stats": _tensors_by_name(model.named_buffers())}
+
+
+def _capture_wire(opt, store: dict) -> None:
+    """Keep the first step's local and reduced gradients of ``opt`` (a
+    DistributedOptimizer) in ``store``, by name."""
+    synchronize = opt.synchronize
+
+    def capturing():
+        first = "local" not in store
+        if first:
+            store["local"] = {name: p.grad.detach().clone()
+                              for p, name in opt._names.items()}
+        synchronize()
+        if first:
+            store["reduced"] = {name: p.grad.detach().clone()
+                                for p, name in opt._names.items()}
+
+    opt.synchronize = capturing
+
+
+def train_resnet(config: dict, params: dict, batch_stats: dict,
+                 x: np.ndarray, labels: np.ndarray, compression: str,
+                 error_feedback: bool, steps: int,
+                 fusion_threshold: int) -> dict:
+    """``steps`` data-parallel SGD-momentum steps (``bench.py``'s
+    ``optax.sgd(0.1, momentum=0.9)``) of a narrow ResNet in train mode
+    (plain BatchNorm, this rank's statistics) on this rank's rows: the
+    losses, parameters and running statistics, and step 1's gradients
+    before and after the wire."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import load_jax_params
+    from horovod_tpu_torch.models import resnet
+
+    model = resnet.ResNet(**config, block=resnet.BasicBlock, device="cpu")
+    load_jax_params(model, params, batch_stats)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        compression=getattr(hvd.Compression, compression),
+        error_feedback=error_feedback, fusion_threshold=fusion_threshold,
+        named_parameters=model.named_parameters())
+    wire = {}
+    _capture_wire(opt, wire)
+
+    def loss_fn(module, batch):
+        images, labs = batch
+        logp = torch.log_softmax(module(images), -1)
+        return -logp.gather(-1, labs[:, None]).mean()
+
+    step = hvd.make_train_step(loss_fn, opt)
+    batch = (_rows(x), _rows(labels).long())
+    losses, stats = [], []
+    for _ in range(steps):
+        losses.append(float(step(model, batch)))
+        stats.append(_tensors_by_name(model.named_buffers()))
+    return {"losses": losses, "stats": stats,
+            "params": _tensors_by_name(model.named_parameters()),
+            "local": {n: g.numpy() for n, g in wire["local"].items()},
+            "reduced": {n: g.numpy() for n, g in wire["reduced"].items()}}
+
+
+def train_bert(config: dict, params: dict, ids: np.ndarray,
+               labels: np.ndarray, steps: int, lr: float,
+               fusion_threshold: int) -> dict:
+    """``benchmarks/bert_finetune_bench.py``'s step on a small BERT:
+    the classifier with AdamW (weight decay 1e-4, optax's default) in a
+    DistributedOptimizer on the fp16 wire with tensor fusion, this rank's
+    rows, ``steps`` steps: the losses and parameters."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (BertConfig,
+                                          BertForSequenceClassification,
+                                          classification_loss_fn,
+                                          load_jax_params)
+
+    cfg = BertConfig(**{**config, "dtype": getattr(torch, config["dtype"])})
+    model = BertForSequenceClassification(cfg, num_classes=2, device="cpu")
+    load_jax_params(model, params)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=1e-4),
+        compression=hvd.Compression.fp16, fusion_threshold=fusion_threshold)
+    step = hvd.make_train_step(classification_loss_fn(model), opt)
+    batch = (_rows(ids).long(), _rows(labels).long())
+    losses = [float(step(model, batch)) for _ in range(steps)]
+    return {"losses": losses,
+            "params": _tensors_by_name(model.named_parameters())}
+
+
+def aux_steps(x: np.ndarray, y: np.ndarray, lr: float, steps: int,
+              microbatches: int) -> dict:
+    """``make_train_step(has_aux=True)`` on the toy regression: the loss
+    function also returns this microbatch's mean prediction and squared
+    residuals; the step gives back (loss, aux) a step."""
+    import horovod_tpu_torch as hvd
+
+    model = _Linear(x.shape[1])
+
+    def loss_fn(module, batch):
+        bx, by = batch
+        pred = bx @ module.w + module.b
+        return ((pred - by) ** 2).mean(), {"pred_mean": pred.mean(),
+                                           "residual": (pred - by) ** 2}
+
+    step = hvd.make_train_step(loss_fn, torch.optim.SGD(model.parameters(),
+                                                        lr=lr),
+                               microbatches=microbatches, has_aux=True)
+    batch = (_my_rows(x), _my_rows(y))
+    out = [step(model, batch) for _ in range(steps)]
+    return {"losses": [float(loss) for loss, _ in out],
+            "aux": [{k: v.numpy() for k, v in aux.items()} for _, aux in out],
+            "params": _tensors_by_name(model.named_parameters())}
