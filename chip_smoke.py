@@ -125,18 +125,43 @@
    backward with the dense and with the chunked head: losses within
    rtol 1e-5, the tied embedding's gradient within rtol 1e-4 / atol
    1e-6, both peaks printed.
-12. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
+12. "hierarchical 4 ranks": four processes share the card over gloo
+   under ``HVD_TPU_TOPO_SPEC=2x2`` and ``HVD_TPU_HIERARCHICAL_INNER=2``,
+   full ResNet-50 (bf16, BatchNorm local), 32 images a rank. (1) The
+   resolved topology must be 2x2 (a spec that did not factor the world
+   would run flat); the compiler's choice a fusion bucket at the default
+   α/β under ``auto`` is printed. (2) 3 steps with
+   ``HVD_TPU_TOPO_SCHEDULE=hierarchical`` on the int8 + EF wire: finite
+   losses, replicas bitwise equal after every step, step 1's reduced
+   gradient bit for bit the reduce-scatter inside each pod, the
+   allreduce across pods and the all-gather inside the pod composed from
+   the plain B2-B4 over every rank's captured bucket; B2-B4 must
+   launch; then 2 steps on the flat wire, timed. (3) Integer-valued f32
+   of ResNet-50's gradient size (the int8 wire: a per-rank constant on
+   the 127·2^k grid) through the flat, two-phase and hierarchical
+   schedules on none, fp16, bf16 and int8: bit for bit alike, and alike
+   on every rank. (4) The eager ``allreduce`` with
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on (one reduce-scatter of width 2)
+   and off, Sum, Average and an int32 Average: bit for bit; the pair
+   {0, 2} with it on runs flat. (5) ``make_train_step(microbatches=2,
+   overlap=True)`` under ``hierarchical`` (every bucket hierarchical):
+   the reduced gradient within 1e-5 of each leaf's largest |value| of
+   the flat overlap wire on the same captured gradients, and bit for bit
+   on integer-valued leaves. Prints the step seconds hierarchical
+   against flat (gloo on one card: not a wire's time), peak memory a
+   rank and rank 0's B2/B3/B4 launches.
+13. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-13. Route check: the profiler's device trace must show a bf16
+14. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-14. Prints the ``kernels`` JSON line (all seven kernels, with their
+15. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -150,6 +175,7 @@ TF32 is off for matmuls and convolutions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -932,11 +958,12 @@ def dp_two_ranks(dev, rank: int) -> dict:
                 params=digest(p for _, p in sorted(model.named_parameters())))
 
 
-def plain_reducescatter(flats, rank: int):
-    """Rank ``rank``'s shard of the int8 wire's average of ``flats`` (one
-    flat f32 vector a rank, in rank order), from the plain versions of B2
-    and B3 with the wire's block and pad rules: what
-    ``fused_quantize_reducescatter`` must return, bit for bit."""
+def plain_reducescatter(flats, rank: int, op: str = "average"):
+    """Rank ``rank``'s shard of the int8 wire's average (or, with ``op``
+    "sum", sum) of ``flats`` (one flat f32 vector a rank, in rank order),
+    from the plain versions of B2 and B3 with the wire's block and pad
+    rules: what ``fused_quantize_reducescatter`` must return, bit for
+    bit."""
     import torch
     from horovod_tpu_torch.ops import int8_kernels as ik
 
@@ -953,7 +980,8 @@ def plain_reducescatter(flats, rank: int):
         qs.append(q)
         ss.append(s)
     acc = ik.dequantize_accumulate_plain(torch.stack(qs), torch.stack(ss))
-    return acc.reshape(-1)[:k] / n
+    acc = acc.reshape(-1)[:k]
+    return acc / n if op == "average" else acc
 
 
 def sharded_two_ranks(dev, rank: int) -> dict:
@@ -1919,6 +1947,393 @@ def resnet_two_rank_phase():
     return r0["counts"]
 
 
+# --- "hierarchical 4 ranks": the two-tier schedule on ResNet-50 -------------
+
+HIER_ENV = {"HVD_TPU_TOPO_SPEC": "2x2", "HVD_TPU_HIERARCHICAL_INNER": "2"}
+HIER_STEPS, HIER_FLAT_STEPS, HIER_MICROBATCHES = 3, 2, 2
+
+
+@contextlib.contextmanager
+def knobs(**fields):
+    """The live config with ``fields`` swapped in for the block (the
+    knobs that ``HVD_TPU_TOPO_SCHEDULE`` and
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` set at init), on this rank."""
+    import dataclasses
+    from horovod_tpu_torch import basics
+
+    old = basics._session
+    basics._session = dataclasses.replace(
+        old, config=dataclasses.replace(old.config, **fields))
+    try:
+        yield
+    finally:
+        basics._session = old
+
+
+def plain_allreduce_int8(xs):
+    """The int8 allreduce's sum over ``xs`` (one f32 vector a member, in
+    member order) from the plain B2-B4: pad to the member count,
+    reduce-scatter, all-gather, cut the pad."""
+    n, numel = len(xs), xs[0].numel()
+    padded = [flat_pad(x, n) for x in xs]
+    shards = [plain_reducescatter(padded, i, op="sum") for i in range(n)]
+    return plain_allgather(shards)[:numel]
+
+
+def plain_hierarchical(flats, pods: int, chips: int):
+    """The hierarchical schedule's sum over ``flats`` (one flat f32
+    vector a rank, in rank order, padded to ``pods * chips``) on the int8
+    wire, composed from the plain versions of B2-B4 with each tier's
+    block and pad rules: the reduce-scatter inside each pod (``chips``
+    contributors), the allreduce of each fragment across the pods at its
+    chip index (``pods``), the all-gather inside the pod.  Every rank
+    ends with this vector."""
+    frags = [[plain_reducescatter(flats[p * chips:(p + 1) * chips], c,
+                                  op="sum") for c in range(chips)]
+             for p in range(pods)]
+    crossed = [plain_allreduce_int8([frags[p][c] for p in range(pods)])
+               for c in range(chips)]
+    return plain_allgather(crossed)
+
+
+def collective_calls(calls: list):
+    """Wrap torch.distributed's reduce-scatter so each call appends its
+    group's width to ``calls``; returns the restore function."""
+    import torch.distributed as dist
+
+    fn = dist.reduce_scatter_tensor
+
+    def spy(*args, **kwargs):
+        calls.append(dist.get_world_size(kwargs.get("group")))
+        return fn(*args, **kwargs)
+
+    dist.reduce_scatter_tensor = spy
+    return lambda: setattr(dist, "reduce_scatter_tensor", fn)
+
+
+def hier_steps(dev, rank: int, model, batch) -> dict:
+    """Check 2: HIER_STEPS int8+EF steps under
+    ``HVD_TPU_TOPO_SCHEDULE=hierarchical`` (the launch counts set to 0
+    just before and read just after), step 1's reduced gradient against
+    :func:`plain_hierarchical` over every rank's captured bucket, then
+    HIER_FLAT_STEPS steps on the flat wire, timed."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+
+    step = sgd_step(model, "int8")
+    seen = {}
+    apply = fusion.fused_two_phase_apply
+
+    def capture(leaves, **kwargs):
+        first = not seen
+        if first:
+            seen["in"] = [g.detach().clone() for g in leaves]
+            seen.update(kwargs)
+        out = apply(leaves, **kwargs)
+        if first:
+            seen["out"] = [g.detach().clone() for g in out]
+        return out
+
+    losses, times, digests = [], [], []
+    fusion.fused_two_phase_apply = capture
+    try:
+        with knobs(topo_schedule="hierarchical"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hvd.ops.reset_launch_counts()
+            for _ in range(HIER_STEPS):
+                t = time.perf_counter()
+                losses.append(float(step(model, batch)))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                digests.append(digest(p for _, p in
+                                      sorted(model.named_parameters())))
+            counts = hvd.ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        fusion.fused_two_phase_apply = apply
+
+    n = hvd.size()
+    topo = seen["schedule"].topo
+    algos, bad = [], []
+    for members in fusion.plan_fused_buckets(seen["in"], seen["threshold"]):
+        flat = torch.cat([seen["in"][i].reshape(-1) for i in members])
+        algos.append(seen["schedule"].compile(flat.numel() * 4).algo)
+        flats = list(gather_world(flat_pad(flat, n)))
+        want = plain_hierarchical(flats, topo.pods, topo.chips_per_pod)
+        got = torch.cat([seen["out"][i].reshape(-1) for i in members])
+        if not bitwise_equal(got, want[:flat.numel()] / n):
+            bad.append(members[0])
+    del seen
+
+    flat_times = []
+    for _ in range(HIER_FLAT_STEPS):
+        t = time.perf_counter()
+        losses.append(float(step(model, batch)))
+        torch.cuda.synchronize()
+        flat_times.append(time.perf_counter() - t)
+    return dict(losses=losses, times=times, flat_times=flat_times,
+                digests=digests, counts=counts, peak=peak, algos=algos,
+                bad=bad)
+
+
+def hier_exact(dev, rank: int, numel: int, topo) -> dict:
+    """Check 3: ``numel`` integer-valued f32 elements a rank (the int8
+    wire: a per-rank constant on the 127·2^k grid) through the flat,
+    two-phase and hierarchical schedules, Average, on each wire: whether
+    the three agree bit for bit on this rank, and the result's digest."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.topo import schedule as ts
+
+    gen = torch.Generator(device=dev).manual_seed(200 + rank)
+    ints = torch.randint(-8, 9, (numel,), generator=gen,
+                         device=dev).float()
+    grid = torch.full((numel,), 127.0 * 2 ** (rank % 3), device=dev)
+    out = {}
+    for wire, x in (("none", ints), ("fp16", ints), ("bf16", ints),
+                    ("int8", grid)):
+        comp = getattr(hvd.Compression, wire)
+        got = [ts.execute_schedule(
+            x, ts.compile_bucket_schedule(numel * 4, topo, force=algo),
+            op="average", compression=comp) for algo in ts.ALGOS]
+        out[wire] = dict(equal=all(bitwise_equal(got[0], g)
+                                   for g in got[1:]),
+                         digest=digest(got[:1]))
+    return out
+
+
+def hier_eager(dev, rank: int, numel: int) -> dict:
+    """Check 4: the eager ``allreduce`` of integer-valued data with
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on and off (Sum, Average, and an
+    int32 Average): bit for bit equal, and the reduce-scatters issued
+    (one of width 2 when on, none when off); then the pair {0, 2} (and
+    {1, 3}) with it on: the flat path, the exact sum of the pair."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    gen = torch.Generator(device=dev).manual_seed(300 + rank)
+    ints = torch.randint(-100, 101, (numel,), generator=gen,
+                         device=dev).float()
+    cases = {"sum": (ints, hvd.Sum), "average": (ints, hvd.Average),
+             "int average": (ints.int(), hvd.Average)}
+    out = {}
+    for name, (x, op) in cases.items():
+        got, calls = {}, {}
+        for hier in (True, False):
+            seen = []
+            restore = collective_calls(seen)
+            try:
+                with knobs(hierarchical_allreduce=hier):
+                    got[hier] = hvd.allreduce(x, op=op)
+            finally:
+                restore()
+            calls[hier] = seen
+        out[name] = dict(equal=bitwise_equal(got[True], got[False]),
+                         calls=calls[True], flat_calls=calls[False])
+    pairs = [hvd.add_process_set(r) for r in ([0, 2], [1, 3])]
+    mine = next(ps for ps in pairs if rank in ps.ranks)
+    seen = []
+    restore = collective_calls(seen)
+    try:
+        with knobs(hierarchical_allreduce=True):
+            got = hvd.allreduce(ints, op=hvd.Sum, process_set=mine)
+    finally:
+        restore()
+    everyone = gather_world(ints)
+    want = everyone[list(mine.ranks)].sum(0)
+    for ps in pairs:
+        hvd.remove_process_set(ps)
+    out["pair"] = dict(equal=bitwise_equal(got, want), calls=seen)
+    return out
+
+
+def hier_microbatch(dev, rank: int, model, batch) -> dict:
+    """Check 5: one ``make_train_step(microbatches=2, overlap=True)`` step
+    under ``HVD_TPU_TOPO_SCHEDULE=hierarchical`` on the exact wire (SGD at
+    lr 0: the weights stay), its per-microbatch gradients captured at the
+    overlap wire's entry.  The reduced gradient against the flat overlap
+    wire run on the same captured gradients, within 1e-5 of each leaf's
+    largest |value|; then integer-valued leaves of the same shapes
+    through both wires, bit for bit."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.ops.fusion import tree_flatten
+
+    captured, kwargs_seen = [], {}
+    wire = fusion.overlap_reduce_scatter
+
+    def capture(leaves, plan, **kwargs):
+        captured.append([g.detach().clone() for g in leaves])
+        kwargs_seen.update(kwargs, plan=plan)
+        return wire(leaves, plan, **kwargs)
+
+    step = hvd.make_train_step(
+        image_loss, torch.optim.SGD(model.parameters(), lr=0.0),
+        microbatches=HIER_MICROBATCHES, overlap=True)
+    fusion.overlap_reduce_scatter = capture
+    try:
+        with knobs(topo_schedule="hierarchical"):
+            loss = float(step(model, batch))
+    finally:
+        fusion.overlap_reduce_scatter = wire
+    reduced = [p.grad.detach().clone() for p in tree_flatten(
+        dict(model.named_parameters()))[1]]
+    plan, topo = kwargs_seen["plan"], kwargs_seen["topo"]
+    hier_buckets = sum(fusion._overlap_bucket_schedule(plan, bi, topo)
+                       is not None for bi in range(len(plan.members)))
+
+    def overlap(mbs, compiler):
+        acc = fusion.zero_overlap_shards(plan, device=dev)
+        for leaves in mbs:
+            shards = fusion.overlap_reduce_scatter(
+                leaves, plan, op="average", topo=compiler).wait()
+            acc = tuple(a + s for a, s in zip(acc, shards))
+        return [g / len(mbs) for g in fusion.overlap_all_gather(
+            acc, plan, mbs[0], topo=compiler)]
+
+    flat = overlap(captured, None)
+    worst = max(float((g - f).abs().max() / f.abs().max().clamp_min(1e-30))
+                for g, f in zip(reduced, flat))
+    gen = torch.Generator(device=dev).manual_seed(400 + rank)
+    ints = [[torch.randint(-8, 9, g.shape, generator=gen, device=dev).float()
+             for g in leaves] for leaves in captured]
+    exact = all(bitwise_equal(a, b) for a, b in
+                zip(overlap(ints, topo), overlap(ints, None)))
+    return dict(loss=loss, worst=worst, exact=exact,
+                buckets=len(plan.members), hier_buckets=hier_buckets)
+
+
+def hier_ranks(dev, rank: int) -> dict:
+    """Path "hierarchical 4 ranks" (and, over NCCL on four cards,
+    ``scripts/torch_port_sets_nccl.py --topology 2x2``): under
+    ``HVD_TPU_TOPO_SPEC=2x2`` and ``HVD_TPU_HIERARCHICAL_INNER=2``, full
+    ResNet-50 (bf16, local BatchNorm), RESNET_RANK_BATCH images a rank.
+    (1) the resolved topology and the compiler's choice a fusion bucket
+    at the default α/β under ``auto``; (2)-(5) :func:`hier_steps`,
+    :func:`hier_exact`, :func:`hier_eager`, :func:`hier_microbatch`."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.topo import schedule as ts
+    from horovod_tpu_torch.topo.topology import config_topology
+
+    topo = config_topology(hvd.size())
+    model = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
+                                dtype=torch.bfloat16, device=dev, seed=0)
+    batch = images_batch(dev, RESNET_RANK_BATCH, IMAGE_SIDE["resnet50"],
+                         seed=100 + rank)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    leaves = fusion.tree_flatten(dict(model.named_parameters()))[1]
+    auto = ts.maybe_compiler(hvd.size(), mode="auto")
+    sizes = [sum(leaves[i].numel() * 4 for i in m) for m in
+             fusion.plan_fused_buckets(leaves, hvd.config().fusion_threshold)]
+    choice = [[b, auto.compile(b).algo] for b in sizes]
+    numel = sum(p.numel() for p in leaves)
+    t0 = time.perf_counter()
+    steps = hier_steps(dev, rank, model, batch)
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    exact = hier_exact(dev, rank, numel, topo)
+    eager = hier_eager(dev, rank, numel)
+    mb = hier_microbatch(dev, rank, model, batch)
+    hvd.barrier()
+    return dict(topo=list(dataclasses.astuple(topo)), choice=choice,
+                numel=numel, seconds=seconds, steps=steps, exact=exact,
+                eager=eager, mb=mb, peak=torch.cuda.max_memory_allocated())
+
+
+def hierarchical_phase():
+    """Path "hierarchical 4 ranks" (:func:`hier_ranks`), four processes
+    sharing the card over gloo.  Returns rank 0's launch counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(HIER_WORKER_FLAG, SET_RANKS)
+    return check_hierarchical(res, time.perf_counter() - t0,
+                              "hierarchical 4 ranks",
+                              "gloo staging through the host, four ranks on "
+                              "one card: not a wire's time")
+
+
+def check_hierarchical(res: list, seconds: float, label: str, wire: str):
+    """The checks of :func:`hier_ranks` across every rank's results; logs
+    them (the step times with ``wire``, what carried the collectives) and
+    returns rank 0's launch counts."""
+    for r, out in enumerate(res):
+        if out["topo"] != [2, 2]:
+            raise AssertionError(f"{label}: rank {r} resolved the topology "
+                                 f"{out['topo']}, not 2x2")
+        s = out["steps"]
+        if not all(math.isfinite(v) for v in s["losses"]
+                   + [out["mb"]["loss"]]):
+            raise AssertionError(f"{label}: non-finite loss on rank {r}: "
+                                 f"{s['losses']}")
+        if set(s["algos"]) != {"hierarchical"} or s["bad"]:
+            raise AssertionError(
+                f"{label}: step 1's reduced gradient is not the plain "
+                f"hierarchical composition on rank {r} (buckets {s['algos']}"
+                f", differing at leaves {s['bad']})")
+        for name in ("quantize_blocks", "dequantize_accumulate",
+                     "dequantize_blocks"):
+            if s["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {label} "
+                                     f"path (rank {r})")
+        bad = [w for w, v in out["exact"].items() if not v["equal"]]
+        if bad:
+            raise AssertionError(f"{label}: flat, two-phase and hierarchical "
+                                 f"differ on exact data, rank {r}: {bad}")
+        for name, v in out["eager"].items():
+            want_calls = [] if name == "pair" else [2]
+            if not v["equal"] or v["calls"] != want_calls \
+                    or v.get("flat_calls", []) != []:
+                raise AssertionError(f"{label}: eager {name} on rank {r}: "
+                                     f"{v}")
+        mb = out["mb"]
+        if not (mb["worst"] <= 1e-5 and mb["exact"]
+                and mb["hier_buckets"] == mb["buckets"]):
+            raise AssertionError(f"{label}: microbatch overlap wire on rank "
+                                 f"{r}: {mb}")
+    if any(o["steps"]["digests"] != res[0]["steps"]["digests"] for o in res):
+        raise AssertionError(f"{label}: replicas differ")
+    for wire_name in res[0]["exact"]:
+        if len({o["exact"][wire_name]["digest"] for o in res}) != 1:
+            raise AssertionError(f"{label}: ranks differ on exact data "
+                                 f"({wire_name})")
+    r0 = res[0]
+    s0 = r0["steps"]
+    log(f"{label}: topology {r0['topo'][0]}x{r0['topo'][1]} on every rank; "
+        f"auto at the default α/β chose {r0['choice']} (bucket bytes, "
+        f"algorithm)")
+    log(f"{label}: ResNet-50 bf16, local BatchNorm, batch "
+        f"{RESNET_RANK_BATCH} a rank, int8+EF wire, {HIER_STEPS} steps "
+        f"hierarchical then {HIER_FLAT_STEPS} flat, losses "
+        f"{[o['steps']['losses'] for o in res]}; replicas bitwise equal "
+        f"after every hierarchical step; step 1's reduced gradient bitwise "
+        f"the plain B2-B4 composition over {len(s0['algos'])} buckets")
+    log(f"{label}: {r0['numel']} integer-valued elements through flat, "
+        f"two-phase and hierarchical (Average): bitwise on "
+        f"{sorted(r0['exact'])} (int8 on the 127·2^k grid); eager "
+        f"HOROVOD_HIERARCHICAL_ALLREDUCE Sum, Average, int Average bitwise "
+        f"flat, the pair {{0, 2}} flat; microbatches={HIER_MICROBATCHES} "
+        f"overlap wire {r0['mb']['hier_buckets']}/{r0['mb']['buckets']} "
+        f"buckets hierarchical, within "
+        f"{max(o['mb']['worst'] for o in res)} of the flat wire (limit 1e-5 "
+        f"of each leaf's scale), bitwise on exact data")
+    log(f"{label}: step seconds hierarchical "
+        f"{[o['steps']['times'] for o in res]}, flat "
+        f"{[o['steps']['flat_times'] for o in res]} ({wire})")
+    log(f"{label}: {seconds:.1f} s for the phase, "
+        f"{[round(o['seconds'], 1) for o in res]} s of steps per rank; peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"rank 0's launches over the {HIER_STEPS} hierarchical steps "
+        f"{s0['counts']} (B2 {s0['counts']['quantize_blocks']}, B3 "
+        f"{s0['counts']['dequantize_accumulate']}, B4 "
+        f"{s0['counts']['dequantize_blocks']})")
+    return s0["counts"]
+
+
 def bert_phase(dev, card: str):
     """Path "bert-large 1 rank": ``benchmarks/bert_finetune_bench.py``'s
     configuration, ``BertForSequenceClassification(BertConfig.large(
@@ -2056,8 +2471,9 @@ WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
 RESNET_WORKER_FLAG = "--resnet-worker"
+HIER_WORKER_FLAG = "--hier-worker"
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
-                RESNET_WORKER_FLAG)
+                RESNET_WORKER_FLAG, HIER_WORKER_FLAG)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -2073,7 +2489,10 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    world = SET_RANKS if flag == SET_WORKER_FLAG else WIRE_RANKS
+    world = (SET_RANKS if flag in (SET_WORKER_FLAG, HIER_WORKER_FLAG)
+             else WIRE_RANKS)
+    if flag == HIER_WORKER_FLAG:
+        os.environ.update(HIER_ENV)             # read by hvd.init
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
                             rank=rank, world_size=world)
@@ -2087,6 +2506,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             res = microbatch_ranks(hvd.device(), rank)
         elif flag == RESNET_WORKER_FLAG:
             res = resnet_ranks(hvd.device(), rank)
+        elif flag == HIER_WORKER_FLAG:
+            res = hier_ranks(hvd.device(), rank)
         else:
             res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -2221,6 +2642,7 @@ def main() -> int:
         resnet_ranks_counts = resnet_two_rank_phase()
         bert_counts = bert_phase(dev, card)
         torch.cuda.empty_cache()
+        hier_counts = hierarchical_phase()
         convnet_counts = convnet_phase(dev, card)
         route_check(dev)
     finally:
@@ -2231,6 +2653,7 @@ def main() -> int:
                "resnet50 1 rank": resnet_counts,
                "resnet50 1 rank fp16": resnet_fp16_counts,
                "resnet50 2 ranks": resnet_ranks_counts,
+               "hierarchical 4 ranks": hier_counts,
                "bert-large 1 rank": bert_counts, **convnet_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")

@@ -20,6 +20,7 @@ node.  The session owns the process-set table
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import socket
 from datetime import timedelta
@@ -28,8 +29,10 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
-from .config import Config
-from .process_sets import ProcessSetTable
+from .config import Config, warn_noop_knobs
+from .process_sets import ProcessSetTable, destroy_group
+
+logger = logging.getLogger(__name__)
 
 
 class NotInitializedError(RuntimeError):
@@ -50,6 +53,9 @@ class _Session:
     config: Config
     owns_group: bool           # False when the caller initialised it
     process_sets: ProcessSetTable
+    # The topology tiers' groups, by (pods, chips_per_pod): every rank's
+    # intra-pod groups, then its cross-pod groups (topo/topology.py).
+    tier_groups: dict = dataclasses.field(default_factory=dict)
 
 
 _session: Optional[_Session] = None
@@ -107,15 +113,20 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         cross_size=int(env.get("GROUP_WORLD_SIZE", -(-size // local_size))),
         device=dev, config=Config.from_env(), owns_group=owns,
         process_sets=ProcessSetTable(size))
+    warn_noop_knobs(logger)
 
 
 def shutdown() -> None:
-    """Drop the process sets and leave the process group (if :func:`init`
-    created it)."""
+    """Drop the process sets and the topology tiers' groups and leave the
+    process group (if :func:`init` created it)."""
     global _session
     if _session is None:
         return
     _session.process_sets.clear()
+    for intra, cross in _session.tier_groups.values():
+        for group in intra + cross:
+            destroy_group(group)
+    _session.tier_groups.clear()
     if _session.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _session = None

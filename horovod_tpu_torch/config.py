@@ -9,11 +9,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off", "")
 COMPRESSIONS = ("none", "fp16", "bf16", "int8")
+# Schedule algorithms the topology compiler can emit or be pinned to
+# (HVD_TPU_TOPO_SCHEDULE), and the lowering backends a compiled
+# schedule records (HVD_TPU_TOPO_KERNEL; the port lowers both onto its
+# one int8 wire, see topo/schedule.py).
+TOPO_SCHEDULES = ("off", "auto", "flat", "two_phase", "hierarchical")
+TOPO_KERNELS = ("spmd", "pallas")
 
 # The α–β cost model's defaults (per-collective launch latency in µs,
 # per-hop wire bandwidth in GB/s), shared with the planner's fallbacks
@@ -85,6 +91,60 @@ def _env_choice(name: str, default: Optional[str], choices) -> Optional[str]:
     return val
 
 
+def parse_topo_spec(spec: str) -> Tuple[int, int]:
+    """Parse ``HVD_TPU_TOPO_SPEC`` (``PODSxCHIPS``, e.g. ``2x4``: two
+    pods, here nodes, of four ranks each, pods contiguous in rank order)
+    into ``(pods, chips_per_pod)``.  Raises ``ValueError`` on anything but
+    two positive integers joined by ``x``: a malformed topology must not
+    silently run flat."""
+    body = spec.strip().lower()
+    pods_s, sep, chips_s = body.partition("x")
+    if not sep or not pods_s.strip() or not chips_s.strip():
+        raise ValueError(
+            f"topo spec: expected PODSxCHIPS (e.g. '4x8'), got {spec!r}")
+    try:
+        pods, chips = int(pods_s.strip()), int(chips_s.strip())
+    except ValueError as e:
+        raise ValueError(
+            f"topo spec: expected PODSxCHIPS with integer factors, got "
+            f"{spec!r}") from e
+    if pods < 1 or chips < 1:
+        raise ValueError(
+            f"topo spec: factors must be >= 1, got {pods}x{chips}")
+    return pods, chips
+
+
+def _validated_topo_spec(spec: Optional[str]) -> Optional[str]:
+    """Empty or unset: None; anything else must parse (fails at init)."""
+    if not spec or not spec.strip():
+        return None
+    parse_topo_spec(spec)
+    return spec
+
+
+# Reference knobs that change nothing here: accepted, but setting one
+# warns at init, since silently ignoring a reference env var that
+# changes behaviour there is a trap.
+_NOOP_KNOBS = {
+    "HIERARCHICAL_ALLGATHER": ("torch.distributed's all-gather runs over "
+                               "the whole group; use "
+                               "HOROVOD_HIERARCHICAL_ALLREDUCE for the "
+                               "two-level reduce path"),
+}
+
+
+def warn_noop_knobs(logger) -> List[str]:
+    """Warn for each no-op reference knob that is set; returns their
+    names (called from ``basics.init``)."""
+    hit = []
+    for name, why in _NOOP_KNOBS.items():
+        if _env(name) is not None:
+            hit.append(name)
+            logger.warning("HOROVOD_%s is set but is a no-op in "
+                           "horovod_tpu_torch: %s", name, why)
+    return hit
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     fusion_threshold: int = 64 * 1024 * 1024  # bytes; HOROVOD_FUSION_THRESHOLD
@@ -96,6 +156,16 @@ class Config:
     overlap_reduce: bool = True      # HVD_TPU_OVERLAP_REDUCE (mb i-1's reduce-scatter under mb i's backward)
     error_feedback: bool = False     # HVD_TPU_ERROR_FEEDBACK
     compression: Optional[str] = None  # HVD_TPU_COMPRESSION (none|fp16|bf16|int8)
+    # Two-tier topology (topo/): pods are nodes, chips the ranks of one.
+    topo_spec: Optional[str] = None    # HVD_TPU_TOPO_SPEC ("PODSxCHIPS"; unset = infer from the node layout)
+    topo_schedule: str = "off"         # HVD_TPU_TOPO_SCHEDULE (off|auto|flat|two_phase|hierarchical)
+    topo_kernel: str = "spmd"          # HVD_TPU_TOPO_KERNEL (spmd|pallas; recorded in the schedule IR)
+    topo_cost_freeze: bool = False     # HVD_TPU_TOPO_COST_FREEZE (pin the per-tier α/β)
+    topo_alpha_dcn_us: float = 100.0   # HVD_TPU_TOPO_ALPHA_DCN_US (per-hop launch latency between nodes)
+    topo_beta_dcn_gbps: float = 10.0   # HVD_TPU_TOPO_BETA_DCN_GBPS (per-hop bandwidth between nodes)
+    hierarchical_allreduce: bool = False  # HOROVOD_HIERARCHICAL_ALLREDUCE
+    hierarchical_allgather: bool = False  # HOROVOD_HIERARCHICAL_ALLGATHER (no-op: warns)
+    hierarchical_inner_size: int = 0      # HVD_TPU_HIERARCHICAL_INNER (0 = ranks a node)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -110,4 +180,15 @@ class Config:
             overlap_reduce=_env_bool("OVERLAP_REDUCE", True),
             error_feedback=_env_bool("ERROR_FEEDBACK", False),
             compression=_env_choice("COMPRESSION", None, COMPRESSIONS),
+            topo_spec=_validated_topo_spec(_env("TOPO_SPEC")),
+            topo_schedule=_env_choice("TOPO_SCHEDULE", "off",
+                                      TOPO_SCHEDULES) or "off",
+            topo_kernel=_env_choice("TOPO_KERNEL", "spmd",
+                                    TOPO_KERNELS) or "spmd",
+            topo_cost_freeze=_env_bool("TOPO_COST_FREEZE", False),
+            topo_alpha_dcn_us=_env_float("TOPO_ALPHA_DCN_US", 100.0),
+            topo_beta_dcn_gbps=_env_float("TOPO_BETA_DCN_GBPS", 10.0),
+            hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE", False),
+            hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER", False),
+            hierarchical_inner_size=_env_int("HIERARCHICAL_INNER", 0),
         )

@@ -22,8 +22,12 @@ integer tensor floor-divides and keeps its dtype, as the reference does.
 On ``Compression.int8`` the eager allreduce runs the stack tier
 (:func:`.quantization.int8_stack_allreduce_async`), the numerics of the
 reference's eager ``hvd.allreduce``; the gradient path keeps its own
-wire (:meth:`.compression.Compressor.spmd_allreduce`).  Hierarchical
-reduction is not ported.
+wire (:meth:`.compression.Compressor.spmd_allreduce`).
+
+``HOROVOD_HIERARCHICAL_ALLREDUCE=1`` runs a Sum or Average over the
+global set on the exact wire in two levels (reference: Horovod's NCCL
+reduce-scatter inside the node, allreduce across nodes, all-gather
+inside the node): see :func:`hierarchical_allreduce`.
 """
 
 from __future__ import annotations
@@ -163,6 +167,66 @@ def reduce_raw(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
     return divide(out, dist.get_world_size(group)) if op == Average else out
 
 
+# --- hierarchical (two-level) allreduce --------------------------------------
+# The world factors as outer (nodes) × inner (ranks a node): stage 1
+# reduce-scatters inside each inner group, stage 2 allreduces each shard
+# across the outer group of its index, stage 3 all-gathers inside the
+# inner group.
+
+def _resolve_hier_inner() -> int:
+    """Inner-group width of the hierarchical allreduce:
+    ``HVD_TPU_HIERARCHICAL_INNER``, else the ranks a node when there are
+    several nodes; 0 (run flat) when it does not tile the world into
+    more than one group of more than one rank."""
+    cfg, size = basics.config(), basics.size()
+    inner = cfg.hierarchical_inner_size
+    if inner <= 0:
+        ls = basics.local_size()
+        inner = ls if 1 < ls < size else 0
+    if inner <= 1 or inner >= size or size % inner != 0:
+        return 0
+    return inner
+
+
+def _hier_groups(size: int, inner: int):
+    """``(inner_groups, outer_groups)``: the world cut into contiguous
+    inner groups, and one outer group per position in them."""
+    outer = size // inner
+    inner_groups = [list(range(o * inner, (o + 1) * inner))
+                    for o in range(outer)]
+    outer_groups = [[o * inner + i for o in range(outer)]
+                    for i in range(inner)]
+    return inner_groups, outer_groups
+
+
+def hierarchical_allreduce(x: torch.Tensor, op: str,
+                           inner: int) -> torch.Tensor:
+    """Sum or Average of ``x`` over the world in three stages on the
+    exact wire: reduce-scatter inside this rank's inner group (padded to
+    ``inner``), allreduce of the shard across its outer group,
+    all-gather inside the inner group.  Average divides the sum once by
+    the world's size at the end (floor division for an integer
+    tensor), so on exact data the result equals the flat one bit for
+    bit.  The groups are the two tiers of a ``(size / inner) × inner``
+    topology (:func:`..topo.topology.tier_groups`)."""
+    from ..topo.topology import MeshTopology, tier_groups
+
+    size = basics.size()
+    intra, cross = tier_groups(MeshTopology(size // inner, inner))
+    flat = x.detach().reshape(-1)
+    pad = (-flat.numel()) % inner
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shard = flat.new_empty(flat.numel() // inner)
+    dist.reduce_scatter_tensor(shard, flat.contiguous(),
+                               op=dist.ReduceOp.SUM, group=intra)
+    dist.all_reduce(shard, op=dist.ReduceOp.SUM, group=cross)
+    full = flat.new_empty(flat.numel())
+    dist.all_gather_into_tensor(full, shard, group=intra)
+    r = full[:x.numel()].reshape(x.shape)
+    return divide(r, size) if op == Average else r
+
+
 # --- allreduce ------------------------------------------------------------------
 
 def _reduce_start(x: torch.Tensor, op: str, group, compression) -> Handle:
@@ -189,10 +253,19 @@ def allreduce_async(tensor: torch.Tensor, *, op: str = Average,
     """Reference: ``hvd.allreduce_async``.  ``compression`` picks the
     wire (``Compression.none`` by default); ``prescale_factor``
     multiplies before the wire and ``postscale_factor`` after it."""
+    from .compression import Compression
+
     comp = _wire(op, compression)
     group = set_group(process_set, name)
-    h = _reduce_start(_scaled(tensor.detach(), prescale_factor), op, group,
-                      comp)
+    x = _scaled(tensor.detach(), prescale_factor)
+    inner = 0
+    if (basics.config().hierarchical_allreduce and op in (Sum, Average)
+            and group is None and comp is Compression.none):
+        inner = _resolve_hier_inner()
+    if inner:
+        h = _done(hierarchical_allreduce(x, op, inner), name)
+    else:
+        h = _reduce_start(x, op, group, comp)
     return h.then(lambda r: _scaled(r, postscale_factor))
 
 

@@ -24,9 +24,13 @@ while the next one's backward runs and all-gathers once at the update.
 Every plan is pure bookkeeping on sizes, so every rank computes the same
 one and issues the same collectives in the same order.
 
-The planner runs in Python (the reference's native C++ planner is not
-ported), and the topology schedule (``schedule=``, ``topo=``) is not
-ported.
+The two-tier topology compiler (:mod:`..topo.schedule`) plugs in as
+``fused_two_phase_apply(schedule=)``, ``fused_allreduce_pytree(
+topo_schedule=)`` (resolved from ``HVD_TPU_TOPO_SCHEDULE`` when None)
+and the overlap wire's ``topo=``: per bucket, flat, two-phase, or
+hierarchical (reduce-scatter inside the node, exchange between nodes,
+all-gather inside the node).  The planner runs in Python (the
+reference's native C++ planner is not ported).
 """
 
 from __future__ import annotations
@@ -344,12 +348,13 @@ def fused_two_phase_apply(
     flight.  The other buckets stay single allreduces.  The same
     reduction as the single-phase path, on the same wire.
 
-    ``schedule`` (the reference's two-tier topology compiler) is not
-    ported and raises."""
-    if schedule is not None:
-        raise NotImplementedError(
-            "schedule= (the topology schedule compiler) is not ported yet: "
-            "ROADMAP queue A item 5")
+    ``schedule`` (a :class:`..topo.schedule.ScheduleCompiler`) compiles
+    every bucket instead: only its ``two_phase`` buckets join the
+    pipelined order, and its ``flat`` and ``hierarchical`` buckets are
+    single ``"ar"`` entries run by
+    :func:`..topo.schedule.execute_schedule`.  A process set
+    (``group``), or a compiler for another width than the group's, keeps
+    the flat planner: the tiers are partitions of the whole world."""
     compression = compression or Compression.none
     n = _uniform_group_width(group)
     # One bucket list across dtype classes: the pipeline is about wire
@@ -362,7 +367,25 @@ def fused_two_phase_apply(
             fused = fused * prescale_factor
         packed.append({"members": members, "fused": fused,
                        "bytes": _nbytes(leaves, members)})
-    if n <= 1:
+    scheds: Dict[int, object] = {}
+    if (schedule is not None and group is None and n > 1
+            and schedule.topo.size == n):
+        from ..topo import schedule as topo_schedule
+
+        scheds = {bi: schedule.compile(b["bytes"])
+                  for bi, b in enumerate(packed)}
+        flags = [scheds[bi].algo == topo_schedule.ALGO_TWO_PHASE
+                 for bi in range(len(packed))]
+        if leaves:
+            topo_schedule.record_plans(scheds.values(), compression,
+                                       leaves[0].dtype.itemsize,
+                                       params=schedule.params)
+        if any(s.algo == topo_schedule.ALGO_HIERARCHICAL
+               for s in scheds.values()):
+            from ..topo.topology import tier_groups
+
+            tier_groups(schedule.topo)  # collective on first use: now
+    elif n <= 1:
         flags = [False] * len(packed)
     else:
         flags = plan_two_phase_flags([b["bytes"] for b in packed], n,
@@ -372,7 +395,12 @@ def fused_two_phase_apply(
     reduced: Dict[int, torch.Tensor] = {}
     for kind, bi in plan_pipeline_order(flags, pipeline_depth):
         x = packed[bi]["fused"]
-        if kind == "ar":
+        if kind == "ar" and bi in scheds:
+            from ..topo.schedule import execute_schedule
+
+            reduced[bi] = execute_schedule(x, scheds[bi], op=op,
+                                           compression=compression)
+        elif kind == "ar":
             reduced[bi] = compression.spmd_allreduce(x, op=op, group=group)
         elif kind == "rs":
             pad = (-x.numel()) % n
@@ -449,24 +477,60 @@ def zero_overlap_shards(plan: OverlapBucketPlan,
                  for e, dt in zip(plan.shard_elems, plan.dtypes))
 
 
+def _overlap_bucket_schedule(plan: OverlapBucketPlan, bi: int, topo):
+    """The compiled schedule of overlap bucket ``bi``, or None for the
+    flat wire: only ``hierarchical`` buckets leave it.  The compile is
+    keyed on the bucket's exact payload bytes, the coordinate the fused
+    paths use, so a bucket's choice is the same everywhere."""
+    if topo is None or topo.topo.size != plan.n:
+        return None
+    nbytes = plan.payload[bi] * plan.dtypes[bi].itemsize
+    sched = topo.compile(int(nbytes))
+    return sched if sched.algo == "hierarchical" else None
+
+
+def _hierarchical_buckets(plan: OverlapBucketPlan, topo) -> Dict[int, object]:
+    """``{bucket: schedule}`` of the overlap buckets ``topo`` lowers
+    hierarchically; the tiers' groups exist once this returns."""
+    scheds = {bi: s for bi in range(len(plan.members))
+              if (s := _overlap_bucket_schedule(plan, bi, topo)) is not None}
+    if scheds:
+        from ..topo.topology import tier_groups
+
+        tier_groups(topo.topo)   # collective on first use, before any work
+    return scheds
+
+
 def overlap_reduce_scatter(leaves: Sequence[torch.Tensor],
                            plan: OverlapBucketPlan, *, op: str, group=None,
-                           compression=None) -> Handle:
+                           compression=None, topo=None) -> Handle:
     """Start one bucketed reduce-scatter pass over ``leaves`` (one
     microbatch's gradients): each bucket is flattened, padded to the
     group width and reduce-scattered on the compressor's wire as an async
     work, in ``plan.order``.  The handle's result is the tuple of
-    per-bucket shards in bucket-index order.  The reference's ``topo=``
-    (hierarchical lowering) is not ported."""
+    per-bucket shards in bucket-index order.
+
+    ``topo`` (a :class:`..topo.schedule.ScheduleCompiler`) lowers the
+    buckets it marks hierarchical through the intra-node reduce-scatter
+    (started now) and the cross-node one (at the wait): their shards
+    come back permuted, the same size, and :func:`overlap_all_gather`
+    with the same compiler inverts the permutation."""
+    from ..topo.schedule import hierarchical_reduce_scatter_start
+
     compression = compression or Compression.none
+    hier = _hierarchical_buckets(plan, topo)
     started: Dict[int, Handle] = {}
     for bi in plan.order:
         flats = [leaves[i].reshape(-1) for i in plan.members[bi]]
         fused = torch.cat(flats) if len(flats) > 1 else flats[0]
         if plan.pad[bi]:
             fused = torch.cat([fused, fused.new_zeros(plan.pad[bi])])
-        started[bi] = compression.spmd_reducescatter_async(
-            fused, op=op, group=group)
+        if bi in hier:
+            started[bi] = hierarchical_reduce_scatter_start(
+                fused, hier[bi], op=op, compression=compression)
+        else:
+            started[bi] = compression.spmd_reducescatter_async(
+                fused, op=op, group=group)
     handles = [started[bi] for bi in range(len(plan.members))]
     return Handle([w for h in handles for w in h.works],
                   lambda: tuple(h.wait() for h in handles))
@@ -475,14 +539,22 @@ def overlap_reduce_scatter(leaves: Sequence[torch.Tensor],
 def overlap_all_gather(shards: Sequence[torch.Tensor],
                        plan: OverlapBucketPlan,
                        leaves_like: Sequence[torch.Tensor], *, group=None,
-                       compression=None) -> List[torch.Tensor]:
+                       compression=None, topo=None) -> List[torch.Tensor]:
     """The deferred all-gather at the update: gather every bucket's
     accumulated shard on the compressor's wire (all started, then
     waited), drop the padding and unpack to ``leaves_like``'s shapes and
-    dtypes."""
+    dtypes.  ``topo`` must be the compiler the shards' reduce-scatters
+    ran with: its hierarchical buckets gather across nodes, then inside
+    the node."""
+    from ..topo.schedule import hierarchical_all_gather_start
+
     compression = compression or Compression.none
-    handles = [compression.spmd_allgather_async(shard, group=group)
-               for shard in shards]
+    hier = _hierarchical_buckets(plan, topo)
+    handles = [hierarchical_all_gather_start(shard, hier[bi],
+                                             compression=compression)
+               if bi in hier else
+               compression.spmd_allgather_async(shard, group=group)
+               for bi, shard in enumerate(shards)]
     out: List[torch.Tensor] = [None] * len(leaves_like)  # type: ignore
     for bi, h in enumerate(handles):
         full = h.wait()[:plan.payload[bi]]
@@ -498,6 +570,7 @@ def fused_allreduce_pytree(tree: Mapping[str, torch.Tensor], *,
                            postscale_factor: float = 1.0,
                            two_phase: Optional[bool] = None,
                            pipeline_depth: Optional[int] = None,
+                           topo_schedule=None,
                            ) -> Dict[str, torch.Tensor]:
     """Fused allreduce of every leaf of ``tree`` (the gradient hot
     path), in :func:`tree_flatten` order: returns a new mapping with the
@@ -505,7 +578,14 @@ def fused_allreduce_pytree(tree: Mapping[str, torch.Tensor], *,
     config (``HVD_TPU_TWO_PHASE_ALLREDUCE``, ``HVD_TPU_PIPELINE_DEPTH``,
     with the cost knobs ``HVD_TPU_COST_ALPHA_US`` and
     ``HVD_TPU_COST_BETA_GBPS``); when on, the buckets ride
-    :func:`fused_two_phase_apply`."""
+    :func:`fused_two_phase_apply`.
+
+    ``topo_schedule`` (a :class:`..topo.schedule.ScheduleCompiler`, or
+    None to resolve ``HVD_TPU_TOPO_SCHEDULE`` through
+    :func:`..topo.schedule.maybe_compiler`) lowers each bucket through
+    the two-tier compiler: flat, two-phase or hierarchical, by the
+    per-tier cost model.  Whenever there is a compiler the buckets ride
+    :func:`fused_two_phase_apply` with it."""
     from .. import basics
 
     compression = compression or Compression.none
@@ -518,13 +598,18 @@ def fused_allreduce_pytree(tree: Mapping[str, torch.Tensor], *,
         if pipeline_depth is None:
             pipeline_depth = cfg.pipeline_depth
         alpha_us, beta_gbps = cfg.cost_alpha_us, cfg.cost_beta_gbps
-    if two_phase:
+    compiler = topo_schedule
+    if compiler is None and op in ("sum", "average") and leaves:
+        from ..topo.schedule import maybe_compiler
+
+        compiler = maybe_compiler(_uniform_group_width(group), groups=group)
+    if two_phase or compiler is not None:
         reduced = fused_two_phase_apply(
             leaves, op=op, group=group, compression=compression,
             threshold=threshold, pipeline_depth=int(pipeline_depth or 2),
             alpha_us=alpha_us, beta_gbps=beta_gbps,
             prescale_factor=prescale_factor,
-            postscale_factor=postscale_factor)
+            postscale_factor=postscale_factor, schedule=compiler)
         return dict(zip(names, reduced))
 
     def collective(flat: torch.Tensor) -> torch.Tensor:

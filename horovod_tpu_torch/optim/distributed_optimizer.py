@@ -32,6 +32,13 @@ gradients in a Python loop (the reference's scan).  With the overlap
 wire, each microbatch's bucketed reduce-scatter is started before the
 next microbatch's forward and backward, the shards accumulate, and one
 all-gather runs at the update.  Autotuning is not ported.
+
+``HVD_TPU_TOPO_SCHEDULE`` (with ``HVD_TPU_TOPO_SPEC`` or the node
+layout) routes the fused reduction through the two-tier schedule
+compiler (:mod:`..topo.schedule`): the fused allreduce of
+:class:`DistributedOptimizer` and of the step through
+:func:`..ops.fusion.fused_allreduce_pytree`, the overlap wire through
+its ``topo=``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..ops.adasum import adasum_pytree
 from ..ops.compression import Compression
 from ..ops.fusion import fused_allreduce_pytree, tree_flatten
 from ..ops.quantization import wire_block_size
+from ..topo.schedule import maybe_compiler, record_plans
 
 logger = logging.getLogger(__name__)
 _adasum_comp_warned = False
@@ -410,19 +418,32 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
         plan = fusion.plan_overlap_buckets(
             g0, threshold, world_size=n, alpha_us=alpha_us,
             beta_gbps=beta_gbps)
+        # The two-tier lowering (HVD_TPU_TOPO_SCHEDULE): the buckets the
+        # compiler marks hierarchical reduce-scatter inside the node and
+        # then across nodes; None keeps the flat wire.
+        topo = maybe_compiler(n, groups=group)
+        if topo is not None:
+            executed = [s for s in (
+                fusion._overlap_bucket_schedule(plan, bi, topo)
+                for bi in range(len(plan.members))) if s is not None]
+            if executed:
+                record_plans(executed, compression,
+                             plan.dtypes[0].itemsize, params=topo.params)
         acc = fusion.zero_overlap_shards(plan, device=params[0].device)
         pending = g0
         for i in range(1, mb):
             started = fusion.overlap_reduce_scatter(
-                pending, plan, op=op, group=group, compression=compression)
+                pending, plan, op=op, group=group, compression=compression,
+                topo=topo)
             loss_i, pending = grads_of(i)
             acc = tuple(a + s for a, s in zip(acc, started.wait()))
             loss_sum = loss_sum + loss_i
         last = fusion.overlap_reduce_scatter(
-            pending, plan, op=op, group=group, compression=compression)
+            pending, plan, op=op, group=group, compression=compression,
+            topo=topo)
         acc = tuple(a + s for a, s in zip(acc, last.wait()))
         full = fusion.overlap_all_gather(acc, plan, g0, group=group,
-                                         compression=compression)
+                                         compression=compression, topo=topo)
         grads = [g / mb for g in full]
     else:
         acc = g0

@@ -99,6 +99,15 @@ class ProcessSetTable:
             self._next_id += 1
             return ps
 
+    def find(self, ranks) -> Optional[ProcessSet]:
+        """The registered set of exactly ``ranks``, or None."""
+        key = tuple(sorted(int(r) for r in ranks))
+        with self._lock:
+            for ps in self._table.values():
+                if ps.ranks == key:
+                    return ps
+        return None
+
     def remove(self, ps: ProcessSet) -> None:
         """Collective, as :meth:`register`: every rank removes the set,
         and each member destroys its group."""
@@ -118,10 +127,16 @@ class ProcessSetTable:
             self._table.clear()
 
 
-def _destroy(ps: ProcessSet) -> None:
-    if (ps.group not in (None, dist.GroupMember.NON_GROUP_MEMBER)
+def destroy_group(group) -> None:
+    """Destroy ``group`` on a member (a no-op for the default group and
+    on a rank outside it)."""
+    if (group not in (None, dist.GroupMember.NON_GROUP_MEMBER)
             and dist.is_initialized()):
-        dist.destroy_process_group(ps.group)
+        dist.destroy_process_group(group)
+
+
+def _destroy(ps: ProcessSet) -> None:
+    destroy_group(ps.group)
     ps.group = None
     ps.process_set_id = None
 

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_port_sets_nccl.py      # on a host with 4 cards
     python3 scripts/torch_port_sets_nccl.py --microbatch
+    python3 scripts/torch_port_sets_nccl.py --topology 2x2
 
 ``chip_smoke.py`` runs its four ranks on one card over gloo, since NCCL
 refuses several ranks on one device.  This script runs the same path
@@ -16,7 +17,16 @@ With ``--microbatch`` it runs ``chip_smoke.py``'s "microbatch 2 ranks"
 path instead (``chip_smoke.microbatch_ranks``: full-depth GPT-medium,
 four microbatches on the int8 overlap wire, the chunked head, with its
 checks against the plain B2-B4 composition and the two-phase wire) on
-four ranks, held to ``chip_smoke.check_microbatch``.
+four ranks, held to ``chip_smoke.check_microbatch``.  With
+``--topology 2x2`` it runs ``chip_smoke.py``'s "hierarchical 4 ranks"
+path (``chip_smoke.hier_ranks``: ResNet-50 under
+``HVD_TPU_TOPO_SPEC=2x2`` and ``HVD_TPU_HIERARCHICAL_INNER=2``, the
+hierarchical int8+EF steps against the plain B2-B4 composition, flat,
+two-phase and hierarchical on exact data, the eager hierarchical
+allreduce, the hierarchical overlap wire), held to
+``chip_smoke.check_hierarchical``; the two tiers' groups are NCCL
+communicators of their own.  One host's four cards are all NVLink, so
+its step times say nothing of a network between nodes.
 It prints each card's name and power limit, and exits non-zero, with no
 result line, on a failure or with fewer than four cards.
 """
@@ -36,26 +46,29 @@ WORKER_FLAG = "--nccl-worker"
 
 
 MICROBATCH_FLAG = "--microbatch"
+TOPOLOGY_FLAG = "--topology"
+PATHS = {"sets": "set_ranks", "microbatch": "microbatch_ranks",
+         "topology": "hier_ranks"}
 
 
-def worker(rank: int, tmp: str, microbatch: bool) -> None:
+def worker(rank: int, tmp: str, path: str) -> None:
     sys.path.insert(0, ROOT)
     import torch
     import chip_smoke as cs
     import horovod_tpu_torch as hvd
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     hvd.init()                                   # cuda:<LOCAL_RANK>, NCCL
     try:
-        path = cs.microbatch_ranks if microbatch else cs.set_ranks
-        res = path(hvd.device(), rank)
+        res = getattr(cs, PATHS[path])(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         hvd.shutdown()
 
 
-def main(microbatch: bool) -> int:
+def main(path: str) -> int:
     import torch
 
     if torch.cuda.device_count() < 4:
@@ -79,11 +92,11 @@ def main(microbatch: bool) -> int:
         for r in range(world):
             env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
                        WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
-                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       **(cs.HIER_ENV if path == "topology" else {}))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), WORKER_FLAG,
-                 str(r), tmp] + ([MICROBATCH_FLAG] if microbatch else []),
-                env=env))
+                 str(r), tmp, path], env=env))
         deadline = time.monotonic() + 600
         try:
             while (any(p.poll() is None for p in procs)
@@ -104,21 +117,36 @@ def main(microbatch: bool) -> int:
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 res.append(json.load(f))
         seconds = time.perf_counter() - t0
-        if microbatch:
+        if path == "microbatch":
             counts = cs.check_microbatch(res, seconds, "microbatch 4 ranks",
                                          "NCCL, one rank a card")
+        elif path == "topology":
+            counts = cs.check_hierarchical(
+                res, seconds, "hierarchical 4 ranks (NCCL)",
+                "NCCL, one rank a card, all four on one host's NVLink")
         else:
             counts = cs.check_four_ranks(res, seconds)
-    print(json.dumps({"backend": "nccl", "cards": world,
-                      "path": "microbatch" if microbatch else "sets",
+    print(json.dumps({"backend": "nccl", "cards": world, "path": path,
                       "launches": counts,
                       "seconds_per_rank": [o["seconds"] for o in res],
                       "peak_bytes": [o["peak"] for o in res]}))
     return 0
 
 
+def _path(argv) -> str:
+    """The path the arguments select; ``--topology`` takes the one
+    topology four cards factor into two tiers, ``2x2``."""
+    if TOPOLOGY_FLAG in argv:
+        spec = argv[argv.index(TOPOLOGY_FLAG) + 1:][:1]
+        if spec != ["2x2"]:
+            raise SystemExit(f"{TOPOLOGY_FLAG} takes 2x2 (four cards), got "
+                             f"{spec}")
+        return "topology"
+    return "microbatch" if MICROBATCH_FLAG in argv else "sets"
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [WORKER_FLAG]:
-        worker(int(sys.argv[2]), sys.argv[3], MICROBATCH_FLAG in sys.argv)
+        worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.exit(0)
-    sys.exit(main(MICROBATCH_FLAG in sys.argv[1:]))
+    sys.exit(main(_path(sys.argv[1:])))

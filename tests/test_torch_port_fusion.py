@@ -309,8 +309,22 @@ def test_two_phase_latency_bound_buckets_stay_single(world):
 
 
 def test_schedule_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tf.fused_two_phase_apply([torch.ones(3)], op="sum", schedule=object())
+    """``schedule=`` is taken, no longer refused: in a world of one a
+    compiler for a 2×2 mesh is not consulted, and the leaves come back
+    reduced over the one rank.  The topology compiler's own parity tests
+    are ``tests/test_torch_port_topo.py``."""
+    from horovod_tpu_torch.topo.schedule import ScheduleCompiler
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    x = torch.arange(3.0)
+    thvd.init(device="cpu")
+    try:
+        out = tf.fused_two_phase_apply(
+            [x], op="sum", schedule=ScheduleCompiler(MeshTopology(2, 2),
+                                                     force="hierarchical"))
+    finally:
+        thvd.shutdown()
+    np.testing.assert_array_equal(out[0].numpy(), x.numpy())
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -11,6 +11,7 @@ its tests.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import multiprocessing as mp
 import os
 import queue
@@ -786,3 +787,238 @@ def aux_steps(x: np.ndarray, y: np.ndarray, lr: float, steps: int,
     return {"losses": [float(loss) for loss, _ in out],
             "aux": [{k: v.numpy() for k, v in aux.items()} for _, aux in out],
             "params": _tensors_by_name(model.named_parameters())}
+
+
+# --- the topology compiler (topo/) and hierarchical allreduce ------------------
+
+def _params(p):
+    """A ``TopoCostParams`` from ``((α_ici, β_ici), (α_dcn, β_dcn))``."""
+    from horovod_tpu_torch.topo.costmodel import TierParams, TopoCostParams
+
+    return None if p is None else TopoCostParams(ici=TierParams(*p[0]),
+                                                 dcn=TierParams(*p[1]))
+
+
+def topo_runs(cases: list) -> list:
+    """Each case of ``cases`` (a dict: ``kind`` "allreduce" or
+    "roundtrip", ``stack`` ``[size, elems]``, ``algo``, ``op``,
+    ``compression``, ``pods``, ``chips``) through
+    ``topo/simulate.py`` over this world: every rank's result, stacked.
+    A "roundtrip" case also returns the shards of the hierarchical
+    reduce-scatter, stacked."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.topo import schedule, simulate
+
+    out = []
+    for case in cases:
+        sim = simulate.simulated_mesh(case.get("pods"), case.get("chips"))
+        comp = getattr(hvd.Compression, case.get("compression", "none"))
+        stack = np.asarray(case["stack"])
+        if case["kind"] == "allreduce":
+            out.append(simulate.run_allreduce(
+                sim, stack, algo=case["algo"], op=case.get("op", "sum"),
+                compression=comp, params=_params(case.get("params"))))
+            continue
+        full = simulate.run_rs_ag_roundtrip(sim, stack, compression=comp,
+                                            op=case.get("op", "sum"))
+        x = torch.from_numpy(stack[hvd.rank()])
+        sched = schedule.compile_bucket_schedule(
+            x.numel() * 4, sim.topo, force="hierarchical")
+        pad = (-x.numel()) % sim.topo.size
+        shard = schedule.hierarchical_reduce_scatter(
+            torch.cat([x, x.new_zeros(pad)]), sched,
+            op=case.get("op", "sum"), compression=comp)
+        out.append({"full": full, "shard": simulate._stacked(shard)})
+    return out
+
+
+def topo_schedule_ir(nbytes: list, pods: int, chips: int) -> list:
+    """The compiled IR of each payload on this rank, as plain tuples."""
+    from horovod_tpu_torch.topo import schedule
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    topo = MeshTopology(pods, chips)
+    return [dataclasses.astuple(schedule.compile_bucket_schedule(b, topo))
+            for b in nbytes]
+
+
+def topo_world(env: dict) -> dict:
+    """The session's view of the topology under the knobs ``env``: the
+    inferred and config topologies, the tiers' process sets (registered
+    twice: found, not duplicated), this rank's tier group sizes, and the
+    estimator's effective parameters in a world of several processes."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.topo import costmodel, simulate, topology
+
+    with _knobs(env):
+        inferred = topology.infer_topology()
+        configured = topology.config_topology(hvd.size())
+        intra, cross = topology.register_tier_process_sets(inferred)
+        again = topology.register_tier_process_sets(inferred)
+        found = all(a is b for a, b in zip(intra + cross,
+                                           again[0] + again[1]))
+        sets = ([list(ps.ranks) for ps in intra],
+                [list(ps.ranks) for ps in cross])
+        for ps in dict.fromkeys(intra + cross):
+            if ps.process_set_id:               # the global set stays
+                hvd.remove_process_set(ps)
+        gi, gc = topology.tier_groups(configured)
+        group_sizes = (dist.get_world_size(gi), dist.get_world_size(gc))
+        est = costmodel.OnlineEstimator(decay=0.5)
+        est.freeze(False)
+        est.observe("ici", 5e7, 1e3)
+        est.observe("dcn", 5e6, 1e3)
+        prior_kept = est.effective_params() is est.prior
+    return {"inferred": dataclasses.astuple(inferred),
+            "simulated": dataclasses.astuple(simulate.simulated_mesh().topo),
+            "simulated_chips_1": dataclasses.astuple(
+                simulate.simulated_mesh(chips=1).topo),
+            "configured": dataclasses.astuple(configured), "sets": sets,
+            "found": found, "group_sizes": group_sizes,
+            "prior_kept": prior_kept}
+
+
+def topo_fused(leaves: list, op: str, compression: str, threshold: int,
+               params, force, pods: int, chips: int, sets=None) -> dict:
+    """``fused_two_phase_apply(schedule=)`` of ``leaves`` with a compiler
+    for ``pods × chips`` over this rank's set (the world by default), the
+    algorithms it chose a bucket, and the same leaves through the flat
+    fused allreduce."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.topo.schedule import ScheduleCompiler
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    group = _group(sets or [list(range(hvd.size()))])
+    comp = getattr(hvd.Compression, compression)
+    ts = [torch.from_numpy(np.asarray(v)) for v in leaves]
+    compiler = ScheduleCompiler(MeshTopology(pods, chips), _params(params),
+                                force=force)
+    got = fusion.fused_two_phase_apply(
+        ts, op=op, group=group, compression=comp, threshold=threshold,
+        pipeline_depth=2, schedule=compiler)
+    algos = [compiler.compile(fusion._nbytes(ts, m)).algo
+             for m in fusion.plan_fused_buckets(ts, threshold)]
+    flat = fusion.fused_two_phase_apply(
+        ts, op=op, group=group, compression=comp, threshold=threshold,
+        pipeline_depth=2, alpha_us=10.0, beta_gbps=100.0)
+    return {"got": [g.numpy() for g in got], "algos": algos,
+            "flat": [f.numpy() for f in flat]}
+
+
+def topo_overlap(microbatches: list, op: str, compression: str,
+                 threshold: int, params, force) -> dict:
+    """The overlap wire with ``topo=`` a 2×2 compiler: a reduce-scatter
+    pass a microbatch, shards added from zeros, one all-gather; and the
+    flat overlap wire on the same leaves."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.topo.schedule import ScheduleCompiler
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    comp = getattr(hvd.Compression, compression)
+    mbs = [[torch.from_numpy(np.asarray(v)) for v in leaves]
+           for leaves in microbatches]
+    plan = fusion.plan_overlap_buckets(mbs[0], threshold,
+                                       world_size=hvd.size())
+    compiler = ScheduleCompiler(MeshTopology(2, 2), _params(params),
+                                force=force)
+    out = {"hierarchical": [
+        fusion._overlap_bucket_schedule(plan, bi, compiler) is not None
+        for bi in range(len(plan.members))]}
+    for key, topo in (("topo", compiler), ("flat", None)):
+        acc = fusion.zero_overlap_shards(plan)
+        for leaves in mbs:
+            shards = fusion.overlap_reduce_scatter(
+                leaves, plan, op=op, compression=comp, topo=topo).wait()
+            acc = tuple(a + s for a, s in zip(acc, shards))
+        full = fusion.overlap_all_gather(acc, plan, mbs[0], compression=comp,
+                                         topo=topo)
+        out[key] = {"full": [f.numpy() for f in full],
+                    "shards": [a.numpy() for a in acc]}
+    return out
+
+
+def topo_toy_steps(env: dict, **kwargs) -> dict:
+    """:func:`toy_steps` under the knobs ``env``, from a fresh estimator;
+    ``noted`` is how many tiers the last compiled plan noted (2 for a
+    hierarchical plan, 0 when no compiler ran)."""
+    from horovod_tpu_torch.topo import costmodel
+
+    costmodel.reset_estimator()
+    out = toy_steps(env=env, **kwargs)
+    est = costmodel.estimator()
+    est.freeze(False)
+    est.refine_from_step(1e-3)
+    out["noted"] = est.samples
+    costmodel.reset_estimator()
+    return out
+
+
+def _spy_collectives(calls: list):
+    """Wrap ``torch.distributed``'s reduce-scatter, allreduce and
+    all-gather so each call appends ``(name, group width)`` to
+    ``calls``; returns the restore function."""
+    import torch.distributed as dist
+
+    saved = {}
+    for name in ("reduce_scatter_tensor", "all_reduce",
+                 "all_gather_into_tensor"):
+        fn = saved[name] = getattr(dist, name)
+
+        def spy(*args, _fn=fn, _name=name, **kwargs):
+            calls.append((_name, dist.get_world_size(kwargs.get("group"))))
+            return _fn(*args, **kwargs)
+
+        setattr(dist, name, spy)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+    return restore
+
+
+def hier_allreduce(cases: list, env: dict, sets=None) -> list:
+    """Eager ``hvd.allreduce`` of each case (``x`` this rank's tensor,
+    ``op``, ``prescale``, ``postscale``, ``compression``; ``set`` True to
+    run over this rank's set of ``sets``) under the knobs ``env``: the result and the
+    collectives it issued, as ``(name, group width)``."""
+    import horovod_tpu_torch as hvd
+
+    out = []
+    with _knobs(env):
+        mine = None
+        if sets:
+            added = [hvd.add_process_set(s) for s in sets]
+            mine = next(ps for ps in added if hvd.rank() in ps.ranks)
+        try:
+            for case in cases:
+                calls: list = []
+                restore = _spy_collectives(calls)
+                try:
+                    r = hvd.allreduce(
+                        torch.from_numpy(np.asarray(case["x"])),
+                        op=case["op"],
+                        prescale_factor=case.get("prescale", 1.0),
+                        postscale_factor=case.get("postscale", 1.0),
+                        compression=getattr(hvd.Compression,
+                                            case.get("compression", "none")),
+                        process_set=mine if case.get("set") else None)
+                finally:
+                    restore()
+                out.append({"r": r.numpy(), "calls": calls})
+        finally:
+            if sets:
+                for ps in added:
+                    hvd.remove_process_set(ps)
+    return out
+
+
+def hier_inner(env: dict) -> int:
+    """``_resolve_hier_inner()`` under the knobs ``env``."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    with _knobs(env):
+        return C._resolve_hier_inner()
