@@ -13,7 +13,8 @@
    attention (B1, the bf16 tensor-core kernel) within the bf16 tolerance
    (3e-2 on O, 1e-4 on lse) and, row by row, within 1e-2 of the row's
    largest |O|, on normal and on peaky (q * 8) scores, at GPT-medium's
-   causal shape and at BERT-Large's non-causal one; the blocked
+   causal shape, at BERT-Large's non-causal one and at the ring's
+   blocks (causal and non-causal); the blocked
    matmul (B5) with a bf16 and with an f32 x within twice its plain
    version's error against an f64 product plus 1e-6 of the product's
    largest |value|.  B1 and B5 also print their TFLOP/s beside the
@@ -150,18 +151,39 @@
    on integer-valued leaves. Prints the step seconds hierarchical
    against flat (gloo on one card: not a wire's time), peak memory a
    rank and rank 0's B2/B3/B4 launches.
-13. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
+13. "sequence-parallel 4 ranks": four processes share the card over gloo
+   under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2``.  (1) GPT-medium's widths
+   (``benchmarks/gpt_bench.py``'s: vocab 32000, 24 layers, 16 heads,
+   d_model 1024, d_ff 4096, bf16 activations, f32 parameters) at 4096
+   positions, ``attention='ring'`` on the ``'flash'`` engine, on the
+   mesh ``{'dp': 1, 'sp': 2, 'tp': 2}`` (``examples/
+   gpt_long_context.py``'s at four slots): ``shard_params``,
+   ``shard_batch`` of 2 × 4096 tokens from seed 0, 3 AdamW steps of
+   ``make_spmd_train_step``: finite losses, the same global loss on
+   every rank, the replicated leaves bitwise equal on the four ranks
+   after every step, B1 launched on every rank; step 1's loss within
+   1e-2 of a one-rank ``attention='flash'`` step on the same weights
+   and tokens (rank 0 alone, after the others have left) and its
+   gathered parameters at most 2·lr + 1e-6 apart, at most 5% of them
+   by more than lr / 2.  (2) At 2 layers, the same widths: the ring's
+   ``'xla'`` engine and Ulysses against the ring's flash engine (logits
+   within 5e-2 of max(1, |logits|)); a ``{'dp': 2, 'sp': 2}`` step,
+   replicas bitwise equal; one int8 ``make_train_step`` step under the
+   ``data=2,fsdp=2`` plan against the 1-D plan's (losses within rtol
+   1e-6, parameters within rtol 1e-5 / atol 1e-6), B2-B4 launched.
+   Prints the step seconds and peak memory per rank beside the card.
+14. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-14. Route check: the profiler's device trace must show a bf16
+15. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-15. Prints the ``kernels`` JSON line (all seven kernels, with their
+16. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -350,6 +372,13 @@ def kernel_phase(dev, gen):
                 f"bound {bl['bound_ms']} ms ({bl['bound_by']}; bytes "
                 f"{bl['bytes_ms']} ms, operations {bl['ops_ms']} ms), SDPA "
                 f"{bl['library_ms']} ms")
+        for rb in row.get("ring_block", []):
+            log(f"kernel {row['name']}: at {rb['shape']} "
+                f"{'causal' if rb['causal'] else 'non-causal'} (a ring "
+                f"block) {rb['ms']} ms, plain {rb['plain_ms']} ms, bound "
+                f"{rb['bound_ms']} ms ({rb['bound_by']}; bytes "
+                f"{rb['bytes_ms']} ms, operations {rb['ops_ms']} ms), SDPA "
+                f"{rb['library_ms']} ms")
         if "two_ranks" in row:
             tr = row["two_ranks"]
             log(f"kernel {row['name']}: at {tr['shape']} (two ranks) "
@@ -619,17 +648,24 @@ def flash_case(dev, gen, batch: int, heads: int, t: int, causal: bool,
 
 def flash_kernel_row(dev, gen):
     """B1 at GPT-medium (B*H = 8*16, T = 1024, D = 64, causal, bf16), the
-    row's main shape, and at BERT-Large's (B*H = 32*16, T = Tk = 128,
-    D = 64, non-causal, bf16) as its ``bert_large`` shape."""
+    row's main shape, at BERT-Large's (B*H = 32*16, T = Tk = 128,
+    D = 64, non-causal, bf16) as its ``bert_large`` shape, and at the
+    "sequence-parallel 4 ranks" ring's blocks (B*H = 2*8, T = Tk = 2048,
+    D = 64, causal and non-causal) as its ``ring_block`` shapes."""
     row = flash_case(dev, gen, BATCH, GPT_MEDIUM["n_head"], SEQ, True,
                      "GPT-medium")
     bert = flash_case(dev, gen, BERT_BATCH, 16, BERT_SEQ, False,
                       "BERT-Large")
+    ring = [flash_case(dev, gen, SP_BATCH,
+                       GPT_MEDIUM["n_head"] // SP_LAYOUT["tp"],
+                       SP_SEQ // SP_LAYOUT["sp"], causal,
+                       f"ring block, {'causal' if causal else 'non-causal'}")
+            for causal in (True, False)]
     del row["shape"], row["causal"]
     return dict(name="flash_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attention.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:38",
-                **row, bert_large=bert)
+                **row, bert_large=bert, ring_block=ring)
 
 
 def apply_kernel_rows(dev, gen):
@@ -2334,6 +2370,308 @@ def check_hierarchical(res: list, seconds: float, label: str, wire: str):
     return s0["counts"]
 
 
+# --- "sequence-parallel 4 ranks": ring attention and tensor parallelism -----
+
+SEQ_ENV = {"HVD_TPU_MESH_PLAN": "data=2,fsdp=2"}
+SP_LAYOUT = {"dp": 1, "sp": 2, "tp": 2}  # examples/gpt_long_context.py, 4 slots
+SP_SEQ, SP_BATCH, SP_STEPS, SP_SHORT_LAYERS = 4096, 2, 3, 2
+# Step 1 against the one-rank flash step (bf16 activations both): the
+# loss within 1e-2 of it; an Adam step moves an element by at most lr
+# (plus a weight decay of lr·1e-4·|p|), so no updated parameter may
+# differ by more than 2·lr + 1e-6 (more means a wrong weight, slice or
+# gather), and at most SP_FLIP_SHARE of them by more than lr / 2 (an
+# update pointing the other way: bf16 rounding flips the sign of
+# gradients near zero only).
+SP_LOSS_REL, SP_FLIP_SHARE = 1e-2, 0.05
+SP_LOGITS_LIMIT = 5e-2   # bf16 logits, of max(1, |logits|): model_check's
+
+
+def sp_model(dev, layout: dict, n_layer: int, attention: str = "ring",
+             engine: str = "flash"):
+    """GPT-medium's widths at ``n_layer`` layers and SP_SEQ positions on
+    the mesh of ``layout`` from seed 0, sharded (this rank's tp slices):
+    (model, mesh)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import make_mesh, shard_params
+
+    cfg = hvd.models.GPTConfig(**{
+        **GPT_MEDIUM, "n_layer": n_layer, "max_seq_len": SP_SEQ,
+        "attention": attention, "attention_engine": engine})
+    mesh = make_mesh(layout)
+    model = hvd.models.GPT(cfg, mesh=mesh, device=dev, seed=0)
+    return shard_params(model, mesh), mesh
+
+
+def sp_tokens(dev):
+    """The global batch, SP_BATCH × SP_SEQ tokens from seed 0."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, GPT_MEDIUM["vocab_size"],
+                           (SP_BATCH, SP_SEQ + 1), generator=gen, device=dev)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def sp_main(dev, rank: int) -> dict:
+    """The main run: SP_STEPS ``make_spmd_train_step`` steps of the
+    24-layer model on SP_LAYOUT, ring attention on the flash engine,
+    AdamW; the launch counts set to 0 just before and read just after.
+    Step 1's parameters, gathered, go back on rank 0 (on the host)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (gather_params, init_opt_state,
+                                            make_spmd_train_step,
+                                            param_shardings, shard_batch)
+    from horovod_tpu_torch.plan import P
+
+    model, mesh = sp_model(dev, SP_LAYOUT, GPT_MEDIUM["n_layer"])
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
+    step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
+    batch = shard_batch(sp_tokens(dev), mesh, P("dp", "sp"))
+    whole = [n for n, s in param_shardings(model, mesh).items()
+             if not any(s)]
+    losses, times, digests, first = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    for i in range(SP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        digests.append(digest(p for n, p in model.named_parameters()
+                              if n in whole))
+        if i == 0:
+            gathered = gather_params(model, mesh)
+            if rank == 0:
+                first = {n: t.cpu() for n, t in gathered.items()}
+            del gathered
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = sum(p.numel() for p in model.parameters())
+    return dict(losses=losses, times=times, digests=digests, counts=counts,
+                peak=peak, params=params), first
+
+
+def sp_logits(dev, layout: dict, attention: str, engine: str):
+    """One forward of the SP_SHORT_LAYERS model on ``layout``: this
+    rank's logits."""
+    import torch
+    from horovod_tpu_torch.parallel import shard_batch
+    from horovod_tpu_torch.plan import P
+
+    model, mesh = sp_model(dev, layout, SP_SHORT_LAYERS, attention, engine)
+    inputs = shard_batch(sp_tokens(dev)[0], mesh, P("dp", "sp"))
+    with torch.no_grad():
+        return model(inputs)
+
+
+def logits_err(a, b) -> dict:
+    """``a``'s largest difference from ``b``, against SP_LOGITS_LIMIT of
+    ``b``'s scale."""
+    scale = max(1.0, float(b.abs().max()))
+    err = float((a - b).abs().max())
+    return dict(err=err, scale=scale, ok=bool(a.isfinite().all())
+                and err <= SP_LOGITS_LIMIT * scale)
+
+
+def sp_short_checks(dev, rank: int) -> dict:
+    """At SP_SHORT_LAYERS layers, GPT-medium's widths: the ring's 'xla'
+    engine against its 'flash' engine and Ulysses against the ring (one
+    forward's logits each), a {'dp': 2, 'sp': 2} step (its digest: the
+    dp replicas must agree), and one ``make_train_step`` step on the int8
+    wire under the session plan ``data=2,fsdp=2`` against the same step
+    on the 1-D plan (the contract of ``tests/test_mesh_plan.py::
+    test_2d_plan_matches_1d_numerics``)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (init_opt_state,
+                                            make_spmd_train_step,
+                                            shard_batch)
+    from horovod_tpu_torch.plan import P
+
+    out = {}
+    flash = sp_logits(dev, SP_LAYOUT, "ring", "flash")
+    out["engines"] = logits_err(sp_logits(dev, SP_LAYOUT, "ring", "xla"),
+                                flash)
+    out["ulysses"] = logits_err(sp_logits(dev, SP_LAYOUT, "ulysses", "xla"),
+                                flash)
+    del flash
+    torch.cuda.empty_cache()
+
+    model, mesh = sp_model(dev, {"dp": 2, "sp": 2}, SP_SHORT_LAYERS)
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
+    step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
+    loss = float(step(model, shard_batch(sp_tokens(dev), mesh,
+                                         P("dp", "sp"))))
+    out["dp_sp"] = dict(loss=loss, digest=digest(
+        p for _, p in sorted(model.named_parameters())))
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    def int8_step():
+        model, batch = gpt_medium(dev, n_layer=SP_SHORT_LAYERS,
+                                  data_seed=100 + rank)
+        step = hvd.make_train_step(
+            hvd.models.lm_loss_fn(model),
+            torch.optim.AdamW(model.parameters(), **ADAMW),
+            compression=hvd.Compression.int8)
+        hvd.ops.reset_launch_counts()
+        loss = float(step(model, batch))
+        return model, loss, hvd.ops.launch_counts()
+
+    plan = hvd.mesh_plan().describe()
+    two, loss2, counts2 = int8_step()
+    hvd.apply_mesh_plan(None)
+    one, loss1, _ = int8_step()
+    worst = max(float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+                for a, b in zip(two.parameters(), one.parameters())
+                for a, b in ((a.detach(), b.detach()),))
+    out["plan_int8"] = dict(
+        plan=plan, loss=loss2, loss_1d=loss1, worst=worst, counts=counts2,
+        bitwise=all(bitwise_equal(a, b) for a, b in
+                    zip(two.parameters(), one.parameters())))
+    return out
+
+
+def sp_oracle(dev, first: dict, loss: float) -> dict:
+    """The one-rank ``attention='flash'`` step on the same weights (seed
+    0) and tokens, with no collective (rank 0 runs it alone, after the
+    other ranks have freed their memory): step 1's loss and updated
+    parameters against the ring run's."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "max_seq_len": SP_SEQ})
+    model = hvd.models.GPT(cfg, device=dev, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), **ADAMW)
+    torch.cuda.reset_peak_memory_stats()
+    ref = hvd.models.lm_loss_fn(model)(model, sp_tokens(dev))
+    ref.backward()
+    opt.step()
+    lr = ADAMW["lr"]
+    worst, flips, total, leaf_worst = 0.0, 0, 0, ("", 0.0)
+    for name, p in model.named_parameters():
+        d = (first[name].to(dev) - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        n = int((d > lr / 2).sum())
+        flips, total = flips + n, total + d.numel()
+        if n / d.numel() > leaf_worst[1]:
+            leaf_worst = (name, n / d.numel())
+    return dict(loss=float(ref.detach()), ring_loss=loss, worst=worst,
+                flip_share=flips / total, leaf_worst=list(leaf_worst),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def seq_ranks(dev, rank: int) -> dict:
+    """Path "sequence-parallel 4 ranks" (and, over NCCL on four cards,
+    ``scripts/torch_port_sets_nccl.py --spmd``): :func:`sp_main`, then
+    :func:`sp_short_checks`; then every rank but 0 frees its memory and
+    leaves, and rank 0 runs :func:`sp_oracle`."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    main, first = sp_main(dev, rank)
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    short = sp_short_checks(dev, rank)
+    torch.cuda.empty_cache()
+    hvd.barrier()
+    out = dict(main, seconds=seconds, short=short)
+    if rank == 0:
+        out["oracle"] = sp_oracle(dev, first, main["losses"][0])
+    return out
+
+
+def sequence_parallel_phase(card: str):
+    """Path "sequence-parallel 4 ranks" (:func:`seq_ranks`), four
+    processes sharing the card over gloo.  Returns rank 0's launch
+    counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(SEQ_WORKER_FLAG, SET_RANKS)
+    return check_sequence_parallel(
+        res, time.perf_counter() - t0, "sequence-parallel 4 ranks",
+        "gloo staging through the host, four ranks on one card: not a "
+        "wire's time", card)
+
+
+def check_sequence_parallel(res: list, seconds: float, label: str,
+                            wire: str, card: str):
+    """The checks of :func:`seq_ranks` across every rank's results; logs
+    them and returns rank 0's launch counts."""
+    r0 = res[0]
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{label}: non-finite loss on rank {r}: "
+                                 f"{out['losses']}")
+        if out["losses"] != r0["losses"]:
+            raise AssertionError(f"{label}: the ranks' global losses differ")
+        if out["digests"] != r0["digests"]:
+            raise AssertionError(f"{label}: replicated leaves differ between "
+                                 f"rank 0 and rank {r}")
+        if out["counts"]["flash_fwd"] <= 0:
+            raise AssertionError(f"flash_fwd never launched on the {label} "
+                                 f"path (rank {r})")
+        s = out["short"]
+        for name in ("engines", "ulysses"):
+            if not s[name]["ok"]:
+                raise AssertionError(f"{label}: {name} check on rank {r}: "
+                                     f"{s[name]}")
+        if s["dp_sp"]["digest"] != r0["short"]["dp_sp"]["digest"] \
+                or not math.isfinite(s["dp_sp"]["loss"]):
+            raise AssertionError(f"{label}: dp x sp replicas differ (rank "
+                                 f"{r})")
+        p = s["plan_int8"]
+        if not (p["plan"] == SEQ_ENV["HVD_TPU_MESH_PLAN"]
+                and abs(p["loss"] - p["loss_1d"]) <= 1e-6 * abs(p["loss_1d"])
+                and p["worst"] <= 1.0 and math.isfinite(p["loss"])
+                and all(p["counts"][k] > 0 for k in (
+                    "quantize_blocks", "dequantize_accumulate",
+                    "dequantize_blocks"))):
+            raise AssertionError(f"{label}: the data=2,fsdp=2 int8 step off "
+                                 f"the 1-D one on rank {r}: {p}")
+    o = r0["oracle"]
+    lr = ADAMW["lr"]
+    if not (abs(o["ring_loss"] - o["loss"]) <= SP_LOSS_REL * abs(o["loss"])
+            and o["worst"] <= 2 * lr + 1e-6
+            and o["flip_share"] <= SP_FLIP_SHARE):
+        raise AssertionError(f"{label}: step 1 off the one-rank flash step: "
+                             f"{o}")
+    layout = ",".join(f"{k}={v}" for k, v in SP_LAYOUT.items())
+    log(f"{label}: GPT-medium widths, {GPT_MEDIUM['n_layer']} layers, "
+        f"{SP_BATCH} x {SP_SEQ} tokens, ring attention on the flash engine, "
+        f"{layout}, {r0['params']} parameters a rank, AdamW, losses "
+        f"{r0['losses']} (every rank); replicated leaves bitwise equal on "
+        f"the four ranks after every step")
+    log(f"{label}: step 1 against the one-rank flash step: loss "
+        f"{o['ring_loss']} vs {o['loss']} (limit {SP_LOSS_REL} relative); "
+        f"updated parameters at most {o['worst']} apart (limit 2·lr + 1e-6 "
+        f"= {2 * lr + 1e-6}), {o['flip_share']} of them by more than lr/2 "
+        f"(limit {SP_FLIP_SHARE}; worst leaf {o['leaf_worst']}); the "
+        f"oracle's peak {o['peak'] / 2**30:.2f} GiB")
+    s0 = r0["short"]
+    log(f"{label}: {SP_SHORT_LAYERS} layers: ring 'xla' vs 'flash' logits "
+        f"{[o['short']['engines']['err'] for o in res]}, Ulysses vs ring "
+        f"{[o['short']['ulysses']['err'] for o in res]} (limit "
+        f"{SP_LOGITS_LIMIT} of max(1, |logits|), scales "
+        f"{[o['short']['engines']['scale'] for o in res]}); dp=2,sp=2 step "
+        f"replicas bitwise equal; int8 make_train_step under "
+        f"HVD_TPU_MESH_PLAN={s0['plan_int8']['plan']} vs the 1-D plan: "
+        f"losses {s0['plan_int8']['loss']} / {s0['plan_int8']['loss_1d']}, "
+        f"worst parameter {max(o['short']['plan_int8']['worst'] for o in res)}"
+        f" of rtol 1e-5 + atol 1e-6, bitwise "
+        f"{[o['short']['plan_int8']['bitwise'] for o in res]}")
+    log(f"{label}: step seconds {[o['times'] for o in res]} (steps 2-"
+        f"{SP_STEPS}: {[o['times'][1:] for o in res]}; {wire}); peak memory "
+        f"per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; on "
+        f"{card}")
+    log(f"{label}: {seconds:.1f} s for the phase; flash_fwd launches per "
+        f"rank over the {SP_STEPS} steps "
+        f"{[o['counts']['flash_fwd'] for o in res]}; rank 0's {r0['counts']}")
+    return r0["counts"]
+
+
 def bert_phase(dev, card: str):
     """Path "bert-large 1 rank": ``benchmarks/bert_finetune_bench.py``'s
     configuration, ``BertForSequenceClassification(BertConfig.large(
@@ -2472,8 +2810,9 @@ SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
 RESNET_WORKER_FLAG = "--resnet-worker"
 HIER_WORKER_FLAG = "--hier-worker"
+SEQ_WORKER_FLAG = "--seq-worker"
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
-                RESNET_WORKER_FLAG, HIER_WORKER_FLAG)
+                RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -2489,10 +2828,13 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    world = (SET_RANKS if flag in (SET_WORKER_FLAG, HIER_WORKER_FLAG)
+    world = (SET_RANKS if flag in (SET_WORKER_FLAG, HIER_WORKER_FLAG,
+                                   SEQ_WORKER_FLAG)
              else WIRE_RANKS)
     if flag == HIER_WORKER_FLAG:
         os.environ.update(HIER_ENV)             # read by hvd.init
+    if flag == SEQ_WORKER_FLAG:
+        os.environ.update(SEQ_ENV)
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
                             rank=rank, world_size=world)
@@ -2508,6 +2850,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             res = resnet_ranks(hvd.device(), rank)
         elif flag == HIER_WORKER_FLAG:
             res = hier_ranks(hvd.device(), rank)
+        elif flag == SEQ_WORKER_FLAG:
+            res = seq_ranks(hvd.device(), rank)
         else:
             res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -2643,6 +2987,7 @@ def main() -> int:
         bert_counts = bert_phase(dev, card)
         torch.cuda.empty_cache()
         hier_counts = hierarchical_phase()
+        seq_counts = sequence_parallel_phase(card)
         convnet_counts = convnet_phase(dev, card)
         route_check(dev)
     finally:
@@ -2654,6 +2999,7 @@ def main() -> int:
                "resnet50 1 rank fp16": resnet_fp16_counts,
                "resnet50 2 ranks": resnet_ranks_counts,
                "hierarchical 4 ranks": hier_counts,
+               "sequence-parallel 4 ranks": seq_counts,
                "bert-large 1 rank": bert_counts, **convnet_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")

@@ -28,13 +28,31 @@ hvd.add_process_set([0, 2])`` (collective: every rank calls it), then
 the rest; ``DistributedOptimizer`` takes ``process_set=``,
 ``op=hvd.Adasum`` and ``backward_passes_per_step=``.
 
+Long-context and tensor-parallel training run on a mesh::
+
+    from horovod_tpu_torch.parallel import (make_mesh, shard_params,
+        shard_batch, make_spmd_train_step, init_opt_state)
+    from horovod_tpu_torch.plan import P
+    mesh = make_mesh({"dp": 1, "sp": 2, "tp": 2})
+    model = hvd.models.GPT(GPTConfig(attention="ring",
+                                     attention_engine="flash"), mesh=mesh)
+    shard_params(model, mesh)                 # this rank's tp slices
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, lr=3e-4), model)
+    step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
+    batch = shard_batch((inputs, targets), mesh, P("dp", "sp"))
+    loss = step(model, batch)                 # the global mean
+
+The session's plan (``HVD_TPU_MESH_PLAN``, ``hvd.mesh_plan()``,
+``hvd.apply_mesh_plan``) names the reduce group of ``make_train_step``.
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
 
 from .basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
-    cross_rank, cross_size, is_homogeneous, device, config,
+    cross_rank, cross_size, is_homogeneous, device, config, global_mesh,
+    mesh_plan, apply_mesh_plan,
     NotInitializedError, nccl_built, gloo_built, mpi_built, cuda_built,
     rocm_built, ccl_built, ddl_built, xla_built, gloo_enabled, mpi_enabled,
     xla_enabled, mpi_threads_supported,
@@ -64,3 +82,5 @@ from .optim import (  # noqa: F401
 from . import models  # noqa: F401
 from . import ops  # noqa: F401
 from . import optim  # noqa: F401
+from . import parallel  # noqa: F401
+from . import plan  # noqa: F401

@@ -15,6 +15,11 @@ process group the caller already initialised, or else is a world of one
 on a free local TCP port.  A world without the node variables is one
 node.  The session owns the process-set table
 (:mod:`horovod_tpu_torch.process_sets`); :func:`shutdown` clears it.
+
+The session also holds the 1-D world (:func:`global_mesh`) and the
+parallelism plan (:func:`mesh_plan`): ``HVD_TPU_MESH_PLAN`` unset is the
+1-D plan over the world, a declared layout (``data=2,fsdp=2``) registers
+one process set per axis group at ``init``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from .config import Config, warn_noop_knobs
+from .mesh import GlobalMesh
 from .process_sets import ProcessSetTable, destroy_group
 
 logger = logging.getLogger(__name__)
@@ -56,6 +62,12 @@ class _Session:
     # The topology tiers' groups, by (pods, chips_per_pod): every rank's
     # intra-pod groups, then its cross-pod groups (topo/topology.py).
     tier_groups: dict = dataclasses.field(default_factory=dict)
+    mesh: Optional[GlobalMesh] = None
+    # The parallelism plan (plan/mesh_plan.py), and its axis groups' torch
+    # groups by (axis names, sizes, axes), each list in the order of
+    # Mesh.groups.
+    mesh_plan: object = None
+    mesh_groups: dict = dataclasses.field(default_factory=dict)
 
 
 _session: Optional[_Session] = None
@@ -105,15 +117,24 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             dist.init_process_group(
                 init_method=f"tcp://127.0.0.1:{_free_port()}",
                 rank=0, world_size=1, **kwargs)
-    size = dist.get_world_size()
+    size, me = dist.get_world_size(), dist.get_rank()
     local_size = int(env.get("LOCAL_WORLD_SIZE", size))
+    cfg = Config.from_env()
     _session = _Session(
-        rank=dist.get_rank(), size=size, local_rank=local_rank,
+        rank=me, size=size, local_rank=local_rank,
         local_size=local_size, cross_rank=int(env.get("GROUP_RANK", 0)),
         cross_size=int(env.get("GROUP_WORLD_SIZE", -(-size // local_size))),
-        device=dev, config=Config.from_env(), owns_group=owns,
-        process_sets=ProcessSetTable(size))
+        device=dev, config=cfg, owns_group=owns,
+        process_sets=ProcessSetTable(size),
+        mesh=GlobalMesh.build(size, me, local_rank, local_size))
     warn_noop_knobs(logger)
+    # The session plan: the 1-D default over the global mesh, or the
+    # declared HVD_TPU_MESH_PLAN with one process set per axis group.
+    try:
+        _install_plan(cfg.mesh_plan)
+    except BaseException:
+        shutdown()
+        raise
 
 
 def shutdown() -> None:
@@ -127,6 +148,10 @@ def shutdown() -> None:
         for group in intra + cross:
             destroy_group(group)
     _session.tier_groups.clear()
+    for groups in _session.mesh_groups.values():
+        for group in groups:
+            destroy_group(group)
+    _session.mesh_groups.clear()
     if _session.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _session = None
@@ -183,6 +208,45 @@ def device() -> torch.device:
 
 def config() -> Config:
     return _require().config
+
+
+def global_mesh() -> GlobalMesh:
+    """The 1-D world: every rank on the axis ``hvd``."""
+    return _require().mesh
+
+
+def mesh_plan():
+    """The session's :class:`~horovod_tpu_torch.plan.MeshPlan`, the one
+    source every parallelism entry point derives its axes, groups and
+    tiers from.  ``HVD_TPU_MESH_PLAN`` unset: the 1-D plan over
+    :func:`global_mesh`."""
+    plan = _require().mesh_plan
+    if plan is None:
+        raise NotInitializedError()
+    return plan
+
+
+def _install_plan(spec):
+    """Compile ``spec``'s plan, register its process sets (collective)
+    and put both spec and plan in the session."""
+    global _session
+    from . import plan as _plan
+
+    plan = _plan.compile_plan(spec)
+    plan.register_process_sets(_session.process_sets)
+    _session = dataclasses.replace(
+        _session, mesh_plan=plan,
+        config=dataclasses.replace(_session.config, mesh_plan=spec))
+    return plan
+
+
+def apply_mesh_plan(spec):
+    """Rebuild the session's plan from an axis spec (``"data=4,fsdp=2"``;
+    None restores the 1-D default); returns it.  Collective: every rank
+    calls it with the same spec.  Steps read the plan at each call, so
+    the next step runs on the new layout."""
+    _require()
+    return _install_plan(spec)
 
 
 # --- feature matrix (reference: hvd.nccl_built() and friends): what this

@@ -122,6 +122,76 @@ def _validated_topo_spec(spec: Optional[str]) -> Optional[str]:
     return spec
 
 
+# --- mesh-plan axis grammar (HVD_TPU_MESH_PLAN) ------------------------------
+# ``axis=size,axis=size``, e.g. ``data=4,fsdp=2``: a 2-D layout over the
+# ranks.  The catalog is the closed namespace of axis names: the
+# planner's axes (``data``/``fsdp``/``tensor``/``pipe``/``expert``, the
+# MeshPlan vocabulary of plan/) and the short names of parallel/
+# (``hvd`` for the 1-D world, ``dp``/``tp``/``sp``/``pp``/``ep``).
+MESH_AXES = ("data", "fsdp", "tensor", "pipe", "expert",
+             "hvd", "dp", "tp", "sp", "pp", "ep")
+
+
+def parse_mesh_plan(spec: str,
+                    world_size: Optional[int] = None) -> "dict[str, int]":
+    """Parse ``HVD_TPU_MESH_PLAN`` (``data=4,fsdp=2``) into an ordered
+    ``{axis: size}`` map.  Axis names must come from :data:`MESH_AXES`;
+    sizes must be positive ints; an axis may appear once.  With
+    ``world_size`` the sizes must factor the rank count exactly: a plan
+    that silently dropped ranks would be a wrong-answer wire."""
+    out: "dict[str, int]" = {}
+    for raw in spec.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        key, sep, val = raw.partition("=")
+        key, val = key.strip(), val.strip()
+        if not sep or not key or not val:
+            raise ValueError(
+                f"mesh plan: expected axis=size entries, got {raw!r}")
+        if key not in MESH_AXES:
+            raise ValueError(
+                f"mesh plan: unknown axis {key!r}; expected one of "
+                f"{MESH_AXES}")
+        if key in out:
+            raise ValueError(
+                f"mesh plan: axis {key!r} appears twice — each axis "
+                f"names one disjoint factor of the device set")
+        try:
+            size = int(val)
+        except ValueError as e:
+            raise ValueError(
+                f"mesh plan: bad size {val!r} for axis {key!r}") from e
+        if size < 1:
+            raise ValueError(
+                f"mesh plan: size for axis {key!r} must be >= 1, "
+                f"got {size}")
+        out[key] = size
+    if not out:
+        raise ValueError("mesh plan: empty spec (expected e.g. "
+                         "'data=4,fsdp=2')")
+    if world_size is not None:
+        prod = 1
+        for size in out.values():
+            prod *= size
+        if prod != world_size:
+            raise ValueError(
+                f"mesh plan: axis sizes {dict(out)} multiply to {prod} "
+                f"but the mesh has {world_size} devices — the plan must "
+                f"factor the device count exactly (e.g. "
+                f"'data={world_size}' or a divisor split)")
+    return out
+
+
+def _validated_mesh_plan(spec: Optional[str]) -> Optional[str]:
+    """Empty or unset: None; anything else must parse (fails at init).
+    Whether it factors the world is checked when the plan is built."""
+    if not spec or not spec.strip():
+        return None
+    parse_mesh_plan(spec)
+    return spec
+
+
 # Reference knobs that change nothing here: accepted, but setting one
 # warns at init, since silently ignoring a reference env var that
 # changes behaviour there is a trap.
@@ -166,6 +236,7 @@ class Config:
     hierarchical_allreduce: bool = False  # HOROVOD_HIERARCHICAL_ALLREDUCE
     hierarchical_allgather: bool = False  # HOROVOD_HIERARCHICAL_ALLGATHER (no-op: warns)
     hierarchical_inner_size: int = 0      # HVD_TPU_HIERARCHICAL_INNER (0 = ranks a node)
+    mesh_plan: Optional[str] = None    # HVD_TPU_MESH_PLAN ("data=4,fsdp=2"; unset = the 1-D plan)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -191,4 +262,5 @@ class Config:
             hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE", False),
             hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER", False),
             hierarchical_inner_size=_env_int("HIERARCHICAL_INNER", 0),
+            mesh_plan=_validated_mesh_plan(_env("MESH_PLAN")),
         )

@@ -175,7 +175,10 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
         raise ValueError("causal flash attention requires Tq == Tk")
 
     def pack(x):
-        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d)
+        # A batch of one (or one head) makes this reshape a view, not a
+        # copy: the kernel takes contiguous rows only.
+        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1],
+                                             d).contiguous()
 
     o3, lse3 = _Flash3.apply(pack(q), pack(k), pack(v), float(scale),
                              bool(causal))

@@ -33,10 +33,15 @@ wire, each microbatch's bucketed reduce-scatter is started before the
 next microbatch's forward and backward, the shards accumulate, and one
 all-gather runs at the update.  Autotuning is not ported.
 
-``HVD_TPU_TOPO_SCHEDULE`` (with ``HVD_TPU_TOPO_SPEC`` or the node
-layout) routes the fused reduction through the two-tier schedule
-compiler (:mod:`..topo.schedule`): the fused allreduce of
-:class:`DistributedOptimizer` and of the step through
+With no ``process_set`` the gradients reduce over the session plan's
+reduce group (``HVD_TPU_MESH_PLAN``): the whole world for the 1-D plan
+and for ``data × fsdp``, this rank's data group for a plan with model
+axes.
+
+``HVD_TPU_TOPO_SCHEDULE`` (with ``HVD_TPU_TOPO_SPEC``, a 2-D reduce
+plan, or the node layout) routes the fused reduction through the
+two-tier schedule compiler (:mod:`..topo.schedule`): the fused
+allreduce of :class:`DistributedOptimizer` and of the step through
 :func:`..ops.fusion.fused_allreduce_pytree`, the overlap wire through
 its ``topo=``.
 """
@@ -112,6 +117,19 @@ def _reduce_grads(grads: Dict[str, torch.Tensor], *, op: str, group, comp,
                                   group=group, compression=comp,
                                   two_phase=two_phase,
                                   pipeline_depth=pipeline_depth)
+
+
+def _reduce_group(process_set, name: str):
+    """The group the gradients reduce over: the process set's, else the
+    session plan's reduce group (reference: ``_axis``/``_groups`` and
+    ``resolve_mesh_axis``).  A plan of reduce axes only (``hvd=N``,
+    ``data=2,fsdp=2``) reduces over their product, the whole world
+    (None); one with model axes over this rank's group along its reduce
+    axes."""
+    if process_set is not None:
+        return C.set_group(process_set, name)
+    plan = basics._require().mesh_plan
+    return None if plan is None else plan.collective_groups()
 
 
 def _write_back(grads: Dict[str, torch.Tensor],
@@ -242,7 +260,7 @@ class DistributedOptimizer:
     def synchronize(self) -> None:
         """Reduce every parameter's ``.grad`` in place over the set."""
         grads = self._grads()
-        group = C.set_group(self.process_set, "DistributedOptimizer")
+        group = _reduce_group(self.process_set, "DistributedOptimizer")
         comp = _resolve_compression(self.compression)
         if (self._error_feedback_on() and comp is not Compression.none
                 and self.op != C.Adasum):
@@ -472,8 +490,9 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     ``fusion_threshold``, ``two_phase`` and ``pipeline_depth`` (unless
     ``optimizer`` is a :class:`DistributedOptimizer`, which does it
     itself), steps the optimizer, updates ``model`` in place and returns
-    the loss averaged over ``process_set``'s ranks (every rank by
-    default).  Each rank passes its own shard of the batch.
+    the loss averaged over ``process_set``'s ranks (by default the
+    session plan's reduce group: every rank unless the plan has model
+    axes).  Each rank passes its own shard of the batch.
 
     ``has_aux``: ``loss_fn`` returns ``(loss, aux)`` (a tensor, or tuples,
     lists and dicts of them) and the step returns ``(loss, aux)``, aux
@@ -500,7 +519,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
         return basics.config().overlap_reduce
 
     def step(model: torch.nn.Module, batch) -> torch.Tensor:
-        group = C.set_group(process_set, "make_train_step")
+        group = _reduce_group(process_set, "make_train_step")
         if is_dist and not optimizer.named:
             optimizer.name_parameters(model.named_parameters())
         comp = _resolve_compression(compression)

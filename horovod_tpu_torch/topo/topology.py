@@ -146,12 +146,20 @@ def config_topology(world_size: int) -> MeshTopology:
     """Resolution from the live config (``HVD_TPU_TOPO_SPEC``), falling
     back to flat with a warning on a spec that does not factor the
     world: a bad spec must not crash a step that can run flat.  It warns
-    once a (spec, width), since every step resolves it.  (The
-    reference's MeshPlan tier declaration waits for the port's
-    MeshPlan.)"""
+    once a (spec, width), since every step resolves it.
+
+    Between the declared spec and inference sits the session's
+    :class:`~horovod_tpu_torch.plan.MeshPlan`: a 2-D reduce layout
+    (``data=P,fsdp=C``) is a tier declaration, its outer axis the pod
+    tier and its inner the chip tier."""
     from .. import basics
 
     spec = basics.config().topo_spec if basics.is_initialized() else None
+    if not spec and basics.is_initialized():
+        plan = basics._require().mesh_plan
+        tiers = plan.topo_tiers() if plan is not None else None
+        if tiers is not None and tiers.size == world_size:
+            return tiers
     try:
         return resolve_topology(world_size, spec)
     except ValueError as e:

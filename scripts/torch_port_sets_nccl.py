@@ -4,6 +4,7 @@
     python3 scripts/torch_port_sets_nccl.py      # on a host with 4 cards
     python3 scripts/torch_port_sets_nccl.py --microbatch
     python3 scripts/torch_port_sets_nccl.py --topology 2x2
+    python3 scripts/torch_port_sets_nccl.py --spmd
 
 ``chip_smoke.py`` runs its four ranks on one card over gloo, since NCCL
 refuses several ranks on one device.  This script runs the same path
@@ -25,8 +26,15 @@ hierarchical int8+EF steps against the plain B2-B4 composition, flat,
 two-phase and hierarchical on exact data, the eager hierarchical
 allreduce, the hierarchical overlap wire), held to
 ``chip_smoke.check_hierarchical``; the two tiers' groups are NCCL
-communicators of their own.  One host's four cards are all NVLink, so
-its step times say nothing of a network between nodes.
+communicators of their own.  With ``--spmd`` it runs the "sequence-
+parallel 4 ranks" path (``chip_smoke.seq_ranks``: GPT-medium's widths
+at 4096 tokens on ``{'dp': 1, 'sp': 2, 'tp': 2}``, ring attention on the
+flash engine, ``make_spmd_train_step``; the short checks; the one-rank
+oracle on rank 0's card) under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2``, held
+to ``chip_smoke.check_sequence_parallel``: the ring's K/V rotation and
+the tensor-parallel sums then travel over NVLink.  One host's four cards
+are all NVLink, so its step times say nothing of a network between
+nodes.
 It prints each card's name and power limit, and exits non-zero, with no
 result line, on a failure or with fewer than four cards.
 """
@@ -47,8 +55,9 @@ WORKER_FLAG = "--nccl-worker"
 
 MICROBATCH_FLAG = "--microbatch"
 TOPOLOGY_FLAG = "--topology"
+SPMD_FLAG = "--spmd"
 PATHS = {"sets": "set_ranks", "microbatch": "microbatch_ranks",
-         "topology": "hier_ranks"}
+         "topology": "hier_ranks", "spmd": "seq_ranks"}
 
 
 def worker(rank: int, tmp: str, path: str) -> None:
@@ -86,6 +95,7 @@ def main(path: str) -> int:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     world = cs.SET_RANKS
+    knobs = {"topology": cs.HIER_ENV, "spmd": cs.SEQ_ENV}.get(path, {})
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         procs = []
@@ -93,7 +103,7 @@ def main(path: str) -> int:
             env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
                        WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                       **(cs.HIER_ENV if path == "topology" else {}))
+                       **knobs)
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), WORKER_FLAG,
                  str(r), tmp, path], env=env))
@@ -120,6 +130,14 @@ def main(path: str) -> int:
         if path == "microbatch":
             counts = cs.check_microbatch(res, seconds, "microbatch 4 ranks",
                                          "NCCL, one rank a card")
+        elif path == "spmd":
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]
+            counts = cs.check_sequence_parallel(
+                res, seconds, "sequence-parallel 4 ranks (NCCL)",
+                "NCCL, one rank a card, all four on one host's NVLink", card)
         elif path == "topology":
             counts = cs.check_hierarchical(
                 res, seconds, "hierarchical 4 ranks (NCCL)",
@@ -129,6 +147,8 @@ def main(path: str) -> int:
     print(json.dumps({"backend": "nccl", "cards": world, "path": path,
                       "launches": counts,
                       "seconds_per_rank": [o["seconds"] for o in res],
+                      **({"step_seconds": [o["times"] for o in res]}
+                         if path == "spmd" else {}),
                       "peak_bytes": [o["peak"] for o in res]}))
     return 0
 
@@ -142,6 +162,8 @@ def _path(argv) -> str:
             raise SystemExit(f"{TOPOLOGY_FLAG} takes 2x2 (four cards), got "
                              f"{spec}")
         return "topology"
+    if SPMD_FLAG in argv:
+        return "spmd"
     return "microbatch" if MICROBATCH_FLAG in argv else "sets"
 
 

@@ -433,3 +433,22 @@ def test_eager_int8_tier_half_precision_world_of_one_bitwise(card, dtype):
     assert out.dtype == dtype
     assert _same_bits(out.cpu(),
                       q8.int8_stack_allreduce_async(x, op="average").wait())
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 4, 64), (2, 256, 1, 64)])
+def test_flash_attention_batch_or_heads_of_one_on_card(card, shape):
+    """A batch of one or one head packs to a view unless copied; the
+    kernel takes contiguous rows, so the wrapper must copy.  Forward and
+    gradients against the CPU's plain version."""
+    rng = np.random.RandomState(1)
+    qkv = [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+    outs = []
+    for dev in ("cpu", card):
+        ts = [torch.tensor(a, device=dev).to(torch.bfloat16)
+              .requires_grad_() for a in qkv]
+        o, lse = fa.flash_attention_with_lse(*ts, causal=True)
+        (o.float().square().sum() + lse.sum()).backward()
+        outs.append([o.float().cpu(), lse.cpu()]
+                    + [t.grad.float().cpu() for t in ts])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=3e-2, rtol=3e-2)

@@ -59,6 +59,7 @@ class World:
         self.n = n
         self.tasks = [ctx.Queue() for _ in range(n)]
         self.results = ctx.Queue()
+        self._backlog = [[] for _ in range(n)]
         self.procs = [ctx.Process(target=_serve,
                                   args=(r, n, store, self.tasks[r],
                                         self.results), daemon=True)
@@ -70,16 +71,29 @@ class World:
         """Run ``name(**kwargs, **per_rank[r])`` on every rank; returns
         the results in rank order, raising with a rank's traceback if it
         failed."""
+        self.submit(name, per_rank, **kwargs)
+        return self.collect(name, timeout)
+
+    def submit(self, name: str, per_rank=None, **kwargs) -> None:
+        """Queue ``name`` on every rank without waiting; :meth:`collect`
+        takes its results (tasks run and answer in submission order)."""
         for r in range(self.n):
             extra = per_rank[r] if per_rank is not None else {}
             self.tasks[r].put((name, {**kwargs, **extra}))
-        out = [None] * self.n
-        errors = []
-        for _ in range(self.n):
+
+    def collect(self, name: str, timeout: float = 300.0):
+        """The results of the oldest submitted task, in rank order (a
+        rank's answers to later tasks wait in its backlog)."""
+        while not all(self._backlog):
             try:
                 rank, ok, value = self.results.get(timeout=timeout)
             except queue.Empty:
                 raise TimeoutError(f"{name}: no answer within {timeout} s")
+            self._backlog[rank].append((ok, value))
+        out = [None] * self.n
+        errors = []
+        for rank in range(self.n):
+            ok, value = self._backlog[rank].pop(0)
             if ok:
                 out[rank] = value
             else:
@@ -1022,3 +1036,234 @@ def hier_inner(env: dict) -> int:
 
     with _knobs(env):
         return C._resolve_hier_inner()
+
+
+# --- MeshPlan, sequence and tensor parallelism --------------------------------
+
+@contextlib.contextmanager
+def _session_plan(spec):
+    """Run with the session plan of ``spec`` (None: the 1-D default;
+    "off": no plan, the path before plans), restoring the 1-D default
+    after."""
+    import dataclasses as dc
+    from horovod_tpu_torch import basics
+
+    if spec == "off":
+        basics._session = dc.replace(basics._session, mesh_plan=None)
+    else:
+        basics.apply_mesh_plan(spec)
+    try:
+        yield basics._session.mesh_plan
+    finally:
+        basics.apply_mesh_plan(None)
+
+
+def plan_view(spec) -> dict:
+    """The session's view of the plan of ``spec``: the default plan's
+    mesh, this rank's coordinates and groups, the registered process
+    sets (registered twice: found, not duplicated) and the reduce group
+    of ``make_train_step``."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import plan as plan_mod
+    from horovod_tpu_torch.topo.topology import config_topology
+
+    with _session_plan(spec) as plan:
+        sets = plan.register_process_sets()
+        again = plan.register_process_sets()
+        group = plan_mod.collective_groups()
+        out = {
+            "axes": list(plan.axes), "describe": plan.describe(),
+            "is_global_mesh": plan.mesh is hvd.global_mesh().mesh,
+            "resolved_is_session": plan_mod.resolve_plan() is plan,
+            "coords": plan.coords(),
+            "sets": {k: [list(ps.ranks) for ps in v]
+                     for k, v in sets.items()},
+            "sets_found": all(a is b for k in sets
+                              for a, b in zip(sets[k], again[k])),
+            "groups": {n: list(plan.group(n).ranks)
+                       for n in plan.axis_names},
+            "reduce_width": (dist.get_world_size(group) if group is not None
+                             else hvd.size()),
+            "topology": list(dataclasses.astuple(
+                config_topology(hvd.size()))),
+            "config_plan": hvd.config().mesh_plan,
+        }
+    out["restored"] = hvd.mesh_plan().describe()
+    return out
+
+
+class _Affine(torch.nn.Module):
+    """``x @ w + b``: the toy problem of ``tests/test_mesh_plan.py``."""
+
+    def __init__(self, w: np.ndarray, b: np.ndarray) -> None:
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(w.copy()))
+        self.b = torch.nn.Parameter(torch.from_numpy(b.copy()))
+
+
+def _affine_mse(module, batch):
+    x, y = batch
+    return (((x @ module.w + module.b) - y) ** 2).mean()
+
+
+def plan_toy_steps(spec, kind: str, w: np.ndarray, b: np.ndarray,
+                   x: np.ndarray, y: np.ndarray, steps: int,
+                   pair: bool = False) -> dict:
+    """``steps`` steps of the toy problem on this rank's rows under the
+    session plan of ``spec``: ``kind`` "dp" (``make_train_step`` with a
+    ``DistributedOptimizer(SGD(0.1))``) or "zero" (``make_zero_train_step``
+    with SGD(0.1, momentum 0.9)).  ``pair``: reduce over the process set
+    {r, r + 2} instead of the plan's group.  Also returns the
+    collectives issued, as ``(name, group width)``."""
+    import horovod_tpu_torch as hvd
+
+    model = _Affine(w, b)
+    batch = (_my_rows(x), _my_rows(y))
+    calls: list = []
+    with _session_plan(spec):
+        ps, added = None, []
+        if pair:
+            from horovod_tpu_torch.process_sets import _table
+
+            for ranks in ([0, 2], [1, 3]):
+                found = _table().find(ranks)
+                if found is None:
+                    found = hvd.add_process_set(ranks)
+                    added.append(found)
+                if hvd.rank() in found.ranks:
+                    ps = found
+        if kind == "zero":
+            step = hvd.make_zero_train_step(
+                _affine_mse, lambda s: torch.optim.SGD(s, lr=0.1,
+                                                       momentum=0.9))
+        else:
+            step = hvd.make_train_step(_affine_mse, hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.1),
+                process_set=ps), process_set=ps)
+        restore = _spy_collectives(calls)
+        try:
+            losses = [float(step(model, batch)) for _ in range(steps)]
+        finally:
+            restore()
+        for s in added:
+            hvd.remove_process_set(s)
+    return {"losses": losses, "calls": calls,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def _local_qkv(arrays, layout: dict, rank_spec=("dp", "sp", "tp")):
+    """This rank's ``[b, t, h, d]`` shards of global ``[B, T, H, D]``
+    arrays: batch over dp, sequence over sp, heads over tp."""
+    from horovod_tpu_torch.parallel import make_mesh, shard_batch
+    from horovod_tpu_torch.plan import P
+
+    mesh = make_mesh(layout)
+    t = [torch.from_numpy(a).requires_grad_(False) for a in arrays]
+    return mesh, shard_batch(t, mesh, P(*rank_spec))
+
+
+def seq_attention(kind: str, layout: dict, q: np.ndarray, k: np.ndarray,
+                  v: np.ndarray, causal: bool, engine: str = "xla",
+                  grads: bool = False) -> dict:
+    """``kind`` "ring" or "ulysses" on this rank's shards of ``q``, ``k``,
+    ``v`` under ``layout``: the local output and, with ``grads``, the
+    local gradients of ``sum(o * o)`` (every rank's share of the global
+    sum) with respect to the local q, k and v.  A ValueError comes back
+    as its message."""
+    from horovod_tpu_torch.parallel import (ring_self_attention,
+                                            ulysses_attention)
+
+    mesh, (lq, lk, lv) = _local_qkv((q, k, v), layout)
+    for t in (lq, lk, lv):
+        t.requires_grad_(grads)
+    try:
+        if kind == "ring":
+            o = ring_self_attention(lq, lk, lv, mesh=mesh, causal=causal,
+                                    engine=engine)
+        else:
+            o = ulysses_attention(lq, lk, lv, mesh=mesh, causal=causal)
+    except ValueError as e:
+        return {"error": str(e)}
+    out = {"o": o.detach().numpy()}
+    if grads:
+        (o * o).sum().backward()
+        out.update({f"d{n}": t.grad.numpy()
+                    for n, t in zip("qkv", (lq, lk, lv))})
+    return out
+
+
+def spmd_gpt(config: dict, layout: dict, params: dict, tokens: np.ndarray,
+             steps: int, local: bool = False, microbatches=None) -> dict:
+    """``steps`` AdamW steps of the port's GPT through
+    ``make_spmd_train_step`` on ``layout``: the flax weights loaded whole,
+    ``shard_params``, the global batch through ``shard_batch`` (with
+    ``local``, this rank's dp rows through ``local=True``).  Returns the
+    losses, the gathered parameters (the reference's layout) and this
+    rank's local slices.  With ``microbatches`` the step accumulates
+    that many and its loss function has an aux output (the microbatch's
+    local token count), whose stacked shapes come back as ``aux``."""
+    from horovod_tpu_torch.models import GPT, GPTConfig, load_jax_params
+    from horovod_tpu_torch.models.transformer import lm_loss_fn
+    from horovod_tpu_torch.parallel import (gather_params, init_opt_state,
+                                            make_mesh, make_spmd_train_step,
+                                            shard_batch, shard_params)
+    from horovod_tpu_torch.plan import P
+
+    cfg = GPTConfig(**{**config, "dtype": getattr(torch, config["dtype"])})
+    mesh = make_mesh(layout)
+    model = GPT(cfg, mesh=mesh, device="cpu")
+    load_jax_params(model, params)
+    shard_params(model, mesh)
+    opt = init_opt_state(_adamw, model)
+    loss_fn = lm_loss_fn(model)
+    if microbatches:
+        def with_aux(module, batch):
+            return loss_fn(module, batch), torch.tensor(
+                float(batch[0].numel()))
+
+        step = make_spmd_train_step(with_aux, opt, has_aux=True,
+                                    microbatches=microbatches)
+    else:
+        step = make_spmd_train_step(loss_fn, opt)
+    data = (tokens[:, :-1], tokens[:, 1:])
+    if local:
+        rows = tokens.shape[0] // mesh.shape.get("dp", 1)
+        dp = mesh.coords(torch.distributed.get_rank()).get("dp", 0)
+        data = tuple(d[dp * rows:(dp + 1) * rows] for d in data)
+    batch = shard_batch(data, mesh, P("dp", "sp"), local=local)
+    losses, aux = [], []
+    for _ in range(steps):
+        out = step(model, batch)
+        if microbatches:
+            out, extra = out
+            aux.append(extra.tolist())
+        losses.append(float(out))
+    return {"losses": losses, "aux": aux,
+            "full": {n: t.numpy().copy()
+                     for n, t in gather_params(model, mesh).items()},
+            "local": {n: p.detach().numpy().copy()
+                      for n, p in model.named_parameters()}}
+
+
+def plan_from_env(spec: str) -> dict:
+    """``init`` under ``HVD_TPU_MESH_PLAN=spec``: the session plan and
+    the process sets it registered, or the error ``init`` raised."""
+    import horovod_tpu_torch as hvd
+
+    os.environ["HVD_TPU_MESH_PLAN"] = spec
+    hvd.shutdown()
+    try:
+        hvd.init(device="cpu")
+        from horovod_tpu_torch.process_sets import _table
+
+        return {"plan": hvd.mesh_plan().describe(),
+                "sets": sorted(list(ps.ranks)
+                               for ps in _table()._table.values())}
+    except ValueError as e:
+        return {"error": str(e), "initialized": hvd.is_initialized()}
+    finally:
+        del os.environ["HVD_TPU_MESH_PLAN"]
+        hvd.shutdown()
+        hvd.init(device="cpu")
