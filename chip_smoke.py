@@ -13,8 +13,9 @@
    attention (B1, the bf16 tensor-core kernel) within the bf16 tolerance
    (3e-2 on O, 1e-4 on lse) and, row by row, within 1e-2 of the row's
    largest |O|, on normal and on peaky (q * 8) scores, at GPT-medium's
-   causal shape, at BERT-Large's non-causal one and at the ring's
-   blocks (causal and non-causal); the blocked
+   causal shape, at BERT-Large's non-causal one, at the ring's
+   blocks (causal and non-causal) and at the two rows a rank of the
+   pipeline, moe and fsdp paths runs (causal); the blocked
    matmul (B5) with a bf16 and with an f32 x within twice its plain
    version's error against an f64 product plus 1e-6 of the product's
    largest |value|.  B1 and B5 also print their TFLOP/s beside the
@@ -172,18 +173,55 @@
    ``data=2,fsdp=2`` plan against the 1-D plan's (losses within rtol
    1e-6, parameters within rtol 1e-5 / atol 1e-6), B2-B4 launched.
    Prints the step seconds and peak memory per rank beside the card.
-14. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
+14. "pipeline 4 ranks": four processes share the card over gloo.
+   GPT-medium (24 layers) as ``PipelinedGPT`` on ``{'pp': 4}``: four
+   stages of six blocks, 4 microbatches of 2 × 1024 tokens (the batch of
+   8 × 1024 from seed 0 on every rank), 7 ticks, 3 AdamW steps of
+   ``make_spmd_train_step``: finite losses, the same on every rank, the
+   embedding and head bitwise equal on the four ranks after every step,
+   B1 launched exactly 3 × 7 × 6 times a rank; step 1 against the
+   one-rank GPT step on the same weights (the pipelined model draws
+   GPT's) and tokens, rank 0 alone after the others leave (the limits of
+   step 13's oracle); at 4 layers (one block a stage) a remat step: the
+   plain step's loss (1e-6) and parameters (1e-6), B1 twice as often.
+15. "moe 4 ranks": four processes share the card over gloo.
+   GPT-medium's widths, 24 layers, every second FFN a mixture of 8
+   experts (top-2, capacity factor 1.25) on ``{'dp': 2, 'ep': 2}``
+   (``shard_params``: four experts a rank), 4 × 1024 tokens from seed 0,
+   3 AdamW steps on ``lm_loss_fn``: finite losses, the same on every
+   rank, the replicated leaves bitwise equal on the four ranks and the
+   experts on each dp pair, B1 24 times a step; step 1 against the
+   one-rank MoE GPT on the whole batch, full depth, rank 0 alone.
+16. "fsdp 4 ranks": four processes share the card over gloo under
+   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (24 layers) through
+   ``make_fsdp_train_step`` (each parameter cut on its largest
+   divisible dim, AdamW on the slices), 2 × 1024 tokens a rank, 3 steps:
+   finite losses, the same on every rank, B1 24 times a step; step 1
+   against the one-rank data-parallel step on the whole batch; peak
+   memory a rank beside the oracle's; at 2 layers one HSDP step
+   (``data=2,fsdp=2``, derived from the session plan) against one
+   ``fsdp=4`` step (loss within 1e-5, parameters within step 13's
+   limits), the data replicas' slices bitwise equal.
+17. "autotune 2 ranks": two processes share the card over gloo under
+   ``HOROVOD_AUTOTUNE=1`` (1 warmup and 3 scored windows of 2 steps)
+   with the int8 wire and error feedback: GPT-medium's widths at 2
+   layers, ``make_train_step`` with AdamW in a DistributedOptimizer, 14
+   steps: the step is the autotuner's, it freezes, both ranks apply the
+   same points, every applied point lies on its knob's lattice, the live
+   config is the last one, the replicas agree, and B2, B3 and B4
+   launched.  Prints the windows' scores.
+18. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-15. Route check: the profiler's device trace must show a bf16
+19. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-16. Prints the ``kernels`` JSON line (all seven kernels, with their
+20. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -372,6 +410,13 @@ def kernel_phase(dev, gen):
                 f"bound {bl['bound_ms']} ms ({bl['bound_by']}; bytes "
                 f"{bl['bytes_ms']} ms, operations {bl['ops_ms']} ms), SDPA "
                 f"{bl['library_ms']} ms")
+        if "rank_rows" in row:
+            rr = row["rank_rows"]
+            log(f"kernel {row['name']}: at {rr['shape']} causal (two rows: "
+                f"the pipeline, moe and fsdp paths) {rr['ms']} ms, plain "
+                f"{rr['plain_ms']} ms, bound {rr['bound_ms']} ms "
+                f"({rr['bound_by']}; bytes {rr['bytes_ms']} ms, operations "
+                f"{rr['ops_ms']} ms), SDPA {rr['library_ms']} ms")
         for rb in row.get("ring_block", []):
             log(f"kernel {row['name']}: at {rb['shape']} "
                 f"{'causal' if rb['causal'] else 'non-causal'} (a ring "
@@ -661,11 +706,15 @@ def flash_kernel_row(dev, gen):
                        SP_SEQ // SP_LAYOUT["sp"], causal,
                        f"ring block, {'causal' if causal else 'non-causal'}")
             for causal in (True, False)]
+    rank_rows = flash_case(dev, gen, BATCH // PIPE_MICRO,
+                           GPT_MEDIUM["n_head"], SEQ, True,
+                           "two rows: a pipeline microbatch, a moe or fsdp "
+                           "rank's batch")
     del row["shape"], row["causal"]
     return dict(name="flash_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attention.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:38",
-                **row, bert_large=bert, ring_block=ring)
+                **row, bert_large=bert, ring_block=ring, rank_rows=rank_rows)
 
 
 def apply_kernel_rows(dev, gen):
@@ -2539,14 +2588,24 @@ def sp_oracle(dev, first: dict, loss: float) -> dict:
     0) and tokens, with no collective (rank 0 runs it alone, after the
     other ranks have freed their memory): step 1's loss and updated
     parameters against the ring run's."""
-    import torch
     import horovod_tpu_torch as hvd
 
     cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "max_seq_len": SP_SEQ})
+    return one_rank_oracle(dev, cfg, sp_tokens(dev), first, loss)
+
+
+def one_rank_oracle(dev, cfg, batch, first: dict, loss: float) -> dict:
+    """One AdamW step of ``GPT(cfg, seed=0)`` on the whole ``batch`` on
+    this rank alone, no collective: its loss and updated parameters
+    against a parallel run's step 1 (``first``: GPT's names, whole
+    tensors, on the host; ``loss``)."""
+    import torch
+    import horovod_tpu_torch as hvd
+
     model = hvd.models.GPT(cfg, device=dev, seed=0)
     opt = torch.optim.AdamW(model.parameters(), **ADAMW)
     torch.cuda.reset_peak_memory_stats()
-    ref = hvd.models.lm_loss_fn(model)(model, sp_tokens(dev))
+    ref = hvd.models.lm_loss_fn(model)(model, batch)
     ref.backward()
     opt.step()
     lr = ADAMW["lr"]
@@ -2558,9 +2617,31 @@ def sp_oracle(dev, first: dict, loss: float) -> dict:
         flips, total = flips + n, total + d.numel()
         if n / d.numel() > leaf_worst[1]:
             leaf_worst = (name, n / d.numel())
-    return dict(loss=float(ref.detach()), ring_loss=loss, worst=worst,
+    if set(first) != {name for name, _ in model.named_parameters()}:
+        raise AssertionError("the oracle's parameters are not the run's")
+    return dict(loss=float(ref.detach()), run_loss=loss, worst=worst,
                 flip_share=flips / total, leaf_worst=list(leaf_worst),
                 peak=torch.cuda.max_memory_allocated())
+
+
+def oracle_ok(o: dict) -> bool:
+    """Step 1 within SP_LOSS_REL of the oracle's loss, no updated
+    parameter more than 2·lr + 1e-6 from its, at most SP_FLIP_SHARE of
+    them by more than lr / 2."""
+    return (abs(o["run_loss"] - o["loss"]) <= SP_LOSS_REL * abs(o["loss"])
+            and o["worst"] <= 2 * ADAMW["lr"] + 1e-6
+            and o["flip_share"] <= SP_FLIP_SHARE)
+
+
+def oracle_line(label: str, o: dict) -> str:
+    lr = ADAMW["lr"]
+    return (f"{label}: step 1 against the one-rank step: loss "
+            f"{o['run_loss']} vs {o['loss']} (limit {SP_LOSS_REL} relative); "
+            f"updated parameters at most {o['worst']} apart (limit 2·lr + "
+            f"1e-6 = {2 * lr + 1e-6}), {o['flip_share']} of them by more "
+            f"than lr/2 (limit {SP_FLIP_SHARE}; worst leaf "
+            f"{o['leaf_worst']}); the oracle's peak "
+            f"{o['peak'] / 2**30:.2f} GiB")
 
 
 def seq_ranks(dev, rank: int) -> dict:
@@ -2632,10 +2713,7 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
             raise AssertionError(f"{label}: the data=2,fsdp=2 int8 step off "
                                  f"the 1-D one on rank {r}: {p}")
     o = r0["oracle"]
-    lr = ADAMW["lr"]
-    if not (abs(o["ring_loss"] - o["loss"]) <= SP_LOSS_REL * abs(o["loss"])
-            and o["worst"] <= 2 * lr + 1e-6
-            and o["flip_share"] <= SP_FLIP_SHARE):
+    if not oracle_ok(o):
         raise AssertionError(f"{label}: step 1 off the one-rank flash step: "
                              f"{o}")
     layout = ",".join(f"{k}={v}" for k, v in SP_LAYOUT.items())
@@ -2644,12 +2722,7 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
         f"{layout}, {r0['params']} parameters a rank, AdamW, losses "
         f"{r0['losses']} (every rank); replicated leaves bitwise equal on "
         f"the four ranks after every step")
-    log(f"{label}: step 1 against the one-rank flash step: loss "
-        f"{o['ring_loss']} vs {o['loss']} (limit {SP_LOSS_REL} relative); "
-        f"updated parameters at most {o['worst']} apart (limit 2·lr + 1e-6 "
-        f"= {2 * lr + 1e-6}), {o['flip_share']} of them by more than lr/2 "
-        f"(limit {SP_FLIP_SHARE}; worst leaf {o['leaf_worst']}); the "
-        f"oracle's peak {o['peak'] / 2**30:.2f} GiB")
+    log(oracle_line(label, o))
     s0 = r0["short"]
     log(f"{label}: {SP_SHORT_LAYERS} layers: ring 'xla' vs 'flash' logits "
         f"{[o['short']['engines']['err'] for o in res]}, Ulysses vs ring "
@@ -2670,6 +2743,544 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
         f"rank over the {SP_STEPS} steps "
         f"{[o['counts']['flash_fwd'] for o in res]}; rank 0's {r0['counts']}")
     return r0["counts"]
+
+
+# --- "pipeline 4 ranks", "moe 4 ranks", "fsdp 4 ranks", "autotune 2 ranks" ----
+
+PIPE_LAYOUT = {"pp": 4}
+PIPE_MICRO, PIPE_STEPS, PIPE_REMAT_LAYERS = 4, 3, 4
+MOE_LAYOUT = {"dp": 2, "ep": 2}
+MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+           moe_every=2)                    # GPTConfig's MoE defaults
+MOE_BATCH, MOE_STEPS = 4, 3
+FSDP_ENV = {"HVD_TPU_MESH_PLAN": "fsdp=4"}
+FSDP_STEPS, FSDP_SHORT_LAYERS = 3, 2
+AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+                "HVD_TPU_AUTOTUNE_MAX_SAMPLES": "3",
+                "HVD_TPU_COMPRESSION": "int8", "HVD_TPU_ERROR_FEEDBACK": "1"}
+AUTOTUNE_STEPS = 14    # 1 unscored + 1 warmup and 3 scored windows of 2,
+                       # 3 unscored rebuilds, then 2 frozen
+
+
+def whole_tokens(dev, rows: int):
+    """``rows`` × SEQ tokens from seed 0: (inputs, targets), the same on
+    every rank."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, GPT_MEDIUM["vocab_size"], (rows, SEQ + 1),
+                           generator=gen, device=dev)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def parallel_steps(step, model, batch, steps: int, digest_of) -> dict:
+    """``steps`` steps of ``step(model, batch)`` with the launch counts set
+    to 0 just before and read just after: losses, step seconds, the
+    digest of ``digest_of(model)`` after every step, counts, peak."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    losses, times, digests = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        digests.append(digest(digest_of(model)))
+    return dict(losses=losses, times=times, digests=digests,
+                counts=hvd.ops.launch_counts(),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def pipe_model(dev, n_layer: int, remat: bool = False):
+    """PipelinedGPT at GPT-medium's widths, ``n_layer`` layers over
+    PIPE_LAYOUT, PIPE_MICRO microbatches, from seed 0 (GPT's weights)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import make_mesh
+
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": n_layer})
+    return hvd.models.PipelinedGPT(cfg, make_mesh(PIPE_LAYOUT),
+                                   n_micro=PIPE_MICRO, remat=remat,
+                                   device=dev, seed=0)
+
+
+def pipe_step(model):
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import init_opt_state, make_spmd_train_step
+
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
+    return make_spmd_train_step(hvd.models.pipelined_lm_loss_fn(model), opt)
+
+
+def pipe_outside(model):
+    """The leaves outside the pipeline (embedding, head): whole on every
+    rank."""
+    return [p for n, p in sorted(model.named_parameters())
+            if not n.startswith("stages.")]
+
+
+def pipe_gathered(model, rank: int):
+    """Rank 0: every parameter under GPT's names on the host, the stages'
+    blocks gathered over ``pp`` (collective); None elsewhere."""
+    import torch
+    import torch.distributed as dist
+
+    out, k = {}, model.blocks_per_stage
+    for name, p in model.named_parameters():
+        head, rest = name.split(".", 1)
+        if head != "stages":
+            out[rest] = p.detach().to("cpu", copy=True)
+            continue
+        pieces = [torch.empty_like(p) for _ in range(model.n_stages)]
+        dist.all_gather(pieces, p.detach().contiguous())
+        block, leaf = rest.split(".", 1)
+        i = int(block.split("_")[1])
+        for s, piece in enumerate(pieces):
+            out[f"block_{s * k + i}.{leaf}"] = piece.cpu()
+    return out if rank == 0 else None
+
+
+def pipe_remat_check(dev) -> dict:
+    """At PIPE_REMAT_LAYERS layers (one block a stage): one step without
+    and one with remat from the same weights: losses, the largest
+    parameter difference after, B1 launches of each."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    params = []
+    for remat in (False, True):
+        model = pipe_model(dev, PIPE_REMAT_LAYERS, remat)
+        step = pipe_step(model)
+        hvd.ops.reset_launch_counts()
+        loss = float(step(model, whole_tokens(dev, BATCH)))
+        out[f"remat_{remat}"] = dict(
+            loss=loss, flash=hvd.ops.launch_counts()["flash_fwd"])
+        params.append([p.detach().clone() for p in model.parameters()])
+        del model, step
+        torch.cuda.empty_cache()
+    out["worst"] = max(float((a - b).abs().max())
+                       for a, b in zip(*params))
+    return out
+
+
+def pipe_ranks(dev, rank: int) -> dict:
+    """Path "pipeline 4 ranks": GPT-medium (24 layers) as four stages of
+    six blocks, PIPE_MICRO microbatches of BATCH / PIPE_MICRO rows, the
+    whole batch on every rank (dp 1), PIPE_STEPS AdamW steps of
+    ``make_spmd_train_step``; step 1's parameters gathered to rank 0;
+    then the remat check; then rank 0 alone runs the one-rank oracle."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    model = pipe_model(dev, GPT_MEDIUM["n_layer"])
+    step = pipe_step(model)
+    batch = whole_tokens(dev, BATCH)
+    first = None
+
+    def outside_then_gather(m):
+        nonlocal first
+        if first is None:
+            first = pipe_gathered(m, rank) or {}
+        return pipe_outside(m)
+
+    run = parallel_steps(step, model, batch, PIPE_STEPS, outside_then_gather)
+    run.update(seconds=time.perf_counter() - t0, stage=model.stage_index,
+               params=sum(p.numel() for p in model.parameters()))
+    del model, step
+    torch.cuda.empty_cache()
+    run["remat"] = pipe_remat_check(dev)
+    torch.cuda.empty_cache()
+    hvd.barrier()
+    if rank == 0:
+        cfg = hvd.models.GPTConfig(**GPT_MEDIUM)
+        run["oracle"] = one_rank_oracle(dev, cfg, batch, first,
+                                        run["losses"][0])
+    return run
+
+
+def moe_ranks(dev, rank: int) -> dict:
+    """Path "moe 4 ranks": GPT-medium's widths, 24 layers, every second
+    FFN a mixture of 8 experts (top-2, capacity factor 1.25) on
+    MOE_LAYOUT (the experts cut over ep, the batch over dp), MOE_BATCH ×
+    SEQ tokens from seed 0, MOE_STEPS AdamW steps of
+    ``make_spmd_train_step`` on ``lm_loss_fn`` alone; step 1's parameters
+    gathered (to the host, leaf by leaf); then rank 0 alone runs the
+    one-rank oracle on the whole batch."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (gather_params, init_opt_state,
+                                            make_mesh, make_spmd_train_step,
+                                            moe_aux_loss, param_shardings,
+                                            shard_batch, shard_params)
+    from horovod_tpu_torch.plan import P
+
+    t0 = time.perf_counter()
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, **MOE})
+    mesh = make_mesh(MOE_LAYOUT)
+    model = shard_params(hvd.models.GPT(cfg, mesh=mesh, device=dev, seed=0),
+                         mesh)
+    torch.cuda.empty_cache()
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
+    step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
+    whole = whole_tokens(dev, MOE_BATCH)
+    batch = shard_batch(whole, mesh, P("dp", None))
+    replicated = [n for n, s in param_shardings(model, mesh).items()
+                  if not any(s)]
+    first = None
+
+    def whole_then_gather(m):
+        nonlocal first
+        if first is None:
+            first = gather_params(m, mesh, to="cpu")
+            if rank != 0:
+                first = {}
+        return [p for n, p in m.named_parameters() if n in replicated]
+
+    run = parallel_steps(step, model, batch, MOE_STEPS, whole_then_gather)
+    run["aux"] = float(moe_aux_loss(model, weight=1.0))
+    run["expert_digest"] = digest(p for n, p in sorted(
+        model.named_parameters()) if n not in replicated)
+    run.update(seconds=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    hvd.barrier()
+    if rank == 0:
+        run["oracle"] = one_rank_oracle(dev, cfg, whole, first,
+                                        run["losses"][0])
+    return run
+
+
+def fsdp_model_step(dev, n_layer: int):
+    """GPT-medium (``n_layer`` layers) from seed 0 through
+    ``make_fsdp_train_step`` on the session plan: (model, optimizer,
+    step)."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": n_layer})
+    model = hvd.models.GPT(cfg, device=dev, seed=0)
+    shard, step = hvd.make_fsdp_train_step(
+        hvd.models.lm_loss_fn(model),
+        lambda ps: torch.optim.AdamW(ps, **ADAMW))
+    model, opt = shard(model)
+    torch.cuda.empty_cache()
+    return model, opt, step
+
+
+def fsdp_rows(dev, rank: int, n: int):
+    inputs, targets = whole_tokens(dev, BATCH)
+    rows = BATCH // n
+    return (inputs[rank * rows:(rank + 1) * rows],
+            targets[rank * rows:(rank + 1) * rows])
+
+
+def fsdp_short(dev, rank: int) -> dict:
+    """At FSDP_SHORT_LAYERS layers: one step under ``fsdp=4`` and one
+    under HSDP ``data=2,fsdp=2`` (derived from the session plan) from the
+    same weights and rows: their step-1 parameters gathered, the loss,
+    and the digest of the rank's slices (the data replicas must
+    agree)."""
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    for spec in ("fsdp=4", "data=2,fsdp=2"):
+        hvd.apply_mesh_plan(spec)
+        model, opt, step = fsdp_model_step(dev, FSDP_SHORT_LAYERS)
+        loss = float(step(model, opt, fsdp_rows(dev, rank, SET_RANKS)))
+        whole = step.gather(model)
+        out[spec] = dict(loss=loss, dp_axis=step.dp_axis,
+                         slices=digest(p for _, p in sorted(
+                             model.named_parameters())),
+                         whole={n: t.cpu() for n, t in whole.items()})
+    hvd.apply_mesh_plan(FSDP_ENV["HVD_TPU_MESH_PLAN"])
+    a, b = out["fsdp=4"]["whole"], out["data=2,fsdp=2"]["whole"]
+    lr = ADAMW["lr"]
+    diffs = [(a[n] - b[n]).abs() for n in a]
+    short = dict(loss=out["fsdp=4"]["loss"],
+                 loss_hsdp=out["data=2,fsdp=2"]["loss"],
+                 dp_axis=out["data=2,fsdp=2"]["dp_axis"],
+                 slices=out["data=2,fsdp=2"]["slices"],
+                 worst=max(float(d.max()) for d in diffs),
+                 flip_share=sum(int((d > lr / 2).sum()) for d in diffs)
+                 / sum(d.numel() for d in diffs))
+    return short
+
+
+def fsdp_ranks(dev, rank: int) -> dict:
+    """Path "fsdp 4 ranks" under ``HVD_TPU_MESH_PLAN=fsdp=4``: GPT-medium
+    (24 layers) through ``make_fsdp_train_step`` (every parameter cut on
+    its largest divisible dim over the four ranks, AdamW on the slices),
+    BATCH / 4 rows a rank, FSDP_STEPS steps; step 1's parameters gathered
+    to the host; the HSDP check at FSDP_SHORT_LAYERS layers; then rank 0
+    alone runs the one-rank data-parallel step on the whole batch."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    model, opt, step = fsdp_model_step(dev, GPT_MEDIUM["n_layer"])
+    first = None
+
+    def slices_then_gather(m):
+        nonlocal first
+        if first is None:
+            whole = step.gather(m)
+            first = {n: t.cpu() for n, t in whole.items()} if rank == 0 \
+                else {}
+            del whole
+        return [p for _, p in sorted(m.named_parameters())]
+
+    run = parallel_steps(lambda m, b: step(m, opt, b), model,
+                         fsdp_rows(dev, rank, SET_RANKS), FSDP_STEPS,
+                         slices_then_gather)
+    run.update(seconds=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    run["short"] = fsdp_short(dev, rank)
+    torch.cuda.empty_cache()
+    hvd.barrier()
+    if rank == 0:
+        cfg = hvd.models.GPTConfig(**GPT_MEDIUM)
+        run["oracle"] = one_rank_oracle(dev, cfg, whole_tokens(dev, BATCH),
+                                        first, run["losses"][0])
+    return run
+
+
+def autotune_ranks(dev, rank: int) -> dict:
+    """Path "autotune 2 ranks" under AUTOTUNE_ENV (``HOROVOD_AUTOTUNE=1``,
+    the int8 wire with error feedback): GPT-medium's widths at
+    WIRE_LAYERS layers, each rank on its own batch, AUTOTUNE_STEPS calls
+    of ``make_train_step`` (AdamW in a DistributedOptimizer), which comes
+    back as the autotuner's step: the knobs it searched, every applied
+    point, the live config after, and the windows' scores (rank 0's
+    log)."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optim import AutotunedTrainStep
+
+    pm = hvd.parameter_manager()
+    model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=100 + rank)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(),
+                                                     **ADAMW))
+    step = hvd.make_train_step(hvd.models.lm_loss_fn(model), opt)
+    start = dataclasses.asdict(hvd.config())
+    run = parallel_steps(step, model, batch, AUTOTUNE_STEPS, lambda m: [])
+    run.update(tuned=isinstance(step, AutotunedTrainStep),
+               replicas=digest(p for _, p in sorted(model.named_parameters())),
+               knobs=list(pm.knob_names), frozen=pm.frozen,
+               applied=step.applied_knobs, start=start,
+               config=dataclasses.asdict(hvd.config()))
+    log_path = hvd.config().autotune_log
+    if rank == 0 and log_path:
+        with open(log_path) as f:
+            run["scores"] = [json.loads(line) for line in f]
+    return run
+
+
+def check_pipeline(res: list, seconds: float, label: str, wire: str,
+                   card: str):
+    r0 = res[0]
+    ticks = PIPE_MICRO + PIPE_LAYOUT["pp"] - 1
+    blocks = GPT_MEDIUM["n_layer"] // PIPE_LAYOUT["pp"]
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]) \
+                or out["losses"] != r0["losses"]:
+            raise AssertionError(f"{label}: losses differ or are not finite "
+                                 f"on rank {r}: {out['losses']}")
+        if out["digests"] != r0["digests"]:
+            raise AssertionError(f"{label}: the embedding or head differs "
+                                 f"between rank 0 and rank {r}")
+        if out["counts"]["flash_fwd"] != PIPE_STEPS * ticks * blocks:
+            raise AssertionError(
+                f"{label}: rank {r} launched flash_fwd "
+                f"{out['counts']['flash_fwd']} times, not {PIPE_STEPS} steps "
+                f"x {ticks} ticks x {blocks} blocks")
+        rm = out["remat"]
+        if not (rm["remat_True"]["flash"] == 2 * rm["remat_False"]["flash"]
+                and abs(rm["remat_True"]["loss"] - rm["remat_False"]["loss"])
+                <= 1e-6 * abs(rm["remat_False"]["loss"])
+                and rm["worst"] <= 1e-6):
+            raise AssertionError(f"{label}: remat off the plain step on rank "
+                                 f"{r}: {rm}")
+    if not oracle_ok(r0["oracle"]):
+        raise AssertionError(f"{label}: step 1 off the one-rank step: "
+                             f"{r0['oracle']}")
+    log(f"{label}: GPT-medium, {GPT_MEDIUM['n_layer']} layers as "
+        f"{PIPE_LAYOUT['pp']} stages of {blocks}, {PIPE_MICRO} microbatches "
+        f"of {BATCH // PIPE_MICRO} x {SEQ} tokens, {ticks} ticks, "
+        f"{[o['params'] for o in res]} parameters a rank, AdamW, losses "
+        f"{r0['losses']} (every rank); embedding and head bitwise equal on "
+        f"the four ranks after every step")
+    log(oracle_line(label, r0["oracle"]))
+    rm = r0["remat"]
+    log(f"{label}: {PIPE_REMAT_LAYERS} layers, remat against none: losses "
+        f"{rm['remat_True']['loss']} / {rm['remat_False']['loss']}, largest "
+        f"parameter difference after the step {rm['worst']}, flash_fwd "
+        f"{rm['remat_True']['flash']} / {rm['remat_False']['flash']}")
+    log(f"{label}: step seconds {[o['times'] for o in res]} ({wire}); peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"on {card}")
+    log(f"{label}: {seconds:.1f} s for the phase; flash_fwd launches per "
+        f"rank {[o['counts']['flash_fwd'] for o in res]}; rank 0's "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
+def check_moe(res: list, seconds: float, label: str, wire: str, card: str):
+    r0 = res[0]
+    coords = [dict(zip(MOE_LAYOUT, divmod(r, MOE_LAYOUT["ep"])))
+              for r in range(len(res))]
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]) \
+                or out["losses"] != r0["losses"]:
+            raise AssertionError(f"{label}: losses differ or are not finite "
+                                 f"on rank {r}: {out['losses']}")
+        if out["digests"] != r0["digests"]:
+            raise AssertionError(f"{label}: replicated leaves differ between "
+                                 f"rank 0 and rank {r}")
+        twin = next(q for q in range(len(res)) if q != r
+                    and coords[q]["ep"] == coords[r]["ep"])
+        if out["expert_digest"] != res[twin]["expert_digest"]:
+            raise AssertionError(f"{label}: the experts of ranks {r} and "
+                                 f"{twin} (one ep index) differ")
+        if out["counts"]["flash_fwd"] != MOE_STEPS * GPT_MEDIUM["n_layer"]:
+            raise AssertionError(f"{label}: rank {r} launched flash_fwd "
+                                 f"{out['counts']['flash_fwd']} times")
+    if not oracle_ok(r0["oracle"]):
+        raise AssertionError(f"{label}: step 1 off the one-rank step: "
+                             f"{r0['oracle']}")
+    layout = ",".join(f"{k}={v}" for k, v in MOE_LAYOUT.items())
+    log(f"{label}: GPT-medium widths, {GPT_MEDIUM['n_layer']} layers, "
+        f"{GPT_MEDIUM['n_layer'] // MOE['moe_every']} MoE blocks of "
+        f"{MOE['moe_experts']} experts (top-{MOE['moe_top_k']}, capacity "
+        f"factor {MOE['moe_capacity_factor']}), {layout}, {MOE_BATCH} x "
+        f"{SEQ} tokens, {[o['params'] for o in res]} parameters a rank, "
+        f"AdamW on lm_loss_fn, losses {r0['losses']} (every rank), aux loss "
+        f"after {r0['aux']}; replicated leaves bitwise equal on the four "
+        f"ranks, experts on each dp pair, after every step")
+    log(oracle_line(label, r0["oracle"]))
+    log(f"{label}: step seconds {[o['times'] for o in res]} ({wire}); peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"on {card}")
+    log(f"{label}: {seconds:.1f} s for the phase; flash_fwd launches per "
+        f"rank {[o['counts']['flash_fwd'] for o in res]}; rank 0's "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
+def check_fsdp(res: list, seconds: float, label: str, wire: str, card: str):
+    r0 = res[0]
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]) \
+                or out["losses"] != r0["losses"]:
+            raise AssertionError(f"{label}: losses differ or are not finite "
+                                 f"on rank {r}: {out['losses']}")
+        if out["counts"]["flash_fwd"] != FSDP_STEPS * GPT_MEDIUM["n_layer"]:
+            raise AssertionError(f"{label}: rank {r} launched flash_fwd "
+                                 f"{out['counts']['flash_fwd']} times")
+        s = out["short"]
+        twin = res[r ^ 2]["short"]          # the other data index
+        if s["slices"] != twin["slices"] or s["dp_axis"] != "data":
+            raise AssertionError(f"{label}: HSDP replicas {r}, {r ^ 2} "
+                                 f"differ, or no data axis: {s['dp_axis']}")
+        if not (abs(s["loss_hsdp"] - s["loss"]) <= 1e-5 * abs(s["loss"])
+                and s["worst"] <= 2 * ADAMW["lr"] + 1e-6
+                and s["flip_share"] <= SP_FLIP_SHARE):
+            raise AssertionError(f"{label}: HSDP off FSDP at "
+                                 f"{FSDP_SHORT_LAYERS} layers on rank {r}: "
+                                 f"{s}")
+    if not oracle_ok(r0["oracle"]):
+        raise AssertionError(f"{label}: step 1 off the one-rank step: "
+                             f"{r0['oracle']}")
+    log(f"{label}: GPT-medium, {GPT_MEDIUM['n_layer']} layers, "
+        f"make_fsdp_train_step under HVD_TPU_MESH_PLAN="
+        f"{FSDP_ENV['HVD_TPU_MESH_PLAN']}, {BATCH // SET_RANKS} x {SEQ} "
+        f"tokens a rank, {[o['params'] for o in res]} parameters a rank (the "
+        f"slices), AdamW, losses {r0['losses']} (every rank)")
+    log(oracle_line(label, r0["oracle"]))
+    s = r0["short"]
+    log(f"{label}: {FSDP_SHORT_LAYERS} layers, HSDP data=2,fsdp=2 against "
+        f"fsdp=4: losses {s['loss_hsdp']} / {s['loss']}, parameters at most "
+        f"{s['worst']} apart, {s['flip_share']} by more than lr/2; the data "
+        f"replicas' slices bitwise equal")
+    log(f"{label}: step seconds {[o['times'] for o in res]} ({wire}); peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB "
+        f"(the one-rank step's {r0['oracle']['peak'] / 2**30:.2f}); on "
+        f"{card}")
+    log(f"{label}: {seconds:.1f} s for the phase; flash_fwd launches per "
+        f"rank {[o['counts']['flash_fwd'] for o in res]}; rank 0's "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
+def check_autotune(res: list, seconds: float, label: str, wire: str,
+                   card: str):
+    from horovod_tpu_torch import basics
+
+    r0 = res[0]
+    if not (r0["tuned"] and r0["frozen"] and r0["applied"]):
+        raise AssertionError(f"{label}: the step did not tune and freeze: "
+                             f"{r0['knobs']} {r0['applied']}")
+    for r, out in enumerate(res):
+        if out["applied"] != r0["applied"] or out["config"] != r0["config"]:
+            raise AssertionError(f"{label}: rank {r} applied other knobs "
+                                 "than rank 0")
+        if out["replicas"] != r0["replicas"]:
+            raise AssertionError(f"{label}: the replicas differ after the "
+                                 "steps")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{label}: non-finite loss on rank {r}")
+    for point in r0["applied"]:
+        if not ((1 << 20) <= point["fusion_threshold"] <= (1 << 28)
+                and 1 <= point["compressor"]
+                <= len(basics._COMPRESSOR_LATTICE)):
+            raise AssertionError(f"{label}: an applied point off its lattice: "
+                                 f"{point}")
+    last = r0["applied"][-1]
+    if (r0["config"]["fusion_threshold"] != last["fusion_threshold"]
+            or r0["config"]["compression"]
+            != basics._COMPRESSOR_LATTICE[last["compressor"] - 1]):
+        raise AssertionError(f"{label}: the live config is not the last "
+                             f"applied point: {r0['config']}")
+    for name in ("quantize_blocks", "dequantize_blocks",
+                 "dequantize_accumulate"):
+        if r0["counts"][name] <= 0:
+            raise AssertionError(f"{name} never launched on the {label} path")
+    scores = [(line["knobs"], line["score"], line["note"])
+              for line in r0.get("scores", [])]
+    log(f"{label}: GPT-medium widths, {WIRE_LAYERS} layers, knobs "
+        f"{r0['knobs']} from threshold {r0['start']['fusion_threshold']} on "
+        f"{r0['start']['compression']}; applied {r0['applied']} (both ranks); "
+        f"frozen at {last}; losses {r0['losses']}")
+    log(f"{label}: window scores (samples/s a rank; knobs, score, note) "
+        f"{scores}")
+    log(f"{label}: step seconds {[o['times'] for o in res]} ({wire}); peak "
+        f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
+        f"on {card}")
+    log(f"{label}: {seconds:.1f} s for the phase; rank 0's launches "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
+def parallel_phase(flag: str, world: int, check, label: str, card: str):
+    """Run ``world`` ranks of ``flag``'s path, sharing the card over gloo,
+    and hand every rank's results to ``check``: rank 0's launch
+    counts."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(flag, world)
+    return check(res, time.perf_counter() - t0, label,
+                 f"gloo staging through the host, {world} ranks on one "
+                 "card: not a wire's time", card)
 
 
 def bert_phase(dev, card: str):
@@ -2811,8 +3422,20 @@ MB_WORKER_FLAG = "--microbatch-worker"
 RESNET_WORKER_FLAG = "--resnet-worker"
 HIER_WORKER_FLAG = "--hier-worker"
 SEQ_WORKER_FLAG = "--seq-worker"
+PIPE_WORKER_FLAG = "--pipe-worker"
+MOE_WORKER_FLAG = "--moe-worker"
+FSDP_WORKER_FLAG = "--fsdp-worker"
+AUTOTUNE_WORKER_FLAG = "--autotune-worker"
+# Each multi-rank path's world, environment (read by hvd.init) and body.
+RANK_PATHS = {
+    PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
+    MOE_WORKER_FLAG: (SET_RANKS, {}, "moe_ranks"),
+    FSDP_WORKER_FLAG: (SET_RANKS, FSDP_ENV, "fsdp_ranks"),
+    AUTOTUNE_WORKER_FLAG: (WIRE_RANKS, AUTOTUNE_ENV, "autotune_ranks"),
+}
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
-                RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG)
+                RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
+                *RANK_PATHS)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -2835,6 +3458,12 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
         os.environ.update(HIER_ENV)             # read by hvd.init
     if flag == SEQ_WORKER_FLAG:
         os.environ.update(SEQ_ENV)
+    if flag in RANK_PATHS:
+        world, env, _ = RANK_PATHS[flag]
+        os.environ.update(env)
+        if flag == AUTOTUNE_WORKER_FLAG:
+            os.environ["HOROVOD_AUTOTUNE_LOG"] = os.path.join(
+                tmp, "autotune.jsonl")
     dist.init_process_group("gloo",
                             init_method=f"file://{os.path.join(tmp, 'store')}",
                             rank=rank, world_size=world)
@@ -2852,6 +3481,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             res = hier_ranks(hvd.device(), rank)
         elif flag == SEQ_WORKER_FLAG:
             res = seq_ranks(hvd.device(), rank)
+        elif flag in RANK_PATHS:
+            res = globals()[RANK_PATHS[flag][2]](hvd.device(), rank)
         else:
             res = set_ranks(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -2988,6 +3619,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         hier_counts = hierarchical_phase()
         seq_counts = sequence_parallel_phase(card)
+        new_paths = {}
+        for flag, check, label in (
+                (PIPE_WORKER_FLAG, check_pipeline, "pipeline 4 ranks"),
+                (MOE_WORKER_FLAG, check_moe, "moe 4 ranks"),
+                (FSDP_WORKER_FLAG, check_fsdp, "fsdp 4 ranks"),
+                (AUTOTUNE_WORKER_FLAG, check_autotune, "autotune 2 ranks")):
+            torch.cuda.empty_cache()
+            new_paths[label] = parallel_phase(flag, RANK_PATHS[flag][0],
+                                              check, label, card)
         convnet_counts = convnet_phase(dev, card)
         route_check(dev)
     finally:
@@ -2999,7 +3639,7 @@ def main() -> int:
                "resnet50 1 rank fp16": resnet_fp16_counts,
                "resnet50 2 ranks": resnet_ranks_counts,
                "hierarchical 4 ranks": hier_counts,
-               "sequence-parallel 4 ranks": seq_counts,
+               "sequence-parallel 4 ranks": seq_counts, **new_paths,
                "bert-large 1 rank": bert_counts, **convnet_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")

@@ -42,8 +42,18 @@ Long-context and tensor-parallel training run on a mesh::
     batch = shard_batch((inputs, targets), mesh, P("dp", "sp"))
     loss = step(model, batch)                 # the global mean
 
+GPipe runs a GPT's trunk over a ``pp`` axis
+(``hvd.models.PipelinedGPT(cfg, mesh=make_mesh({"dp": 2, "pp": 4}),
+n_micro=4)``), and ``GPTConfig(moe_experts=8)`` makes every
+``moe_every``-th FFN a mixture of experts cut over an ``ep`` axis; both
+train through ``make_spmd_train_step``.  ``hvd.make_fsdp_train_step``
+shards parameters, gradients and optimizer state (FSDP, or HSDP with a
+``data`` axis beside ``fsdp``).
+
 The session's plan (``HVD_TPU_MESH_PLAN``, ``hvd.mesh_plan()``,
-``hvd.apply_mesh_plan``) names the reduce group of ``make_train_step``.
+``hvd.apply_mesh_plan``) names the reduce group of ``make_train_step``
+and ``make_zero_train_step``.  ``HOROVOD_AUTOTUNE=1`` tunes
+``make_train_step``'s knobs online (``hvd.parameter_manager()``).
 
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
@@ -76,8 +86,10 @@ from .functions import (  # noqa: F401
     broadcast_parameters, broadcast_optimizer_state, broadcast_object,
     allgather_object,
 )
+from .basics import parameter_manager  # noqa: F401
 from .optim import (  # noqa: F401
-    DistributedOptimizer, make_train_step, make_zero_train_step,
+    DistributedOptimizer, make_fsdp_train_step, make_train_step,
+    make_zero_train_step,
 )
 from . import models  # noqa: F401
 from . import ops  # noqa: F401

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import socket
 from datetime import timedelta
@@ -68,6 +69,10 @@ class _Session:
     # Mesh.groups.
     mesh_plan: object = None
     mesh_groups: dict = dataclasses.field(default_factory=dict)
+    # The online autotuner (HOROVOD_AUTOTUNE) and, with a declared plan,
+    # the layouts its ``layout`` knob indexes (1 = the live one).
+    parameter_manager: object = None
+    layout_lattice: Optional[list] = None
 
 
 _session: Optional[_Session] = None
@@ -132,6 +137,7 @@ def init(device: Union[str, torch.device, None] = None) -> None:
     # declared HVD_TPU_MESH_PLAN with one process set per axis group.
     try:
         _install_plan(cfg.mesh_plan)
+        _maybe_build_parameter_manager(_session.config)
     except BaseException:
         shutdown()
         raise
@@ -143,6 +149,8 @@ def shutdown() -> None:
     global _session
     if _session is None:
         return
+    if _session.parameter_manager is not None:
+        _session.parameter_manager.close()
     _session.process_sets.clear()
     for intra, cross in _session.tier_groups.values():
         for group in intra + cross:
@@ -247,6 +255,222 @@ def apply_mesh_plan(spec):
     the next step runs on the new layout."""
     _require()
     return _install_plan(spec)
+
+
+# --- the online autotuner (reference: basics.py's parameter manager) -------
+
+# Pipeline-depth search ceiling: past ~8 buckets in flight the transient
+# shard buffers outweigh any remaining overlap.
+_MAX_PIPELINE_DEPTH = 8
+# Microbatch search ceiling.
+_MAX_MICROBATCHES = 32
+# Search lattices (index 1..n on the GP's log2 machinery); the names are
+# the knobs' own values, so an applied point round-trips through them.
+_COMPRESSOR_LATTICE = ("none", "fp16", "bf16", "int8")
+_TOPO_LATTICE = ("flat", "two_phase", "hierarchical")
+_KERNEL_LATTICE = ("spmd", "pallas")
+
+
+def _nearest_pow2(value: int) -> int:
+    """Nearest power of two in log space."""
+    v = max(1, int(value))
+    lo = 1 << (v.bit_length() - 1)
+    hi = lo * 2
+    return lo if abs(math.log2(v) - math.log2(lo)) <= \
+        abs(math.log2(hi) - math.log2(v)) else hi
+
+
+def _nearest_divisor(value: int, size: int) -> int:
+    """The divisor of ``size`` nearest ``value`` in log space (the
+    hierarchical inner width must tile the ranks exactly)."""
+    divisors = [d for d in range(1, size + 1) if size % d == 0]
+    return min(divisors,
+               key=lambda d: abs(math.log2(d) - math.log2(max(1, value))))
+
+
+def _maybe_build_parameter_manager(cfg: Config) -> None:
+    """``HOROVOD_AUTOTUNE=1``: build the online knob tuner into the
+    session, and make the live config the manager's start point (scores
+    are attributed to it).  The knobs, as the reference picks them: the
+    fusion threshold always; with ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on
+    four or more ranks the hierarchical inner width; with
+    ``HVD_TPU_TWO_PHASE_ALLREDUCE`` the two-phase on/off and pipeline
+    depth; with ``HVD_TPU_MICROBATCHES > 1`` the microbatch count and
+    the overlap on/off; with ``HVD_TPU_ERROR_FEEDBACK`` the compressor;
+    with ``HVD_TPU_TOPO_SCHEDULE`` on, the schedule (on a two-tier
+    topology) and the lowering backend; with a declared
+    ``HVD_TPU_MESH_PLAN``, the layout among ``plan.layout_lattice``.
+    Each is applied at the step's rebuild (``optim/autotune.py``)."""
+    global _session
+    if not cfg.autotune:
+        return
+    from .optim.parameter_manager import ParameterManager
+
+    lo, hi = 1 << 20, 1 << 28
+    knobs = {"fusion_threshold": (lo, hi)}
+    initial = {}
+    size = _session.size
+    joint = cfg.hierarchical_allreduce and size >= 4
+    joint_two_phase = cfg.two_phase_allreduce and size > 1
+    if joint_two_phase:
+        knobs["two_phase"] = (1, 2)
+        initial["two_phase"] = 2
+        knobs["pipeline_depth"] = (1, _MAX_PIPELINE_DEPTH)
+        initial["pipeline_depth"] = min(max(1, cfg.pipeline_depth),
+                                        _MAX_PIPELINE_DEPTH)
+    joint_microbatch = cfg.microbatches > 1 and size > 1
+    if joint_microbatch:
+        knobs["microbatches"] = (1, _MAX_MICROBATCHES)
+        initial["microbatches"] = _nearest_pow2(
+            min(max(1, cfg.microbatches), _MAX_MICROBATCHES))
+        knobs["overlap"] = (1, 2)
+        initial["overlap"] = 2 if cfg.overlap_reduce else 1
+    if cfg.error_feedback and size > 1:
+        knobs["compressor"] = (1, len(_COMPRESSOR_LATTICE))
+        initial["compressor"] = _COMPRESSOR_LATTICE.index(
+            cfg.compression or "none") + 1
+    if cfg.topo_schedule != "off" and size > 1:
+        from .topo.topology import MeshTopology, resolve_topology
+
+        try:
+            topo = resolve_topology(size, cfg.topo_spec)
+        except ValueError:
+            topo = MeshTopology(pods=1, chips_per_pod=size)
+        if topo.two_tier:
+            knobs["topo_schedule"] = (1, len(_TOPO_LATTICE))
+            initial["topo_schedule"] = (
+                _TOPO_LATTICE.index(cfg.topo_schedule) + 1
+                if cfg.topo_schedule in _TOPO_LATTICE
+                else len(_TOPO_LATTICE))   # auto seeds at hierarchical
+        knobs["topo_kernel"] = (1, len(_KERNEL_LATTICE))
+        initial["topo_kernel"] = (
+            _KERNEL_LATTICE.index(cfg.topo_kernel) + 1
+            if cfg.topo_kernel in _KERNEL_LATTICE else 1)
+    layouts = None
+    if cfg.mesh_plan is not None and size > 1:
+        from . import plan as _plan
+
+        layouts = _plan.layout_lattice(size)
+        if cfg.mesh_plan in layouts:
+            layouts.remove(cfg.mesh_plan)
+        layouts = [cfg.mesh_plan] + layouts
+        if len(layouts) > 1:
+            knobs["layout"] = (1, len(layouts))
+            initial["layout"] = 1
+        else:
+            layouts = None
+    if joint:
+        knobs["hierarchical_inner_size"] = (1, size)
+        live_inner = cfg.hierarchical_inner_size
+        if not 1 <= live_inner <= size:
+            live_inner = max(1, size // 2)
+        initial["hierarchical_inner_size"] = _nearest_divisor(live_inner,
+                                                              size)
+    # A live threshold outside the search space (0, fusion off) cannot
+    # seed it: the tuner's start point becomes the live value instead.
+    seedable = lo <= cfg.fusion_threshold <= hi
+    if seedable:
+        initial["fusion_threshold"] = cfg.fusion_threshold
+    pm = ParameterManager(
+        knobs=knobs,
+        warmup_samples=cfg.autotune_warmup_samples,
+        steps_per_sample=cfg.autotune_steps_per_sample,
+        max_samples=cfg.autotune_max_samples,
+        # Only the deciding rank writes the log (a second writer opening
+        # it with mode "w" would truncate it).
+        log_path=cfg.autotune_log if _session.rank == 0 else None,
+        initial=initial or None,
+    )
+    start = pm.current_values()
+    updates = {}
+    if not seedable:
+        updates["fusion_threshold"] = int(start["fusion_threshold"])
+        logger.warning(
+            "HOROVOD_AUTOTUNE=1 overrides fusion_threshold=%d (outside the "
+            "tunable range [%d, %d]): starting from %d",
+            cfg.fusion_threshold, lo, hi, updates["fusion_threshold"])
+    if joint:
+        updates["hierarchical_inner_size"] = _nearest_divisor(
+            int(round(start["hierarchical_inner_size"])), size)
+    if joint_two_phase:
+        updates["pipeline_depth"] = int(round(start["pipeline_depth"]))
+    if joint_microbatch:
+        updates["microbatches"] = _nearest_pow2(int(round(
+            start["microbatches"])))
+        updates["overlap_reduce"] = start["overlap"] >= 1.5
+    if "compressor" in knobs:
+        idx = min(max(1, int(round(start["compressor"]))),
+                  len(_COMPRESSOR_LATTICE))
+        updates["compression"] = _COMPRESSOR_LATTICE[idx - 1]
+    _session = dataclasses.replace(
+        _session, parameter_manager=pm, layout_lattice=layouts,
+        config=dataclasses.replace(_session.config, **updates))
+    logger.info("autotune enabled: tuning %s, %d warmup + %d scored windows "
+                "of %d steps%s", " x ".join(pm.knob_names),
+                cfg.autotune_warmup_samples, cfg.autotune_max_samples,
+                cfg.autotune_steps_per_sample,
+                f", log={cfg.autotune_log}" if cfg.autotune_log else "")
+
+
+def parameter_manager():
+    """The session's autotuner, or None unless ``HOROVOD_AUTOTUNE=1``."""
+    return _require().parameter_manager
+
+
+def _apply_autotuned_knobs(values) -> dict:
+    """Apply an autotune proposal: swap the session's config for one with
+    the knobs' new values (a layout rebuilds the plan: collective, every
+    rank applies the same proposal).  Returns the values as applied,
+    snapped onto each knob's lattice and keyed by knob name, for the
+    manager to attribute the next scores to."""
+    global _session
+    s = _require()
+    updates, applied = {}, {}
+    if "fusion_threshold" in values:
+        v = int(values["fusion_threshold"])
+        updates["fusion_threshold"] = applied["fusion_threshold"] = v
+    if "hierarchical_inner_size" in values:
+        v = _nearest_divisor(int(round(values["hierarchical_inner_size"])),
+                             s.size)
+        updates["hierarchical_inner_size"] = v
+        applied["hierarchical_inner_size"] = v
+    if "two_phase" in values:
+        snapped = 2 if values["two_phase"] >= 1.5 else 1
+        updates["two_phase_allreduce"] = snapped == 2
+        applied["two_phase"] = snapped
+    if "pipeline_depth" in values:
+        v = min(max(1, int(round(values["pipeline_depth"]))),
+                _MAX_PIPELINE_DEPTH)
+        updates["pipeline_depth"] = applied["pipeline_depth"] = v
+    if "microbatches" in values:
+        v = min(_nearest_pow2(int(round(values["microbatches"]))),
+                _MAX_MICROBATCHES)
+        updates["microbatches"] = applied["microbatches"] = v
+    if "overlap" in values:
+        snapped = 2 if values["overlap"] >= 1.5 else 1
+        updates["overlap_reduce"] = snapped == 2
+        applied["overlap"] = snapped
+    for knob, field, lattice in (
+            ("compressor", "compression", _COMPRESSOR_LATTICE),
+            ("topo_schedule", "topo_schedule", _TOPO_LATTICE),
+            ("topo_kernel", "topo_kernel", _KERNEL_LATTICE)):
+        if knob in values:
+            idx = min(max(1, int(round(values[knob]))), len(lattice))
+            updates[field] = lattice[idx - 1]
+            applied[knob] = idx
+    if "layout" in values and s.layout_lattice:
+        idx = min(max(1, int(round(values["layout"]))),
+                  len(s.layout_lattice))
+        updates["mesh_plan"] = s.layout_lattice[idx - 1]
+        applied["layout"] = idx
+    relayout = ("mesh_plan" in updates
+                and updates["mesh_plan"] != s.config.mesh_plan)
+    _session = dataclasses.replace(
+        s, config=dataclasses.replace(s.config, **updates))
+    if relayout:
+        # The next step reads the new plan (its groups, its reduce axes).
+        _install_plan(updates["mesh_plan"])
+    return applied
 
 
 # --- feature matrix (reference: hvd.nccl_built() and friends): what this

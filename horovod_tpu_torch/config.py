@@ -237,6 +237,12 @@ class Config:
     hierarchical_allgather: bool = False  # HOROVOD_HIERARCHICAL_ALLGATHER (no-op: warns)
     hierarchical_inner_size: int = 0      # HVD_TPU_HIERARCHICAL_INNER (0 = ranks a node)
     mesh_plan: Optional[str] = None    # HVD_TPU_MESH_PLAN ("data=4,fsdp=2"; unset = the 1-D plan)
+    # The online autotuner (optim/autotune.py, optim/parameter_manager.py).
+    autotune: bool = False                # HOROVOD_AUTOTUNE
+    autotune_log: Optional[str] = None    # HOROVOD_AUTOTUNE_LOG (JSON lines, rank 0)
+    autotune_warmup_samples: int = 3      # HOROVOD_AUTOTUNE_WARMUP_SAMPLES
+    autotune_steps_per_sample: int = 10   # HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE
+    autotune_max_samples: int = 20        # HVD_TPU_AUTOTUNE_MAX_SAMPLES (scored windows, then freeze)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -263,4 +269,10 @@ class Config:
             hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER", False),
             hierarchical_inner_size=_env_int("HIERARCHICAL_INNER", 0),
             mesh_plan=_validated_mesh_plan(_env("MESH_PLAN")),
+            autotune=_env_bool("AUTOTUNE", False),
+            autotune_log=_env("AUTOTUNE_LOG") or None,
+            autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int("AUTOTUNE_STEPS_PER_SAMPLE",
+                                               10),
+            autotune_max_samples=_env_int("AUTOTUNE_MAX_SAMPLES", 20),
         )

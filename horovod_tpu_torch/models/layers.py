@@ -170,7 +170,10 @@ def load_jax_params(model: nn.Module, params: Mapping,
     ``jax.tree.map(np.asarray, params)`` gives) into ``model``'s
     parameters, name for name, and a ``batch_stats`` tree into its
     BatchNorm ``mean`` and ``var`` buffers.  Raises on a missing, extra
-    or mis-shaped leaf."""
+    or mis-shaped leaf.  A model that holds part of the reference's tree
+    (a pipeline stage) says which part through ``jax_params_view``."""
+    if hasattr(model, "jax_params_view"):
+        params = model.jax_params_view(params)
     _copy_tree("param", params, dict(model.named_parameters()))
     if batch_stats is not None:
         _copy_tree("batch_stats", batch_stats, dict(model.named_buffers()))

@@ -22,8 +22,14 @@ and its FFN columns (``tp``): ``qkv`` and ``up`` column-parallel,
 ``out`` and ``down`` row-parallel.  The loss of :func:`lm_loss_fn` is
 then the global mean, summed over the batch axes.
 
-The KV-cache paths, MoE and tensor-parallel serving (``tp_mesh``) are
-not ported yet.
+With ``moe_experts > 0`` every ``moe_every``-th block's FFN is a
+mixture of experts (:class:`..parallel.moe.MoEMlp`), its experts cut
+over the mesh's ``ep`` axis; a caller adds
+:func:`..parallel.moe.moe_aux_loss` to its loss when it wants the
+load-balancing term.
+
+The KV-cache paths and tensor-parallel serving (``tp_mesh``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from torch import nn
 
 from ..ops import flash_attention as _flash
 from ..parallel.comm import copy_to, reduce_from
+from ..parallel.moe import MoEMlp
+from ..parallel.sharding import split_group
 from ..parallel.ring_attention import full_attention, ring_self_attention
 from ..parallel.ulysses import ulysses_attention
 from ..plan import resolve_plan
@@ -56,23 +64,12 @@ class GPTConfig:
     causal: bool = True
     attention: str = "full"            # 'full' | 'flash' | 'ring' | 'ulysses'
     attention_engine: str = "xla"      # ring per-block engine: 'xla' | 'flash'
+    moe_experts: int = 0               # 0 = dense FFN; >0 = MoE with ep axis
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_every: int = 2                 # every Nth block is MoE (rest dense)
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-
-
-def _tp_group(plan, local: int, full: int, what: str):
-    """The ``tp`` group when ``shard_params`` left this layer ``local`` of
-    its ``full`` columns (or rows), else None (nothing is split)."""
-    if local == full:
-        return None
-    if plan is None or not plan.has_axis("tp"):
-        raise ValueError(f"{what} is split {full} -> {local} but the model "
-                         "has no mesh with a 'tp' axis")
-    group = plan.group("tp")
-    if local * group.size != full:
-        raise ValueError(f"{what}: {local} of {full} does not match "
-                         f"tp={group.size}")
-    return group
 
 
 class Attention(nn.Module):
@@ -90,7 +87,7 @@ class Attention(nn.Module):
         d = c // cfg.n_head
         # Under tp, shard_params left this rank h of the heads.
         h = self.qkv.kernel.shape[1] // (3 * d)
-        tp = _tp_group(self.plan, h, cfg.n_head, "attention heads")
+        tp = split_group(self.plan, "tp", h, cfg.n_head, "attention heads")
         if tp is not None:
             x = copy_to(x, tp)
         q, k, v = self.qkv(x).split(h * d, dim=-1)
@@ -128,8 +125,8 @@ class MlpBlock(nn.Module):
         self.down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, init)
 
     def forward(self, x):
-        tp = _tp_group(self.plan, self.up.kernel.shape[1], self.cfg.d_ff,
-                       "the FFN")
+        tp = split_group(self.plan, "tp", self.up.kernel.shape[1],
+                         self.cfg.d_ff, "the FFN")
         if tp is not None:
             x = copy_to(x, tp)
         y = self.down(F.gelu(self.up(x), approximate="tanh"))
@@ -137,16 +134,28 @@ class MlpBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, init: Init, plan=None) -> None:
+    """A pre-LN block; ``use_moe`` puts :class:`..parallel.moe.MoEMlp`
+    (``moe``) where the dense FFN (``mlp``) would be."""
+
+    def __init__(self, cfg: GPTConfig, init: Init, plan=None,
+                 use_moe: bool = False) -> None:
         super().__init__()
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, init)
         self.attn = Attention(cfg, init, plan)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, init)
-        self.mlp = MlpBlock(cfg, init, plan)
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe = MoEMlp(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                              init=init, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              dtype=cfg.dtype, plan=plan)
+        else:
+            self.mlp = MlpBlock(cfg, init, plan)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        ffn = self.moe if self.use_moe else self.mlp
+        return x + ffn(self.ln2(x))
 
 
 class GPT(nn.Module):
@@ -181,7 +190,10 @@ class GPT(nn.Module):
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, init)
         self.pos_embed = init.normal(0.02, cfg.max_seq_len, cfg.d_model)
         for i in range(cfg.n_layer):
-            self.add_module(f"block_{i}", Block(cfg, init, self.plan))
+            use_moe = (cfg.moe_experts > 0
+                       and (i + 1) % max(1, cfg.moe_every) == 0)
+            self.add_module(f"block_{i}", Block(cfg, init, self.plan,
+                                                use_moe=use_moe))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, init)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, torch.float32, init)
 

@@ -31,7 +31,12 @@ zeros for an unused leaf); the reduced gradient is written back.
 gradients in a Python loop (the reference's scan).  With the overlap
 wire, each microbatch's bucketed reduce-scatter is started before the
 next microbatch's forward and backward, the shards accumulate, and one
-all-gather runs at the update.  Autotuning is not ported.
+all-gather runs at the update.
+
+With ``HOROVOD_AUTOTUNE=1`` the first ``make_train_step`` of a session
+comes back wrapped in :class:`.autotune.AutotunedTrainStep`, which tunes
+the live config's knobs as it trains; a second one runs untuned, with a
+warning.
 
 With no ``process_set`` the gradients reduce over the session plan's
 reduce group (``HVD_TPU_MESH_PLAN``): the whole world for the 1-D plan
@@ -509,7 +514,10 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     before the next microbatch's forward and backward and the
     all-gather runs once at the update.  With a
     :class:`DistributedOptimizer` the microbatches accumulate locally
-    and the optimizer reduces once, error feedback included."""
+    and the optimizer reduces once, error feedback included.
+
+    With ``HOROVOD_AUTOTUNE=1`` the first step built in a session is an
+    :class:`.autotune.AutotunedTrainStep` (module docstring)."""
     _check_reduce_args(op, compression)
     is_dist = isinstance(optimizer, DistributedOptimizer)
 
@@ -551,4 +559,24 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
         loss = C.reduce_raw(loss.detach(), C.Average, group=group)
         return (loss, aux) if has_aux else loss
 
-    return step
+    # The step reads the live config (threshold, wires, microbatches, the
+    # plan) each call, so rebuilding it is the autotuner's re-jit
+    # boundary: a proposal is written into the config, then the step is
+    # rebuilt.
+    def build() -> Callable:
+        return step
+
+    pm = basics.parameter_manager() if basics.is_initialized() else None
+    if pm is not None and not pm.frozen:
+        if pm.claimed:
+            # A second step feeding the same manager would mix its scores
+            # with the first's: only the first step tunes.
+            logger.warning(
+                "autotune is already driving another train step; this step "
+                "runs untuned (one tuner a process)")
+            return build()
+        from .autotune import AutotunedTrainStep
+
+        pm.claimed = True
+        return AutotunedTrainStep(build, pm)
+    return build()

@@ -1,6 +1,10 @@
 """ZeRO-1 sharded optimizer: optimizer state partitioned over the ranks.
 
-Counterpart of ``horovod_tpu/optim/zero.py``.  A step:
+Counterpart of ``horovod_tpu/optim/zero.py``.  The ranks are the session
+plan's reduce group (``resolve_mesh_axis`` in the reference): the whole
+world, or for a plan with model axes (``data=2,tensor=2``) this rank's
+group along the reduce axes, each such group sharding its own state.
+A step:
 
 * reduce-scatters the gradients over the ranks on the chosen wire
   (:meth:`Compressor.spmd_reducescatter`), so each rank receives one
@@ -50,7 +54,7 @@ from ..ops import collectives as C
 from ..ops.compression import Compression
 from ..ops.fusion import plan_buckets_py, tree_flatten
 from ..ops.quantization import wire_block_size
-from .distributed_optimizer import _resolve_compression
+from .distributed_optimizer import _reduce_group, _resolve_compression
 
 
 class ZeroStateWithResidual(NamedTuple):
@@ -105,8 +109,10 @@ class ZeroTrainStep:
             return self.state.inner
         return self.state
 
-    def _build(self, names: List[str], params: List[torch.Tensor]) -> None:
-        n, rank = basics.size(), basics.rank()
+    def _build(self, names: List[str], params: List[torch.Tensor],
+               group) -> None:
+        n = dist.get_world_size(group)
+        rank = dist.get_rank(group)
         by_dtype: Dict[torch.dtype, List[int]] = {}
         for i, p in enumerate(params):
             if p.numel():
@@ -144,12 +150,13 @@ class ZeroTrainStep:
         names, params = tree_flatten({name: p for name, p
                                       in model.named_parameters()
                                       if p.requires_grad})
+        group = _reduce_group(None, "make_zero_train_step")
         if self.state is None:
-            self._build(names, params)
+            self._build(names, params, group)
         elif names != self._names:
             raise ValueError("make_zero_train_step: the model's parameters "
                              "are not those the step was built for")
-        n = basics.size()
+        n = dist.get_world_size(group)
         for p in params:
             p.grad = None
         loss = self.loss_fn(model, batch)
@@ -169,7 +176,7 @@ class ZeroTrainStep:
         for bucket in self.buckets:
             flat = torch.cat([_flat_pad(grads[i], n).reshape(n, -1)
                               for i in bucket], dim=1).reshape(-1)
-            red = comp.spmd_reducescatter(flat, op=self.op)
+            red = comp.spmd_reducescatter(flat, op=self.op, group=group)
             widths = [self.shards[names[i]].numel() for i in bucket]
             for i, piece in zip(bucket, torch.split(red, widths)):
                 self.shards[names[i]].grad = piece.to(grads[i].dtype)
@@ -182,7 +189,7 @@ class ZeroTrainStep:
             for bucket in self.buckets:
                 local = torch.cat([self.shards[names[i]] for i in bucket])
                 full = local.new_empty(n * local.numel())
-                dist.all_gather_into_tensor(full, local)
+                dist.all_gather_into_tensor(full, local, group=group)
                 full = full.reshape(n, -1)
                 off = 0
                 for i in bucket:
@@ -190,7 +197,7 @@ class ZeroTrainStep:
                     p.copy_(full[:, off:off + w].reshape(-1)[:p.numel()]
                             .reshape(p.shape))
                     off += w
-        return C.reduce_raw(loss.detach(), C.Average)
+        return C.reduce_raw(loss.detach(), C.Average, group=group)
 
 
 def make_zero_train_step(loss_fn: Callable, optimizer: Callable, *,

@@ -9,12 +9,15 @@ Counterpart of ``horovod_tpu/parallel/``:
   engine's blocks on B1);
 * :mod:`.ulysses`: all-to-all sequence parallelism (heads scattered,
   the sequence gathered);
+* :mod:`.pipeline`: the GPipe schedule over ``pipe``/``pp``
+  (``pipeline_apply``, ``shard_stage_params``, ``stack_stage_params``,
+  ``stage_param_shardings``; the model is
+  ``models.pipeline_gpt.PipelinedGPT``);
+* :mod:`.moe`: GShard mixture of experts over ``expert``/``ep``
+  (``MoEMlp``, ``moe_aux_loss``; GPT's ``moe_*`` fields);
 * :mod:`.train`: ``make_spmd_train_step``, ``shard_batch``,
-  ``init_opt_state``;
+  ``init_opt_state``, which train all of them;
 * :mod:`.comm`: the differentiable collectives under them.
-
-GPipe (``pipeline_apply``, ``shard_stage_params``) and MoE (``MoEMlp``,
-``moe_aux_loss``) are not ported yet.
 """
 
 from .sharding import (  # noqa: F401
@@ -25,4 +28,9 @@ from .ring_attention import (  # noqa: F401
     full_attention, ring_attention_local, ring_self_attention,
 )
 from .ulysses import ulysses_attention  # noqa: F401
+from .pipeline import (  # noqa: F401
+    pipeline_apply, shard_stage_params, stack_stage_params,
+    stage_param_shardings,
+)
+from .moe import MoEMlp, moe_aux_loss  # noqa: F401
 from .train import init_opt_state, make_spmd_train_step, shard_batch  # noqa: F401

@@ -43,6 +43,23 @@ def _shift(x: torch.Tensor, axis, step: int) -> torch.Tensor:
     return out.view(x.dtype).reshape(x.shape)
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _shift(x, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, -1), None
+
+
+def shift(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` moved one place forward along ``axis`` (the one from one
+    place behind arrives); the gradient moves one place back."""
+    return x if axis.size == 1 else _Shift.apply(x, axis)
+
+
 class _RingStream(torch.autograd.Function):
     """The blocks a ring passes around: ``x`` and then ``n - 1``
     rotations of it, so that block ``s`` is the one that started ``s``

@@ -98,6 +98,22 @@ def param_shardings(model_or_named, mesh: Mesh,
             for name in _named(model_or_named)}
 
 
+def split_group(plan, axis: str, local: int, full: int, what: str):
+    """The group along ``axis`` when :func:`shard_params` left a layer
+    ``local`` of the ``full`` entries of ``what`` (heads, FFN columns,
+    experts), else None (nothing is split)."""
+    if local == full:
+        return None
+    if plan is None or not plan.has_axis(axis):
+        raise ValueError(f"{what} is split {full} -> {local} but the model "
+                         f"has no mesh with a {axis!r} axis")
+    group = plan.group(axis)
+    if local * group.size != full:
+        raise ValueError(f"{what}: {local} of {full} does not match "
+                         f"{axis}={group.size}")
+    return group
+
+
 def _is_fused_qkv(name: str) -> bool:
     return bool(re.search(r"(^|[./])qkv[./]kernel$", name))
 
@@ -164,11 +180,13 @@ def shard_params(model: torch.nn.Module, mesh: Mesh,
 
 
 def gather_params(model: torch.nn.Module, mesh: Mesh,
-                  rules: Optional[Sequence[Tuple[str, P]]] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  rules: Optional[Sequence[Tuple[str, P]]] = None, *,
+                  to=None) -> Dict[str, torch.Tensor]:
     """A copy of every parameter whole, in the reference's layout,
     gathered from the ranks' slices (collective over each split's group,
-    in parameter order: every rank calls it)."""
+    in parameter order: every rank calls it).  ``to`` (e.g. ``"cpu"``)
+    moves each whole parameter there as soon as it is gathered, so that
+    the device holds one at a time."""
     plan = MeshPlan.from_mesh(mesh)
     from .. import basics
 
@@ -188,5 +206,5 @@ def gather_params(model: torch.nn.Module, mesh: Mesh,
                                for j in range(3)], dim=1)
             else:
                 x = torch.cat(pieces, dim=dim)
-        out[name] = x
+        out[name] = x if to is None else x.to(to)
     return out

@@ -13,7 +13,13 @@ its shards and the reductions are written out:
   token count), so every rank reports the global mean;
 * the gradients are summed over the same group: the replicated
   parameters' and, for a ``tp``-sharded one, its slice's over the ranks
-  that hold the same slice (the group pins the ``tp`` index).
+  that hold the same slice (the group pins the ``tp`` index), as a
+  pipeline stage's leaf pins its ``pp`` index and an expert's its
+  ``ep`` index.  A leaf outside the pipeline or the experts (the
+  embedding, the head, the router) has the same whole gradient on every
+  ``pp`` and ``ep`` rank, since those regions take their input through
+  ``comm.copy_to`` and give their output through ``comm.reduce_from``:
+  the batch group alone sums it.
 """
 
 from __future__ import annotations

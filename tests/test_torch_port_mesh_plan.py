@@ -19,8 +19,8 @@
 * Rank invariance: a planner-built step issues the same collective
   sequence on every rank (the reference checks its jaxpr).
 
-The FSDP, pipeline, MoE and layout-autotune cases wait for their items
-of ROADMAP queue A.
+The FSDP, pipeline, MoE and layout-autotune cases are in
+``tests/test_torch_port_{fsdp,pipeline,moe,autotune}.py``.
 """
 
 import jax

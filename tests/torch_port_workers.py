@@ -1267,3 +1267,387 @@ def plan_from_env(spec: str) -> dict:
         del os.environ["HVD_TPU_MESH_PLAN"]
         hvd.shutdown()
         hvd.init(device="cpu")
+
+
+# --- GPipe, mixture of experts, FSDP, ZeRO on a plan, the autotuner ------------
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+
+def _toy_stage(params, x):
+    """``tests/test_pipeline.py``'s stage: ``tanh(x @ w1 + b1) @ w2 + x``."""
+    h = torch.tanh(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + x
+
+
+def _tanh_stage(params, x):
+    return torch.tanh(x @ params)
+
+
+def _dp_rows(array: np.ndarray, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch: its ``dp`` coordinate's."""
+    dp = mesh.shape.get("dp", 1)
+    index = mesh.coords(torch.distributed.get_rank()).get("dp", 0)
+    rows = array.shape[0] // dp
+    return torch.from_numpy(array[index * rows:(index + 1) * rows].copy())
+
+
+def pipeline_toy(stacked: dict, x: np.ndarray, layout: dict, n_micro: int,
+                 grads: bool = False, remat: bool = False) -> dict:
+    """``pipeline_apply`` of the toy stage on ``layout``, this rank's
+    stage cut from the stacked params and its dp rows of ``x``: the
+    output rows and, with ``grads``, the gradients of ``sum(out²)`` (the
+    rank's share of the global sum) for its stage and its rows."""
+    from horovod_tpu_torch.parallel import (make_mesh, pipeline_apply,
+                                            shard_stage_params)
+
+    mesh = make_mesh(layout)
+    mine = shard_stage_params(_tree_tensors(stacked), mesh)
+    for p in mine.values():
+        p.requires_grad_(grads)
+    rows = _dp_rows(x, mesh).requires_grad_(grads)
+    out = pipeline_apply(_toy_stage, mine, rows, mesh=mesh, n_micro=n_micro,
+                         remat=remat)
+    res = {"out": out.detach().numpy()}
+    if grads:
+        (out * out).sum().backward()
+        res["grads"] = {k: p.grad.numpy() for k, p in mine.items()}
+        res["dx"] = rows.grad.numpy()
+    return res
+
+
+def pipeline_planner(w: np.ndarray, x: np.ndarray, n_micro: int) -> dict:
+    """``tests/test_mesh_plan.py::test_pipeline_planner_axes_match_legacy``:
+    the legacy ``{dp, pp}`` mesh with no session plan, against the
+    session plan ``data=…,pipe=4`` with no mesh."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (make_mesh, pipeline_apply,
+                                            shard_stage_params)
+
+    stages = 4
+    dp = hvd.size() // stages
+    wt = torch.from_numpy(w)
+    legacy_mesh = make_mesh({"dp": dp, "pp": stages})
+    with _session_plan("off"):
+        legacy = pipeline_apply(
+            _tanh_stage, shard_stage_params(wt, legacy_mesh),
+            _dp_rows(x, legacy_mesh), mesh=legacy_mesh, n_micro=n_micro,
+            pp_axis="pp")
+    with _session_plan(f"data={dp},pipe={stages}") as plan:
+        rows = x.shape[0] // dp
+        index = plan.coords()["data"]
+        planned = pipeline_apply(
+            _tanh_stage, shard_stage_params(wt, plan.mesh, "pipe"),
+            torch.from_numpy(x[index * rows:(index + 1) * rows].copy()),
+            n_micro=n_micro)
+    return {"legacy": legacy.numpy(), "planned": planned.numpy()}
+
+
+def _gpt_config(config: dict):
+    from horovod_tpu_torch.models import GPTConfig
+
+    return GPTConfig(**{**config, "dtype": getattr(torch, config["dtype"])})
+
+
+def _loss_grads(model, loss_fn, batch) -> tuple:
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, batch)
+    loss.backward()
+    return float(loss), {n: p.grad.numpy().copy()
+                         for n, p in model.named_parameters()}
+
+
+def pipelined_gpt(config: dict, layout: dict, params: dict,
+                  tokens: np.ndarray, steps: int, n_micro: int = 2) -> dict:
+    """``PipelinedGPT`` on ``layout`` from the reference's pipelined tree
+    (this rank's stage loaded): the logits of its dp rows, the loss and
+    gradients with and without remat, then ``steps`` AdamW steps of
+    ``make_spmd_train_step``.  Returns this rank's parameters after."""
+    from horovod_tpu_torch.models import (PipelinedGPT, load_jax_params,
+                                          pipelined_lm_loss_fn)
+    from horovod_tpu_torch.parallel import (init_opt_state, make_mesh,
+                                            make_spmd_train_step,
+                                            shard_batch)
+    from horovod_tpu_torch.plan import P
+
+    mesh = make_mesh(layout)
+    models = [PipelinedGPT(_gpt_config(config), mesh, n_micro=n_micro,
+                           remat=remat, device="cpu")
+              for remat in (False, True)]
+    for m in models:
+        load_jax_params(m, params)
+    model = models[0]
+    batch = shard_batch((tokens[:, :-1], tokens[:, 1:]), mesh, P("dp", None))
+    with torch.no_grad():
+        logits = model(batch[0]).numpy()
+    checks = [_loss_grads(m, pipelined_lm_loss_fn(m), batch) for m in models]
+    opt = init_opt_state(_adamw, model)
+    step = make_spmd_train_step(pipelined_lm_loss_fn(model), opt)
+    losses = [float(step(model, batch)) for _ in range(steps)]
+    return {"stage": model.stage_index, "logits": logits,
+            "remat": checks, "losses": losses,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def pipelined_gpt_errors(config: dict, layout: dict, n_layer: int,
+                         batch_rows: int, n_micro: int) -> dict:
+    """The errors ``PipelinedGPT`` and its step raise: the layer/stage
+    mismatch, and a batch that ``n_micro`` does not divide."""
+    from horovod_tpu_torch.models import PipelinedGPT
+    from horovod_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(layout)
+    out = {}
+    try:
+        PipelinedGPT(_gpt_config({**config, "n_layer": n_layer}), mesh,
+                     device="cpu")
+    except ValueError as e:
+        out["layers"] = str(e)
+    model = PipelinedGPT(_gpt_config(config), mesh, n_micro=n_micro,
+                         device="cpu")
+    try:
+        model(torch.zeros((batch_rows, 4), dtype=torch.int64))
+    except ValueError as e:
+        out["micro"] = str(e)
+    return out
+
+
+def moe_gpt(config: dict, layout: dict, params: dict, tokens: np.ndarray,
+            steps: int, aux_weight: float = 0.0) -> dict:
+    """The MoE GPT on ``layout`` from the reference's flax tree:
+    ``shard_params`` (experts over ``ep``, their FFN over ``tp``), this
+    rank's dp rows: the first forward's logits and aux loss, then
+    ``steps`` AdamW steps of ``make_spmd_train_step`` on ``lm_loss_fn``
+    (plus ``aux_weight`` × the load-balancing loss when it is not 0).
+    Returns the gathered parameters and the local slices."""
+    from horovod_tpu_torch.models import GPT, load_jax_params
+    from horovod_tpu_torch.models.transformer import lm_loss_fn
+    from horovod_tpu_torch.parallel import (gather_params, init_opt_state,
+                                            make_mesh, make_spmd_train_step,
+                                            moe_aux_loss, shard_batch,
+                                            shard_params)
+    from horovod_tpu_torch.plan import P
+
+    mesh = make_mesh(layout)
+    model = GPT(_gpt_config(config), mesh=mesh, device="cpu")
+    load_jax_params(model, params)
+    shard_params(model, mesh)
+    batch = shard_batch((tokens[:, :-1], tokens[:, 1:]), mesh, P("dp", None))
+    with torch.no_grad():
+        logits = model(batch[0]).numpy()
+        aux = float(moe_aux_loss(model, weight=1.0))
+    opt = init_opt_state(_adamw, model)
+    loss_fn = lm_loss_fn(model)
+    if aux_weight:
+        def with_aux(module, b):
+            lm = loss_fn(module, b)
+            return lm + moe_aux_loss(module, weight=aux_weight)
+        step = make_spmd_train_step(with_aux, opt)
+    else:
+        step = make_spmd_train_step(loss_fn, opt)
+    losses = [float(step(model, batch)) for _ in range(steps)]
+    return {"logits": logits, "aux": aux, "losses": losses,
+            "full": {n: t.numpy().copy()
+                     for n, t in gather_params(model, mesh).items()},
+            "local": {n: p.detach().numpy().copy()
+                      for n, p in model.named_parameters()}}
+
+
+def moe_planner(config: dict, params: dict, x: np.ndarray) -> dict:
+    """``tests/test_mesh_plan.py::test_moe_planner_axes_match_legacy``:
+    ``MoEMlp`` on the legacy ``{'ep': n}`` mesh (experts cut over it) and
+    under the session plan ``expert=n`` (the rule table names ``ep``, so
+    its experts stay whole): the same output bits."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.layers import Init
+    from horovod_tpu_torch.parallel import MoEMlp, make_mesh, shard_params
+
+    n = hvd.size()
+
+    def run(plan_spec, mesh):
+        with _session_plan(plan_spec) as plan:
+            layer = MoEMlp(**config, init=Init(torch.float32, "cpu", 0),
+                           dtype=torch.float32,
+                           plan=plan if mesh is None else None)
+            if mesh is not None:
+                from horovod_tpu_torch.plan import resolve_plan
+
+                layer.plan = resolve_plan(mesh)
+            with torch.no_grad():
+                layer.router.kernel.copy_(torch.from_numpy(
+                    params["router"]["kernel"]))
+                layer.w_up.copy_(torch.from_numpy(params["w_up"]))
+                layer.w_down.copy_(torch.from_numpy(params["w_down"]))
+            holder = torch.nn.Module()     # the rule table's "moe" path
+            holder.moe = layer
+            shard_params(holder, mesh or plan.mesh)
+            with torch.no_grad():
+                out = layer(torch.from_numpy(x))
+            return out.numpy(), tuple(layer.w_up.shape)
+
+    legacy, legacy_shape = run("off", make_mesh({"ep": n}))
+    planned, planned_shape = run(f"expert={n}", None)
+    return {"legacy": legacy, "planned": planned,
+            "shapes": [legacy_shape, planned_shape]}
+
+
+class _DenseToy(torch.nn.Module):
+    """``tests/test_fsdp.py``'s problem: ``tanh(x @ dense.kernel +
+    dense.bias) @ out``."""
+
+    def __init__(self, params: dict) -> None:
+        super().__init__()
+        self.dense = torch.nn.Module()
+        self.dense.kernel = torch.nn.Parameter(
+            torch.from_numpy(params["dense"]["kernel"].copy()))
+        self.dense.bias = torch.nn.Parameter(
+            torch.from_numpy(params["dense"]["bias"].copy()))
+        self.out = torch.nn.Parameter(torch.from_numpy(params["out"].copy()))
+
+
+def _toy_loss(module, batch):
+    xb, yb = batch
+    h = torch.tanh(xb @ module.dense.kernel + module.dense.bias)
+    return ((h @ module.out - yb) ** 2).mean()
+
+
+def fsdp_toy(kind: str, params: dict, x: np.ndarray, y: np.ndarray,
+             steps: int, lr: float = 1e-2, optimizer: str = "adamw",
+             max_grad_norm=None) -> dict:
+    """``steps`` steps of the toy on this rank's rows of the batch (the
+    rows of its place in the batch group): ``kind`` "dp"
+    (``make_train_step``), "fsdp" (the session plan's 1-D axis), "off"
+    (FSDP with no session plan), "hsdp" (a ``{dcn: 2, ici: 2}`` mesh,
+    ``dp_axis='dcn'``), "plan_hsdp" (the session plan
+    ``data=2,fsdp=2``), "aux" (FSDP with ``has_aux``).  Returns the
+    losses, the whole parameters, the local slices' and the optimizer
+    state's shapes."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optim import make_fsdp_train_step
+    from horovod_tpu_torch.parallel import make_mesh
+
+    def make_opt(ps):
+        if optimizer == "sgd":
+            return torch.optim.SGD(ps, lr=lr)
+        if optimizer == "adam":
+            return torch.optim.Adam(ps, lr=lr)
+        return torch.optim.AdamW(ps, lr=lr, weight_decay=1e-4)
+
+    model = _DenseToy(params)
+    rows = x.shape[0] // hvd.size()
+    me = hvd.rank()
+    batch = (torch.from_numpy(x[me * rows:(me + 1) * rows].copy()),
+             torch.from_numpy(y[me * rows:(me + 1) * rows].copy()))
+    spec = {"off": "off", "plan_hsdp": "data=2,fsdp=2"}.get(kind)
+    out = {}
+    with _session_plan(spec):
+        if kind == "dp":
+            step = hvd.make_train_step(_toy_loss, make_opt(
+                list(model.parameters())))
+            out["losses"] = [float(step(model, batch)) for _ in range(steps)]
+            out["params"] = {n: p.detach().numpy().copy()
+                             for n, p in model.named_parameters()}
+            return out
+        kwargs = {}
+        if kind == "hsdp":
+            kwargs = dict(mesh=make_mesh({"dcn": 2, "ici": 2}),
+                          axis_name="ici", dp_axis="dcn")
+        loss_fn = _toy_loss
+        if kind == "aux":
+            def loss_fn(m, b):
+                loss = _toy_loss(m, b)
+                return loss, {"loss_copy": loss}
+            kwargs["has_aux"] = True
+        shard, step = make_fsdp_train_step(loss_fn, make_opt,
+                                           max_grad_norm=max_grad_norm,
+                                           **kwargs)
+        model, opt = shard(model)
+        out["local_shapes"] = {n: list(p.shape)
+                               for n, p in model.named_parameters()}
+        losses, auxes = [], []
+        for _ in range(steps):
+            res = step(model, opt, batch)
+            if kind == "aux":
+                res, aux = res
+                auxes.append(float(aux["loss_copy"]))
+            losses.append(float(res))
+        out.update(losses=losses, aux=auxes, dp_axis=step.dp_axis,
+                   axis=step.axis,
+                   state_shapes={f"{n}.{k}": list(v.shape)
+                                 for n, p in model.named_parameters()
+                                 for k, v in opt.state[p].items()
+                                 if v.dim()},
+                   params={n: t.numpy().copy()
+                           for n, t in step.gather(model).items()})
+    return out
+
+
+def zero_plan(spec: str, w: np.ndarray, b: np.ndarray, x: np.ndarray,
+              y: np.ndarray, steps: int) -> dict:
+    """``make_zero_train_step`` (SGD(0.1, momentum 0.9)) under the session
+    plan ``spec`` (with model axes: the reduce group is this rank's data
+    group), each rank on its data coordinate's rows.  Returns the
+    losses, the parameters, the optimizer shards' widths and the
+    collectives' group widths."""
+    import horovod_tpu_torch as hvd
+
+    model = _Affine(w, b)
+    calls: list = []
+    with _session_plan(spec) as plan:
+        data = plan.reduce_axes()
+        group = plan.group(data)
+        rows = x.shape[0] // group.size
+        sl = slice(group.index * rows, (group.index + 1) * rows)
+        batch = (torch.from_numpy(x[sl].copy()), torch.from_numpy(y[sl].copy()))
+        step = hvd.make_zero_train_step(
+            _affine_mse, lambda s: torch.optim.SGD(s, lr=0.1, momentum=0.9))
+        restore = _spy_collectives(calls)
+        try:
+            losses = [float(step(model, batch)) for _ in range(steps)]
+        finally:
+            restore()
+    return {"losses": losses, "calls": sorted(set(calls)),
+            "shards": {n: s.numel() for n, s in step.shards.items()},
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def autotune_steps(env: dict, steps: int, w: np.ndarray, b: np.ndarray,
+                   x: np.ndarray, y: np.ndarray, second: bool = False,
+                   lr: float = 0.05) -> dict:
+    """``steps`` calls of ``make_train_step`` (a DistributedOptimizer over
+    SGD(lr)) on the toy affine problem with the knobs ``env`` set at
+    ``init`` (``HOROVOD_AUTOTUNE=1`` and the rest), this rank on its
+    rows.  Returns whether the step was the autotuner's, the knobs
+    searched, every applied point, the live config's knobs after, the
+    plan's layout, the losses, and, with ``second``, whether a second
+    step built in the session was autotuned."""
+    import dataclasses as dc
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optim import AutotunedTrainStep
+
+    model = _Affine(w, b)
+    batch = (_my_rows(x), _my_rows(y))
+    with _knobs(env):
+        pm = hvd.parameter_manager()
+        start = dc.asdict(hvd.config())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=lr))
+        step = hvd.make_train_step(_affine_mse, opt)
+        out = {"tuned": isinstance(step, AutotunedTrainStep),
+               "knobs": list(pm.knob_names), "start": start,
+               "pm_start": pm.current_values()}
+        if second:
+            other = hvd.make_train_step(_affine_mse, opt)
+            out["second_tuned"] = isinstance(other, AutotunedTrainStep)
+        out["losses"] = [float(step(model, batch)) for _ in range(steps)]
+        out.update(frozen=pm.frozen, applied=step.applied,
+                   applied_knobs=step.applied_knobs,
+                   pm_final=pm.current_values(),
+                   config=dc.asdict(hvd.config()),
+                   plan=hvd.mesh_plan().describe())
+    return out
