@@ -42,7 +42,18 @@
    Then the chunked LM head on the same model: one forward and backward
    with the dense loss and one with ``vocab_chunk_size=1024``, the losses
    within rtol 1e-5 and lm_head's gradient within rtol 1e-4 / atol 1e-6,
-   each one's peak memory printed.
+   each one's peak memory printed.  Observability (the registry and the
+   span ring emptied before the steps): a scrape of this process's
+   ``/metrics`` (``HVD_TPU_METRICS_PORT``, a free local port) must show
+   ``hvd_tpu_steps_total{kind="train"}`` 5, ``hvd_tpu_tokens_total``
+   5 x 8 x 1024, the step-time histogram counting 5 with p50 > 0,
+   ``hvd_tpu_tokens_per_s`` > 0, ``hvd_tpu_fusion_traces_total{tier=
+   "spmd"}`` 1 (one plan record for the build) and its wire bytes > 0;
+   the histogram's p50 is printed beside the synchronised step time;
+   ``flight.dump("chip_smoke")`` must write the 5 ``hvd_tpu_step``
+   roots; then 4 pairs of builds of the same 5 steps, the metrics gate
+   off then on (the hooks' overhead from the medians of steps 2-5,
+   printed, not a gate).
 5. ZeRO phase ("zero 1 rank"): the same model, batch and optimizer
    through ``make_zero_train_step`` (optimizer state on the rank's flat
    shards, int8+EF reduce-scatter wire, exact parameter all-gather), five
@@ -88,7 +99,12 @@
    ``backward_passes_per_step=2`` over each pair: after call 1 the
    parameters keep their bits, after call 2 they have moved.  B1-B4
    must have launched; prints the phase's seconds and each rank's peak
-   memory.
+   memory.  (e) Observability: each rank's
+   ``hvd_tpu_collective_dispatch_total{op}`` must equal the calls it made
+   to the seven entry points in (a)-(d) (counted by wrapping them);
+   ``cross_rank_summary`` must return the same dict on the four ranks;
+   ``check_stragglers`` on a series with rank 2 at 3x the median must
+   flag rank 2 only, on every rank.
 8. "microbatch 2 ranks": two processes share the card over gloo, at
    GPT-medium's full width and depth, each rank on its own batch of 8:
    ``make_train_step(lm_loss_fn(model, vocab_chunk_size=1024),
@@ -142,7 +158,12 @@
    of ResNet-50's gradient size (the int8 wire: a per-rank constant on
    the 127·2^k grid) through the flat, two-phase and hierarchical
    schedules on none, fp16, bf16 and int8: bit for bit alike, and alike
-   on every rank. (4) The eager ``allreduce`` with
+   on every rank; ``hvd_tpu_topo_schedules_total{algo="hierarchical"}``
+   and ``hvd_tpu_topo_wire_bytes_total{tier="ici"|"dcn"}`` must be > 0,
+   each step's root span must hold the three stage spans
+   (``hvd_tpu_topo_rs_intra`` / ``_xpod`` / ``_ag_intra``) once a
+   hierarchical bucket, and ``hvd_tpu_topo_cost_beta_gbps`` must be set
+   for both tiers after the first step. (4) The eager ``allreduce`` with
    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on (one reduce-scatter of width 2)
    and off, Sum, Average and an int32 Average: bit for bit; the pair
    {0, 2} with it on runs flat. (5) ``make_train_step(microbatches=2,
@@ -153,7 +174,9 @@
    against flat (gloo on one card: not a wire's time), peak memory a
    rank and rank 0's B2/B3/B4 launches.
 13. "sequence-parallel 4 ranks": four processes share the card over gloo
-   under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2``.  (1) GPT-medium's widths
+   under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2`` (init must have run one
+   ``hvd_tpu_plan_compile`` span, and ``hvd_tpu_plan_axes`` must equal
+   the plan's axes).  (1) GPT-medium's widths
    (``benchmarks/gpt_bench.py``'s: vocab 32000, 24 layers, 16 heads,
    d_model 1024, d_ff 4096, bf16 activations, f32 parameters) at 4096
    positions, ``attention='ring'`` on the ``'flash'`` engine, on the
@@ -209,7 +232,9 @@
    steps: the step is the autotuner's, it freezes, both ranks apply the
    same points, every applied point lies on its knob's lattice, the live
    config is the last one, the replicas agree, and B2, B3 and B4
-   launched.  Prints the windows' scores.
+   launched; ``obs.instrument.autotune_log()`` must hold one window
+   entry a scored (and warmup) window and the applied points equal to
+   ``applied_knobs``, on both ranks.  Prints the windows' scores.
 18. "vgg16 / inception3 1 rank": ``bench.py``'s shapes (224 and 299
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
@@ -253,6 +278,7 @@ HOLD_CYCLES = 50_000_000         # ~25 ms of the card's clock
 GPT_MEDIUM = dict(vocab_size=32000, n_layer=24, n_head=16, d_model=1024,
                   d_ff=4096, max_seq_len=1024, attention="flash")
 BATCH, SEQ, STEPS = 8, 1024, 5
+OVERHEAD_TURNS = 4               # off/on pairs of builds timing the hooks
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
 SET_RANKS = 4                    # the "4 ranks" phase's world
 MICROBATCHES, MB_STEPS = 4, 3    # the "microbatch 2 ranks" phase's
@@ -971,18 +997,120 @@ def timed_steps(label: str, model, step, batch, card: str):
     log(f"{label}: {tok_s:.1f} tokens/s (steps 2-{STEPS}; {steady:.1f} over "
         f"steps 3-{STEPS}), peak memory {peak / 2**30:.2f} GiB, on {card}")
     log(f"{label}: launches {counts}")
-    return counts, tok_s, peak
+    return counts, tok_s, peak, times
+
+
+def scrape(port: int):
+    """This rank's scrape port: ``/metrics`` as ``({sample: value},
+    [family names])`` and ``/metrics.json``'s snapshot."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    samples, families = {}, []
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.append(line.split()[2])
+        elif line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            samples[key] = float(value)
+    with urllib.request.urlopen(base + "/metrics.json", timeout=30) as r:
+        snapshot = json.loads(r.read().decode())["metrics"]
+    return samples, families, snapshot
+
+
+def obs_train_checks(dev, card: str, sync_times: list, model, batch) -> float:
+    """The "1 rank" phase's observability checks after its STEPS steps
+    (the registry and the span ring emptied just before them): the
+    scrape of ``HVD_TPU_METRICS_PORT`` (steps, tokens, the step-time
+    histogram, tokens/s, one ``spmd`` plan record for the build and its
+    wire bytes), the histogram's p50 beside the synchronised step time,
+    a flight dump holding the STEPS step roots, and the hooks' overhead:
+    OVERHEAD_TURNS pairs of builds of STEPS steps, the metrics gate off
+    then on (the medians of their steps 2-STEPS; not a gate).
+    Returns the seconds these checks added."""
+    import statistics
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import flight, metrics
+
+    t0 = time.perf_counter()
+    samples, families, snapshot = scrape(hvd.basics.metrics_port())
+    (hist,) = snapshot["hvd_tpu_step_time_seconds"]
+    want = {'hvd_tpu_steps_total{kind="train"}': STEPS,
+            "hvd_tpu_tokens_total": STEPS * BATCH * SEQ,
+            'hvd_tpu_step_time_seconds_count{kind="train"}': STEPS,
+            'hvd_tpu_fusion_traces_total{tier="spmd"}': 1}
+    for key, value in want.items():
+        if samples.get(key) != value:
+            raise AssertionError(f"train: scraped {key} = {samples.get(key)}"
+                                 f", not {value}")
+    tok_s = samples["hvd_tpu_tokens_per_s"]
+    wire = samples['hvd_tpu_wire_bytes_total{tier="spmd"}']
+    if not (hist["p50"] > 0 and tok_s > 0 and wire > 0):
+        raise AssertionError(f"train: scraped step time {hist}, tokens/s "
+                             f"{tok_s}, spmd wire bytes {wire}")
+    synced = statistics.median(sync_times)
+    log(f"train: scraped families {families}")
+    log(f"train: step-time histogram p50 {hist['p50']} s (host "
+        f"dispatch-to-dispatch, no synchronise in the hooks), synchronised "
+        f"step time median {synced} s, p50/synchronised "
+        f"{hist['p50'] / synced}; tokens/s gauge {tok_s}; spmd wire bytes "
+        f"{wire}; on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        flight.configure(directory=tmp)
+        path = flight.dump("chip_smoke")
+        with open(path) as f:
+            doc = json.load(f)
+        flight.configure(directory="")
+    roots = [sp for sp in doc["spans"]
+             if sp["name"] == "hvd_tpu_step" and sp["parent_id"] is None]
+    if len(roots) != STEPS:
+        raise AssertionError(f"train: the flight dump holds {len(roots)} "
+                             f"step roots, not {STEPS}")
+    log(f"train: flight dump {os.path.basename(path)}: keys {sorted(doc)}, "
+        f"{len(doc['spans'])} spans, {len(roots)} hvd_tpu_step roots")
+    # The hooks' cost, in turns after the phase's warm-up: off, on, four
+    # times over, each a fresh build of STEPS steps; steps 2-STEPS of each.
+    times = {False: [], True: []}
+    for on in (False, True) * OVERHEAD_TURNS:
+        metrics.configure(enabled=on)
+        try:
+            run = run_steps(f"train, HVD_TPU_METRICS={int(on)}",
+                            dp_step(model), model, batch, STEPS)
+        finally:
+            metrics.configure(enabled=True)
+        times[on] += run["times"][1:]
+    on_s, off_s = (statistics.median(times[k]) for k in (True, False))
+    q_on, q_off = (statistics.quantiles(times[k], n=4) for k in (True, False))
+    log(f"train: synchronised step seconds in {OVERHEAD_TURNS} turns of "
+        f"off then on, steps 2-{STEPS} of each: with the hooks "
+        f"{times[True]}, with HVD_TPU_METRICS=0 {times[False]}; medians "
+        f"{on_s} / {off_s} s, overhead {100 * (on_s - off_s) / off_s}% "
+        f"(not a gate; quartiles with the hooks {q_on[0]}-{q_on[2]} s, "
+        f"without {q_off[0]}-{q_off[2]} s), on {card}")
+    return time.perf_counter() - t0
 
 
 def train_phase(dev, card: str):
+    from horovod_tpu_torch.obs import metrics, trace
+
     model, batch = gpt_medium(dev)
-    return timed_steps("train", model, dp_step(model), batch, card)
+    metrics.registry().reset()
+    trace.clear()
+    step = dp_step(model)
+    counts, tok_s, peak, times = timed_steps("train", model, step, batch,
+                                             card)
+    del step
+    obs_s = obs_train_checks(dev, card, times, model, batch)
+    return counts, tok_s, peak, obs_s
 
 
 def zero_phase(dev, card: str, dp_tok_s: float, dp_peak: int):
     model, batch = gpt_medium(dev)
-    counts, tok_s, peak = timed_steps("zero", model, zero_step(model),
-                                      batch, card)
+    counts, tok_s, peak, _ = timed_steps("zero", model, zero_step(model),
+                                         batch, card)
     log(f"zero: {tok_s:.1f} tokens/s and {peak / 2**30:.2f} GiB peak, beside "
         f"the data-parallel step's {dp_tok_s:.1f} tokens/s and "
         f"{dp_peak / 2**30:.2f} GiB")
@@ -1465,28 +1593,87 @@ def accumulation(dev, rank: int, sets: dict) -> dict:
     return dict(losses=losses, digests=digests)
 
 
+DISPATCH_KINDS = ("allreduce", "grouped_allreduce", "allgather", "broadcast",
+                  "alltoall", "reducescatter", "grouped_reducescatter")
+
+
+@contextlib.contextmanager
+def counted_dispatches(calls: dict):
+    """Count, by kind, the calls this rank makes to the collective API's
+    seven entry points (``<kind>_async``, which every other form goes
+    through) that return, wherever the port's modules bind them."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    originals = {k: getattr(C, f"{k}_async") for k in DISPATCH_KINDS}
+    patched = []
+
+    def counting(kind, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)   # a call that raises dispatched nothing
+            calls[kind] = calls.get(kind, 0) + 1
+            return out
+        return call
+
+    wrappers = {k: counting(k, fn) for k, fn in originals.items()}
+    for mod in [m for name, m in list(sys.modules.items())
+                if name.startswith("horovod_tpu_torch") and m is not None]:
+        for kind, fn in originals.items():
+            if getattr(mod, f"{kind}_async", None) is fn:
+                setattr(mod, f"{kind}_async", wrappers[kind])
+                patched.append((mod, kind))
+    try:
+        yield calls
+    finally:
+        for mod, kind in patched:
+            setattr(mod, f"{kind}_async", originals[kind])
+
+
+def obs_set_checks(rank: int, calls: dict) -> dict:
+    """The "4 ranks" phase's observability checks: the dispatch counter
+    by op against the calls counted, ``cross_rank_summary`` (collective;
+    the parent compares the four), and ``check_stragglers`` on a series
+    with rank 2 at 3x the median (every rank must flag rank 2 only)."""
+    from horovod_tpu_torch.obs import aggregate, metrics
+
+    t0 = time.perf_counter()
+    snap = metrics.registry().snapshot()
+    counted = {row["labels"]["op"]: row["value"] for row in
+               snap.get("hvd_tpu_collective_dispatch_total", [])}
+    summary = aggregate.cross_rank_summary({"calls": sum(calls.values())})
+    flagged = aggregate.check_stragglers([1.0, 1.0, 3.0, 1.0], factor=2.0,
+                                         my_rank=rank)
+    suspect = metrics.registry().snapshot()["hvd_tpu_straggler_suspect"]
+    return dict(calls=calls, counted=counted, summary=summary,
+                flagged=flagged, suspect=suspect[0]["value"],
+                seconds=time.perf_counter() - t0)
+
+
 def set_ranks(dev, rank: int) -> dict:
     """Path "4 ranks": (a)-(d) with the launch counts set to 0 just before
     and read just after, then the checks."""
     import torch
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import metrics
 
     sets = {"pair": None, "other pair": None}
     for ranks in ([0, 2], [1, 3]):             # collective, in this order
         ps = hvd.add_process_set(ranks)
         sets["pair" if rank in ranks else "other pair"] = ps
     sets["first three"] = hvd.add_process_set([0, 1, 2])
+    metrics.registry().reset()
     torch.cuda.reset_peak_memory_stats()
     hvd.ops.reset_launch_counts()
     t0 = time.perf_counter()
-    eager = eager_api(dev, rank, sets)
-    dp = set_dp(dev, rank, sets)
-    ada = adasum_steps(dev, rank, sets)
-    acc = accumulation(dev, rank, sets)
+    with counted_dispatches({}) as calls:
+        eager = eager_api(dev, rank, sets)
+        dp = set_dp(dev, rank, sets)
+        ada = adasum_steps(dev, rank, sets)
+        acc = accumulation(dev, rank, sets)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = hvd.ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    obs = obs_set_checks(rank, calls)
 
     eager_ok = check_eager(rank, sets, eager)
     grouped = check_grouped(sets["pair"], dp.pop("grads"), dp.pop("grouped"))
@@ -1494,7 +1681,7 @@ def set_ranks(dev, rank: int) -> dict:
     hvd.barrier()                 # leave together: rank 0 checked last
     return dict(counts=counts, seconds=seconds, peak=peak, eager=eager_ok,
                 dp=dp, grouped=grouped, adasum=ada, adasum_err=adasum_err,
-                acc=acc, pair=list(sets["pair"].ranks))
+                acc=acc, pair=list(sets["pair"].ranks), obs=obs)
 
 
 def four_rank_phase():
@@ -1544,7 +1731,24 @@ def check_four_ranks(res: list, seconds: float):
         raise AssertionError("4 ranks: Adasum replicas differ")
     if not same(lambda o: o["adasum"]["params_three"], range(3)):
         raise AssertionError("4 ranks: Adasum replicas of {0, 1, 2} differ")
+    for r, out in enumerate(res):
+        o = out["obs"]
+        if o["counted"] != o["calls"] or not o["calls"]:
+            raise AssertionError(f"4 ranks: rank {r}'s dispatch counter "
+                                 f"{o['counted']} != its calls {o['calls']}")
+        if o["summary"] != res[0]["obs"]["summary"]:
+            raise AssertionError(f"4 ranks: cross_rank_summary differs on "
+                                 f"rank {r}")
+        if o["flagged"] != [2] or o["suspect"] != float(r == 2):
+            raise AssertionError(f"4 ranks: check_stragglers on rank {r}: "
+                                 f"{o['flagged']}, suspect {o['suspect']}")
     r0 = res[0]
+    log(f"4 ranks: hvd_tpu_collective_dispatch_total by op equals the calls "
+        f"each rank made: {[o['obs']['calls'] for o in res]}; "
+        f"cross_rank_summary the same on the four ranks: "
+        f"{r0['obs']['summary']}; check_stragglers flags rank 2 only on "
+        f"every rank; {[o['obs']['seconds'] for o in res]} s of checks a "
+        f"rank")
     shape = [GPT_MEDIUM["vocab_size"], GPT_MEDIUM["d_model"]]
     log(f"4 ranks: eager int8 allreduce of {shape} bitwise "
         f"its plain form over the global set and both pairs, and of its "
@@ -2120,7 +2324,10 @@ def hier_steps(dev, rank: int, model, batch) -> dict:
             seen["out"] = [g.detach().clone() for g in out]
         return out
 
-    losses, times, digests = [], [], []
+    from horovod_tpu_torch.obs import metrics, trace
+
+    losses, times, digests, beta = [], [], [], None
+    trace.clear()
     fusion.fused_two_phase_apply = capture
     try:
         with knobs(topo_schedule="hierarchical"):
@@ -2134,10 +2341,14 @@ def hier_steps(dev, rank: int, model, batch) -> dict:
                 times.append(time.perf_counter() - t)
                 digests.append(digest(p for _, p in
                                       sorted(model.named_parameters())))
+                if beta is None:
+                    beta = metrics.registry().snapshot().get(
+                        "hvd_tpu_topo_cost_beta_gbps", [])
             counts = hvd.ops.launch_counts()
             peak = torch.cuda.max_memory_allocated()
     finally:
         fusion.fused_two_phase_apply = apply
+    obs = obs_hier_checks(trace.snapshot(), beta)
 
     n = hvd.size()
     topo = seen["schedule"].topo
@@ -2160,7 +2371,36 @@ def hier_steps(dev, rank: int, model, batch) -> dict:
         flat_times.append(time.perf_counter() - t)
     return dict(losses=losses, times=times, flat_times=flat_times,
                 digests=digests, counts=counts, peak=peak, algos=algos,
-                bad=bad)
+                bad=bad, obs=obs)
+
+
+TOPO_STAGES = ("hvd_tpu_topo_rs_intra", "hvd_tpu_topo_xpod",
+               "hvd_tpu_topo_ag_intra")
+
+
+def obs_hier_checks(spans: list, beta: list) -> dict:
+    """The "hierarchical 4 ranks" phase's observability record: the topology
+    metrics, the stage spans under each step's root (by stage name, a
+    step) and the estimator's β gauge read after the first step."""
+    from horovod_tpu_torch.obs import metrics
+
+    snap = metrics.registry().snapshot()
+
+    def by(name, label):
+        return {row["labels"][label]: row["value"]
+                for row in snap.get(name, [])}
+
+    roots = [sp for sp in spans if sp["name"] == "hvd_tpu_step"
+             and sp["parent_id"] is None]
+    stages = []
+    for root in roots:
+        kids = [sp["name"] for sp in spans
+                if sp["parent_id"] == root["span_id"]]
+        stages.append({name: kids.count(name) for name in TOPO_STAGES})
+    return dict(schedules=by("hvd_tpu_topo_schedules_total", "algo"),
+                tier_bytes=by("hvd_tpu_topo_wire_bytes_total", "tier"),
+                stages=stages, beta={row["labels"]["tier"]: row["value"]
+                                     for row in beta})
 
 
 def hier_exact(dev, rank: int, numel: int, topo) -> dict:
@@ -2380,6 +2620,17 @@ def check_hierarchical(res: list, seconds: float, label: str, wire: str):
                 and mb["hier_buckets"] == mb["buckets"]):
             raise AssertionError(f"{label}: microbatch overlap wire on rank "
                                  f"{r}: {mb}")
+        o = s["obs"]
+        n_hier = len(s["algos"])
+        if not (o["schedules"].get("hierarchical", 0) > 0
+                and o["tier_bytes"].get("ici", 0) > 0
+                and o["tier_bytes"].get("dcn", 0) > 0
+                and len(o["stages"]) == HIER_STEPS
+                and all(st == dict.fromkeys(TOPO_STAGES, n_hier)
+                        for st in o["stages"])
+                and set(o["beta"]) == {"ici", "dcn"}
+                and min(o["beta"].values()) > 0):
+            raise AssertionError(f"{label}: observability on rank {r}: {o}")
     if any(o["steps"]["digests"] != res[0]["steps"]["digests"] for o in res):
         raise AssertionError(f"{label}: replicas differ")
     for wire_name in res[0]["exact"]:
@@ -2406,6 +2657,12 @@ def check_hierarchical(res: list, seconds: float, label: str, wire: str):
         f"buckets hierarchical, within "
         f"{max(o['mb']['worst'] for o in res)} of the flat wire (limit 1e-5 "
         f"of each leaf's scale), bitwise on exact data")
+    o0 = s0["obs"]
+    log(f"{label}: hvd_tpu_topo_schedules_total {o0['schedules']}, "
+        f"hvd_tpu_topo_wire_bytes_total {o0['tier_bytes']}; every step's "
+        f"root holds {o0['stages'][0]} stage spans ({len(s0['algos'])} "
+        f"hierarchical buckets); hvd_tpu_topo_cost_beta_gbps after step 1 "
+        f"{o0['beta']}")
     log(f"{label}: step seconds hierarchical "
         f"{[o['steps']['times'] for o in res]}, flat "
         f"{[o['steps']['flat_times'] for o in res]} ({wire})")
@@ -2651,7 +2908,13 @@ def seq_ranks(dev, rank: int) -> dict:
     leaves, and rank 0 runs :func:`sp_oracle`."""
     import torch
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import metrics, trace
 
+    compiles = [sp["args"] for sp in trace.snapshot()
+                if sp["name"] == "hvd_tpu_plan_compile"]
+    axes = {row["labels"]["axis"]: row["value"] for row in
+            metrics.registry().snapshot().get("hvd_tpu_plan_axes", [])}
+    plan = dict(hvd.mesh_plan().axes)
     t0 = time.perf_counter()
     main, first = sp_main(dev, rank)
     seconds = time.perf_counter() - t0
@@ -2659,7 +2922,8 @@ def seq_ranks(dev, rank: int) -> dict:
     short = sp_short_checks(dev, rank)
     torch.cuda.empty_cache()
     hvd.barrier()
-    out = dict(main, seconds=seconds, short=short)
+    out = dict(main, seconds=seconds, short=short,
+               obs=dict(compiles=compiles, axes=axes, plan=plan))
     if rank == 0:
         out["oracle"] = sp_oracle(dev, first, main["losses"][0])
     return out
@@ -2712,6 +2976,13 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
                     "dequantize_blocks"))):
             raise AssertionError(f"{label}: the data=2,fsdp=2 int8 step off "
                                  f"the 1-D one on rank {r}: {p}")
+        ob = out["obs"]
+        if not (ob["compiles"] == [{"spec": SEQ_ENV["HVD_TPU_MESH_PLAN"]}]
+                and ob["axes"] == {k: float(v) for k, v in ob["plan"].items()}):
+            raise AssertionError(f"{label}: plan compile span / axes gauge "
+                                 f"on rank {r}: {ob}")
+    log(f"{label}: one hvd_tpu_plan_compile span {r0['obs']['compiles']} a "
+        f"rank at init; hvd_tpu_plan_axes {r0['obs']['axes']} = the plan")
     o = r0["oracle"]
     if not oracle_ok(o):
         raise AssertionError(f"{label}: step 1 off the one-rank flash step: "
@@ -3080,6 +3351,9 @@ def autotune_ranks(dev, rank: int) -> dict:
                knobs=list(pm.knob_names), frozen=pm.frozen,
                applied=step.applied_knobs, start=start,
                config=dataclasses.asdict(hvd.config()))
+    from horovod_tpu_torch.obs import instrument
+
+    run["decisions"] = instrument.autotune_log()
     log_path = hvd.config().autotune_log
     if rank == 0 and log_path:
         with open(log_path) as f:
@@ -3256,6 +3530,23 @@ def check_autotune(res: list, seconds: float, label: str, wire: str,
                  "dequantize_accumulate"):
         if r0["counts"][name] <= 0:
             raise AssertionError(f"{name} never launched on the {label} path")
+    warmup = int(AUTOTUNE_ENV["HOROVOD_AUTOTUNE_WARMUP_SAMPLES"])
+    scored = [line for line in r0["scores"] if line["note"] != "frozen"]
+    for r, out in enumerate(res):
+        d = out["decisions"]
+        windows = [e for e in d if e["event"] == "window"]
+        applied = [e["applied"] for e in d if e["event"] != "window"]
+        if not (len(windows) == len(scored) + warmup
+                and applied == out["applied"]
+                and [e["proposal"] for e in windows]
+                == [e["proposal"] for e in r0["decisions"]
+                    if e["event"] == "window"]):
+            raise AssertionError(f"{label}: rank {r}'s autotune decision log "
+                                 f"{d} against {len(scored)} scored "
+                                 f"windows and applied {out['applied']}")
+    log(f"{label}: autotune_log: {len(scored)} scored + {warmup} "
+        f"warmup window entries and {len(r0['applied'])} applied points "
+        f"(= applied_knobs) on both ranks: {r0['decisions']}")
     scores = [(line["knobs"], line["score"], line["note"])
               for line in r0.get("scores", [])]
     log(f"{label}: GPT-medium widths, {WIRE_LAYERS} layers, knobs "
@@ -3596,14 +3887,20 @@ def main() -> int:
     hvd.ops.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
-    hvd.init()
+    # The "1 rank" phase scrapes this process's /metrics; the ranks the
+    # multi-rank phases spawn serve none (the variable is read at init).
+    os.environ["HVD_TPU_METRICS_PORT"] = str(hvd.basics._free_port())
+    try:
+        hvd.init()
+    finally:
+        del os.environ["HVD_TPU_METRICS_PORT"]
     try:
         dev = hvd.device()
         gen = torch.Generator(device=dev).manual_seed(0)
         rows = kernel_phase(dev, gen)
         non_finite_check(dev)
         model_check(dev)
-        counts, dp_tok_s, dp_peak = train_phase(dev, card)
+        counts, dp_tok_s, dp_peak, obs_seconds = train_phase(dev, card)
         torch.cuda.empty_cache()
         xent_check(dev)
         torch.cuda.empty_cache()
@@ -3652,7 +3949,10 @@ def main() -> int:
             raise AssertionError(f"{row['name']} launched on no path")
     if child_processes():
         raise AssertionError(f"processes left running: {child_processes()}")
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
+        f"{obs_seconds:.1f} s of it the \"1 rank\" phase's observability "
+        f"checks (the scrape, the flight dump and {2 * OVERHEAD_TURNS} x "
+        f"{STEPS} more steps, without and with the hooks)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,7 @@ from .optim import (  # noqa: F401
     make_zero_train_step,
 )
 from . import models  # noqa: F401
+from . import obs  # noqa: F401
 from . import ops  # noqa: F401
 from . import optim  # noqa: F401
 from . import parallel  # noqa: F401

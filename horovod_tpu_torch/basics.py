@@ -73,6 +73,8 @@ class _Session:
     # the layouts its ``layout`` knob indexes (1 = the live one).
     parameter_manager: object = None
     layout_lattice: Optional[list] = None
+    # The bound local scrape port (HVD_TPU_METRICS_PORT + rank), if any.
+    metrics_port: Optional[int] = None
 
 
 _session: Optional[_Session] = None
@@ -133,6 +135,7 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         process_sets=ProcessSetTable(size),
         mesh=GlobalMesh.build(size, me, local_rank, local_size))
     warn_noop_knobs(logger)
+    _configure_obs(cfg, me)
     # The session plan: the 1-D default over the global mesh, or the
     # declared HVD_TPU_MESH_PLAN with one process set per axis group.
     try:
@@ -143,12 +146,43 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         raise
 
 
+def _configure_obs(cfg: Config, rank: int) -> None:
+    """Pin the telemetry gates to the resolved config and start the scrape
+    port on ``metrics_port + rank``.  The registry and the span and event
+    rings are NOT reset: counters span re-inits, so rates stay
+    meaningful."""
+    global _session
+    from .obs import flight, metrics, trace
+
+    metrics.configure(enabled=cfg.metrics, window=cfg.metrics_window)
+    trace.configure(enabled=cfg.trace, ring=cfg.trace_ring)
+    flight.configure(enabled=cfg.flight, directory=cfg.flight_dir,
+                     ring=cfg.flight_ring)
+    if cfg.metrics and cfg.metrics_port > 0:
+        from .obs import export
+
+        _session = dataclasses.replace(
+            _session,
+            metrics_port=export.start_http_exporter(cfg.metrics_port + rank))
+
+
+def metrics_port() -> Optional[int]:
+    """The port this rank's ``/metrics`` answers on
+    (``HVD_TPU_METRICS_PORT`` + rank), or None."""
+    return _require().metrics_port
+
+
 def shutdown() -> None:
-    """Drop the process sets and the topology tiers' groups and leave the
-    process group (if :func:`init` created it)."""
+    """Drop the process sets and the topology tiers' groups, stop the
+    scrape port and leave the process group (if :func:`init` created
+    it)."""
     global _session
     if _session is None:
         return
+    if _session.metrics_port is not None:
+        from .obs import export
+
+        export.stop_http_exporter()
     if _session.parameter_manager is not None:
         _session.parameter_manager.close()
     _session.process_sets.clear()
@@ -253,8 +287,12 @@ def apply_mesh_plan(spec):
     None restores the 1-D default); returns it.  Collective: every rank
     calls it with the same spec.  Steps read the plan at each call, so
     the next step runs on the new layout."""
+    from .obs import instrument
+
     _require()
-    return _install_plan(spec)
+    plan = _install_plan(spec)
+    instrument.on_plan_relayout()
+    return plan
 
 
 # --- the online autotuner (reference: basics.py's parameter manager) -------
@@ -469,7 +507,10 @@ def _apply_autotuned_knobs(values) -> dict:
         s, config=dataclasses.replace(s.config, **updates))
     if relayout:
         # The next step reads the new plan (its groups, its reduce axes).
+        from .obs import instrument
+
         _install_plan(updates["mesh_plan"])
+        instrument.on_plan_relayout()
     return applied
 
 

@@ -79,6 +79,19 @@ def _env_float(name: str, default: float) -> float:
             f"Float env var {name!r} has unparseable value {val!r}") from e
 
 
+def _env_straggler_factor() -> float:
+    """``HVD_TPU_STRAGGLER_FACTOR`` must exceed 1: at <= 1x the world
+    median, half the world (or all of it) is "straggling" by
+    definition, a misconfiguration that must fail at init."""
+    v = _env_float("STRAGGLER_FACTOR", 2.0)
+    if v <= 1.0:
+        raise ValueError(
+            f"Env var 'STRAGGLER_FACTOR' must be > 1.0 (a rank is a "
+            f"straggler when its step time exceeds factor x the world "
+            f"median), got {v}")
+    return v
+
+
 def _env_choice(name: str, default: Optional[str], choices) -> Optional[str]:
     """Enumerated string knob; a typo'd value fails at init."""
     val = _env(name)
@@ -243,6 +256,17 @@ class Config:
     autotune_warmup_samples: int = 3      # HOROVOD_AUTOTUNE_WARMUP_SAMPLES
     autotune_steps_per_sample: int = 10   # HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE
     autotune_max_samples: int = 20        # HVD_TPU_AUTOTUNE_MAX_SAMPLES (scored windows, then freeze)
+    # Observability (obs/): the registry and its scrape port, tracing and
+    # the crash flight recorder.
+    metrics: bool = True                  # HVD_TPU_METRICS (registry + instrumentation gate)
+    metrics_port: int = 0                 # HVD_TPU_METRICS_PORT (0 = no local HTTP scrape port; rank r serves port + r)
+    metrics_window: int = 1024            # HVD_TPU_METRICS_WINDOW (histogram ring size)
+    straggler_factor: float = 2.0         # HVD_TPU_STRAGGLER_FACTOR (x world-median step time)
+    trace: bool = True                    # HVD_TPU_TRACE (span recording gate)
+    trace_ring: int = 2048                # HVD_TPU_TRACE_RING (per-process span ring size)
+    flight: bool = True                   # HVD_TPU_FLIGHT (crash-dump gate)
+    flight_dir: str = ""                  # HVD_TPU_FLIGHT_DIR ("" = <tempdir>/hvd_tpu_flight)
+    flight_ring: int = 512                # HVD_TPU_FLIGHT_RING (event ring size)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -275,4 +299,13 @@ class Config:
             autotune_steps_per_sample=_env_int("AUTOTUNE_STEPS_PER_SAMPLE",
                                                10),
             autotune_max_samples=_env_int("AUTOTUNE_MAX_SAMPLES", 20),
+            metrics=_env_bool("METRICS", True),
+            metrics_port=_env_int("METRICS_PORT", 0),
+            metrics_window=_env_pos_int("METRICS_WINDOW", 1024),
+            straggler_factor=_env_straggler_factor(),
+            trace=_env_bool("TRACE", True),
+            trace_ring=_env_pos_int("TRACE_RING", 2048),
+            flight=_env_bool("FLIGHT", True),
+            flight_dir=_env("FLIGHT_DIR") or "",
+            flight_ring=_env_pos_int("FLIGHT_RING", 512),
         )

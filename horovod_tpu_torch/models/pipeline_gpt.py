@@ -66,11 +66,13 @@ class PipelinedGPT(nn.Module):
     blocks ``[s·k, (s + 1)·k)`` (``k = n_layer // pp``), and the other
     blocks are drawn and dropped, so that the generator moves as GPT's
     does.  ``n_micro`` microbatches must divide the rank's rows;
+    ``dp_axis`` names the batch axis (:func:`..parallel.pipeline_axes`);
     ``remat`` recomputes each stage in the backward."""
 
     def __init__(self, config: GPTConfig, mesh=None, *, plan=None,
                  n_micro: int = 2, pp_axis: Optional[str] = None,
-                 remat: bool = False, device=None, seed: int = 0) -> None:
+                 dp_axis: Optional[str] = "dp", remat: bool = False,
+                 device=None, seed: int = 0) -> None:
         super().__init__()
         if config.attention not in ("full", "flash"):
             raise ValueError(
@@ -79,7 +81,8 @@ class PipelinedGPT(nn.Module):
                 "non-pipelined GPT)")
         self.config = cfg = config
         self.plan = resolve_plan(mesh, plan)
-        self.pp_axis, _ = pipeline_axes(self.plan, pp_axis)
+        self.pp_axis, self.dp_axis = pipeline_axes(self.plan, pp_axis,
+                                                   dp_axis)
         self.n_stages = self.plan.axis_size(self.pp_axis)
         self.n_micro = n_micro
         self.remat = remat
@@ -115,7 +118,8 @@ class PipelinedGPT(nn.Module):
         x = self.embed(tokens)
         x = pipeline_apply(lambda stage, h: stage(h), self.stages, x,
                            plan=self.plan, n_micro=self.n_micro,
-                           pp_axis=self.pp_axis, remat=self.remat)
+                           pp_axis=self.pp_axis, dp_axis=self.dp_axis,
+                           remat=self.remat)
         return self.head(x)
 
 

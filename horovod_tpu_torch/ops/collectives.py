@@ -28,6 +28,12 @@ wire (:meth:`.compression.Compressor.spmd_allreduce`).
 global set on the exact wire in two levels (reference: Horovod's NCCL
 reduce-scatter inside the node, allreduce across nodes, all-gather
 inside the node): see :func:`hierarchical_allreduce`.
+
+Each dispatch of the seven entry points (``allreduce``,
+``grouped_allreduce``, ``allgather``, ``broadcast``, ``alltoall``,
+``reducescatter``, ``grouped_reducescatter``; the other forms go through
+them) counts once in ``hvd_tpu_collective_dispatch_total{op}``, its
+payload bytes in ``hvd_tpu_wire_bytes_total{tier="slots"}``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
+from ..obs import instrument as _obs
 
 Average = "average"
 Sum = "sum"
@@ -118,6 +125,15 @@ def divide(r: torch.Tensor, n: int) -> torch.Tensor:
     if r.is_floating_point() or r.is_complex():
         return r / n
     return torch.div(r, n, rounding_mode="floor")
+
+
+def _dispatch(kind: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Telemetry: one dispatch of the entry point ``kind`` (a closed set
+    of seven, never the caller's free-form ``name``) with this rank's
+    payload bytes (reference: ``collectives._heartbeat``)."""
+    if _obs.enabled():
+        _obs.on_collective_dispatch(
+            kind, sum(t.numel() * t.element_size() for t in tensors))
 
 
 def set_group(process_set, name: str):
@@ -257,6 +273,7 @@ def allreduce_async(tensor: torch.Tensor, *, op: str = Average,
 
     comp = _wire(op, compression)
     group = set_group(process_set, name)
+    _dispatch("allreduce", (tensor,))
     x = _scaled(tensor.detach(), prescale_factor)
     inner = 0
     if (basics.config().hierarchical_allreduce and op in (Sum, Average)
@@ -297,6 +314,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
 
     comp = _wire(op, compression)
     group = set_group(process_set, name)
+    _dispatch("grouped_allreduce", tensors)
     leaves = [_scaled(t.detach(), prescale_factor) for t in tensors]
     if op == Adasum:
         from .adasum import adasum_allreduce
@@ -401,7 +419,9 @@ def allgather_async(tensor: torch.Tensor, *, process_set=None,
                     name: str = "allgather") -> Handle:
     """Reference: ``hvd.allgather_async``: concatenate every member's
     tensor along dim 0; the lengths of dim 0 may differ."""
-    return allgather_start(tensor, set_group(process_set, name), name)[0]
+    group = set_group(process_set, name)
+    _dispatch("allgather", (tensor,))
+    return allgather_start(tensor, group, name)[0]
 
 
 def allgather(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -432,6 +452,7 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0, *,
     if process_set is not None and root_rank not in process_set.ranks:
         raise ValueError(f"{name}: root rank {root_rank} not in process set")
     group = set_group(process_set, name)
+    _dispatch("broadcast", (tensor,))
     out = tensor.detach().clone().contiguous()
     work = dist.broadcast(out, src=root_rank, group=group, async_op=True)
     return Handle([work], lambda: out, name)
@@ -463,6 +484,7 @@ def alltoall_async(tensor: torch.Tensor, splits=None, *, process_set=None,
     sent here, in member order.  With ``splits`` the result is
     ``(gathered, received_splits)``, the second an int64 tensor."""
     group = set_group(process_set, name)
+    _dispatch("alltoall", (tensor,))
     x = tensor.detach().contiguous()
     n = dist.get_world_size(group)
     if splits is None:
@@ -518,8 +540,9 @@ def reducescatter_async(tensor: torch.Tensor, *, op: str = Sum,
                         name: str = "reducescatter") -> Handle:
     """Reference: ``hvd.reducescatter``: reduce, then this member keeps
     its dim-0 piece (dim 0 must divide by the set's size)."""
-    return reducescatter_start(tensor, op, set_group(process_set, name),
-                               name)
+    group = set_group(process_set, name)
+    _dispatch("reducescatter", (tensor,))
+    return reducescatter_start(tensor, op, group, name)
 
 
 def reducescatter(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -537,6 +560,7 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor], *,
     from .fusion import plan_fused_buckets
 
     group = set_group(process_set, name)
+    _dispatch("grouped_reducescatter", tensors)
     n = dist.get_world_size(group)
     xs = [t.detach() for t in tensors]
     for i, x in enumerate(xs):

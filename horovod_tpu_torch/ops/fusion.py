@@ -31,6 +31,10 @@ and the overlap wire's ``topo=``: per bucket, flat, two-phase, or
 hierarchical (reduce-scatter inside the node, exchange between nodes,
 all-gather inside the node).  The planner runs in Python (the
 reference's native C++ planner is not ported).
+
+Each plan is recorded (:func:`..obs.instrument.on_fusion_plan`, tiers
+``spmd``, ``two_phase``, ``overlap`` and ``schedule``, the reference's
+labels): once per build inside a step, every call outside one.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
+from ..obs import instrument as _obs
 from .collectives import Handle
 from .compression import Compression
 
@@ -239,6 +244,12 @@ def plan_bucket_schedule(sizes_bytes: Sequence[int], threshold: int, *,
             priority[bi] = float(len(payloads) - rank)
         hidden = min(float(compute_us), cost)
     order = plan_pipeline_order(flags, pipeline_depth, priority)
+    if compute_us is not None and _obs.recording_plans():
+        # The overlap-aware plan is where the hidden-communication
+        # estimate operators scrape (hvd_tpu_est_hidden_us) comes from.
+        _obs.on_fusion_plan(
+            "schedule", bytes_on_wire=sum(payloads), buckets=len(buckets),
+            est_cost_us=cost, est_hidden_us=hidden)
     return BucketSchedule(
         buckets=tuple(tuple(b) for b in buckets),
         two_phase=tuple(flags),
@@ -390,6 +401,16 @@ def fused_two_phase_apply(
     else:
         flags = plan_two_phase_flags([b["bytes"] for b in packed], n,
                                      alpha_us, beta_gbps)
+    if packed and _obs.recording_plans():
+        # The plan record: every step replays exactly these collectives.
+        exact = sum(b["bytes"] for b in packed)
+        ratio = wire_ratio(compression, max(leaves[0].dtype.itemsize, 1))
+        _obs.on_fusion_plan(
+            "two_phase", bytes_on_wire=int(exact * ratio),
+            buckets=len(packed), compression_ratio=ratio,
+            est_cost_us=estimate_schedule_cost_us(
+                [b["bytes"] for b in packed], flags, n, alpha_us,
+                beta_gbps))
     scattering: Dict[int, Handle] = {}
     gathering: Dict[int, Handle] = {}
     reduced: Dict[int, torch.Tensor] = {}
@@ -611,6 +632,14 @@ def fused_allreduce_pytree(tree: Mapping[str, torch.Tensor], *,
             prescale_factor=prescale_factor,
             postscale_factor=postscale_factor, schedule=compiler)
         return dict(zip(names, reduced))
+
+    if leaves and _obs.recording_plans():
+        ratio = wire_ratio(compression, max(leaves[0].dtype.itemsize, 1))
+        _obs.on_fusion_plan(
+            "spmd", bytes_on_wire=int(_nbytes(leaves, range(len(leaves)))
+                                      * ratio),
+            buckets=len(plan_fused_buckets(leaves, threshold)),
+            compression_ratio=ratio)
 
     def collective(flat: torch.Tensor) -> torch.Tensor:
         x = flat

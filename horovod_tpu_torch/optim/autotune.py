@@ -29,6 +29,7 @@ from typing import Callable
 import torch
 
 from .. import basics
+from ..obs import instrument as _obs
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +92,10 @@ class AutotunedTrainStep:
             _synchronize()
             dt = time.perf_counter() - self._t0
             suggestion = self._record_synchronized(self._window_samples, dt)
+            # The decision log: every scored window and what the manager
+            # proposed.
+            _obs.on_autotune_window(
+                self._window_samples / dt if dt > 0 else 0.0, suggestion)
             self._window_steps = 0
             self._window_samples = 0.0
             if suggestion is not None:
@@ -122,6 +127,7 @@ class AutotunedTrainStep:
         self._burn_in = True
         self.applied.append(applied.get("fusion_threshold"))
         self.applied_knobs.append(applied)
+        _obs.on_autotune_apply(applied, self._pm.frozen)
         logger.info("autotune %s %s (%d applied so far)",
                     "froze at" if self._pm.frozen else "trying", applied,
                     len(self.applied))

@@ -49,6 +49,10 @@ two-tier schedule compiler (:mod:`..topo.schedule`): the fused
 allreduce of :class:`DistributedOptimizer` and of the step through
 :func:`..ops.fusion.fused_allreduce_pytree`, the overlap wire through
 its ``topo=``.
+
+Each built step is instrumented (:func:`..obs.instrument.wrap_step`):
+the step time, steps, samples and tokens, a root span a call, and the
+step's plan records (fusion, microbatches, topology) once per build.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import torch.distributed as dist
 
 from .. import basics
 from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
+from ..obs import instrument as _obs
 from ..ops import collectives as C
 from ..ops import fusion
 from ..ops.adasum import adasum_pytree
@@ -135,6 +140,28 @@ def _reduce_group(process_set, name: str):
         return C.set_group(process_set, name)
     plan = basics._require().mesh_plan
     return None if plan is None else plan.collective_groups()
+
+
+def _mesh_group(mesh, axis_name: Optional[str], process_set, name: str):
+    """The reduce group of a step built with ``mesh=``/``axis_name=``
+    (reference: ``resolve_mesh_axis``): with neither, the process set's
+    or the session plan's reduce group (:func:`_reduce_group`); else
+    this rank's group along ``axis_name`` of the plan
+    (:func:`..plan.resolve_plan` of ``mesh``, else the session's), its
+    default the mesh's first axis, or the session plan's reduce axes."""
+    from ..plan import resolve_plan
+
+    if process_set is not None or (mesh is None and axis_name is None):
+        return _reduce_group(process_set, name)
+    plan = resolve_plan(mesh)
+    if axis_name is None:
+        axis = plan.reduce_axis() if mesh is None else plan.axis_names[0]
+    elif not plan.has_axis(axis_name):
+        raise ValueError(f"{name}: axis_name {axis_name!r} is not an axis "
+                         f"of the mesh {plan.axis_names}")
+    else:
+        axis = axis_name
+    return plan.group(axis).group
 
 
 def _write_back(grads: Dict[str, torch.Tensor],
@@ -436,6 +463,7 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
     auxes = []
     n = fusion._uniform_group_width(group)
     use_overlap = bool(overlap) and n > 1
+    _obs.record_microbatch_plan(mb, overlap=use_overlap)
     loss_sum, g0 = grads_of(0)
     if use_overlap:
         plan = fusion.plan_overlap_buckets(
@@ -452,6 +480,16 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
             if executed:
                 record_plans(executed, compression,
                              plan.dtypes[0].itemsize, params=topo.params)
+        if plan.members and _obs.recording_plans():
+            # The overlap wire's plan: mb reduce-scatter passes and one
+            # deferred all-gather ride it every step.
+            exact = sum(p * d.itemsize
+                        for p, d in zip(plan.payload, plan.dtypes))
+            ratio = fusion.wire_ratio(compression,
+                                      max(plan.dtypes[0].itemsize, 1))
+            _obs.on_fusion_plan(
+                "overlap", bytes_on_wire=int(exact * ratio * (mb + 1)),
+                buckets=len(plan.members), compression_ratio=ratio)
         acc = fusion.zero_overlap_shards(plan, device=params[0].device)
         pending = g0
         for i in range(1, mb):
@@ -479,7 +517,10 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
     return loss_sum / mb, grads, aux, use_overlap
 
 
-def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
+def make_train_step(loss_fn: Callable, optimizer, *, mesh=None,
+                    axis_name: Optional[str] = None,
+                    distributed: Optional[bool] = None,
+                    op: str = C.Average,
                     compression=None, process_set=None,
                     fusion_threshold: Optional[int] = None,
                     two_phase: Optional[bool] = None,
@@ -498,6 +539,13 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     the loss averaged over ``process_set``'s ranks (by default the
     session plan's reduce group: every rank unless the plan has model
     axes).  Each rank passes its own shard of the batch.
+
+    ``mesh`` (a :class:`..mesh.Mesh`) and ``axis_name`` pick another
+    reduce group than the session plan's: this rank's group along
+    ``axis_name`` (default: the mesh's first axis).  ``distributed``
+    decides whether the step reduces the gradients itself; None: unless
+    ``optimizer`` is a :class:`DistributedOptimizer`.  ``distributed=False``
+    with a plain optimizer is the local step.
 
     ``has_aux``: ``loss_fn`` returns ``(loss, aux)`` (a tensor, or tuples,
     lists and dicts of them) and the step returns ``(loss, aux)``, aux
@@ -520,6 +568,8 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     :class:`.autotune.AutotunedTrainStep` (module docstring)."""
     _check_reduce_args(op, compression)
     is_dist = isinstance(optimizer, DistributedOptimizer)
+    reduce_here = (bool(distributed) if distributed is not None
+                   else not is_dist)
 
     def overlap_on() -> bool:
         if overlap is not None:
@@ -527,7 +577,8 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
         return basics.config().overlap_reduce
 
     def step(model: torch.nn.Module, batch) -> torch.Tensor:
-        group = _reduce_group(process_set, "make_train_step")
+        group = _mesh_group(mesh, axis_name, process_set,
+                            "make_train_step")
         if is_dist and not optimizer.named:
             optimizer.name_parameters(model.named_parameters())
         comp = _resolve_compression(compression)
@@ -541,7 +592,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
             cfg = basics.config()
             loss, grads, aux, reduced = _microbatch_grads(
                 model, loss_fn, batch, mb, params, has_aux=has_aux,
-                overlap=overlap_on() and not is_dist and op != C.Adasum,
+                overlap=overlap_on() and reduce_here and op != C.Adasum,
                 op=op, group=group, compression=comp, threshold=threshold,
                 alpha_us=cfg.cost_alpha_us, beta_gbps=cfg.cost_beta_gbps)
             for p, g in zip(params, grads):
@@ -550,7 +601,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
             optimizer.zero_grad(set_to_none=True)
             loss, aux = _loss_and_aux(loss_fn, model, batch, has_aux)
             loss.backward()
-        if not is_dist and not reduced:
+        if reduce_here and not reduced:
             grads = _filled_grads(zip(names, params))
             _write_back(grads, _reduce_grads(
                 grads, op=op, group=group, comp=comp, threshold=threshold,
@@ -562,9 +613,11 @@ def make_train_step(loss_fn: Callable, optimizer, *, op: str = C.Average,
     # The step reads the live config (threshold, wires, microbatches, the
     # plan) each call, so rebuilding it is the autotuner's re-jit
     # boundary: a proposal is written into the config, then the step is
-    # rebuilt.
+    # rebuilt.  Each build is one instrumented step (the step time, the
+    # tokens, its plan records once; the step itself when
+    # HVD_TPU_METRICS=0).
     def build() -> Callable:
-        return step
+        return _obs.wrap_step(step, kind="train")
 
     pm = basics.parameter_manager() if basics.is_initialized() else None
     if pm is not None and not pm.frozen:

@@ -104,14 +104,22 @@ def _reduce_scatter(full: torch.Tensor, dim: int, group) -> torch.Tensor:
 @contextlib.contextmanager
 def _swapped(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]):
     """Run with ``model``'s parameters replaced by ``tensors`` (by
-    name), the parameter objects put back after."""
+    name), the parameter objects put back after.  A parameter that
+    several modules share (a tied embedding and head) is replaced in
+    every owner: ``named_parameters`` names it once."""
+    owners: Dict[int, list] = {}
+    named = {}
+    for name, p in model.named_parameters(remove_duplicate=False):
+        owners.setdefault(id(p), []).append(name)
+        named[name] = p
     saved = []
     try:
         for name, t in tensors.items():
-            owner, _, attr = name.rpartition(".")
-            module = model.get_submodule(owner)
-            saved.append((module, attr, module._parameters[attr]))
-            module._parameters[attr] = t
+            for alias in owners[id(named[name])]:
+                owner, _, attr = alias.rpartition(".")
+                module = model.get_submodule(owner)
+                saved.append((module, attr, module._parameters[attr]))
+                module._parameters[attr] = t
         yield
     finally:
         for module, attr, p in reversed(saved):

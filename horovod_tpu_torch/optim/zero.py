@@ -54,7 +54,8 @@ from ..ops import collectives as C
 from ..ops.compression import Compression
 from ..ops.fusion import plan_buckets_py, tree_flatten
 from ..ops.quantization import wire_block_size
-from .distributed_optimizer import _reduce_group, _resolve_compression
+from .distributed_optimizer import (_loss_and_aux, _mesh_group,
+                                    _resolve_compression)
 
 
 class ZeroStateWithResidual(NamedTuple):
@@ -76,7 +77,8 @@ def _flat_pad(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class ZeroTrainStep:
-    """``step(model, batch) -> loss`` (see :func:`make_zero_train_step`).
+    """``step(model, batch) -> loss``, ``(loss, aux)`` with ``has_aux``
+    (see :func:`make_zero_train_step`).
 
     The first call builds the state from the model's parameters:
     :attr:`shards` (``{name: this rank's flat shard}``, the optimizer's
@@ -92,8 +94,12 @@ class ZeroTrainStep:
 
     def __init__(self, loss_fn: Callable, make_optimizer: Callable, *,
                  op: str, compression,
-                 error_feedback: Optional[bool]) -> None:
+                 error_feedback: Optional[bool], has_aux: bool = False,
+                 mesh=None, axis_name: Optional[str] = None) -> None:
         self.loss_fn = loss_fn
+        self.has_aux = has_aux
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.make_optimizer = make_optimizer
         self.op = op
         self.compression = compression
@@ -146,11 +152,12 @@ class ZeroTrainStep:
         else:
             self.state = optimizer
 
-    def __call__(self, model: torch.nn.Module, batch) -> torch.Tensor:
+    def __call__(self, model: torch.nn.Module, batch):
         names, params = tree_flatten({name: p for name, p
                                       in model.named_parameters()
                                       if p.requires_grad})
-        group = _reduce_group(None, "make_zero_train_step")
+        group = _mesh_group(self.mesh, self.axis_name, None,
+                            "make_zero_train_step")
         if self.state is None:
             self._build(names, params, group)
         elif names != self._names:
@@ -159,7 +166,7 @@ class ZeroTrainStep:
         n = dist.get_world_size(group)
         for p in params:
             p.grad = None
-        loss = self.loss_fn(model, batch)
+        loss, aux = _loss_and_aux(self.loss_fn, model, batch, self.has_aux)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -197,11 +204,14 @@ class ZeroTrainStep:
                     p.copy_(full[:, off:off + w].reshape(-1)[:p.numel()]
                             .reshape(p.shape))
                     off += w
-        return C.reduce_raw(loss.detach(), C.Average, group=group)
+        loss = C.reduce_raw(loss.detach(), C.Average, group=group)
+        return (loss, aux) if self.has_aux else loss
 
 
 def make_zero_train_step(loss_fn: Callable, optimizer: Callable, *,
+                         mesh=None, axis_name: Optional[str] = None,
                          op: str = C.Average, compression=None,
+                         has_aux: bool = False,
                          error_feedback: Optional[bool] = None,
                          ) -> ZeroTrainStep:
     """Build the ZeRO-1 training step (reference:
@@ -219,9 +229,17 @@ def make_zero_train_step(loss_fn: Callable, optimizer: Callable, *,
     over ranks.  ``error_feedback`` (None defers to
     ``HVD_TPU_ERROR_FEEDBACK``) carries each leaf's quantization error
     of the lossy wire into the next step; it is a no-op on the exact
-    wire.  A bucket holds at most ``HOROVOD_FUSION_THRESHOLD`` bytes."""
+    wire.  A bucket holds at most ``HOROVOD_FUSION_THRESHOLD`` bytes.
+
+    ``has_aux``: ``loss_fn`` returns ``(loss, aux)`` and the step returns
+    ``(loss, aux)``, aux this rank's, detached (the port's contract; the
+    reference stacks it over the slots).  ``mesh`` (a
+    :class:`..mesh.Mesh`) and ``axis_name`` shard over this rank's group
+    along ``axis_name`` (default: the mesh's first axis) instead of the
+    session plan's reduce group."""
     if op not in (C.Average, C.Sum):
         raise ValueError(f"ZeRO gradient reduction supports Average/Sum, "
                          f"got {op!r}")
     return ZeroTrainStep(loss_fn, optimizer, op=op, compression=compression,
-                         error_feedback=error_feedback)
+                         error_feedback=error_feedback, has_aux=has_aux,
+                         mesh=mesh, axis_name=axis_name)

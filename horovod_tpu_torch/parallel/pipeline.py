@@ -59,8 +59,8 @@ def pipeline_axes(plan: MeshPlan, pp_axis: Optional[str] = None,
 def pipeline_apply(stage_fn: Callable, stage_params: Any,
                    x: torch.Tensor, *, mesh: Optional[Mesh] = None,
                    n_micro: int, pp_axis: Optional[str] = None,
-                   remat: bool = False, plan: Optional[MeshPlan] = None
-                   ) -> torch.Tensor:
+                   dp_axis: Optional[str] = "dp", remat: bool = False,
+                   plan: Optional[MeshPlan] = None) -> torch.Tensor:
     """Run ``x`` through the ``pp`` stages (module docstring).
 
     ``stage_fn(stage_params, activation) -> activation`` is one stage's
@@ -73,11 +73,13 @@ def pipeline_apply(stage_fn: Callable, stage_params: Any,
     on every pp rank.
 
     The plan comes from ``plan=``, a ``mesh=``, or the session;
-    ``pp_axis`` resolves as :func:`pipeline_axes` says.  ``remat=True``
+    ``pp_axis`` and ``dp_axis`` resolve as :func:`pipeline_axes` says
+    (the rows are already this rank's, so the dp axis only names the
+    layout, as in the reference).  ``remat=True``
     runs each stage under ``torch.utils.checkpoint``: the backward
     recomputes a stage's activations instead of keeping every tick's."""
     plan = resolve_plan(mesh, plan)
-    pp_axis, _ = pipeline_axes(plan, pp_axis)
+    pp_axis, _ = pipeline_axes(plan, pp_axis, dp_axis)
     b = x.shape[0]
     if b % n_micro:
         raise ValueError(

@@ -109,7 +109,12 @@ def make_spmd_train_step(loss_fn: Callable, optimizer, *,
     ``microbatches`` (None: ``HVD_TPU_MICROBATCHES``) accumulates that
     many microbatches of the local batch before the one update, through
     ``optim``'s microbatch loop; ``aux`` then comes back stacked
-    ``[microbatches, ...]``."""
+    ``[microbatches, ...]``.
+
+    The step is instrumented (``obs.instrument.wrap_step``, kind
+    ``spmd``).  Where the reference leaves the gradient sums to GSPMD,
+    the port's ride the fused wire, so its step also records an ``spmd``
+    fusion plan."""
     from ..ops import collectives as C
     from ..ops.compression import Compression
     from ..ops.fusion import tree_flatten
@@ -144,4 +149,6 @@ def make_spmd_train_step(loss_fn: Callable, optimizer, *,
         loss = loss.detach()
         return (loss, aux) if has_aux else loss
 
-    return step
+    from ..obs import instrument
+
+    return instrument.wrap_step(step, kind="spmd")

@@ -402,12 +402,15 @@ def collective_groups(process_set=None):
 
 def compile_plan(spec: Optional[str]) -> MeshPlan:
     """The session plan (``hvd.init``, ``hvd.apply_mesh_plan``): the 1-D
-    default for ``spec=None``, else the declared layout.  (The
-    reference's ``hvd_tpu_plan_compile`` span and ``hvd_tpu_plan_axes``
-    gauge wait for the port's observability layer.)"""
-    if spec is None:
-        return MeshPlan.default()
-    return MeshPlan.from_spec(spec)
+    default for ``spec=None``, else the declared layout.  The build runs
+    under the root span ``hvd_tpu_plan_compile`` and publishes the
+    ``hvd_tpu_plan_axes`` gauge."""
+    from ..obs import instrument
+
+    with instrument.plan_compile_span(spec or "default"):
+        plan = MeshPlan.default() if spec is None else MeshPlan.from_spec(spec)
+        instrument.set_plan_axes(dict(plan.axes))
+    return plan
 
 
 def layout_lattice(world_size: int) -> List[str]:

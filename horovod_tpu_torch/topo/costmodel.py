@@ -25,9 +25,11 @@ So small buckets, bound by latency, stay flat while ``C·α_ici <
 
 The **online estimator** (:class:`OnlineEstimator`) EWMAs achieved
 bytes/µs into the per-tier β.  Each compiled plan notes its per-tier
-bytes (:func:`..topo.schedule.record_plans`); what feeds it step times
-is the observability layer, not ported yet, so it is fed by its callers
-only.  ``HVD_TPU_TOPO_COST_FREEZE=1`` pins the parameters.  Refined
+bytes (:func:`..topo.schedule.record_plans`), and every instrumented
+step feeds it its wall time (``obs.instrument.wrap_step`` calls
+:meth:`OnlineEstimator.refine_from_step`); each refinement publishes the
+per-tier point as the ``hvd_tpu_topo_cost_alpha_us`` and
+``hvd_tpu_topo_cost_beta_gbps`` gauges.  ``HVD_TPU_TOPO_COST_FREEZE=1`` pins the parameters.  Refined
 parameters reach the compiler only in a world of one process: each
 rank is a process here, and ranks with different parameters would
 compile different collective programs and deadlock.  None of the
@@ -234,6 +236,7 @@ class OnlineEstimator:
                                 else (1 - self.decay) * prev
                                 + self.decay * rate)
             self._samples += 1
+        self._publish()
 
     def observe_alpha(self, tier: str, elapsed_us: float,
                       hops: int) -> None:
@@ -248,11 +251,13 @@ class OnlineEstimator:
                                  else (1 - self.decay) * prev
                                  + self.decay * a)
             self._samples += 1
+        self._publish()
 
     def refine_from_step(self, step_time_s: float) -> None:
         """Feed one finished step: the latest noted plan's per-tier bytes
-        rode the wire inside this wall time.  A no-op when no plan was
-        noted or the estimator is frozen."""
+        rode the wire inside this wall time.  Called from
+        ``obs.instrument.wrap_step``; a no-op when no plan was noted or
+        the estimator is frozen."""
         with self._lock:
             plan = dict(self._plan_bytes)
         if not plan or step_time_s <= 0:
@@ -290,6 +295,17 @@ class OnlineEstimator:
         if dist.is_initialized() and dist.get_world_size() > 1:
             return self.prior
         return self.params()
+
+
+    def _publish(self) -> None:
+        from ..obs import instrument
+
+        if not instrument.enabled():
+            return
+        p = self.params()
+        for name in TIERS:
+            t = p.tier(name)
+            instrument.on_topo_estimator(name, t.alpha_us, t.beta_gbps)
 
 
 _estimator: Optional[OnlineEstimator] = None   # guarded-by: _est_lock

@@ -35,6 +35,11 @@ steps under ``pallas`` to its fused Pallas kernels; the port has one
 int8 wire, already on its Hopper kernels, so both values lower to the
 same B2–B4 calls and give the same bits, as the reference's two
 backends do.
+
+Telemetry: :func:`record_plans` publishes the ``hvd_tpu_topo_*``
+metrics, and each stage of a hierarchical schedule runs under its span
+(``hvd_tpu_topo_rs_intra``, ``_xpod``, ``_ag_intra``, with the
+reference's args), every step.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs import instrument as _obs
+from ..obs import trace as _trace
 from ..ops.collectives import Handle
 from .costmodel import (TopoCostParams, default_params, estimator,
                         flat_cost_us, hierarchical_cost_us,
@@ -247,12 +254,12 @@ def record_plans(scheds: Sequence[CollectiveSchedule], compression,
     """The plan record of a set of compiled bucket schedules: schedules
     by algorithm and by kernel, wire bytes a tier (scaled by the
     compressor's wire ratio), modeled µs a tier, the structural
-    materialization count; the per-tier bytes go to the estimator
+    materialization count.  It is published as the ``hvd_tpu_topo_*``
+    metrics (:func:`..obs.instrument.on_topo_plan`, once per build of a
+    step) and the per-tier bytes go to the estimator
     (:meth:`~.costmodel.OnlineEstimator.note_plan`).  ``params`` must be
-    the point the schedules were compiled with.  Returns the record
-    (the reference publishes it as ``hvd_tpu_topo_*`` metrics, which
-    wait for the port's observability layer); an empty dict for no
-    schedules."""
+    the point the schedules were compiled with.  Returns the record; an
+    empty dict for no schedules."""
     from ..ops.fusion import wire_ratio
 
     scheds = list(scheds)
@@ -280,6 +287,8 @@ def record_plans(scheds: Sequence[CollectiveSchedule], compression,
         else:
             t = "dcn" if sched.topo.pods > 1 else "ici"
             tier_cost[t] = tier_cost.get(t, 0.0) + sched.est_cost_us
+    _obs.on_topo_plan(by_algo, tier_bytes=tier_bytes, est_cost_us=tier_cost,
+                      kernels=by_kernel, hbm_materializations=hbm_mats)
     estimator().note_plan(tier_bytes)
     return {"algos": by_algo, "kernels": by_kernel,
             "tier_bytes": tier_bytes, "est_cost_us": tier_cost,
@@ -289,6 +298,23 @@ def record_plans(scheds: Sequence[CollectiveSchedule], compression,
 # --- execution ---------------------------------------------------------------
 # Every stage below is a collective on a torch group: every rank runs the
 # same schedule at the same point of its program.
+
+def _stage_span(sched: CollectiveSchedule, i: int, compression):
+    """The span of stage ``i`` of a hierarchical schedule (rs_intra,
+    xpod, ag_intra) with the reference's args: the stage's bytes and, on
+    the intra-pod tier, the lowering backend the reference's rule picks
+    (``pallas`` for the int8 wire under ``kernel=pallas``)."""
+    step = sched.steps[i]
+    args = {"bytes": step.payload_bytes}
+    if step.tier == "ici":
+        args["kernel"] = (KERNEL_PALLAS if sched.kernel == KERNEL_PALLAS
+                          and _is_int8(compression) else KERNEL_SPMD)
+    return _trace.span(_STAGE_SPANS[i], args=args)
+
+
+_STAGE_SPANS = ("hvd_tpu_topo_rs_intra", "hvd_tpu_topo_xpod",
+                "hvd_tpu_topo_ag_intra")
+
 
 def _padded(x: torch.Tensor, n: int) -> torch.Tensor:
     pad = (-x.numel()) % n
@@ -316,10 +342,13 @@ def execute_schedule(x: torch.Tensor, sched: CollectiveSchedule, *,
                                                group=None)
         return compression.spmd_allgather(shard, group=None)[:x.numel()]
     intra, cross = tier_groups(sched.topo)
-    frag = compression.spmd_reducescatter(_padded(x, n), op="sum",
-                                          group=intra)
-    frag = compression.spmd_allreduce(frag, op="sum", group=cross)
-    out = compression.spmd_allgather(frag, group=intra)[:x.numel()]
+    with _stage_span(sched, 0, compression):
+        frag = compression.spmd_reducescatter(_padded(x, n), op="sum",
+                                              group=intra)
+    with _stage_span(sched, 1, compression):
+        frag = compression.spmd_allreduce(frag, op="sum", group=cross)
+    with _stage_span(sched, 2, compression):
+        out = compression.spmd_allgather(frag, group=intra)[:x.numel()]
     return out / n if op == "average" else out
 
 
@@ -335,12 +364,14 @@ def hierarchical_reduce_scatter_start(x: torch.Tensor,
     :func:`hierarchical_all_gather` inverts."""
     n = sched.topo.size
     intra, cross = tier_groups(sched.topo)
-    rs_intra = compression.spmd_reducescatter_async(x, op="sum",
-                                                    group=intra)
+    with _stage_span(sched, 0, compression):
+        rs_intra = compression.spmd_reducescatter_async(x, op="sum",
+                                                        group=intra)
 
     def finish():
-        shard = compression.spmd_reducescatter(rs_intra.wait(), op="sum",
-                                               group=cross)
+        with _stage_span(sched, 1, compression):
+            shard = compression.spmd_reducescatter(rs_intra.wait(),
+                                                   op="sum", group=cross)
         return shard / n if op == "average" else shard
 
     return Handle(rs_intra.works, finish)
@@ -361,9 +392,15 @@ def hierarchical_all_gather_start(shard: torch.Tensor,
     all-gather that rebuilds the whole padded buffer, the exact inverse
     of :func:`hierarchical_reduce_scatter`'s permutation."""
     intra, cross = tier_groups(sched.topo)
-    ag_cross = compression.spmd_allgather_async(shard, group=cross)
-    return Handle(ag_cross.works, lambda: compression.spmd_allgather(
-        ag_cross.wait(), group=intra))
+    with _stage_span(sched, 1, compression):
+        ag_cross = compression.spmd_allgather_async(shard, group=cross)
+
+    def finish():
+        frag = ag_cross.wait()
+        with _stage_span(sched, 2, compression):
+            return compression.spmd_allgather(frag, group=intra)
+
+    return Handle(ag_cross.works, finish)
 
 
 def hierarchical_all_gather(shard: torch.Tensor, sched: CollectiveSchedule,

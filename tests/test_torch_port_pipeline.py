@@ -359,6 +359,36 @@ def test_layer_stage_mismatch_rejected():
                      make_mesh({"pp": 4}, world=N), device="cpu")
 
 
+def test_pipelined_gpt_takes_dp_axis():
+    """F7: ``PipelinedGPT(dp_axis=)`` and ``pipeline_apply(dp_axis=)``, as
+    the reference's take them.  On a world of one over ``{'dp': 1, 'pp':
+    1}`` the pipelined model with ``dp_axis='dp'`` resolves the axes as
+    :func:`pipeline_axes` does and gives ``GPT``'s logits from the same
+    seed (one stage, one microbatch path), within 1e-5."""
+    from horovod_tpu_torch import init, shutdown
+    from horovod_tpu_torch.models import GPT
+
+    cfg = GPTConfig(**CFG, dtype=torch.float32)
+    init(device="cpu")
+    try:
+        mesh = make_mesh({"dp": 1, "pp": 1})
+        model = PipelinedGPT(cfg, mesh, dp_axis="dp", n_micro=2,
+                             device="cpu", seed=3)
+        assert (model.pp_axis, model.dp_axis) == ("pp", "dp")
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, CFG["vocab_size"], (2, 8)))
+        want = GPT(cfg, device="cpu", seed=3)(tokens)
+        np.testing.assert_allclose(model(tokens).detach().numpy(),
+                                   want.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        x = torch.arange(32.0).reshape(4, 8)
+        out = pipeline_apply(lambda _, h: 2 * h, None, x, mesh=mesh,
+                             n_micro=2, dp_axis="dp")
+        np.testing.assert_array_equal(out.numpy(), 2 * x.numpy())
+    finally:
+        shutdown()
+
+
 def test_stack_and_placement():
     """``stack_stage_params`` stacks leaf by leaf (the reference's
     ``jnp.stack``), and every stacked leaf is placed ``P(pp)``."""

@@ -1135,3 +1135,109 @@ class TestTrainStepIntegration:
             _assert_close(exact[r]["params"], lossy[r]["params"], rtol=5e-2,
                           atol=5e-2)
             assert lossy[r]["noted"] == 2
+
+
+# --- telemetry: the hvd_tpu_topo_* metrics and the stage spans ---------------
+
+def _ref_stage_spans(numel, compression, kernel):
+    """The reference's stage spans, recorded while its hierarchical
+    ``execute_schedule`` and overlap halves are traced (the reference's
+    spans fire at trace time), each under a root span, as
+    ``workers._span_tree`` lays them out."""
+    from horovod_tpu.obs import trace as jtrace
+
+    mesh = Mesh(np.array(jax.devices()[:N]), ("hvd",))
+    sched = js.compile_bucket_schedule(numel * 4, REF_TOPO,
+                                       force=ALGO_HIERARCHICAL,
+                                       kernel=kernel)
+    comp = getattr(JaxCompression, compression)
+
+    def allreduce(xb):
+        return js.execute_schedule(xb[0], sched, axis="hvd", op="average",
+                                   compression=comp)[None]
+
+    def halves(xb):
+        shard = js.hierarchical_reduce_scatter(xb[0], sched, axis="hvd",
+                                               op="sum", compression=comp)
+        return js.hierarchical_all_gather(shard, sched, axis="hvd",
+                                          compression=comp)[None]
+
+    jtrace.clear()
+    x = jnp.zeros((N, numel), jnp.float32)
+    for body in (allreduce, halves):
+        with jtrace.span("hvd_tpu_step", root=True):
+            jax.jit(shard_map(body, mesh=mesh, in_specs=P("hvd"),
+                              out_specs=P("hvd"), check=False)).lower(x)
+    spans = jtrace.snapshot()
+    jtrace.clear()
+    return workers._span_tree(spans)
+
+
+@pytest.mark.parametrize("compression,kernel", [("int8", "spmd"),
+                                                ("none", "pallas")])
+def test_stage_spans_and_topo_metrics(world, compression, kernel):
+    """Every step's root holds the three stage spans of its hierarchical
+    bucket (the reference's fire once, at trace time, under the first
+    step's root); the spans of one ``execute_schedule`` and of the
+    overlap wire's halves equal the reference's (names, args, parents);
+    the build records its plan once (3 steps: one hierarchical schedule,
+    one ``two_phase`` fusion record), and the estimator fed by the steps
+    publishes both tiers' β."""
+    x, y = _data()
+    numel = 1024
+    out = world.run("topo_obs", x=x, y=y, steps=3, numel=numel,
+                    compression=compression, kernel=kernel)
+    want = _ref_stage_spans(numel, compression, kernel)
+    stages = ["hvd_tpu_topo_rs_intra", "hvd_tpu_topo_xpod",
+              "hvd_tpu_topo_ag_intra"]
+    for r in range(N):
+        o = out[r]
+        assert [[name for name, _ in kids] for kids in o["per_step"]] == \
+            [stages] * 3
+        assert [[list(t) for t in o["schedule"]]] == \
+            [[list(t) for t in want]]
+        snap = o["snapshot"]
+
+        def value(name, **labels):
+            return [row["value"] for row in snap.get(name, [])
+                    if row["labels"] == labels]
+
+        assert value("hvd_tpu_topo_schedules_total",
+                     algo=ALGO_HIERARCHICAL) == [1.0]
+        assert value("hvd_tpu_topo_kernel_schedules_total",
+                     kernel="spmd") == [1.0]
+        assert value("hvd_tpu_fusion_traces_total", tier="two_phase") == \
+            [1.0]
+        for tier in ("ici", "dcn"):
+            assert value("hvd_tpu_topo_wire_bytes_total", tier=tier)[0] > 0
+            assert value("hvd_tpu_topo_cost_beta_gbps", tier=tier)[0] > 0
+
+
+@pytest.mark.parametrize("comp", COMPS)
+def test_record_plans_publishes_as_the_reference(monkeypatch, comp):
+    """``record_plans`` of the same compiled schedules (every algorithm, at
+    the MIXED point) publishes the reference's ``hvd_tpu_topo_*``
+    families and values, and still returns its record."""
+    from horovod_tpu.obs import metrics as jmetrics
+    from horovod_tpu_torch.obs import metrics
+
+    for mod in (jmetrics, metrics):
+        monkeypatch.setattr(mod, "_default", mod.MetricsRegistry())
+        monkeypatch.setattr(mod, "_enabled", True)
+    topo = MeshTopology(2, 2)
+    scheds = [compile_bucket_schedule(b, topo, _port_params(MIXED),
+                                      force=algo)
+              for algo in ALGOS for b in (4096, 1 << 20)]
+    ref = [js.compile_bucket_schedule(b, REF_TOPO, _ref_params(MIXED),
+                                      force=algo)
+           for algo in ALGOS for b in (4096, 1 << 20)]
+    record = record_plans(scheds, getattr(thvd.Compression, comp), 4,
+                          params=_port_params(MIXED))
+    js.record_plans(ref, getattr(JaxCompression, comp), 4,
+                    params=_ref_params(MIXED))
+    snap = metrics.registry().snapshot()
+    assert snap == jmetrics.registry().snapshot()
+    assert record["algos"] == {a: 2 for a in ALGOS}
+    assert {row["labels"]["tier"]: row["value"]
+            for row in snap["hvd_tpu_topo_wire_bytes_total"]} == \
+        record["tier_bytes"]

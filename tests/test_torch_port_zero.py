@@ -22,6 +22,7 @@ from horovod_tpu.models.transformer import lm_loss_fn as jax_lm_loss_fn
 from horovod_tpu.ops.compression import Compression as JaxCompression
 from horovod_tpu.optim.zero import make_zero_train_step as jax_zero_step
 
+import horovod_tpu as jhvd
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.ops.compression import Compression
 
@@ -208,6 +209,80 @@ def test_small_updates_survive_the_int8_wire(world):
     assert 0 < drift < 1e-3, drift
     np.testing.assert_array_equal(out[1]["params"]["w"][0],
                                   out[0]["params"]["w"][0])
+
+
+def test_reference_keywords_match_the_dp_oracle(world):
+    """F7: ``make_train_step(distributed=, mesh=, axis_name=)`` and
+    ``make_zero_train_step(has_aux=, mesh=, axis_name=)`` take the
+    reference's keywords.  The port's two DP steps (a plain optimizer
+    with ``distributed=True`` on an explicit mesh, and a
+    ``DistributedOptimizer`` with ``distributed=False``) against the
+    reference's DP oracle of ``tests/test_zero.py:51`` (4 steps of
+    SGD(0.1, momentum 0.9)): losses within rtol 1e-5, parameters within
+    rtol 1e-4 / atol 1e-5.  ZeRO with ``op=Sum`` and ``has_aux``
+    (``tests/test_zero.py:93``): the reference stacks the slots' auxes,
+    the port returns each rank's own, so rank ``r``'s aux is the
+    reference's slot ``r`` (rtol 1e-6); the parameters within rtol 1e-5
+    / atol 1e-6."""
+    from test_zero import _toy_problem
+
+    params, loss_fn, make_batch = _toy_problem()
+    x, y = (np.asarray(a) for a in make_batch(8 * N))
+    tx = optax.sgd(0.1, momentum=0.9)
+    ref_step = jhvd.make_train_step(loss_fn, tx, mesh=_mesh(),
+                                    axis_name="hvd", distributed=True,
+                                    donate=False)
+    rp, rs = params, tx.init(params)
+    for _ in range(4):
+        rp, rs, rloss = ref_step(rp, rs, (jnp.asarray(x), jnp.asarray(y)))
+
+    def loss_aux(p, batch):
+        loss = loss_fn(p, batch)
+        return loss, {"loss_copy": loss}
+
+    init, zstep = jax_zero_step(loss_aux, optax.sgd(0.01), mesh=_mesh(),
+                                op=jhvd.Sum, has_aux=True, donate=False)
+    zp, _, zloss, zaux = zstep(params, init(params),
+                               (jnp.asarray(x), jnp.asarray(y)))
+    out = world.run("keyword_steps", w=np.asarray(params["w"]), x=x, y=y,
+                    steps=4)
+    for r in range(N):
+        for kind in ("dp", "dist_opt"):
+            got = out[r][kind]
+            np.testing.assert_allclose(got["losses"][-1], float(rloss),
+                                       rtol=1e-5)
+            for name in params:
+                np.testing.assert_allclose(got["params"][name],
+                                           np.asarray(rp[name]), rtol=1e-4,
+                                           atol=1e-5, err_msg=kind + name)
+        z = out[r]["zero"]
+        np.testing.assert_allclose(z["aux"], float(zaux["loss_copy"][r]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(z["loss"], float(zloss), rtol=1e-6)
+        for name in params:
+            np.testing.assert_allclose(z["params"][name],
+                                       np.asarray(zp[name]), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+
+
+def test_fsdp_keeps_torch_weight_tying(world):
+    """F8: an ``Embedding(8, 4)`` whose weight is also a ``Linear(4, 8)``'s,
+    through ``make_fsdp_train_step`` on two ranks: every owner of the
+    shared parameter sees the whole weight, and 3 Adam steps match the
+    data-parallel step within ``tests/test_torch_port_fsdp.py``'s limits
+    (losses rtol 1e-4, the weight rtol 2e-4 / atol 1e-6)."""
+    rng = np.random.RandomState(5)
+    emb = rng.randn(8, 4).astype(np.float32)
+    tokens = rng.randint(0, 8, (4, 6)).astype(np.int64)
+    targets = rng.randint(0, 8, (4, 6)).astype(np.int64)
+    out = world.run("tied_fsdp", emb=emb, tokens=tokens, targets=targets,
+                    steps=3)
+    for r in range(N):
+        dp, fsdp = out[r]["dp"], out[r]["fsdp"]
+        np.testing.assert_allclose(fsdp["losses"], dp["losses"], rtol=1e-4)
+        np.testing.assert_allclose(fsdp["weight"], dp["weight"], rtol=2e-4,
+                                   atol=1e-6)
+        assert fsdp["losses"][-1] < fsdp["losses"][0]
 
 
 def test_zero_rejects_adasum():

@@ -957,15 +957,17 @@ def topo_overlap(microbatches: list, op: str, compression: str,
 def topo_toy_steps(env: dict, **kwargs) -> dict:
     """:func:`toy_steps` under the knobs ``env``, from a fresh estimator;
     ``noted`` is how many tiers the last compiled plan noted (2 for a
-    hierarchical plan, 0 when no compiler ran)."""
+    hierarchical plan, 0 when no compiler ran): the samples one more
+    refinement adds (the instrumented steps have fed it already)."""
     from horovod_tpu_torch.topo import costmodel
 
     costmodel.reset_estimator()
     out = toy_steps(env=env, **kwargs)
     est = costmodel.estimator()
     est.freeze(False)
+    before = est.samples
     est.refine_from_step(1e-3)
-    out["noted"] = est.samples
+    out["noted"] = est.samples - before
     costmodel.reset_estimator()
     return out
 
@@ -1651,3 +1653,223 @@ def autotune_steps(env: dict, steps: int, w: np.ndarray, b: np.ndarray,
                    config=dc.asdict(hvd.config()),
                    plan=hvd.mesh_plan().describe())
     return out
+
+
+# --- the sharded entry points' reference keywords and tied weights ----------
+
+class _LinToy(torch.nn.Module):
+    """``tests/test_zero.py``'s toy: ``(x @ w + b) * scale``."""
+
+    def __init__(self, w: np.ndarray) -> None:
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(w.copy()))
+        self.b = torch.nn.Parameter(torch.zeros(w.shape[1]))
+        self.scale = torch.nn.Parameter(torch.ones(()))
+
+
+def _lin_loss(module, batch):
+    x, y = batch
+    pred = (x @ module.w + module.b) * module.scale
+    return ((pred - y) ** 2).mean()
+
+
+def keyword_steps(w: np.ndarray, x: np.ndarray, y: np.ndarray,
+                  steps: int) -> dict:
+    """The reference keywords of the entry points, each rank on its rows:
+    ``make_train_step(distributed=True, mesh=, axis_name=)`` with a plain
+    SGD(0.1, momentum 0.9), ``make_train_step(distributed=False)`` with
+    that SGD in a ``DistributedOptimizer`` (the optimizer reduces), and
+    one ``make_zero_train_step(op=Sum, has_aux=True, mesh=, axis_name=)``
+    step with SGD(0.01)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import make_mesh
+
+    batch = (_my_rows(x), _my_rows(y))
+    mesh = make_mesh({"hvd": hvd.size()})
+
+    def sgd(ps, lr=0.1):
+        return torch.optim.SGD(ps, lr=lr, momentum=0.9 if lr == 0.1 else 0)
+
+    def params(model):
+        return {n: p.detach().numpy().copy()
+                for n, p in model.named_parameters()}
+
+    out = {}
+    model = _LinToy(w)
+    step = hvd.make_train_step(_lin_loss, sgd(list(model.parameters())),
+                               distributed=True, mesh=mesh, axis_name="hvd")
+    out["dp"] = dict(losses=[float(step(model, batch)) for _ in range(steps)],
+                     params=params(model))
+    model = _LinToy(w)
+    opt = hvd.DistributedOptimizer(sgd(list(model.parameters())),
+                                   named_parameters=model.named_parameters())
+    step = hvd.make_train_step(_lin_loss, opt, distributed=False)
+    out["dist_opt"] = dict(
+        losses=[float(step(model, batch)) for _ in range(steps)],
+        params=params(model))
+
+    def loss_aux(m, b):
+        loss = _lin_loss(m, b)
+        return loss, {"loss_copy": loss}
+
+    model = _LinToy(w)
+    step = hvd.make_zero_train_step(loss_aux, lambda ps: sgd(ps, lr=0.01),
+                                    op=hvd.Sum, has_aux=True, mesh=mesh,
+                                    axis_name="hvd")
+    loss, aux = step(model, batch)
+    out["zero"] = dict(loss=float(loss), aux=float(aux["loss_copy"]),
+                       params=params(model))
+    return out
+
+
+class _Tied(torch.nn.Module):
+    """An ``Embedding(8, 4)`` whose weight is also the head
+    ``Linear(4, 8)``'s: torch's weight tying, one ``Parameter`` in two
+    modules."""
+
+    def __init__(self, emb: np.ndarray) -> None:
+        super().__init__()
+        self.emb = torch.nn.Embedding(*emb.shape)
+        self.head = torch.nn.Linear(emb.shape[1], emb.shape[0], bias=False)
+        with torch.no_grad():
+            self.emb.weight.copy_(torch.from_numpy(emb))
+        self.head.weight = self.emb.weight
+
+
+def _tied_loss(module, batch):
+    tokens, targets = batch
+    logits = module.head(module.emb(tokens))
+    return torch.nn.functional.cross_entropy(logits.reshape(-1, 8),
+                                             targets.reshape(-1))
+
+
+def tied_fsdp(emb: np.ndarray, tokens: np.ndarray, targets: np.ndarray,
+              steps: int) -> dict:
+    """``steps`` Adam(1e-2) steps of the tied toy, each rank on its rows,
+    through ``make_fsdp_train_step`` and through the data-parallel
+    ``make_train_step``: losses and the whole tied weight."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optim import make_fsdp_train_step
+
+    batch = (_my_rows(tokens).long(), _my_rows(targets).long())
+    out = {}
+    model = _Tied(emb)
+    step = hvd.make_train_step(_tied_loss,
+                               torch.optim.Adam(model.parameters(), lr=1e-2))
+    out["dp"] = dict(losses=[float(step(model, batch)) for _ in range(steps)],
+                     weight=model.emb.weight.detach().numpy().copy())
+    model = _Tied(emb)
+    shard, step = make_fsdp_train_step(
+        _tied_loss, lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    model, opt = shard(model)
+    losses = [float(step(model, opt, batch)) for _ in range(steps)]
+    out["fsdp"] = dict(losses=losses,
+                       weight=step.gather(model)["emb.weight"].numpy())
+    return out
+
+
+# --- observability ------------------------------------------------------------
+
+def obs_cross_rank(step_times: list, gauges: list, factor: float) -> dict:
+    """This rank's step times into a fresh registry's step-time histogram,
+    then the collective ``cross_rank_summary`` with the gauge ``my_gauge``
+    (``gauges[rank]``); returns the summary and the straggler gauges."""
+    from horovod_tpu_torch.obs import aggregate, metrics
+
+    import horovod_tpu_torch as hvd
+
+    reg = metrics.registry()
+    reg.reset()
+    hist = reg.histogram("hvd_tpu_step_time_seconds").labels(kind="train")
+    for t in step_times[hvd.rank()]:
+        hist.observe(t)
+    out = aggregate.cross_rank_summary({"my_gauge": gauges[hvd.rank()]},
+                                       factor=factor)
+    snap = reg.snapshot()
+    return {"summary": out,
+            "suspect": snap["hvd_tpu_straggler_suspect"][0]["value"],
+            "skew": snap["hvd_tpu_step_time_skew"][0]["value"]}
+
+
+def obs_plan_records(x: np.ndarray, y: np.ndarray, steps: int,
+                     microbatches: int) -> dict:
+    """``steps`` SGD(0.1) steps of the toy regression with ``microbatches``
+    on the overlap wire, from a fresh registry, then one step of a second
+    build: the registry's snapshot after the first build's steps and
+    after the rebuild."""
+    from horovod_tpu_torch.obs import metrics
+
+    import horovod_tpu_torch as hvd
+
+    metrics.registry().reset()
+    model = _Linear(x.shape[1])
+    batch = (_my_rows(x), _my_rows(y))
+
+    def build():
+        return hvd.make_train_step(
+            _mse, torch.optim.SGD(model.parameters(), lr=0.1),
+            microbatches=microbatches, overlap=True)
+
+    step = build()
+    for _ in range(steps):
+        step(model, batch)
+    first = metrics.registry().snapshot()
+    build()(model, batch)
+    return {"first": first, "rebuilt": metrics.registry().snapshot()}
+
+
+def _span_tree(spans: list) -> list:
+    """``(name, args, parent's index or None)`` of each span, in ring
+    order (ids are random: the structure is what compares)."""
+    index = {sp["span_id"]: i for i, sp in enumerate(spans)}
+    return [(sp["name"], sp["args"], index.get(sp["parent_id"]))
+            for sp in spans]
+
+
+def topo_obs(x: np.ndarray, y: np.ndarray, steps: int, numel: int,
+             compression: str, kernel: str) -> dict:
+    """The topology layer's telemetry on this rank, from a fresh registry
+    and span ring: ``steps`` SGD steps of the toy regression under a 2x2
+    hierarchical schedule (each step root's span tree, the ``topo``
+    metrics, the estimator's gauges), then one hierarchical
+    ``execute_schedule`` of ``numel`` elements and the overlap wire's
+    two halves on ``compression`` with the IR's ``kernel``, each under a
+    root span of its own."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import metrics, trace
+    from horovod_tpu_torch.topo import costmodel, schedule
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    metrics.registry().reset()
+    trace.clear()
+    costmodel.reset_estimator()
+    env = {"HVD_TPU_TOPO_SPEC": "2x2", "HVD_TPU_TOPO_SCHEDULE":
+           "hierarchical"}
+    with _knobs(env):
+        trace.clear()
+        model = _Linear(x.shape[1])
+        step = hvd.make_train_step(_mse, torch.optim.SGD(
+            model.parameters(), lr=0.1))
+        for _ in range(steps):
+            step(model, (_my_rows(x), _my_rows(y)))
+        spans = trace.snapshot()
+    roots = [i for i, sp in enumerate(spans) if sp["name"] == "hvd_tpu_step"]
+    tree = _span_tree(spans)
+    per_step = [[(name, args) for name, args, parent in tree
+                 if parent == r] for r in roots]
+    snap = metrics.registry().snapshot()
+
+    trace.clear()
+    comp = getattr(hvd.Compression, compression)
+    sched = schedule.compile_bucket_schedule(
+        numel * 4, MeshTopology(2, 2), force="hierarchical", kernel=kernel)
+    xr = torch.arange(numel, dtype=torch.float32) * (1 + hvd.rank())
+    with trace.span("hvd_tpu_step", root=True):
+        schedule.execute_schedule(xr, sched, op="average", compression=comp)
+    with trace.span("hvd_tpu_step", root=True):
+        shard = schedule.hierarchical_reduce_scatter(xr, sched, op="sum",
+                                                     compression=comp)
+        schedule.hierarchical_all_gather(shard, sched, compression=comp)
+    costmodel.reset_estimator()
+    return {"per_step": per_step, "snapshot": snap,
+            "schedule": _span_tree(trace.snapshot())}
