@@ -239,14 +239,45 @@
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-19. Route check: the profiler's device trace must show a bf16
+19. "durable 1 rank": GPT-medium (24 layers) with the "1 rank"
+   phase's AdamW on the int8+EF wire, a batch of 8 x 1024 tokens a
+   step from seed 1000 + step, deterministic algorithms on.  Run A: 6
+   steps, twice (the run-to-run floor).  Run B: ``TorchState(model,
+   optimizer, step=)`` with ``attach_durable(AsyncCheckpointer(tmp,
+   max_to_keep=2), every=2)``, each step journaled (its token seed) and
+   committed, stopped after step 4, the writer drained; the model,
+   optimizer and checkpointer dropped.  A model from another seed
+   ``resume()``s: step 4 with no journal tail, and steps 5-6 must equal
+   run A's losses and final parameters bit for bit (or within A's
+   run-to-run spread, said so).  Damage drill: under
+   ``checkpoint:step=4,mode=corrupt`` step 4 is written again and
+   bit-flipped; a model from a third seed ``resume()``s at step 2 with
+   the journal's 3-6, the flight ring holds the damaged-step event, and
+   the replay of 3-6 must equal run A.  The temp dir's free space is
+   checked first (a save is ~5.9 GB).  Prints the save stall (p50, max),
+   the write time, bytes a save, the restore time, the commit (device to
+   pinned host) and the step times with and without saves.  Its launch
+   counts are run B's, the resume's and the replay's (not run A's).
+20. "elastic 2 ranks": two processes share the card over gloo in a
+   group the session owns (``init(backend="gloo")`` from torchrun's
+   variables), GPT-medium's widths at WIRE_LAYERS layers, the int8+EF
+   wire: an ``@elastic.run`` loop of 4 steps, each committing and
+   allreducing its loss eagerly.  Unfaulted, with ``state.sync()``
+   after the step-2 commit; then under ``collective:step=2``: the fault
+   must fire once on each rank, 2 tries, 1
+   ``hvd_tpu_elastic_resets_total{kind="rollback"}``, a re-init on
+   cuda:0 over gloo one rendezvous generation on, the flight dump must
+   name the spec and carry the one firing, and the final parameters
+   must equal the unfaulted run's bit for bit (the sync hands both ranks
+   rank 0's residual); B1-B4 must launch.
+21. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-20. Prints the ``kernels`` JSON line (all seven kernels, with their
+22. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -3707,6 +3738,384 @@ def convnet_phase(dev, card: str):
     return counts
 
 
+# --- durable state and recovery ------------------------------------------------
+
+DURABLE_STEPS, DURABLE_EVERY, DURABLE_CRASH = 6, 2, 4
+DURABLE_SEED0 = 1000             # step s draws its tokens from seed 1000 + s
+ELASTIC_STEPS, ELASTIC_FAULT = 4, 2   # "elastic 2 ranks": dispatch 2 fails
+
+
+def durable_batch(dev, seed: int):
+    """A batch of GPT-medium tokens from ``seed`` (the seed the journal
+    records for its step)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, GPT_MEDIUM["vocab_size"], (BATCH, SEQ + 1),
+                           generator=gen, device=dev)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def durable_model(dev, seed: int, n_layer: int = GPT_MEDIUM["n_layer"]):
+    """(model, optimizer, step): GPT-medium from ``seed`` and
+    :func:`dp_step`'s AdamW on the int8+EF wire, the optimizer kept."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": n_layer})
+    model = hvd.models.GPT(cfg, device=dev, seed=seed)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        compression=hvd.Compression.int8, error_feedback=True)
+    return model, opt, hvd.make_train_step(hvd.models.lm_loss_fn(model), opt)
+
+
+def param_digest(model) -> str:
+    return digest(p for _, p in sorted(model.named_parameters()))
+
+
+def durable_run_a(dev) -> dict:
+    """Run A: DURABLE_STEPS steps from seed 0, uninterrupted."""
+    import torch
+
+    model, _, step = durable_model(dev, 0)
+    losses, times = [], []
+    for s in range(1, DURABLE_STEPS + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, durable_batch(dev, DURABLE_SEED0 + s))))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    params = {n: p.detach().to("cpu", copy=True)
+              for n, p in model.named_parameters()}
+    return dict(losses=losses, times=times, digest=param_digest(model),
+                params=params)
+
+
+def durable_replay(dev, step, model, entries) -> list:
+    """Run the journaled steps ``entries`` (each batch from its ``rng``
+    seed): their losses."""
+    return [float(step(model, durable_batch(dev, int(e["rng"]))))
+            for e in entries]
+
+
+def ckpt_summary(name: str) -> dict:
+    """The registry's summary of the unlabelled histogram ``name``."""
+    from horovod_tpu_torch.obs import metrics
+
+    return metrics.registry().snapshot()[name][0]
+
+
+def durable_phase(dev, card: str) -> dict:
+    """Path "durable 1 rank": GPT-medium at full width and depth with
+    :func:`dp_step`'s AdamW on the int8+EF wire.
+
+    Run A (twice: the run-to-run floor): DURABLE_STEPS steps.  Run B: a
+    ``TorchState`` with ``attach_durable(AsyncCheckpointer, every=2)``,
+    each step journaled (its token seed) and committed, stopped after
+    step DURABLE_CRASH; the writer drained; the model, optimizer and
+    checkpointer dropped (the crash).  Resume into a model built from
+    another seed: ``resume()`` must hand back step DURABLE_CRASH, and
+    steps 5-6 must equal run A's, losses and final parameters, bit for
+    bit (or within A's own run-to-run spread).  Damage drill: under
+    ``checkpoint:step=4,mode=corrupt`` step 4 is written again (and
+    bit-flipped); ``resume()`` must fall back to step 2 plus the journal
+    tail 3-6, leave ``ckpt_step_damaged`` in the flight ring, and the
+    replay of 3-6 equal run A.  The launch counts: run B, the resume and
+    the replay (not run A, the oracle)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.ckpt import AsyncCheckpointer
+    from horovod_tpu_torch.elastic import TorchState
+    from horovod_tpu_torch.obs import flight, metrics
+
+    t_phase = time.perf_counter()
+    # cuBLAS and the kernels are deterministic on one stream; this makes
+    # torch pick its deterministic implementations too (and warn where
+    # it has none), for the bit-for-bit oracle.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    a1 = durable_run_a(dev)
+    torch.cuda.empty_cache()
+    a2 = durable_run_a(dev)
+    torch.cuda.empty_cache()
+    deterministic = a1["digest"] == a2["digest"] and a1["losses"] == a2["losses"]
+    spread = max(float((a1["params"][n] - a2["params"][n]).abs().max())
+                 for n in a1["params"])
+    loss_spread = max(abs(x - y) for x, y in zip(a1["losses"], a2["losses"]))
+    del a2
+    n_params = sum(p.numel() for p in a1["params"].values())
+    log(f"durable 1 rank: GPT-medium {n_params} params; run A twice: "
+        f"losses {a1['losses']}, run-to-run parameter spread {spread}, "
+        f"loss spread {loss_spread}"
+        + ("" if deterministic else " (the step is not deterministic)"))
+
+    def agrees(losses, want, model) -> bool:
+        if deterministic:
+            return losses == want and param_digest(model) == a1["digest"]
+        got = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        return (max(abs(x - y) for x, y in zip(losses, want)) <= loss_spread
+                and max(float((got[n] - a1["params"][n]).abs().max())
+                        for n in got) <= spread)
+
+    tmp = tempfile.mkdtemp(prefix="hvd_durable_")
+    try:
+        per_save = 4 * n_params * 4           # params, two moments, residual
+        free = shutil.disk_usage(tmp).free
+        log(f"durable 1 rank: {free / 2**30:.1f} GiB free under {tmp}, "
+            f"{per_save / 2**30:.2f} GiB a save")
+        if free < 3.5 * per_save:
+            raise AssertionError(
+                f"durable 1 rank: {free / 2**30:.1f} GiB free under {tmp}; "
+                f"the phase keeps 2 saves of {per_save / 2**30:.2f} GiB and "
+                "writes a third beside them")
+
+        # Run B, stopped after step DURABLE_CRASH.  The launch counts are
+        # the path's own: run B, the resume and the replay.
+        hvd.ops.reset_launch_counts()
+        model, opt, step = durable_model(dev, 0)
+        ck = AsyncCheckpointer(tmp, max_to_keep=2, async_save=True)
+        state = TorchState(model=model, optimizer=opt, step=0)
+        state.attach_durable(ck, every=DURABLE_EVERY)
+        b_times, commit_times = [], []
+        for s in range(1, DURABLE_CRASH + 1):
+            t0 = time.perf_counter()
+            step(model, durable_batch(dev, DURABLE_SEED0 + s))
+            t1 = time.perf_counter()
+            state.step = s
+            state.journal_step(s, rng=DURABLE_SEED0 + s)
+            state.commit()
+            torch.cuda.synchronize()
+            commit_times.append(time.perf_counter() - t1)
+            b_times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ck.wait_until_finished()
+        drain = time.perf_counter() - t0
+        ck.close()
+        stall, write = (ckpt_summary("hvd_tpu_ckpt_save_stall_us"),
+                        ckpt_summary("hvd_tpu_ckpt_write_us"))
+        saved = ck._store.read_manifest(DURABLE_CRASH).nbytes
+        del state, model, opt, step, ck              # the crash
+        torch.cuda.empty_cache()
+
+        # Resume into a model from another seed.
+        model, opt, step = durable_model(dev, 7)
+        before = param_digest(model)
+        ck = AsyncCheckpointer(tmp, max_to_keep=2, async_save=True)
+        state = TorchState(model=model, optimizer=opt, step=0)
+        t0 = time.perf_counter()
+        info = ck.resume()
+        restore_s = time.perf_counter() - t0
+        if (info.snapshot_step, info.exact_step, info.replay) != \
+                (DURABLE_CRASH, DURABLE_CRASH, []):
+            raise AssertionError(f"durable 1 rank: resume() gave step "
+                                 f"{info.snapshot_step} + {info.replay}")
+        state.load_payload(info.tree)
+        del info
+        if param_digest(model) == before or int(state.step) != DURABLE_CRASH:
+            raise AssertionError("durable 1 rank: the restore changed "
+                                 "nothing")
+        tail = [{"step": s, "rng": DURABLE_SEED0 + s}
+                for s in range(DURABLE_CRASH + 1, DURABLE_STEPS + 1)]
+        losses = durable_replay(dev, step, model, tail)
+        for e in tail:
+            ck.journal_step(e["step"], rng=e["rng"])
+        if not agrees(losses, a1["losses"][DURABLE_CRASH:], model):
+            raise AssertionError(
+                f"durable 1 rank: steps 5-6 after the resume {losses} "
+                f"left run A's {a1['losses'][DURABLE_CRASH:]}")
+        log(f"durable 1 rank: resume at step {DURABLE_CRASH}, steps 5-6 "
+            f"losses {losses}, final parameters "
+            + ("bit for bit run A's" if deterministic else
+               "within run A's run-to-run spread"))
+
+        # Damage drill: step 4 written again and damaged.
+        with faults.inject(f"checkpoint:step={DURABLE_CRASH},mode=corrupt"):
+            state.save_to(ck, DURABLE_CRASH, force=True)
+            ck.wait_until_finished()
+            fired = faults.history()
+        del state, model, opt, step
+        torch.cuda.empty_cache()
+        model, opt, step = durable_model(dev, 11)
+        state = TorchState(model=model, optimizer=opt, step=0)
+        info = ck.resume()
+        replay = [int(e["step"]) for e in info.replay]
+        damaged = [e for e in flight.events()
+                   if e["kind"] == "ckpt_step_damaged"
+                   and e.get("step") == DURABLE_CRASH]
+        if (fired != [("checkpoint", DURABLE_CRASH, "corrupt")]
+                or info.snapshot_step != DURABLE_EVERY
+                or replay != list(range(DURABLE_EVERY + 1,
+                                        DURABLE_STEPS + 1))
+                or not damaged):
+            raise AssertionError(
+                f"durable 1 rank: damage drill fired {fired}, resumed at "
+                f"{info.snapshot_step} + {replay}, flight "
+                f"{len(damaged)} damaged-step events")
+        state.load_payload(info.tree)
+        entries = info.replay
+        del info
+        losses = durable_replay(dev, step, model, entries)
+        if not agrees(losses, a1["losses"][DURABLE_EVERY:], model):
+            raise AssertionError(
+                f"durable 1 rank: the replay of steps 3-6 {losses} left "
+                f"run A's {a1['losses'][DURABLE_EVERY:]}")
+        ck.close()
+        counts = hvd.ops.launch_counts()
+        log(f"durable 1 rank: damage drill: step {DURABLE_CRASH} corrupt, "
+            f"fell back to step {DURABLE_EVERY} + journal {replay}, replay "
+            "equals run A")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks"):
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} never launched on the durable "
+                                     "1 rank path")
+        a_step = statistics.median(a1["times"][1:])
+        log(f"durable 1 rank: save stall p50 {stall['p50']} us, max "
+            f"{stall['p99']} us ({stall['count']} saves: nearest-rank p99 "
+            f"of <= 50 is the max); write p50 {write['p50']} us, max "
+            f"{write['p99']} us; {saved} bytes a save; drain after step "
+            f"{DURABLE_CRASH} {drain:.3f} s; restore (resume of step "
+            f"{DURABLE_CRASH}, verified) {restore_s:.3f} s; commit (device "
+            f"to pinned host) {commit_times} s; step time with commits and "
+            f"saves {b_times} s against {a1['times']} s without (median "
+            f"{statistics.median(b_times[1:]):.4f} vs {a_step:.4f}); on "
+            f"{card}")
+        log(f"durable 1 rank: launches {counts}, "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def elastic_loop(dev, faulted: bool) -> dict:
+    """One rank's ``@elastic.run`` loop at GPT-medium's widths and
+    WIRE_LAYERS layers: each step a :func:`dp_step`-style int8+EF step,
+    an eager ``hvd.allreduce`` of the loss (the ``collective`` site's
+    dispatches) and a commit.  ``faulted``: ``collective:step=
+    ELASTIC_FAULT`` fires once (rollback, backoff, re-init on this device
+    over a new rendezvous, restore, sync, finish); else the loop calls
+    ``state.sync()`` after the same commit the fault rolls back to."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, faults
+    from horovod_tpu_torch.elastic import TorchState, run
+
+    model, opt, step = durable_model(dev, 0, n_layer=WIRE_LAYERS)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    batch = durable_batch(dev, 1 + hvd.rank())
+    state = TorchState(model=model, optimizer=opt, step=0)
+    meta = {"tries": 0, "losses": []}
+
+    @run
+    def train(state):
+        meta["tries"] += 1
+        while int(state.step) < ELASTIC_STEPS:
+            loss = step(model, batch)
+            meta["losses"].append(float(hvd.allreduce(loss.detach(),
+                                                      name="loss")))
+            state.step = int(state.step) + 1
+            state.commit()
+            if not faulted and int(state.step) == ELASTIC_FAULT:
+                state.sync()
+        return state
+
+    gen0 = basics.rendezvous_generation()
+    if faulted:
+        with faults.inject(f"collective:step={ELASTIC_FAULT}"):
+            train(state)
+            fired = faults.history()
+    else:
+        train(state)
+        fired = []
+    return dict(tries=meta["tries"], losses=meta["losses"], fired=fired,
+                generations=[gen0, basics.rendezvous_generation()],
+                device=str(hvd.device()), backend=basics.backend(),
+                params=param_digest(model))
+
+
+def elastic_ranks(dev, rank: int) -> dict:
+    """Path "elastic 2 ranks": the unfaulted loop (the oracle), then the
+    faulted one from the same weights (the main path: launch counts and
+    the rollback counter read around it), then the flight dump."""
+    import json as _json
+
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import flight, metrics
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    plain = elastic_loop(dev, faulted=False)
+    torch.cuda.empty_cache()
+
+    def rollbacks():
+        return sum(s["value"] for s in metrics.registry().snapshot().get(
+            "hvd_tpu_elastic_resets_total", [])
+            if dict(s["labels"]).get("kind") == "rollback")
+
+    before = rollbacks()
+    t0 = time.perf_counter()
+    hvd.ops.reset_launch_counts()
+    faulted = elastic_loop(hvd.device(), faulted=True)
+    counts = hvd.ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    with open(flight.last_dumps()[-1]) as f:
+        doc = _json.load(f)
+    return dict(plain=plain, faulted=faulted, counts=counts, seconds=seconds,
+                rollbacks=rollbacks() - before,
+                dump={k: doc[k] for k in ("reason", "fault_spec",
+                                          "fault_history")})
+
+
+def check_elastic(res: list, seconds: float, label: str, wire: str,
+                  card: str):
+    spec = f"collective:step={ELASTIC_FAULT}"
+    for r, out in enumerate(res):
+        f, p = out["faulted"], out["plain"]
+        if [tuple(h) for h in f["fired"]] != \
+                [("collective", ELASTIC_FAULT, "raise:loss")]:
+            raise AssertionError(f"{label}: rank {r} fired {f['fired']}")
+        if f["tries"] != 2 or p["tries"] != 1:
+            raise AssertionError(f"{label}: rank {r} tried {f['tries']} "
+                                 f"times (unfaulted {p['tries']})")
+        if out["rollbacks"] != 1:
+            raise AssertionError(f"{label}: rank {r} counted "
+                                 f"{out['rollbacks']} rollbacks")
+        if f["generations"][1] != f["generations"][0] + 1 or \
+                f["device"] != "cuda:0" or f["backend"] != "gloo":
+            raise AssertionError(f"{label}: rank {r} re-init went to "
+                                 f"{f['device']} / {f['backend']}, "
+                                 f"generations {f['generations']}")
+        dump = out["dump"]
+        if (dump["reason"] != "horovod_internal_error"
+                or dump["fault_spec"] != spec
+                or [tuple(h) for h in dump["fault_history"]]
+                != [tuple(h) for h in f["fired"]]):
+            raise AssertionError(f"{label}: rank {r} flight dump {dump}")
+        if f["params"] != p["params"]:
+            raise AssertionError(f"{label}: rank {r}'s parameters differ "
+                                 "from the unfaulted run that synced after "
+                                 "the same commit")
+        if f["params"] != res[0]["faulted"]["params"]:
+            raise AssertionError(f"{label}: the replicas differ")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks",
+                     "dequantize_accumulate"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {label} "
+                                     "path")
+    r0 = res[0]
+    log(f"{label}: {WIRE_LAYERS} layers, {ELASTIC_STEPS} steps, {spec} fired "
+        f"once on each rank, 2 tries, 1 rollback, re-init on cuda:0 over "
+        f"gloo, rendezvous generation {r0['faulted']['generations']}, "
+        f"final parameters bitwise the unfaulted run's; losses "
+        f"{r0['faulted']['losses']} (unfaulted {r0['plain']['losses']}); "
+        f"faulted loop {r0['seconds']:.1f} s, phase {seconds:.1f} s ({wire}) "
+        f"on {card}; launches {r0['counts']}")
+    return r0["counts"]
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -3717,6 +4126,7 @@ PIPE_WORKER_FLAG = "--pipe-worker"
 MOE_WORKER_FLAG = "--moe-worker"
 FSDP_WORKER_FLAG = "--fsdp-worker"
 AUTOTUNE_WORKER_FLAG = "--autotune-worker"
+ELASTIC_WORKER_FLAG = "--elastic-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
@@ -3726,7 +4136,7 @@ RANK_PATHS = {
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
-                *RANK_PATHS)
+                ELASTIC_WORKER_FLAG, *RANK_PATHS)
 
 
 def rank_worker(flag: str, rank: int, tmp: str) -> None:
@@ -3755,10 +4165,17 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
         if flag == AUTOTUNE_WORKER_FLAG:
             os.environ["HOROVOD_AUTOTUNE_LOG"] = os.path.join(
                 tmp, "autotune.jsonl")
-    dist.init_process_group("gloo",
-                            init_method=f"file://{os.path.join(tmp, 'store')}",
-                            rank=rank, world_size=world)
-    hvd.init(device="cuda:0")
+    if flag == ELASTIC_WORKER_FLAG:
+        # The session owns its group, made from torchrun's variables (the
+        # parent sets MASTER_ADDR and MASTER_PORT): an elastic re-init
+        # then rendezvouses anew.
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+        hvd.init(device="cuda:0", backend="gloo")
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=rank, world_size=world)
+        hvd.init(device="cuda:0")
     try:
         if flag == WORKER_FLAG:
             dp = dp_two_ranks(hvd.device(), rank)
@@ -3772,6 +4189,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             res = hier_ranks(hvd.device(), rank)
         elif flag == SEQ_WORKER_FLAG:
             res = seq_ranks(hvd.device(), rank)
+        elif flag == ELASTIC_WORKER_FLAG:
+            res = elastic_ranks(hvd.device(), rank)
         elif flag in RANK_PATHS:
             res = globals()[RANK_PATHS[flag][2]](hvd.device(), rank)
         else:
@@ -3780,7 +4199,8 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             json.dump(res, f)
     finally:
         hvd.shutdown()
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def child_processes() -> list:
@@ -3794,17 +4214,19 @@ def child_processes() -> list:
     return pids
 
 
-def spawn_ranks(flag: str, world: int) -> list:
+def spawn_ranks(flag: str, world: int, env=None) -> list:
     """Run ``world`` ranks of a phase as plain subprocesses of this script
     (multiprocessing would leave its resource tracker running), each
     waited for or killed before this returns; their results in rank
     order.  NCCL refuses several ranks on one device, so they share the
-    card over gloo, which stages CUDA tensors through the host."""
+    card over gloo, which stages CUDA tensors through the host.  ``env``
+    is added to the ranks' environment."""
     import tempfile
 
     script = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen([sys.executable, script, flag, str(r), tmp])
+        procs = [subprocess.Popen([sys.executable, script, flag, str(r), tmp],
+                                  env={**os.environ, **(env or {})})
                  for r in range(world)]
         deadline = time.monotonic() + 600
         try:
@@ -3926,6 +4348,17 @@ def main() -> int:
             new_paths[label] = parallel_phase(flag, RANK_PATHS[flag][0],
                                               check, label, card)
         convnet_counts = convnet_phase(dev, card)
+        torch.cuda.empty_cache()
+        durable_counts = durable_phase(dev, card)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        elastic_counts = check_elastic(
+            spawn_ranks(ELASTIC_WORKER_FLAG, WIRE_RANKS,
+                        env={"MASTER_ADDR": "127.0.0.1",
+                             "MASTER_PORT": str(hvd.basics._free_port())}),
+            time.perf_counter() - t0, "elastic 2 ranks",
+            "gloo staging through the host, 2 ranks on one card: not a "
+            "wire's time", card)
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -3937,7 +4370,9 @@ def main() -> int:
                "resnet50 2 ranks": resnet_ranks_counts,
                "hierarchical 4 ranks": hier_counts,
                "sequence-parallel 4 ranks": seq_counts, **new_paths,
-               "bert-large 1 rank": bert_counts, **convnet_counts}
+               "bert-large 1 rank": bert_counts, **convnet_counts,
+               "durable 1 rank": durable_counts,
+               "elastic 2 ranks": elastic_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:

@@ -55,6 +55,13 @@ The session's plan (``HVD_TPU_MESH_PLAN``, ``hvd.mesh_plan()``,
 and ``make_zero_train_step``.  ``HOROVOD_AUTOTUNE=1`` tunes
 ``make_train_step``'s knobs online (``hvd.parameter_manager()``).
 
+Durable state and recovery: ``hvd.ckpt.AsyncCheckpointer(dir)`` (async
+sharded saves, the step journal, ``resume()``), the whole-tree
+``hvd.checkpoint.Checkpointer`` on ``torch.save``, ``hvd.elastic``
+(``TorchState(model=, optimizer=)``, ``@hvd.elastic.run``, the sampler
+and the discovery driver), ``hvd.faults`` (``HVD_TPU_FAULT_SPEC``) and
+``hvd.data`` (padding, masks, joined ragged shards).
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
@@ -91,6 +98,11 @@ from .optim import (  # noqa: F401
     DistributedOptimizer, make_fsdp_train_step, make_train_step,
     make_zero_train_step,
 )
+from . import checkpoint  # noqa: F401
+from . import ckpt  # noqa: F401
+from . import data  # noqa: F401
+from . import elastic  # noqa: F401
+from . import faults  # noqa: F401
 from . import models  # noqa: F401
 from . import obs  # noqa: F401
 from . import ops  # noqa: F401

@@ -59,6 +59,7 @@ class _Session:
     device: torch.device
     config: Config
     owns_group: bool           # False when the caller initialised it
+    backend: str               # the group's backend ("nccl", "gloo")
     process_sets: ProcessSetTable
     # The topology tiers' groups, by (pods, chips_per_pod): every rank's
     # intra-pod groups, then its cross-pod groups (topo/topology.py).
@@ -78,6 +79,39 @@ class _Session:
 
 
 _session: Optional[_Session] = None
+# The rendezvous store of the first group this module created from
+# torchrun's environment, kept across re-inits: each later generation
+# rendezvouses under a prefix of its own on it (``hvd_tpu_torch/gen<g>/``),
+# so an elastic re-init never reuses the dead generation's keys and never
+# binds ``MASTER_PORT`` twice.
+_rendezvous = {"store": None, "key": None, "generation": 0}
+
+
+def rendezvous_generation() -> int:
+    """How many process groups this module has created from the
+    environment's rendezvous (0 before the first): an elastic re-init
+    moves it on by one."""
+    return _rendezvous["generation"]
+
+
+def _init_group_from_env(kwargs: dict) -> None:
+    """``init_process_group`` over torchrun's rendezvous, generation by
+    generation: the first creates the store as ``env://`` does, later
+    ones reuse it under a fresh prefix."""
+    env = os.environ
+    key = (env.get("MASTER_ADDR"), env.get("MASTER_PORT"),
+           int(env["RANK"]), int(env["WORLD_SIZE"]))
+    if _rendezvous["store"] is None or _rendezvous["key"] != key:
+        dist.init_process_group(init_method="env://", **kwargs)
+        _rendezvous.update(store=dist.distributed_c10d._get_default_store(),
+                           key=key, generation=1)
+        return
+    gen = _rendezvous["generation"]
+    _rendezvous["generation"] = gen + 1
+    dist.init_process_group(
+        store=dist.PrefixStore(f"hvd_tpu_torch/gen{gen}/",
+                               _rendezvous["store"]),
+        rank=key[2], world_size=key[3], **kwargs)
 
 
 def _free_port() -> int:
@@ -86,15 +120,23 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init(device: Union[str, torch.device, None] = None) -> None:
+def init(device: Union[str, torch.device, None] = None,
+         backend: Optional[str] = None) -> None:
     """Join (or start) the process group and pick this rank's device.
 
     ``device=None`` means ``cuda:<local_rank>`` with NCCL, and raises
     ``RuntimeError`` without a CUDA device.  An explicit device is used
-    as given: ``"cpu"`` runs over gloo.  Idempotent."""
+    as given: ``"cpu"`` runs over gloo.  ``backend`` overrides the
+    device's backend for a group this call creates (``"gloo"`` on CUDA
+    tensors: several ranks sharing one card, which NCCL refuses).
+    ``HVD_TPU_FAULT_SPEC`` is armed here when it differs from the armed
+    plan (a malformed spec raises before any group is joined).
+    Idempotent."""
     global _session
     if _session is not None:
         return
+    cfg = Config.from_env()
+    _arm_faults(cfg)
     env = os.environ
     # An adopted group without torchrun's env runs on one host.
     local_rank = int(env.get(
@@ -111,27 +153,28 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             dev = torch.device("cuda", local_rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
 
     owns = not dist.is_initialized()
     if owns:
         kwargs = dict(backend=backend, timeout=timedelta(minutes=10))
-        if dev.type == "cuda":
+        if backend == "nccl":
             kwargs["device_id"] = dev
         if "RANK" in env and "WORLD_SIZE" in env:
-            dist.init_process_group(init_method="env://", **kwargs)
+            _init_group_from_env(kwargs)
         else:
             dist.init_process_group(
                 init_method=f"tcp://127.0.0.1:{_free_port()}",
                 rank=0, world_size=1, **kwargs)
     size, me = dist.get_world_size(), dist.get_rank()
     local_size = int(env.get("LOCAL_WORLD_SIZE", size))
-    cfg = Config.from_env()
     _session = _Session(
         rank=me, size=size, local_rank=local_rank,
         local_size=local_size, cross_rank=int(env.get("GROUP_RANK", 0)),
         cross_size=int(env.get("GROUP_WORLD_SIZE", -(-size // local_size))),
         device=dev, config=cfg, owns_group=owns,
+        backend=str(dist.get_backend()).lower(),
         process_sets=ProcessSetTable(size),
         mesh=GlobalMesh.build(size, me, local_rank, local_size))
     warn_noop_knobs(logger)
@@ -144,6 +187,17 @@ def init(device: Union[str, torch.device, None] = None) -> None:
     except BaseException:
         shutdown()
         raise
+
+
+def _arm_faults(cfg: Config) -> None:
+    """Arm the fault plan once per spec: an elastic re-init (shutdown,
+    then init, mid-recovery) must not restart the armed plan's counters
+    and history, or a step fault would fire again on every reset."""
+    if cfg.fault_spec:
+        from . import faults
+
+        if faults.active_spec() != cfg.fault_spec:
+            faults.configure(cfg.fault_spec)
 
 
 def _configure_obs(cfg: Config, rank: int) -> None:
@@ -246,6 +300,11 @@ def device() -> torch.device:
     """This rank's device: ``cuda:<local_rank>`` unless :func:`init` was
     given another."""
     return _require().device
+
+
+def backend() -> str:
+    """The session group's backend (``"nccl"``, ``"gloo"``)."""
+    return _require().backend
 
 
 def config() -> Config:

@@ -205,6 +205,207 @@ def _validated_mesh_plan(spec: Optional[str]) -> Optional[str]:
     return spec
 
 
+# --- fault-injection spec grammar (HVD_TPU_FAULT_SPEC) ----------------------
+# ``site:key=val,key=val;site2:...``: one clause per injection site
+# (faults.py threads the sites through the layers).  Parsed here so a
+# typo'd spec fails at init, like every other malformed knob.
+
+FAULT_SITES = ("collective", "fusion", "accumulate", "discovery", "rpc",
+               "checkpoint", "serve", "dcn", "swap", "qos", "collect",
+               "control")
+
+_FAULT_MODES = {
+    "collective": ("raise",),
+    "fusion": ("raise",),
+    # accumulate: fires at the microbatch-loop boundary of the
+    # overlap-scheduled train step (trace time, one event per microbatch
+    # boundary) — the chaos drill for the gradient-accumulation path.
+    "accumulate": ("raise",),
+    "discovery": ("flap", "timeout", "error"),
+    "rpc": ("drop", "delay"),
+    # checkpoint: corrupt/partial damage the committed step's largest
+    # data file; stall sleeps delay_ms at the write (a slow filesystem
+    # — stalls the writer thread on the async tier, the caller on the
+    # sync tier); partial-manifest deletes a shard file the manifest
+    # still references (metadata/data split); crash-before-rename cuts
+    # the save between the last fsync and the atomic commit rename.
+    "checkpoint": ("corrupt", "partial", "stall", "partial-manifest",
+                   "crash-before-rename"),
+    # serve: drop/delay fire at the serving endpoint's request handler;
+    # kill fires at the continuous batcher's step dispatch (decode on
+    # decode/unified replicas, the KV-migration handoff on prefill
+    # replicas — replica death mid-stream, the router-failover drill);
+    # evict fires at the paged KV pool's block-allocation events
+    # (serve/kv/) and force-evicts every unreferenced cached block —
+    # seeded page-eviction pressure, the stale-prefix drill.  The
+    # migrate* modes fire at the KV-transfer boundary of the
+    # disaggregated fleet (serve/fleet/migration.py): `migrate` corrupts
+    # one block AFTER the sender digests it (the receiver's digest check
+    # must reject the transfer and the request must finish on a correct
+    # recompute path — never with wrong tokens); `migrate-drop` fails
+    # the transfer on the wire; `migrate-delay` sleeps delay_ms at it.
+    "serve": ("drop", "delay", "kill", "evict", "migrate",
+              "migrate-drop", "migrate-delay"),
+    # dcn: fires ONLY at the cross-pod exchange step of a hierarchical
+    # collective schedule (topo/schedule.py) — the slow-tier link is
+    # the one that actually fails in multi-pod fleets.  drop/partition
+    # raise HorovodInternalError while the exchange is being emitted
+    # (trace time, like `fusion`); delay sleeps delay_ms there.
+    "dcn": ("drop", "delay", "partition"),
+    # swap: the zero-downtime weight hot-swap path (serve/swap.py;
+    # docs/hot_swap.md).  `corrupt-shard` damages a pulled shard AFTER
+    # the store's manifest declared the true digests — the subscriber's
+    # per-leaf verification must discard the staged pull and keep
+    # serving the old weights; `stall` sleeps delay_ms at the pull (a
+    # slow store — the HVD_TPU_SWAP_DEADLINE_S abandon drill);
+    # `kill-mid-flip` kills the replica at the batcher's flip barrier
+    # (the flip is one atomic reference swap, so the router-failover
+    # drill must find the replica on exactly one version);
+    # `partial-fleet` aborts a rolling fleet swap midway, leaving a
+    # mixed-version fleet the router's version-matched prefix routing
+    # must serve correctly.
+    "swap": ("corrupt-shard", "stall", "kill-mid-flip", "partial-fleet"),
+    # qos: the multi-tenant scheduling tier (serve/qos/; docs/qos.md).
+    # `invert` fires at the WFQ scheduler's pop and inverts the pick
+    # (the LOWEST-priority flow is dispatched — a priority-inversion
+    # bug injected on purpose: the preemption and brownout layers must
+    # still hold the interactive SLO); `flood` fires at the admission
+    # budget charge and waives the tenant's token bucket for that
+    # admission (one tenant flooding past its budget — weighted-fair
+    # queueing must still protect the other tenants).
+    "qos": ("invert", "flood"),
+    # collect: the fleet telemetry collector's scrape boundary
+    # (obs/collector.py; docs/observability.md).  `drop` fails one
+    # replica's scrape on the wire (the collector must degrade to
+    # stale-data-with-staleness-gauge, never stall the fleet); `delay`
+    # sleeps delay_ms inside the scrape (a wedged replica — must cost
+    # the round ONE shared deadline, not one per replica); `garbage`
+    # substitutes an unparseable stats payload (the collector's
+    # validation must reject it and mark the replica scrape-failed,
+    # never feed garbage into the TSDB/detectors).
+    "collect": ("drop", "delay", "garbage"),
+    # control: re-introduces the two control-plane bugs the chaos sim
+    # caught (docs/fleet_sim.md), so the live detectors can prove they
+    # would have fired in production.  `spiral` makes the fleet
+    # controller skip its shed-active guard for one poll (the scale-in
+    # death spiral: draining capacity away while the brownout ladder is
+    # shedding); `convoy` makes the sim's migration admission skip the
+    # decode-side reservation at pick time (every prefill replica picks
+    # the same decode target — the migration convoy).
+    "control": ("spiral", "convoy"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultClause:
+    """One parsed clause of a fault spec: what fires at one site.
+
+    ``step`` fires on that site-event index (each check at the site
+    advances a counter; sites that know their own step — the
+    checkpointer — match the domain step instead).  ``p`` fires each
+    event with seeded probability.  ``times`` caps total firings
+    (default: 1 for step faults, unlimited for probability faults).
+    ``mode`` picks the site-specific action; ``delay_ms`` parameterizes
+    ``rpc:mode=delay``.
+    """
+
+    site: str
+    step: Optional[int] = None
+    p: float = 0.0
+    seed: int = 0
+    times: Optional[int] = None
+    mode: Optional[str] = None
+    delay_ms: float = 0.0
+
+
+def parse_fault_spec(spec: str) -> "dict[str, FaultClause]":
+    """Parse ``HVD_TPU_FAULT_SPEC`` (e.g.
+    ``collective:step=40;discovery:flap=0.2,seed=7``) into per-site
+    clauses.  Raises ``ValueError`` on unknown sites/keys/modes — a
+    fault plan that silently no-ops would invalidate a chaos run."""
+    clauses: dict = {}
+    for raw in spec.split(";"):
+        raw = raw.strip()
+        if not raw:
+            continue
+        site, _, body = raw.partition(":")
+        site = site.strip()
+        if site not in FAULT_SITES:
+            raise ValueError(
+                f"fault spec: unknown site {site!r}; expected one of "
+                f"{FAULT_SITES}")
+        if site in clauses:
+            raise ValueError(f"fault spec: duplicate clause for {site!r}")
+        kw: dict = {"site": site}
+        for kv in body.split(","):
+            kv = kv.strip()
+            if not kv:
+                continue
+            if "=" not in kv:
+                raise ValueError(
+                    f"fault spec [{site}]: expected key=value, got {kv!r}")
+            key, _, val = kv.partition("=")
+            key, val = key.strip(), val.strip()
+            try:
+                if key == "step":
+                    kw["step"] = int(val)
+                elif key == "p":
+                    kw["p"] = float(val)
+                elif key == "flap":  # discovery shorthand: p + mode=flap
+                    kw["p"] = float(val)
+                    kw["mode"] = "flap"
+                elif key == "seed":
+                    kw["seed"] = int(val)
+                elif key == "times":
+                    kw["times"] = int(val)
+                elif key == "mode":
+                    kw["mode"] = val
+                elif key == "delay_ms":
+                    kw["delay_ms"] = float(val)
+                else:
+                    raise ValueError(
+                        f"fault spec [{site}]: unknown key {key!r}")
+            except ValueError as e:
+                if "unknown key" in str(e) or "fault spec" in str(e):
+                    raise
+                raise ValueError(
+                    f"fault spec [{site}]: bad value {val!r} for "
+                    f"{key!r}") from e
+        if key_err := _fault_clause_error(kw):
+            raise ValueError(f"fault spec [{site}]: {key_err}")
+        clauses[site] = FaultClause(**kw)
+    return clauses
+
+
+def _fault_clause_error(kw: dict) -> Optional[str]:
+    site = kw["site"]
+    mode = kw.get("mode")
+    if mode is not None and mode not in _FAULT_MODES[site]:
+        return (f"unknown mode {mode!r}; expected one of "
+                f"{_FAULT_MODES[site]}")
+    if mode is None and site == "control":
+        # The control site's modes name DIFFERENT call sites (spiral:
+        # the fleet controller's poll; convoy: the sim's migration
+        # admission) — no default is sensible, and a mode-less clause
+        # would silently never fire.
+        return (f"site 'control' needs an explicit mode= (one of "
+                f"{_FAULT_MODES[site]})")
+    if kw.get("step") is None and kw.get("p", 0.0) <= 0.0:
+        return "clause needs a trigger: step=N or p=<prob> (flap=<prob>)"
+    if not 0.0 <= kw.get("p", 0.0) <= 1.0:
+        return f"probability must be in [0, 1], got {kw['p']}"
+    return None
+
+
+def _validated_fault_spec(spec: Optional[str]) -> Optional[str]:
+    """Empty/unset → None; anything else must parse (fail at init, not
+    silently no-op a chaos run)."""
+    if not spec or not spec.strip():
+        return None
+    parse_fault_spec(spec)  # raises ValueError on a malformed plan
+    return spec
+
+
 # Reference knobs that change nothing here: accepted, but setting one
 # warns at init, since silently ignoring a reference env var that
 # changes behaviour there is a trap.
@@ -267,6 +468,19 @@ class Config:
     flight: bool = True                   # HVD_TPU_FLIGHT (crash-dump gate)
     flight_dir: str = ""                  # HVD_TPU_FLIGHT_DIR ("" = <tempdir>/hvd_tpu_flight)
     flight_ring: int = 512                # HVD_TPU_FLIGHT_RING (event ring size)
+    # Durable state and recovery (faults.py, ckpt/, elastic/, utils/retry.py).
+    fault_spec: Optional[str] = None          # HVD_TPU_FAULT_SPEC (armed at init)
+    elastic_timeout_seconds: float = 600.0    # HOROVOD_ELASTIC_TIMEOUT
+    reset_limit: int = 0                      # HOROVOD_ELASTIC_RESET_LIMIT (0 = unlimited)
+    reset_backoff_seconds: float = 0.5        # HVD_TPU_RESET_BACKOFF (0 = no backoff)
+    reset_backoff_max_seconds: float = 30.0   # HVD_TPU_RESET_BACKOFF_MAX
+    blacklist_decay_seconds: float = 300.0    # HVD_TPU_BLACKLIST_DECAY (0 = permanent)
+    discovery_failure_threshold: int = 3      # HVD_TPU_DISCOVERY_FAILURES (consecutive ⇒ membership loss)
+    rpc_retries: int = 3                      # HVD_TPU_RPC_RETRIES (attempts per request)
+    rpc_backoff_seconds: float = 0.3          # HVD_TPU_RPC_BACKOFF (base, jittered exponential)
+    checkpoint_digest: bool = True            # HVD_TPU_CHECKPOINT_DIGEST (integrity sidecar)
+    ckpt_async: bool = True                   # HVD_TPU_CKPT_ASYNC (snapshot-and-offload saves)
+    ckpt_inflight: int = 2                    # HVD_TPU_CKPT_INFLIGHT (bounded writer queue)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -308,4 +522,16 @@ class Config:
             flight=_env_bool("FLIGHT", True),
             flight_dir=_env("FLIGHT_DIR") or "",
             flight_ring=_env_pos_int("FLIGHT_RING", 512),
+            fault_spec=_validated_fault_spec(_env("FAULT_SPEC")),
+            elastic_timeout_seconds=_env_float("ELASTIC_TIMEOUT", 600.0),
+            reset_limit=_env_int("ELASTIC_RESET_LIMIT", 0),
+            reset_backoff_seconds=_env_float("RESET_BACKOFF", 0.5),
+            reset_backoff_max_seconds=_env_float("RESET_BACKOFF_MAX", 30.0),
+            blacklist_decay_seconds=_env_float("BLACKLIST_DECAY", 300.0),
+            discovery_failure_threshold=_env_int("DISCOVERY_FAILURES", 3),
+            rpc_retries=_env_int("RPC_RETRIES", 3),
+            rpc_backoff_seconds=_env_float("RPC_BACKOFF", 0.3),
+            checkpoint_digest=_env_bool("CHECKPOINT_DIGEST", True),
+            ckpt_async=_env_bool("CKPT_ASYNC", True),
+            ckpt_inflight=_env_pos_int("CKPT_INFLIGHT", 2),
         )

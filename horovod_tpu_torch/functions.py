@@ -48,7 +48,9 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     lacks an entry (it has not stepped yet, while the root resumed)
     creates it, so every rank then broadcasts the same tensors in the
     same order, sorted by parameter index and key.  Entries the root has
-    not created yet are left as they are."""
+    not created yet are left as they are.  A
+    :class:`~.optim.DistributedOptimizer` also takes the root's
+    error-feedback residual, accumulator and call count."""
     basics._require()
     params = [p for g in optimizer.param_groups for p in g["params"]]
     layout = {}
@@ -81,6 +83,38 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     broadcast_parameters(tensors, root_rank)
     for group, root_group in zip(optimizer.param_groups, groups):
         group.update(root_group)
+    if hasattr(optimizer, "residual") and hasattr(optimizer, "accumulator"):
+        _broadcast_wrapper_state(optimizer, root_rank)
+
+
+def _broadcast_wrapper_state(optimizer, root_rank: int) -> None:
+    """A :class:`~.optim.DistributedOptimizer`'s own state from
+    ``root_rank``: the error-feedback residual, the accumulator and the
+    call count, as the reference's ``TpuState.sync`` broadcasts its whole
+    ``opt_state``.  After it every rank holds the root's residual (and
+    none where the root has none)."""
+    named = {name: p for p, name in (optimizer._names or {}).items()}
+    layout = None
+    if basics.rank() == root_rank:
+        layout = ({kind: {name: (tuple(t.shape), t.dtype)
+                          for name, t in getattr(optimizer, kind).items()}
+                   for kind in ("residual", "accumulator")},
+                  optimizer.calls)
+    layout, calls = broadcast_object(layout, root_rank)
+    tensors = {}
+    for kind in ("residual", "accumulator"):
+        live = getattr(optimizer, kind)
+        mine = {}
+        for name, (shape, dtype) in layout[kind].items():
+            t = live.get(name)
+            if not (torch.is_tensor(t) and tuple(t.shape) == shape
+                    and t.dtype == dtype):
+                where = named[name].device if name in named else basics.device()
+                t = torch.zeros(shape, dtype=dtype, device=where)
+            mine[name] = tensors[f"{kind}.{name}"] = t
+        setattr(optimizer, kind, mine)
+    broadcast_parameters(tensors, root_rank)
+    optimizer.calls = calls
 
 
 def _to_bytes(obj: Any) -> torch.Tensor:

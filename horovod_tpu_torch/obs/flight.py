@@ -8,9 +8,9 @@ and dumps it (JSON, rank-tagged) together with the span ring
 own postmortem: what fired where, what was in flight (the span ring
 holds the step traces), and what recovery did about it.
 
-The reference's dump also carries the armed fault spec and its firing
-history (``faults.py``); the port has no fault injection yet, so a
-dump's ``fault_spec`` is None and its ``fault_history`` empty.
+A dump also carries the armed fault spec and its firing history
+(``faults.active_spec()`` and ``faults.history()``), as the reference's
+does.
 
 Everything here is fail-soft: a recorder that raises inside a crash
 path would replace the real failure with its own.  Hot-path contract:
@@ -133,6 +133,7 @@ def dump(reason: str) -> Optional[str]:
         return None
     global _seq
     try:
+        from .. import faults as _faults
         from . import trace as _trace
 
         with _lock:
@@ -153,8 +154,8 @@ def dump(reason: str) -> Optional[str]:
             "rank": rank,
             "pid": os.getpid(),
             "host": socket.gethostname(),
-            "fault_spec": None,
-            "fault_history": [],
+            "fault_spec": _faults.active_spec(),
+            "fault_history": _faults.history(),
             "events": events(),
             "spans": _trace.snapshot(),
         }

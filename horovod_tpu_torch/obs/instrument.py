@@ -13,9 +13,10 @@ Eager torch has no trace time, so three contracts are the port's own:
   records its fusion, microbatch and topology plans while ``jax.jit``
   traces the step, once per trace; the port's counterpart of a trace is
   a built step (``make_train_step``'s ``build()``, the autotuner's
-  rebuild): :func:`wrap_step` lets the first call of a build (and the
+  rebuild): :func:`build_step` lets the first call of a build (and the
   first call on each new batch shape, where jit would retrace) record,
-  and closes :func:`plans_open` for the calls that replay it.  So
+  and closes :func:`plans_open` for the calls that replay it, with the
+  metrics on or off (the fault sites read it too).  So
   ``hvd_tpu_fusion_traces_total`` and the per-trace byte counters count
   what the reference's jitted step counts.  Outside a wrapped step (an
   eager call of ``fused_allreduce_pytree``) every call records, as the
@@ -49,7 +50,8 @@ from . import trace as _trace
 
 __all__ = [
     "enabled", "plans_open", "recording_plans", "record_microbatch_plan",
-    "wrap_step", "on_fusion_plan", "on_collective_dispatch", "on_retry",
+    "build_step", "wrap_step", "on_fusion_plan", "on_collective_dispatch",
+    "on_retry",
     "on_fault", "on_elastic_reset", "on_blacklist", "on_membership_loss",
     "on_stall", "on_autotune_window", "on_autotune_apply", "autotune_log",
     "set_mfu", "set_hidden_comm_estimate", "on_topo_plan",
@@ -124,6 +126,32 @@ def _signature(batch) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in _leaves(batch))
 
 
+def _first_of_shape(traced: set, batch) -> bool:
+    """True on a build's first call with ``batch``'s shapes (where jit
+    would trace); notes the shapes."""
+    sig = _signature(batch)
+    first = sig not in traced
+    traced.add(sig)
+    return first
+
+
+def build_step(step_fn, *, kind: str = "train"):
+    """A built step: :func:`wrap_step` when metrics are on, else
+    ``step_fn`` behind the build boundary alone, so :func:`plans_open`
+    (which the fault sites read) closes on replays whether or not
+    metrics are on."""
+    if _m.enabled():
+        return wrap_step(step_fn, kind=kind)
+    traced: set = set()
+
+    def bounded_step(model, batch, *rest):
+        with _replaying(not _first_of_shape(traced, batch)):
+            return step_fn(model, batch, *rest)
+
+    bounded_step.__wrapped__ = step_fn
+    return bounded_step
+
+
 def wrap_step(step_fn, *, kind: str = "train"):
     """Wrap a built train step ``step(model, batch, *rest)`` with per-call
     accounting: a step-time histogram, step/sample/token counters, a
@@ -159,9 +187,7 @@ def wrap_step(step_fn, *, kind: str = "train"):
     traced: set = set()
 
     def instrumented_step(model, batch, *rest):
-        sig = _signature(batch)
-        replay = sig in traced
-        traced.add(sig)
+        replay = not _first_of_shape(traced, batch)
         t0 = time.perf_counter()
         # One trace per step (docs/tracing.md): the root every span this
         # call causes parents under.

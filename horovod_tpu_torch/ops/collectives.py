@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
+from .. import faults as _faults
 from ..obs import instrument as _obs
 
 Average = "average"
@@ -127,10 +128,15 @@ def divide(r: torch.Tensor, n: int) -> torch.Tensor:
     return torch.div(r, n, rounding_mode="floor")
 
 
-def _dispatch(kind: str, tensors: Sequence[torch.Tensor]) -> None:
-    """Telemetry: one dispatch of the entry point ``kind`` (a closed set
-    of seven, never the caller's free-form ``name``) with this rank's
-    payload bytes (reference: ``collectives._heartbeat``)."""
+def _dispatch(kind: str, tensors: Sequence[torch.Tensor], name: str) -> None:
+    """One dispatch of the entry point ``kind`` (reference:
+    ``collectives._heartbeat``): the ``collective`` fault site ticks (and
+    raises ``HorovodInternalError`` when the armed plan fires, whether
+    the metrics are on or not), then telemetry records the dispatch
+    under ``kind`` (a closed set of seven, never the caller's free-form
+    ``name``) with this rank's payload bytes."""
+    if _faults._active is not None:
+        _faults.on_collective(name)
     if _obs.enabled():
         _obs.on_collective_dispatch(
             kind, sum(t.numel() * t.element_size() for t in tensors))
@@ -273,7 +279,7 @@ def allreduce_async(tensor: torch.Tensor, *, op: str = Average,
 
     comp = _wire(op, compression)
     group = set_group(process_set, name)
-    _dispatch("allreduce", (tensor,))
+    _dispatch("allreduce", (tensor,), name)
     x = _scaled(tensor.detach(), prescale_factor)
     inner = 0
     if (basics.config().hierarchical_allreduce and op in (Sum, Average)
@@ -314,7 +320,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
 
     comp = _wire(op, compression)
     group = set_group(process_set, name)
-    _dispatch("grouped_allreduce", tensors)
+    _dispatch("grouped_allreduce", tensors, name)
     leaves = [_scaled(t.detach(), prescale_factor) for t in tensors]
     if op == Adasum:
         from .adasum import adasum_allreduce
@@ -420,7 +426,7 @@ def allgather_async(tensor: torch.Tensor, *, process_set=None,
     """Reference: ``hvd.allgather_async``: concatenate every member's
     tensor along dim 0; the lengths of dim 0 may differ."""
     group = set_group(process_set, name)
-    _dispatch("allgather", (tensor,))
+    _dispatch("allgather", (tensor,), name)
     return allgather_start(tensor, group, name)[0]
 
 
@@ -452,7 +458,7 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0, *,
     if process_set is not None and root_rank not in process_set.ranks:
         raise ValueError(f"{name}: root rank {root_rank} not in process set")
     group = set_group(process_set, name)
-    _dispatch("broadcast", (tensor,))
+    _dispatch("broadcast", (tensor,), name)
     out = tensor.detach().clone().contiguous()
     work = dist.broadcast(out, src=root_rank, group=group, async_op=True)
     return Handle([work], lambda: out, name)
@@ -484,7 +490,7 @@ def alltoall_async(tensor: torch.Tensor, splits=None, *, process_set=None,
     sent here, in member order.  With ``splits`` the result is
     ``(gathered, received_splits)``, the second an int64 tensor."""
     group = set_group(process_set, name)
-    _dispatch("alltoall", (tensor,))
+    _dispatch("alltoall", (tensor,), name)
     x = tensor.detach().contiguous()
     n = dist.get_world_size(group)
     if splits is None:
@@ -541,7 +547,7 @@ def reducescatter_async(tensor: torch.Tensor, *, op: str = Sum,
     """Reference: ``hvd.reducescatter``: reduce, then this member keeps
     its dim-0 piece (dim 0 must divide by the set's size)."""
     group = set_group(process_set, name)
-    _dispatch("reducescatter", (tensor,))
+    _dispatch("reducescatter", (tensor,), name)
     return reducescatter_start(tensor, op, group, name)
 
 
@@ -560,7 +566,7 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor], *,
     from .fusion import plan_fused_buckets
 
     group = set_group(process_set, name)
-    _dispatch("grouped_reducescatter", tensors)
+    _dispatch("grouped_reducescatter", tensors, name)
     n = dist.get_world_size(group)
     xs = [t.detach() for t in tensors]
     for i, x in enumerate(xs):

@@ -46,6 +46,7 @@ from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
 import torch
 import torch.distributed as dist
 
+from .. import faults as _faults
 from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
 from ..obs import instrument as _obs
 from .collectives import Handle
@@ -366,6 +367,10 @@ def fused_two_phase_apply(
     :func:`..topo.schedule.execute_schedule`.  A process set
     (``group``), or a compiler for another width than the group's, keeps
     the flat planner: the tiers are partitions of the whole world."""
+    # The fusion fault site, at the build boundary (the reference fires
+    # it while the fused program is traced).
+    if _faults._active is not None and _obs.plans_open():
+        _faults.on_fusion("two_phase_apply")
     compression = compression or Compression.none
     n = _uniform_group_width(group)
     # One bucket list across dtype classes: the pipeline is about wire

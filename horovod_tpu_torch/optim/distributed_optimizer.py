@@ -50,7 +50,7 @@ allreduce of :class:`DistributedOptimizer` and of the step through
 :func:`..ops.fusion.fused_allreduce_pytree`, the overlap wire through
 its ``topo=``.
 
-Each built step is instrumented (:func:`..obs.instrument.wrap_step`):
+Each built step is instrumented (:func:`..obs.instrument.build_step`):
 the step time, steps, samples and tokens, a root span a call, and the
 step's plan records (fusion, microbatches, topology) once per build.
 """
@@ -64,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
+from .. import faults as _faults
 from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
 from ..obs import instrument as _obs
 from ..ops import collectives as C
@@ -186,6 +187,10 @@ def _filled_grads(named: Iterable[Tuple[str, torch.Tensor]],
     return grads
 
 
+# The key of DistributedOptimizer's own entries in its state dict.
+STATE_KEY = "horovod_tpu_torch"
+
+
 class DistributedOptimizer:
     """Wrap ``optimizer`` with distributed gradient aggregation
     (reference: ``hvd.DistributedOptimizer``).
@@ -254,10 +259,40 @@ class DistributedOptimizer:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
     def state_dict(self):
-        return self.optimizer.state_dict()
+        """The wrapped optimizer's state dict, plus this wrapper's own
+        state under :data:`STATE_KEY`: the error-feedback ``residual``
+        and the ``accumulator`` (tensors keyed by parameter name) and the
+        ``calls`` count, as the reference keeps all three inside its
+        ``DistributedOptimizerState``."""
+        sd = self.optimizer.state_dict()
+        sd[STATE_KEY] = {"residual": dict(self.residual),
+                         "accumulator": dict(self.accumulator),
+                         "calls": self.calls}
+        return sd
 
     def load_state_dict(self, state_dict) -> None:
-        self.optimizer.load_state_dict(state_dict)
+        """Load :meth:`state_dict`'s form (or a bare optimizer's state
+        dict): the wrapped optimizer never sees :data:`STATE_KEY`; the
+        residual and accumulator land on their parameters' devices (the
+        first parameter's, before the parameters are named)."""
+        sd = dict(state_dict)
+        own = sd.pop(STATE_KEY, None)
+        self.optimizer.load_state_dict(sd)
+        if own is None:
+            return
+        devices = ({name: p.device for p, name in self._names.items()}
+                   if self._names is not None else {})
+        params = self._params()
+        default = params[0].device if params else None
+
+        def placed(tensors):
+            return {name: t.to(devices.get(name, default or t.device),
+                               copy=True)
+                    for name, t in tensors.items()}
+
+        self.residual = placed(own["residual"])
+        self.accumulator = placed(own["accumulator"])
+        self.calls = int(own["calls"])
 
     # -- distribution --
     @property
@@ -460,6 +495,12 @@ def _microbatch_grads(model, loss_fn, batch, mb: int,
         return loss.detach(), [p.grad if p.grad is not None
                                else torch.zeros_like(p) for p in params]
 
+    if _faults._active is not None and _obs.plans_open():
+        # The accumulate fault site: one event per microbatch boundary,
+        # at the build boundary where the microbatch plan is recorded
+        # (the reference fires them while the accumulation is traced).
+        for i in range(mb):
+            _faults.on_accumulate(i)
     auxes = []
     n = fusion._uniform_group_width(group)
     use_overlap = bool(overlap) and n > 1
@@ -614,10 +655,10 @@ def make_train_step(loss_fn: Callable, optimizer, *, mesh=None,
     # plan) each call, so rebuilding it is the autotuner's re-jit
     # boundary: a proposal is written into the config, then the step is
     # rebuilt.  Each build is one instrumented step (the step time, the
-    # tokens, its plan records once; the step itself when
-    # HVD_TPU_METRICS=0).
+    # tokens, its plan records and build-boundary fault sites once; only
+    # the boundary when HVD_TPU_METRICS=0).
     def build() -> Callable:
-        return _obs.wrap_step(step, kind="train")
+        return _obs.build_step(step, kind="train")
 
     pm = basics.parameter_manager() if basics.is_initialized() else None
     if pm is not None and not pm.frozen:

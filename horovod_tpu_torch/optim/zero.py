@@ -108,12 +108,44 @@ class ZeroTrainStep:
         self.state = None
         self._names: List[str] = []
         self.buckets: List[List[int]] = []
+        self._pending: Optional[dict] = None   # a state dict loaded early
 
     @property
     def optimizer(self) -> torch.optim.Optimizer:
         if isinstance(self.state, ZeroStateWithResidual):
             return self.state.inner
         return self.state
+
+    def state_dict(self) -> dict:
+        """``{"optimizer": the shard optimizer's state dict}``, plus
+        ``"residual"`` (``{name: tensor}``) when error feedback is on.
+        The shards themselves are the model's parameters' pieces, which
+        the first step after a load rebuilds from the model."""
+        if self.state is None:
+            if self._pending is not None:
+                return self._pending
+            raise ValueError("make_zero_train_step: the step holds no state "
+                             "before its first call")
+        sd = {"optimizer": self.optimizer.state_dict()}
+        if isinstance(self.state, ZeroStateWithResidual):
+            sd["residual"] = dict(self.state.residual)
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load :meth:`state_dict`'s form.  On a step not built yet the
+        state waits for the first call, which builds the shards from the
+        model and then loads it."""
+        if self.state is None:
+            self._pending = dict(state_dict)
+            return
+        self.optimizer.load_state_dict(state_dict["optimizer"])
+        if isinstance(self.state, ZeroStateWithResidual):
+            if "residual" not in state_dict:
+                raise ValueError("make_zero_train_step: error feedback is "
+                                 "on, but the state dict has no residual")
+            live = self.state.residual
+            for name, t in state_dict["residual"].items():
+                live[name] = t.to(live[name].device, copy=True)
 
     def _build(self, names: List[str], params: List[torch.Tensor],
                group) -> None:
@@ -151,6 +183,9 @@ class ZeroTrainStep:
                           for name, p in zip(names, params)})
         else:
             self.state = optimizer
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self.load_state_dict(pending)
 
     def __call__(self, model: torch.nn.Module, batch):
         names, params = tree_flatten({name: p for name, p

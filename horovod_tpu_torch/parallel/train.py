@@ -111,7 +111,7 @@ def make_spmd_train_step(loss_fn: Callable, optimizer, *,
     ``optim``'s microbatch loop; ``aux`` then comes back stacked
     ``[microbatches, ...]``.
 
-    The step is instrumented (``obs.instrument.wrap_step``, kind
+    The step is instrumented (``obs.instrument.build_step``, kind
     ``spmd``).  Where the reference leaves the gradient sums to GSPMD,
     the port's ride the fused wire, so its step also records an ``spmd``
     fusion plan."""
@@ -151,4 +151,4 @@ def make_spmd_train_step(loss_fn: Callable, optimizer, *,
 
     from ..obs import instrument
 
-    return instrument.wrap_step(step, kind="spmd")
+    return instrument.build_step(step, kind="spmd")

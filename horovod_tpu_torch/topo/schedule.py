@@ -49,6 +49,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import faults as _faults
 from ..obs import instrument as _obs
 from ..obs import trace as _trace
 from ..ops.collectives import Handle
@@ -321,6 +322,15 @@ def _padded(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(pad)]) if pad else x
 
 
+def _on_dcn_step(stage: str) -> None:
+    """The ``dcn`` fault site at the cross-pod exchange (never at the
+    intra-pod stages), at the build boundary: on the first call of a
+    built step and on every eager call, as the reference fires it while
+    the exchange is traced."""
+    if _faults._active is not None and _obs.plans_open():
+        _faults.on_dcn(stage)
+
+
 def execute_schedule(x: torch.Tensor, sched: CollectiveSchedule, *,
                      op: str, compression) -> torch.Tensor:
     """Run one compiled schedule over this rank's flat 1-D bucket ``x``:
@@ -346,6 +356,7 @@ def execute_schedule(x: torch.Tensor, sched: CollectiveSchedule, *,
         frag = compression.spmd_reducescatter(_padded(x, n), op="sum",
                                               group=intra)
     with _stage_span(sched, 1, compression):
+        _on_dcn_step("xpod")
         frag = compression.spmd_allreduce(frag, op="sum", group=cross)
     with _stage_span(sched, 2, compression):
         out = compression.spmd_allgather(frag, group=intra)[:x.numel()]
@@ -370,6 +381,7 @@ def hierarchical_reduce_scatter_start(x: torch.Tensor,
 
     def finish():
         with _stage_span(sched, 1, compression):
+            _on_dcn_step("xpod_rs")
             shard = compression.spmd_reducescatter(rs_intra.wait(),
                                                    op="sum", group=cross)
         return shard / n if op == "average" else shard
@@ -393,6 +405,7 @@ def hierarchical_all_gather_start(shard: torch.Tensor,
     of :func:`hierarchical_reduce_scatter`'s permutation."""
     intra, cross = tier_groups(sched.topo)
     with _stage_span(sched, 1, compression):
+        _on_dcn_step("xpod_ag")
         ag_cross = compression.spmd_allgather_async(shard, group=cross)
 
     def finish():

@@ -452,3 +452,37 @@ def test_flash_attention_batch_or_heads_of_one_on_card(card, shape):
                     + [t.grad.float().cpu() for t in ts])
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, atol=3e-2, rtol=3e-2)
+
+
+def test_snapshot_of_card_tensors_is_pinned_and_owned(card):
+    """``take_snapshot`` of CUDA leaves (f32, bf16, int64) copies them
+    into pinned host buffers on a side stream and waits before it
+    returns: the arrays equal the card's bytes, the bf16 leaf is its
+    ``V2`` view, writes to the live tensors after the return leave the
+    snapshot as it was, and a released buffer set is reused."""
+    from horovod_tpu_torch.ckpt import BufferPool, take_snapshot
+    from horovod_tpu_torch.ckpt.snapshot import pytree_digest, to_tensor
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn(512, 1024, generator=gen, device=card),
+            "h": torch.randn(64, 33, generator=gen,
+                             device=card).to(torch.bfloat16),
+            "n": torch.arange(7, device=card)}
+    want = {k: v.cpu() for k, v in tree.items()}
+    pool = BufferPool(1)
+    snap = take_snapshot(tree, step=3, pool=pool)
+    for v in tree.values():
+        v.zero_()
+    got = snap.tree()
+    assert snap._buffers["'w'"].is_pinned()
+    assert got["h"].dtype.str == "|V2"
+    for k, v in want.items():
+        assert torch.equal(to_tensor(got[k], v.dtype), v)
+    assert snap.digest() == pytree_digest(want)
+    bufs = [leaf.array for leaf in snap.leaves]
+    snap.release()
+    again = take_snapshot(tree, pool=pool)
+    assert all(np.shares_memory(a, b.array)
+               for a, b in zip(bufs, again.leaves))
+    assert not again.tree()["w"].any()
+    again.release()

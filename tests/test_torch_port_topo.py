@@ -17,8 +17,10 @@ test's), where gloo adds four contributions in another order than XLA.
 Not mirrored, each waiting for the item of ROADMAP queue A that owns
 it: ``TestNativeTwin`` (the native planner, item 9), the estimator's
 gauges and the ``hvd_tpu_topo_*`` metrics (observability, item 10),
-``TestAutotuneTopoKnob`` (item 7), ``TestDcnFaultSite`` and
-``TestChaosDcnRecovery`` (the fault site, item 8).
+``TestAutotuneTopoKnob`` (item 7).  ``TestDcnFaultSite`` and
+``TestChaosDcnRecovery`` are held by
+``test_dcn_fault_site_fires_at_the_cross_pod_stage`` and
+``test_dcn_fault_rolls_back_and_converges``.
 """
 
 import contextlib
@@ -1241,3 +1243,40 @@ def test_record_plans_publishes_as_the_reference(monkeypatch, comp):
     assert {row["labels"]["tier"]: row["value"]
             for row in snap["hvd_tpu_topo_wire_bytes_total"]} == \
         record["tier_bytes"]
+
+
+def test_dcn_fault_site_fires_at_the_cross_pod_stage(world):
+    """Mirrors ``TestDcnFaultSite``: the hierarchical schedule's cross-pod
+    exchange trips ``dcn`` (partition names the unreachable pods), the
+    overlap wire's ``xpod_rs`` stage too, the flat and two-phase wires
+    never; a seeded plan fires at the same runs on every rank and on a
+    second pass, as the reference's does; disarmed, the wire is exact."""
+    stack = _int_stack(np.random.default_rng(23), elems=64)[:N]
+    res = world.run("dcn_fault_site", stack=stack)
+    for r in res:
+        assert "unreachable" in r["hierarchical"]
+        assert r["flat_history"] == []
+        assert "xpod_rs" in r["roundtrip"]
+        first, again = r["sequences"]
+        assert first and first == again
+        assert first == res[0]["sequences"][0]
+        np.testing.assert_array_equal(
+            r["clean"], np.broadcast_to(stack.sum(axis=0), stack.shape))
+
+
+def test_dcn_fault_rolls_back_and_converges(world, tmp_path):
+    """Mirrors ``TestChaosDcnRecovery``: ``dcn:step=5`` fails the
+    cross-pod exchange of step 5 once; the ``@elastic.run`` loop rolls
+    back to the step-5 commit, re-inits over a new rendezvous and
+    converges to the flat total, every rank with two tries."""
+    fault_step, total = 5, 8
+    res = world.run("dcn_chaos", store=str(tmp_path / "store2"),
+                    fault_step=fault_step, total=total)
+    for r in res:
+        assert len(r["fired"]) == 1 and r["fired"][0][1] == fault_step
+        assert r["tries"] == 2
+        assert r["at_retry"] == (fault_step,
+                                 sum(N * t for t in range(fault_step)))
+        assert r["accum"] == sum(N * t for t in range(total))
+        np.testing.assert_array_equal(r["weight"],
+                                      np.full((1, 2), float(total)))

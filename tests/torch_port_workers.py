@@ -972,6 +972,50 @@ def topo_toy_steps(env: dict, **kwargs) -> dict:
     return out
 
 
+def dcn_fault_site(stack: np.ndarray) -> dict:
+    """The ``dcn`` fault site on a 2 x 2 simulated mesh of this world:
+    the hierarchical allreduce's cross-pod stage and the overlap wire's
+    ``xpod_rs`` trip it, the flat and two-phase wires never do, a seeded
+    plan fires at the same runs twice, and the disarmed wire runs
+    clean."""
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.elastic.state import HorovodInternalError
+    from horovod_tpu_torch.topo import simulate
+
+    sim = simulate.simulated_mesh(2, 2)
+    out = {}
+    with faults.inject("dcn:step=0,mode=partition"):
+        try:
+            simulate.run_allreduce(sim, stack, algo="hierarchical")
+            out["hierarchical"] = None
+        except HorovodInternalError as e:
+            out["hierarchical"] = str(e)
+    with faults.inject("dcn:step=0"):
+        for algo in ("flat", "two_phase"):
+            simulate.run_allreduce(sim, stack, algo=algo)
+        out["flat_history"] = faults.history()
+    with faults.inject("dcn:step=0"):
+        try:
+            simulate.run_rs_ag_roundtrip(sim, stack)
+            out["roundtrip"] = None
+        except HorovodInternalError as e:
+            out["roundtrip"] = str(e)
+
+    def firing_sequence():
+        fired = []
+        with faults.inject("dcn:p=0.5,seed=42,times=3"):
+            for i in range(8):
+                try:
+                    simulate.run_allreduce(sim, stack, algo="hierarchical")
+                except HorovodInternalError:
+                    fired.append(i)
+        return fired
+
+    out["sequences"] = (firing_sequence(), firing_sequence())
+    out["clean"] = simulate.run_allreduce(sim, stack, algo="hierarchical")
+    return out
+
+
 def _spy_collectives(calls: list):
     """Wrap ``torch.distributed``'s reduce-scatter, allreduce and
     all-gather so each call appends ``(name, group width)`` to
@@ -1873,3 +1917,237 @@ def topo_obs(x: np.ndarray, y: np.ndarray, steps: int, numel: int,
     costmodel.reset_estimator()
     return {"per_step": per_step, "snapshot": snap,
             "schedule": _span_tree(trace.snapshot())}
+
+
+# --- durable state and recovery (elastic/, faults.py) -------------------------
+
+@contextlib.contextmanager
+def _owned_group(store: str):
+    """Run with the session owning its group, made from torchrun's
+    environment on a loopback port rank 0 picks just before (an elastic
+    re-init then moves to a new rendezvous generation); afterwards the
+    worker rejoins a group of its own through the FileStore ``store``,
+    as ``_serve`` made it."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.basics import _free_port
+
+    rank, world = hvd.rank(), hvd.size()
+    port = [_free_port() if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    port = port[0]
+    hvd.shutdown()
+    dist.destroy_process_group()
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        hvd.init(device="cpu")
+        yield
+    finally:
+        hvd.shutdown()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=120))
+        hvd.init(device="cpu")
+
+
+def elastic_chaos(store: str, fault_step: int, total: int,
+                  seed: int = 0) -> dict:
+    """The counterpart of ``TestChaosRecoverySingleController`` on this
+    world: an ``@elastic.run`` loop whose steps allreduce, fold the sum
+    into ``accum``, add one to a linear layer's weight and commit;
+    ``collective:step=fault_step`` fires once, and the loop rolls back,
+    backs off (the sleep is recorded, not slept), re-inits on its own
+    device over a new rendezvous and finishes."""
+    import json as _json
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, faults
+    from horovod_tpu_torch.elastic import TorchState, run
+    from horovod_tpu_torch.elastic import state as state_mod
+    from horovod_tpu_torch.obs import flight, metrics
+
+    def resets():
+        fam = metrics.registry().snapshot().get(
+            "hvd_tpu_elastic_resets_total", [])
+        return sum(s["value"] for s in fam
+                   if dict(s["labels"]).get("kind") == "rollback")
+
+    sleeps = []
+    saved_sleep = state_mod.time.sleep
+    state_mod.time.sleep = sleeps.append
+    try:
+        with _owned_group(store):
+            gen0, before = basics.rendezvous_generation(), resets()
+            model = torch.nn.Linear(2, 1, bias=False)
+            with torch.no_grad():
+                model.weight.zero_()
+            state = TorchState(model=model, step=0, accum=0.0)
+            meta = {"tries": 0, "at_retry": None}
+
+            @run
+            def train(state):
+                meta["tries"] += 1
+                if meta["tries"] == 2:
+                    meta["at_retry"] = (int(state.step), float(state.accum))
+                while int(state.step) < total:
+                    s = int(state.step)
+                    out = hvd.allreduce(torch.full((2,), float(s)),
+                                        op=hvd.Sum)
+                    state.accum = float(state.accum) + float(out[0])
+                    with torch.no_grad():
+                        state.model.weight.add_(1.0)
+                    state.step = s + 1
+                    state.commit()
+                return state
+
+            with faults.inject(f"collective:step={fault_step},seed={seed}"):
+                train(state)
+                fired = faults.history()
+            dump = flight.last_dumps()[-1]
+            with open(dump) as f:
+                doc = _json.load(f)
+            return {"fired": fired, "tries": meta["tries"],
+                    "at_retry": meta["at_retry"],
+                    "accum": float(state.accum),
+                    "weight": state.model.weight.detach().numpy().copy(),
+                    "generations": (gen0, basics.rendezvous_generation()),
+                    "device": str(hvd.device()),
+                    "backend": hvd.basics.backend(),
+                    "resets": resets() - before, "sleeps": sleeps,
+                    "dump": {"reason": doc["reason"],
+                             "fault_spec": doc["fault_spec"],
+                             "fault_history": doc["fault_history"]}}
+    finally:
+        state_mod.time.sleep = saved_sleep
+
+
+def elastic_sync_residual(seed: int) -> dict:
+    """``TorchState.sync`` over a DistributedOptimizer on the int8+EF
+    wire, each rank from its own weights and its own residual: after the
+    sync every rank holds rank 0's parameters, AdamW state and residual
+    (the reference broadcasts its whole ``opt_state``)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import TorchState
+
+    torch.manual_seed(seed + hvd.rank())
+    model = torch.nn.Linear(4, 3)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-2),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.int8, error_feedback=True)
+    opt.zero_grad()
+    model(torch.randn(8, 4)).pow(2).mean().backward()
+    opt.synchronize()        # this rank's own residual, reduced grads
+    opt.optimizer.step()
+    own = {k: v.numpy().copy() for k, v in opt.residual.items()}
+    state = TorchState(model=model, optimizer=opt, step=hvd.rank())
+    state.sync()
+    return {"own": own, "step": int(state.step),
+            "residual": {k: v.numpy().copy() for k, v in opt.residual.items()},
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()},
+            "exp_avg": [opt.state[p]["exp_avg"].numpy().copy()
+                        for p in model.parameters()]}
+
+
+def joined_mean(rows: np.ndarray, batch_size: int) -> dict:
+    """``JoinedBatchIterator`` over this rank's ragged rows and
+    ``global_masked_mean`` of them (and its gradient) over the world."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import data
+
+    it = data.JoinedBatchIterator(rows, batch_size=batch_size)
+    out = {"len": len(it), "local": it.local_steps, "means": [],
+           "grads": [], "masks": []}
+    for (batch,), mask in it:
+        x = torch.from_numpy(batch).requires_grad_(True)
+        m = data.global_masked_mean(x.sum(axis=1), mask)
+        m.backward()
+        out["means"].append(float(m))
+        out["grads"].append(x.grad.numpy().copy())
+        out["masks"].append(np.asarray(mask))
+    out["negotiated"] = data.negotiate_steps(hvd.rank() + 1)
+    return out
+
+
+def global_mean_step(x: np.ndarray, y: np.ndarray, mask: np.ndarray,
+                     lr: float) -> dict:
+    """One SGD step of ``make_train_step`` (op Average) on this rank's
+    rows of a ragged batch, the loss ``global_masked_mean`` of the
+    per-row squared errors: the join recipe."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import data
+
+    model = torch.nn.Linear(x.shape[1], y.shape[1], bias=False)
+    with torch.no_grad():
+        model.weight.zero_()
+
+    def loss_fn(m, batch):
+        xb, yb, mb = batch
+        per_row = ((m(xb) - yb) ** 2).sum(dim=-1)
+        return data.global_masked_mean(per_row, mb)
+
+    step = hvd.make_train_step(loss_fn,
+                               torch.optim.SGD(model.parameters(), lr=lr))
+    loss = step(model, (_my_rows(x), _my_rows(y), _my_rows(mask)))
+    return {"w": model.weight.detach().numpy().copy(), "loss": float(loss)}
+
+
+def dcn_chaos(store: str, fault_step: int, total: int) -> dict:
+    """The counterpart of ``tests/test_topo.py::TestChaosDcnRecovery`` on
+    this world: an ``@elastic.run`` loop whose step ``s`` reduces a
+    per-rank constant ``s`` over the hierarchical schedule of a 2 x 2
+    simulated mesh; ``dcn:step=fault_step`` fails the cross-pod exchange
+    of that step once, the loop rolls back, re-inits over a new
+    rendezvous and converges to the flat total."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.elastic import TorchState, run
+    from horovod_tpu_torch.elastic import state as state_mod
+    from horovod_tpu_torch.topo import simulate
+
+    saved_sleep = state_mod.time.sleep
+    state_mod.time.sleep = lambda s: None
+    try:
+        with _owned_group(store):
+            sim = simulate.simulated_mesh(2, 2)
+            model = torch.nn.Linear(2, 1, bias=False)
+            with torch.no_grad():
+                model.weight.zero_()
+            state = TorchState(model=model, step=0, accum=0.0)
+            meta = {"tries": 0, "at_retry": None}
+
+            @run
+            def train(state):
+                meta["tries"] += 1
+                if meta["tries"] == 2:
+                    meta["at_retry"] = (int(state.step), float(state.accum))
+                while int(state.step) < total:
+                    s = int(state.step)
+                    stack = np.full((hvd.size(), 2), float(s), np.float32)
+                    out = simulate.run_allreduce(sim, stack,
+                                                 algo="hierarchical")
+                    state.accum = float(state.accum) + float(out[0, 0])
+                    with torch.no_grad():
+                        state.model.weight.add_(1.0)
+                    state.step = s + 1
+                    state.commit()
+                return state
+
+            with faults.inject(f"dcn:step={fault_step}"):
+                train(state)
+                fired = [h for h in faults.history() if h[0] == "dcn"]
+            return {"fired": fired, "tries": meta["tries"],
+                    "at_retry": meta["at_retry"],
+                    "accum": float(state.accum),
+                    "weight": state.model.weight.detach().numpy().copy()}
+    finally:
+        state_mod.time.sleep = saved_sleep
