@@ -270,14 +270,43 @@
    name the spec and carry the one firing, and the final parameters
    must equal the unfaulted run's bit for bit (the sync hands both ranks
    rank 0's residual); B1-B4 must launch.
-21. Route check: the profiler's device trace must show a bf16
+21. "launcher 2 ranks": ``python -m horovod_tpu_torch.runner -np 2
+   --timeline-filename DIR/tl.json --timeline-mark-cycles
+   --stall-check-warning-time-seconds 15 --output-filename DIR/out``
+   starts two ranks of this script (``--launcher-worker DIR``), which
+   share the card over gloo in a group the session owns.  Each checks
+   torchrun's variables and the launch's HMAC key, the native library
+   loaded, the timeline writing through ``NativeTimeline`` and the
+   cross-process monitor running; then full-depth GPT-medium, a batch
+   of 8 x 1024 from seed 0 + rank, ``dp_step``'s AdamW on the int8+EF
+   wire, 3 steps each followed by an eager ``allreduce`` of the loss:
+   finite losses, replicas bitwise equal, B1-B4 launched.  The native
+   planner's plans of the 197 leaves must equal ``plan_buckets_py``,
+   and its two-phase and two-tier choices on the same bytes their
+   Python twins.  The stall drill: no warning during the steps; rank 1
+   sleeps 20 s before an eager ``allreduce`` named ``stall_probe``;
+   rank 0's monitor must log the missing-rank warning naming it (read
+   from ``DIR/out/rank.0.stderr``) and rank 1's inspector count
+   ``hvd_tpu_stall_events_total{kind="warn"}`` >= 1.  The wire: each
+   rank serves a ``BasicService`` keyed by the launch's secret; rank 0
+   pings both (clock offsets), merges both span rings (3
+   ``hvd_tpu_step`` roots a rank, no unresolved parent) and scrapes
+   rank 1's steps (3).  The parent checks the exit code, that no
+   process is left, both timelines (3 ``ENQUEUE`` and 3 ``EXECUTE``
+   for ``loss``, the broadcast's events, 3 step spans, 3 ``train``
+   counters, cycle marks) and ``--check-build`` (the four kernel
+   libraries and the native runtime built).  Prints the phase's
+   seconds, the step times, each timeline's bytes and events, a
+   timeline activity's host cost on each writer beside an eager
+   allreduce's, and the native planner's time beside the Python one's.
+22. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-22. Prints the ``kernels`` JSON line (all seven kernels, with their
+23. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -4116,6 +4145,453 @@ def check_elastic(res: list, seconds: float, label: str, wire: str,
     return r0["counts"]
 
 
+# --- "launcher 2 ranks": the host runtime through the port's launcher -------
+
+LAUNCHER_WORKER_FLAG = "--launcher-worker"
+LAUNCHER_RANKS, LAUNCHER_STEPS = 2, 3
+STALL_WINDOW_S = 15.0      # well above a step here (2 ranks, gloo, one card)
+LAUNCHER_TIMEOUT_S = 900.0
+PLANNER_CALLS = 200        # timed calls of each planner on the 197 leaves
+ACTIVITY_CALLS = 5000      # timed timeline activities a writer
+CONTRACT_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "GROUP_RANK", "GROUP_WORLD_SIZE", "MASTER_ADDR",
+                 "MASTER_PORT")
+MISSING_RANK_WARNING = ("was dispatched by this process but is not "
+                        "globally ready")
+
+
+def stall_warns() -> float:
+    """This process's ``hvd_tpu_stall_events_total{kind="warn"}``."""
+    from horovod_tpu_torch.obs import metrics
+
+    return sum(s["value"] for s in metrics.registry().snapshot().get(
+        "hvd_tpu_stall_events_total", [])
+        if dict(s["labels"]).get("kind") == "warn")
+
+
+def per_call_us(fn, calls: int) -> float:
+    """Mean host time of one call of ``fn`` over ``calls`` calls, in µs."""
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def planner_checks(plans: list) -> dict:
+    """The fusion plans the native planner gave the step, each against
+    ``plan_buckets_py`` on the same sizes; its two-phase and two-tier
+    choices on the same bytes against their Python twins; both planners'
+    host time on the 197 leaves."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.native import planner as nplanner
+    from horovod_tpu_torch.ops import fusion
+    from horovod_tpu_torch.topo.costmodel import default_params
+    from horovod_tpu_torch.topo.schedule import choose_algo
+    from horovod_tpu_torch.topo.topology import MeshTopology
+
+    leaves = [p for p in plans if len(p[0]) == 197]
+    if not leaves:
+        raise AssertionError(
+            "launcher 2 ranks: the native planner never planned the 197 "
+            f"gradient leaves (plans of {[len(p[0]) for p in plans]} leaves)")
+    for sizes, threshold, got in plans:
+        if got != fusion.plan_buckets_py(sizes, threshold):
+            raise AssertionError("launcher 2 ranks: a native fusion plan "
+                                 "differs from plan_buckets_py")
+    sizes, threshold, plan = leaves[0]
+    payloads = [sum(sizes[i] for i in b) for b in plan]
+    cfg = basics.config()
+    flags = nplanner.plan_two_phase_flags(payloads, 2, cfg.cost_alpha_us,
+                                          cfg.cost_beta_gbps)
+    if flags != fusion.plan_two_phase_flags(payloads, 2, cfg.cost_alpha_us,
+                                            cfg.cost_beta_gbps):
+        raise AssertionError("launcher 2 ranks: native two-phase flags "
+                             "differ from the Python twin's")
+    params = default_params()
+    algos = {}
+    for pods, chips in ((1, 2), (2, 1), (2, 2)):
+        topo = MeshTopology(pods, chips)
+        got = nplanner.plan_hierarchical(
+            payloads + sizes, pods, chips, params.ici.alpha_us,
+            params.ici.beta_gbps, params.dcn.alpha_us, params.dcn.beta_gbps)
+        if got != [choose_algo(b, topo, params) for b in payloads + sizes]:
+            raise AssertionError(f"launcher 2 ranks: native schedule choice "
+                                 f"at {pods}x{chips} differs from "
+                                 "choose_algo's")
+        algos[f"{pods}x{chips}"] = sorted(set(got))
+    return dict(
+        buckets=len(plan), threshold=threshold, two_phase=sum(flags),
+        algos=algos,
+        native_us=per_call_us(lambda: nplanner.plan_buckets(sizes,
+                                                            threshold),
+                              PLANNER_CALLS),
+        python_us=per_call_us(lambda: fusion.plan_buckets_py(sizes,
+                                                             threshold),
+                              PLANNER_CALLS))
+
+
+def timeline_cost(dev, tmp: str, rank: int) -> dict:
+    """Host cost of one timeline activity on each writer (the native
+    writer thread, the Python one, none open), and an eager allreduce of
+    one element on the session's timeline: an allreduce writes two
+    activities (ENQUEUE, EXECUTE)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils.timeline import Timeline
+
+    out = {}
+    for label, path, native in (
+            ("native", os.path.join(tmp, f"cost{rank}.native.json"), True),
+            ("python", os.path.join(tmp, f"cost{rank}.python.json"), False),
+            ("off", None, False)):
+        tl = Timeline(path, use_native=native)
+        if native and not tl.native:
+            raise AssertionError("the native timeline writer did not open")
+
+        def activity():
+            with tl.activity("loss", "EXECUTE", {"op": "average"}):
+                pass
+
+        out[f"{label}_us"] = per_call_us(activity, ACTIVITY_CALLS)
+        tl.close()
+    x = torch.ones(1, device=dev)
+    for _ in range(3):
+        hvd.allreduce(x, name="timeline_cost")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        hvd.allreduce(x, name="timeline_cost")
+        times.append((time.perf_counter() - t0) * 1e6)
+    out["eager_allreduce_us"] = statistics.median(times)
+    return out
+
+
+def wire_checks(rank: int) -> dict:
+    """Each rank serves a ``BasicService`` keyed by the launcher's secret;
+    rank 0 pings both (clock offsets), takes each one's span ring and
+    rank 1's metrics, and merges the two traces."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import trace
+    from horovod_tpu_torch.runner.common import network, secret
+
+    key = secret.secret_from_env()
+    svc = network.BasicService(f"rank{rank}", key)
+    ports = hvd.allgather_object(svc.port)
+    out = {}
+    try:
+        if rank == 0:
+            clients = [network.BasicClient(f"rank{r}",
+                                           [("127.0.0.1", ports[r])], key)
+                       for r in range(LAUNCHER_RANKS)]
+            offsets = {}
+            for r, client in enumerate(clients):
+                samples = []
+                for _ in range(8):
+                    send = trace.now_us()
+                    resp = client.ping()
+                    samples.append((send, trace.now_us(), resp.clock_us))
+                offsets[r] = trace.estimate_clock_offset(samples)
+            # Rank 1's ring first, this rank's last: every client span of
+            # the exchange is then closed in the merged set.
+            rings = {1: clients[1].request(network.TraceRequest()),
+                     0: clients[0].request(network.TraceRequest())}
+            scraped = clients[1].request(network.MetricsRequest())
+            merged = trace.merge_traces(
+                {f"rank{r}": (offsets[r][0], rings[r].spans) for r in rings})
+            pid_of = {e["args"]["name"]: e["pid"] for e in merged
+                      if e.get("ph") == "M"}
+            roots = {label: sum(1 for e in merged
+                                if e.get("ph") == "X" and e["pid"] == pid
+                                and e["name"] == "hvd_tpu_step"
+                                and not e["args"].get("parent_id"))
+                     for label, pid in pid_of.items()}
+            steps = [s["value"] for s in scraped.snapshot["metrics"].get(
+                "hvd_tpu_steps_total", [])
+                if dict(s["labels"]).get("kind") == "train"]
+            out = dict(
+                offsets_us={r: list(o) for r, o in offsets.items()},
+                ring_ranks=[rings[0].rank, rings[1].rank],
+                roots=roots,
+                unresolved=trace.unresolved_parents(rings[0].spans
+                                                    + rings[1].spans),
+                merged_events=len(merged), scraped_steps=steps,
+                scraped_rank=scraped.snapshot.get("rank"))
+        hvd.barrier(name="wire_done")
+    finally:
+        svc.shutdown()
+    return out
+
+
+def launcher_ranks(dev, rank: int, tmp: str) -> dict:
+    """Path "launcher 2 ranks", one rank under the port's launcher:
+    full-depth GPT-medium, ``dp_step``'s AdamW on the int8+EF wire, 3
+    steps each followed by an eager ``allreduce`` of the loss; the
+    native planner's plans; the stall drill; the wire."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.native import bindings
+    from horovod_tpu_torch.native import planner as nplanner
+
+    tl, monitor = hvd.timeline(), hvd.peek("cross_monitor")
+    if not bindings.available():
+        raise AssertionError("the native runtime did not load")
+    if not (tl.enabled and tl.native):
+        raise AssertionError("the timeline does not write through "
+                             "NativeTimeline")
+    if monitor is None or not monitor._thread.is_alive():
+        raise AssertionError("the cross-process monitor is not running")
+    model, batch = gpt_medium(dev, data_seed=rank)
+    step = dp_step(model)
+    plans = []
+    native_plan = nplanner.plan_buckets
+
+    def recorded(sizes, threshold):
+        got = native_plan(sizes, threshold)
+        plans.append((list(sizes), int(threshold), got))
+        return got
+
+    nplanner.plan_buckets = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hvd.ops.reset_launch_counts()
+    losses, times = [], []
+    try:
+        for _ in range(LAUNCHER_STEPS):
+            t0 = time.perf_counter()
+            loss = step(model, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(hvd.allreduce(loss.detach(), name="loss")))
+    finally:
+        nplanner.plan_buckets = native_plan
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = param_digest(model)
+    planner = planner_checks(plans)
+    cost = timeline_cost(dev, tmp, rank)
+    warns_before = stall_warns()
+    reported_before = sorted(monitor._reported)
+    if rank == 1:
+        time.sleep(STALL_WINDOW_S + 5)
+    t0 = time.perf_counter()
+    hvd.allreduce(torch.ones(1, device=dev), name="stall_probe")
+    probe_wait = time.perf_counter() - t0
+    warns_after = stall_warns()
+    wire = wire_checks(rank)
+    return dict(losses=losses, times=times, counts=counts, peak=peak,
+                params=params, planner=planner, cost=cost,
+                warns_before=warns_before, warns_after=warns_after,
+                reported_before=reported_before, probe_wait=probe_wait,
+                monitor_failure=monitor.failure, wire=wire,
+                cycles=hvd.peek("cross_monitor")._coord.cycles)
+
+
+def launcher_worker(tmp: str) -> None:
+    """One rank of "launcher 2 ranks", started by ``python -m
+    horovod_tpu_torch.runner``: checks the launcher's environment, joins
+    the world the session owns (gloo: NCCL refuses two ranks on one
+    card), runs :func:`launcher_ranks` and writes ``DIR/rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.common.secret import SECRET_ENV
+
+    env = os.environ
+    rank = int(env["RANK"])
+    want = dict(WORLD_SIZE=str(LAUNCHER_RANKS), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(LAUNCHER_RANKS), GROUP_RANK="0",
+                GROUP_WORLD_SIZE="1", HOROVOD_TIMELINE_MARK_CYCLES="1",
+                HOROVOD_STALL_CHECK_TIME_SECONDS=str(STALL_WINDOW_S))
+    wrong = {k: env.get(k) for k, v in want.items() if env.get(k) != v}
+    missing = [k for k in (*CONTRACT_VARS, SECRET_ENV, "HOROVOD_TIMELINE")
+               if not env.get(k)]
+    if wrong or missing or not env["MASTER_PORT"].isdigit():
+        raise AssertionError(f"launcher env contract: wrong {wrong}, "
+                             f"missing {missing}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cuda:0", backend="gloo")
+    try:
+        res = launcher_ranks(hvd.device(), rank, tmp)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        hvd.shutdown()
+
+
+def timeline_events(path: str) -> dict:
+    """One rank's timeline file: parsed (it must be a Chrome-trace JSON
+    array) and counted."""
+    with open(path) as f:
+        events = json.load(f)
+
+    def count(name, ph, tensor=None, **args):
+        return sum(1 for e in events
+                   if e.get("name") == name and e.get("ph") == ph
+                   and (tensor is None
+                        or e.get("args", {}).get("tensor") == tensor)
+                   and all(e.get("args", {}).get(k) == v
+                           for k, v in args.items()))
+
+    counters = [e for e in events if e.get("ph") == "C"
+                and e.get("name") == "train"]
+    return dict(
+        bytes=os.path.getsize(path), events=len(events),
+        loss_enqueue=count("ENQUEUE", "X", "loss", op="average"),
+        loss_execute=count("EXECUTE", "X", "loss", op="average"),
+        broadcast=count("EXECUTE", "X", root=0),
+        steps=count("hvd_tpu_step", "X"),
+        train_counters=sum(1 for e in counters
+                           if {"step_time_ms", "tokens_per_s"}
+                           <= set(e.get("args", {}))),
+        cycles=count("CYCLE", "i"))
+
+
+def check_launcher(res: list, logs: dict, files: dict, build: str,
+                   seconds: float, label: str, wire: str, card: str):
+    for r, out in enumerate(res):
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{label}: rank {r} non-finite losses "
+                                 f"{out['losses']}")
+        if out["losses"] != res[0]["losses"] or \
+                out["params"] != res[0]["params"]:
+            raise AssertionError(f"{label}: the replicas differ")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks",
+                     "dequantize_accumulate"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {label} "
+                                     f"path (rank {r})")
+        if out["warns_before"] != 0 or out["reported_before"]:
+            raise AssertionError(
+                f"{label}: rank {r} warned of a stall during the steps "
+                f"({out['warns_before']} warnings, monitor "
+                f"{out['reported_before']})")
+        if out["monitor_failure"]:
+            raise AssertionError(f"{label}: rank {r}'s cross-process monitor "
+                                 f"failed: {out['monitor_failure']}")
+        tl = files[r]
+        if (tl["loss_enqueue"], tl["loss_execute"]) != (LAUNCHER_STEPS,) * 2 \
+                or tl["broadcast"] < 1 or tl["steps"] != LAUNCHER_STEPS \
+                or tl["train_counters"] != LAUNCHER_STEPS or tl["cycles"] < 1:
+            raise AssertionError(f"{label}: rank {r}'s timeline {tl}")
+    if res[1]["warns_after"] < 1:
+        raise AssertionError(f"{label}: rank 1's stall inspector counted "
+                             f"{res[1]['warns_after']} warnings in the drill")
+    missing = [line for line in logs[0].splitlines()
+               if MISSING_RANK_WARNING in line]
+    if len(missing) != 1 or "'stall_probe'" not in missing[0]:
+        raise AssertionError(f"{label}: rank 0's missing-rank warnings: "
+                             f"{missing}")
+    w = res[0]["wire"]
+    if w["roots"] != {"rank0": LAUNCHER_STEPS, "rank1": LAUNCHER_STEPS} \
+            or w["unresolved"] or w["scraped_steps"] != [LAUNCHER_STEPS] \
+            or w["scraped_rank"] != 1 or w["ring_ranks"] != [0, 1]:
+        raise AssertionError(f"{label}: the wire: {w}")
+    for name in ("int8_kernels", "flash_attention", "fused_apply",
+                 "matmul"):
+        if f"[X] csrc/{name}.cu: built" not in build:
+            raise AssertionError(f"--check-build: {name} not built:\n{build}")
+    if "[X] native runtime built (ABI 3" not in build:
+        raise AssertionError(f"--check-build: native runtime:\n{build}")
+    r0, p = res[0], res[0]["planner"]
+    cost = r0["cost"]
+    log(f"{label}: GPT-medium 24 layers through python -m "
+        f"horovod_tpu_torch.runner -np 2, losses {r0['losses']}, replicas "
+        f"bitwise equal, step seconds {r0['times']} (median "
+        f"{statistics.median(r0['times']):.3f}), peak memory per rank "
+        f"{r0['peak'] / 2**30:.2f} / {res[1]['peak'] / 2**30:.2f} GiB, "
+        f"phase {seconds:.1f} s ({wire}) on {card}")
+    log(f"{label}: native planner {p['buckets']} buckets of the 197 leaves "
+        f"(threshold {p['threshold']}) bitwise plan_buckets_py, "
+        f"{p['two_phase']} two-phase, schedule choices {p['algos']} equal "
+        f"to choose_algo; plan_buckets {p['native_us']:.1f} µs native "
+        f"against {p['python_us']:.1f} µs Python a call")
+    log(f"{label}: timeline activity {cost['native_us']:.2f} µs on the "
+        f"native writer, {cost['python_us']:.2f} µs on the Python one, "
+        f"{cost['off_us']:.2f} µs with none open; an eager allreduce of one "
+        f"element {cost['eager_allreduce_us']:.1f} µs (gloo, median of 20) "
+        f"writes two")
+    for r in range(LAUNCHER_RANKS):
+        log(f"{label}: rank {r} timeline {files[r]['bytes']} bytes, "
+            f"{files[r]['events']} events ({files[r]})")
+    log(f"{label}: stall drill (window {STALL_WINDOW_S} s): rank 1 counted "
+        f"{res[1]['warns_after']} warnings, rank 0 waited "
+        f"{r0['probe_wait']:.1f} s and warned: {missing[0].strip()}")
+    log(f"{label}: wire: clock offsets {w['offsets_us']} µs, merged "
+        f"{w['merged_events']} events, 3 hvd_tpu_step roots a rank, rank "
+        f"1's scrape steps {w['scraped_steps']}; monitor cycles "
+        f"{r0['cycles']}; launches {r0['counts']}")
+    return r0["counts"]
+
+
+def launcher_phase(card: str):
+    """Run "launcher 2 ranks" through ``python -m
+    horovod_tpu_torch.runner`` in its own session (killed with its
+    workers on a timeout) and check what it left: the exit code, no
+    process left over, both timelines, the drill's warning in rank 0's
+    stderr, and ``--check-build``."""
+    import shutil
+    import signal
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launcher_")
+    out_dir = os.path.join(tmp, "out")
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner",
+           "-np", str(LAUNCHER_RANKS),
+           "--timeline-filename", os.path.join(tmp, "tl.json"),
+           "--timeline-mark-cycles",
+           "--stall-check-warning-time-seconds", str(STALL_WINDOW_S),
+           "--output-filename", out_dir,
+           sys.executable, os.path.abspath(__file__), LAUNCHER_WORKER_FLAG,
+           tmp]
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=repo,
+                                start_new_session=True)
+        try:
+            code = proc.wait(timeout=LAUNCHER_TIMEOUT_S)
+        finally:
+            if proc.poll() is None or child_processes():
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        logs = {}
+        for r in range(LAUNCHER_RANKS):
+            with open(os.path.join(out_dir, f"rank.{r}.stderr")) as f:
+                logs[r] = f.read()
+        if code != 0:
+            for r, text in logs.items():
+                print(f"--- rank {r} stderr (tail)\n{text[-4000:]}",
+                      file=sys.stderr)
+            raise AssertionError(f"launcher 2 ranks: the launcher exited "
+                                 f"{code}")
+        if child_processes():
+            raise AssertionError(f"launcher 2 ranks: processes left running: "
+                                 f"{child_processes()}")
+        res = []
+        for r in range(LAUNCHER_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        files = {r: timeline_events(os.path.join(
+                     tmp, "tl.json" + (f".rank{r}" if r else "")))
+                 for r in range(LAUNCHER_RANKS)}
+        build = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner",
+             "--check-build"], env=env, cwd=repo, capture_output=True,
+            text=True, check=True, timeout=300).stdout
+        return check_launcher(res, logs, files, build, seconds,
+                              "launcher 2 ranks",
+                              "gloo staging through the host, 2 ranks on "
+                              "one card: not a wire's time", card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -4359,6 +4835,8 @@ def main() -> int:
             time.perf_counter() - t0, "elastic 2 ranks",
             "gloo staging through the host, 2 ranks on one card: not a "
             "wire's time", card)
+        torch.cuda.empty_cache()
+        launcher_counts = launcher_phase(card)
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -4372,7 +4850,8 @@ def main() -> int:
                "sequence-parallel 4 ranks": seq_counts, **new_paths,
                "bert-large 1 rank": bert_counts, **convnet_counts,
                "durable 1 rank": durable_counts,
-               "elastic 2 ranks": elastic_counts}
+               "elastic 2 ranks": elastic_counts,
+               "launcher 2 ranks": launcher_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -4396,6 +4875,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [LAUNCHER_WORKER_FLAG]:
+        launcher_worker(sys.argv[2])
+        sys.exit(0)
     if sys.argv[1:2] and sys.argv[1] in WORKER_FLAGS:
         rank_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])
         sys.exit(0)

@@ -62,6 +62,14 @@ sharded saves, the step journal, ``resume()``), the whole-tree
 and the discovery driver), ``hvd.faults`` (``HVD_TPU_FAULT_SPEC``) and
 ``hvd.data`` (padding, masks, joined ragged shards).
 
+The host runtime: ``HOROVOD_TIMELINE`` (or ``hvd.start_timeline``)
+writes a Chrome trace of the eager collectives and the step spans; the
+stall inspectors warn when a rank stops dispatching
+(``HOROVOD_STALL_CHECK_TIME_SECONDS``); ``python -m
+horovod_tpu_torch.runner -np N cmd ...`` launches a job (torchrun's
+variables, per-rank output, the HMAC-signed control plane of
+``runner/common/network.py``).
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
@@ -69,7 +77,8 @@ each kernel wrapper takes its plain PyTorch version.
 from .basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
     cross_rank, cross_size, is_homogeneous, device, config, global_mesh,
-    mesh_plan, apply_mesh_plan,
+    mesh_plan, apply_mesh_plan, start_timeline, stop_timeline, timeline,
+    stall_inspector, peek,
     NotInitializedError, nccl_built, gloo_built, mpi_built, cuda_built,
     rocm_built, ccl_built, ddl_built, xla_built, gloo_enabled, mpi_enabled,
     xla_enabled, mpi_threads_supported,

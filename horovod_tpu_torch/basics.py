@@ -20,6 +20,12 @@ The session also holds the 1-D world (:func:`global_mesh`) and the
 parallelism plan (:func:`mesh_plan`): ``HVD_TPU_MESH_PLAN`` unset is the
 1-D plan over the world, a declared layout (``data=2,fsdp=2``) registers
 one process set per axis group at ``init``.
+
+And the host runtime: the timeline (``HOROVOD_TIMELINE``;
+:func:`timeline`, :func:`start_timeline`, :func:`stop_timeline`), the
+stall inspector (:func:`stall_inspector`) and, in a world of two or
+more, the cross-process monitor over the native coordinator.
+:func:`peek` reads any of them, None before ``init``.
 """
 
 from __future__ import annotations
@@ -76,6 +82,12 @@ class _Session:
     layout_lattice: Optional[list] = None
     # The bound local scrape port (HVD_TPU_METRICS_PORT + rank), if any.
     metrics_port: Optional[int] = None
+    # The host runtime: the Chrome-trace timeline (utils/timeline.py),
+    # the heartbeat watchdog (utils/stall.py) and, at two ranks or more,
+    # the cross-process monitor (utils/cross_stall.py).
+    timeline: object = None
+    stall_inspector: object = None
+    cross_monitor: object = None
 
 
 _session: Optional[_Session] = None
@@ -182,8 +194,11 @@ def init(device: Union[str, torch.device, None] = None,
     # The session plan: the 1-D default over the global mesh, or the
     # declared HVD_TPU_MESH_PLAN with one process set per axis group.
     try:
+        _start_host_runtime(cfg, me)
         _install_plan(cfg.mesh_plan)
         _maybe_build_parameter_manager(_session.config)
+        _session = dataclasses.replace(
+            _session, cross_monitor=_maybe_start_cross_monitor(cfg))
     except BaseException:
         shutdown()
         raise
@@ -220,6 +235,84 @@ def _configure_obs(cfg: Config, rank: int) -> None:
             metrics_port=export.start_http_exporter(cfg.metrics_port + rank))
 
 
+def _start_host_runtime(cfg: Config, rank: int) -> None:
+    """The log level, this rank's timeline and the stall inspector."""
+    global _session
+    from .utils.logging import set_level
+    from .utils.stall import StallInspector
+    from .utils.timeline import Timeline, per_process_path
+
+    set_level(cfg.log_level)
+    _session = dataclasses.replace(
+        _session,
+        timeline=Timeline(per_process_path(cfg.timeline, rank),
+                          mark_cycles=cfg.timeline_mark_cycles),
+        stall_inspector=StallInspector(
+            enabled=not cfg.stall_check_disable,
+            warn_after_s=cfg.stall_check_time_seconds,
+            shutdown_after_s=cfg.stall_shutdown_time_seconds))
+
+
+def _maybe_start_cross_monitor(cfg: Config):
+    """The cross-process stall monitor over the native coordinator, in a
+    world of two or more (reference: ``basics._maybe_start_cross_monitor``).
+
+    Fail-soft, with one hard rule: the exchange of rank 0's coordinator
+    port is a collective, so every rank reaches it exactly once whatever
+    fails locally (a rank that skipped it would leave its peers blocked
+    in ``init``).  A local failure ships port -1 (rank 0) or ignores the
+    port it got (the others).  The exchange is a plain
+    ``torch.distributed`` broadcast: it ticks no fault site and counts
+    no dispatch."""
+    s = _session
+    if s.size <= 1 or cfg.stall_check_disable or not cfg.native_coordinator:
+        return None
+    from .native import runtime as native
+
+    host = os.environ.get("MASTER_ADDR") or "127.0.0.1"
+    try:
+        host = socket.gethostbyname(host)
+    except OSError:
+        host = "127.0.0.1"
+    coord, port = None, -1
+    if s.rank == 0:
+        try:
+            if native.available():
+                coord = native.Coordinator(
+                    0, s.size, host=host, port=0,
+                    fusion_threshold=cfg.fusion_threshold, timeout_s=30.0)
+                port = coord.bound_port
+        except Exception as e:
+            logger.warning("cross-process stall monitor unavailable: %s", e)
+            coord, port = None, -1
+    box = torch.tensor([port], dtype=torch.int64, device=s.device)
+    try:
+        dist.broadcast(box, src=0)
+        port = int(box.item())
+    except Exception as e:
+        logger.warning("cross-process monitor port exchange failed: %s", e)
+        port = -1
+    if port < 0:
+        if coord is not None:   # the exchange failed after a good bind
+            coord.close()
+        return None
+    if s.rank != 0:
+        try:
+            if native.available():
+                coord = native.Coordinator(
+                    s.rank, s.size, host=host, port=port,
+                    fusion_threshold=cfg.fusion_threshold, timeout_s=30.0)
+        except Exception as e:
+            logger.warning("cross-process stall monitor unavailable: %s", e)
+            coord = None
+    if coord is None:
+        return None
+    from .utils.cross_stall import CrossProcessMonitor
+
+    return CrossProcessMonitor(coord,
+                               warn_after_s=cfg.stall_check_time_seconds)
+
+
 def metrics_port() -> Optional[int]:
     """The port this rank's ``/metrics`` answers on
     (``HVD_TPU_METRICS_PORT`` + rank), or None."""
@@ -227,12 +320,18 @@ def metrics_port() -> Optional[int]:
 
 
 def shutdown() -> None:
-    """Drop the process sets and the topology tiers' groups, stop the
-    scrape port and leave the process group (if :func:`init` created
-    it)."""
+    """Close the timeline, stop the stall inspectors, drop the process
+    sets and the topology tiers' groups, stop the scrape port and leave
+    the process group (if :func:`init` created it)."""
     global _session
     if _session is None:
         return
+    if _session.timeline is not None:
+        _session.timeline.close()
+    if _session.stall_inspector is not None:
+        _session.stall_inspector.stop()
+    if _session.cross_monitor is not None:
+        _session.cross_monitor.stop()
     if _session.metrics_port is not None:
         from .obs import export
 
@@ -261,6 +360,50 @@ def _require() -> _Session:
     if _session is None:
         raise NotInitializedError()
     return _session
+
+
+def peek(attr: str):
+    """One field of the session (``"timeline"``, ``"stall_inspector"``,
+    ``"cross_monitor"``, ...), or None before :func:`init`: the
+    fail-soft read of the observability paths, which run before and
+    after a session."""
+    return getattr(_session, attr, None)
+
+
+def timeline():
+    """This rank's :class:`~.utils.timeline.Timeline` (disabled unless
+    ``HOROVOD_TIMELINE`` or :func:`start_timeline` gave it a path)."""
+    return _require().timeline
+
+
+def stall_inspector():
+    """This rank's :class:`~.utils.stall.StallInspector`."""
+    return _require().stall_inspector
+
+
+def start_timeline(path: str, mark_cycles: bool = False) -> None:
+    """Reference: ``hvd.start_timeline()``: close the live timeline and
+    write a new one to ``path`` (rank r: ``<path>.rank<r>``)."""
+    global _session
+    from .utils.timeline import Timeline, per_process_path
+
+    s = _require()
+    if s.timeline is not None:
+        s.timeline.close()
+    _session = dataclasses.replace(
+        s, timeline=Timeline(per_process_path(path, s.rank),
+                             mark_cycles=mark_cycles))
+
+
+def stop_timeline() -> None:
+    """Reference: ``hvd.stop_timeline()``: close the live timeline."""
+    global _session
+    from .utils.timeline import Timeline
+
+    s = _require()
+    if s.timeline is not None:
+        s.timeline.close()
+    _session = dataclasses.replace(s, timeline=Timeline(None))
 
 
 def rank() -> int:

@@ -79,6 +79,14 @@ def _env_float(name: str, default: float) -> float:
             f"Float env var {name!r} has unparseable value {val!r}") from e
 
 
+def _env_opt_int(name: str) -> Optional[int]:
+    """Like :func:`_env_int` but unset stays None (knobs where unset and
+    any explicit value mean different things)."""
+    if _env(name) is None:
+        return None
+    return _env_int(name, 0)
+
+
 def _env_straggler_factor() -> float:
     """``HVD_TPU_STRAGGLER_FACTOR`` must exceed 1: at <= 1x the world
     median, half the world (or all of it) is "straggling" by
@@ -410,6 +418,11 @@ def _validated_fault_spec(spec: Optional[str]) -> Optional[str]:
 # warns at init, since silently ignoring a reference env var that
 # changes behaviour there is a trap.
 _NOOP_KNOBS = {
+    "CYCLE_TIME": ("torch.distributed starts each collective when it is "
+                   "called; there is no background cycle whose latency "
+                   "could be tuned"),
+    "CACHE_CAPACITY": ("an eager collective builds no program to cache; "
+                       "there is no dispatch cache to bound"),
     "HIERARCHICAL_ALLGATHER": ("torch.distributed's all-gather runs over "
                                "the whole group; use "
                                "HOROVOD_HIERARCHICAL_ALLREDUCE for the "
@@ -481,6 +494,18 @@ class Config:
     checkpoint_digest: bool = True            # HVD_TPU_CHECKPOINT_DIGEST (integrity sidecar)
     ckpt_async: bool = True                   # HVD_TPU_CKPT_ASYNC (snapshot-and-offload saves)
     ckpt_inflight: int = 2                    # HVD_TPU_CKPT_INFLIGHT (bounded writer queue)
+    # The host runtime (utils/timeline.py, utils/stall.py,
+    # utils/cross_stall.py, native/).
+    timeline: Optional[str] = None            # HOROVOD_TIMELINE (Chrome-trace path; rank r writes <path>.rank<r>)
+    timeline_mark_cycles: bool = False        # HOROVOD_TIMELINE_MARK_CYCLES
+    log_level: str = "warning"                # HOROVOD_LOG_LEVEL
+    stall_check_disable: bool = False         # HOROVOD_STALL_CHECK_DISABLE
+    stall_check_time_seconds: float = 60.0    # HOROVOD_STALL_CHECK_TIME_SECONDS
+    stall_shutdown_time_seconds: float = 0.0  # HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (0 = never)
+    use_native_planner: bool = True           # HVD_TPU_USE_NATIVE_PLANNER (C++ fusion and schedule planners)
+    native_coordinator: bool = True           # HVD_TPU_NATIVE_COORD (cross-process stall monitor)
+    cycle_time_ms: float = 1.0                # HOROVOD_CYCLE_TIME (no-op: warns)
+    cache_capacity: Optional[int] = None      # HOROVOD_CACHE_CAPACITY (no-op: warns)
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -534,4 +559,16 @@ class Config:
             checkpoint_digest=_env_bool("CHECKPOINT_DIGEST", True),
             ckpt_async=_env_bool("CKPT_ASYNC", True),
             ckpt_inflight=_env_pos_int("CKPT_INFLIGHT", 2),
+            timeline=_env("TIMELINE") or None,
+            timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
+            log_level=(_env("LOG_LEVEL") or "warning").lower(),
+            stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
+            stall_check_time_seconds=_env_float("STALL_CHECK_TIME_SECONDS",
+                                                60.0),
+            stall_shutdown_time_seconds=_env_float(
+                "STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            use_native_planner=_env_bool("USE_NATIVE_PLANNER", True),
+            native_coordinator=_env_bool("NATIVE_COORD", True),
+            cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
+            cache_capacity=_env_opt_int("CACHE_CAPACITY"),
         )

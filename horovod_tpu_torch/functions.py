@@ -25,17 +25,23 @@ def broadcast_parameters(
                       Iterable[Tuple[str, torch.Tensor]]],
         root_rank: int = 0) -> None:
     """Overwrite every tensor of ``params`` (``model.state_dict()`` or
-    ``model.named_parameters()``) with ``root_rank``'s, in place."""
+    ``model.named_parameters()``) with ``root_rank``'s, in place.  Each
+    tensor heartbeats the stall inspectors and writes a timeline
+    ``EXECUTE`` event named ``broadcast.<name>`` with ``{"root"}``, as
+    the reference's torch binding names them; it counts no dispatch."""
     device = basics.device()
     items = params.items() if isinstance(params, Mapping) else params
     with torch.no_grad():
-        for _, t in sorted(items, key=lambda kv: kv[0]):
-            if t.device == device:
-                dist.broadcast(t.data, src=root_rank)
-            else:  # e.g. AdamW's step count, kept on the CPU
-                tmp = t.detach().to(device)
-                dist.broadcast(tmp, src=root_rank)
-                t.data.copy_(tmp)
+        for name, t in sorted(items, key=lambda kv: kv[0]):
+            C._heartbeat(f"broadcast.{name}")
+            with C._activity(f"broadcast.{name}", "EXECUTE",
+                             {"root": root_rank}):
+                if t.device == device:
+                    dist.broadcast(t.data, src=root_rank)
+                else:  # e.g. AdamW's step count, kept on the CPU
+                    tmp = t.detach().to(device)
+                    dist.broadcast(tmp, src=root_rank)
+                    t.data.copy_(tmp)
 
 
 def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:

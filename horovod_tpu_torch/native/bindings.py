@@ -1,0 +1,130 @@
+"""ctypes declarations of the native runtime's C ABI (``src/c_api.cc``).
+
+Counterpart of ``horovod_tpu/native/bindings.py``: the same functions,
+the same signatures and the same ABI version.  :func:`load` builds the
+library at first use (``build.py``) and checks its ABI version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+from ..utils.logging import get_logger
+from . import build as _build
+
+logger = get_logger(__name__)
+
+ABI_VERSION = 3
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None   # guarded-by: _lock
+_load_failed = False                 # guarded-by: _lock
+
+c_i8, c_i32, c_i64 = ctypes.c_int8, ctypes.c_int32, ctypes.c_int64
+c_int, c_dbl, c_void = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+c_char_p, c_u8p = ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8)
+
+_SIGNATURES = {
+    "hvd_tpu_native_abi_version": (c_i64, []),
+    "hvd_tpu_plan_buckets": (c_i64, [ctypes.POINTER(c_i64), c_i64, c_i64,
+                                     ctypes.POINTER(c_i32)]),
+    "hvd_tpu_plan_two_phase": (c_i64, [ctypes.POINTER(c_i64), c_i64, c_i64,
+                                       c_dbl, c_dbl, ctypes.POINTER(c_i8)]),
+    "hvd_tpu_plan_hierarchical": (c_i64, [ctypes.POINTER(c_i64), c_i64,
+                                          c_i64, c_i64, c_dbl, c_dbl,
+                                          c_dbl, c_dbl,
+                                          ctypes.POINTER(c_i8)]),
+    # controller
+    "hvd_ctrl_create": (c_void, [c_i32, c_i64, c_i64]),
+    "hvd_ctrl_destroy": (None, [c_void]),
+    "hvd_ctrl_submit": (c_int, [c_void, c_i32, c_char_p, c_i8, c_i8, c_i64,
+                                c_i32, c_i32]),
+    "hvd_ctrl_compute": (c_i64, [c_void, c_u8p, c_i64]),
+    # tensor queue
+    "hvd_queue_create": (c_void, []),
+    "hvd_queue_destroy": (None, [c_void]),
+    "hvd_queue_push": (c_int, [c_void, c_i32, c_char_p, c_i8, c_i8, c_i64,
+                               c_i32, c_i32]),
+    "hvd_queue_size": (c_i64, [c_void]),
+    "hvd_queue_drain": (c_i64, [c_void, c_u8p, c_i64]),
+    "hvd_ctrl_register_group": (c_i32, [c_void,
+                                        ctypes.POINTER(c_char_p), c_i32]),
+    "hvd_ctrl_cache_hits": (c_i64, [c_void]),
+    "hvd_ctrl_cache_misses": (c_i64, [c_void]),
+    "hvd_ctrl_last_error": (c_i64, [c_void, c_char_p, c_i64]),
+    "hvd_ctrl_pending_partial": (c_i64, [c_void, c_char_p, c_i64]),
+    # wire test hooks
+    "hvd_wire_requests_roundtrip": (c_i64, [c_u8p, c_i64, c_u8p, c_i64]),
+    "hvd_wire_responses_roundtrip": (c_i64, [c_u8p, c_i64, c_u8p, c_i64]),
+    # coordinator
+    "hvd_coord_create": (c_void, [c_i32, c_i32, c_char_p, c_i32, c_i64,
+                                  c_dbl]),
+    "hvd_coord_destroy": (None, [c_void]),
+    "hvd_coord_bound_port": (c_i32, [c_void]),
+    "hvd_coord_negotiate": (c_i64, [c_void, c_u8p, c_i64, c_u8p, c_i64]),
+    "hvd_coord_barrier": (c_int, [c_void]),
+    "hvd_coord_shutdown": (None, [c_void]),
+    "hvd_coord_cycles": (c_i64, [c_void]),
+    "hvd_coord_last_error": (c_i64, [c_void, c_char_p, c_i64]),
+    "hvd_coord_cache_hits": (c_i64, [c_void]),
+    # stall inspector
+    "hvd_stall_create": (c_void, [c_i32, c_dbl, c_dbl]),
+    "hvd_stall_destroy": (None, [c_void]),
+    "hvd_stall_submit": (None, [c_void, c_char_p, c_i32, c_dbl]),
+    "hvd_stall_complete": (None, [c_void, c_char_p]),
+    "hvd_stall_report": (c_i64, [c_void, c_dbl, c_char_p, c_i64]),
+    "hvd_stall_should_shutdown": (c_int, [c_void, c_dbl]),
+    # timeline
+    "hvd_tl_open": (c_void, [c_char_p, c_int]),
+    "hvd_tl_record": (None, [c_void, c_char_p, c_char_p, c_dbl, c_dbl,
+                             c_char_p]),
+    "hvd_tl_mark_cycle": (None, [c_void, c_dbl]),
+    "hvd_tl_counter": (None, [c_void, c_char_p, c_dbl, c_char_p]),
+    "hvd_tl_flow": (None, [c_void, c_char_p, c_char_p, c_char_p, c_dbl]),
+    "hvd_tl_events_written": (c_i64, [c_void]),
+    "hvd_tl_close_destroy": (None, [c_void]),
+}
+
+
+def load() -> Optional[ctypes.CDLL]:
+    """The native library, built if needed; None when it cannot be built
+    or loaded (every caller has a Python fallback)."""
+    global _lib, _load_failed
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _load_failed:
+            return None
+        path = _build.build()
+        if path is None:
+            _load_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(str(path))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            if lib.hvd_tpu_native_abi_version() != ABI_VERSION:
+                raise OSError(
+                    f"ABI version mismatch: want {ABI_VERSION}, got "
+                    f"{lib.hvd_tpu_native_abi_version()}")
+        except (OSError, AttributeError) as e:
+            logger.warning("native runtime load failed (%s); the Python "
+                           "fallbacks are active", e)
+            _load_failed = True
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def abi_version() -> Optional[int]:
+    """The loaded library's ABI version, or None when it is not loaded."""
+    lib = load()
+    return None if lib is None else int(lib.hvd_tpu_native_abi_version())

@@ -25,10 +25,10 @@ Eager torch has no trace time, so three contracts are the port's own:
   (``hvd_tpu_topo_rs_intra`` / ``_xpod`` / ``_ag_intra``) wrap the eager
   stages on every step, under that step's root ``hvd_tpu_step``; the
   trace ring (``HVD_TPU_TRACE_RING``) bounds them.
-* **No tracer bypass and no timeline counter yet.**  A torch step is
-  never traced inside another program, so :func:`wrap_step` has no
-  bypass; :func:`_timeline_counter` is a no-op until the port has a
-  timeline.
+* **No tracer bypass.**  A torch step is never traced inside another
+  program, so :func:`wrap_step` has no bypass.  Each step mirrors its
+  ``step_time_ms`` and ``tokens_per_s`` onto the live timeline's
+  counter track (:func:`_timeline_counter`).
 
 Label cardinality discipline: ``tier``/``site``/``kind``/``transition``
 labels come from closed sets; the collective ``op`` label is the entry
@@ -216,9 +216,13 @@ def wrap_step(step_fn, *, kind: str = "train"):
 
 
 def _timeline_counter(name: str, values: Dict[str, float]) -> None:
-    """Mirror gauges onto the live timeline's counter track: a no-op
-    until the port has a timeline."""
-    del name, values
+    """Mirror gauges onto the live timeline's counter track (nothing
+    when no timeline is open)."""
+    from .. import basics
+
+    tl = basics.peek("timeline")   # fail-soft: None pre-init
+    if tl is not None and tl.enabled:
+        tl.counter(name, values)
 
 
 def set_hidden_comm_estimate(wire_us: float, hidden_us: float) -> None:

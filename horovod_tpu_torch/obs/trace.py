@@ -1,10 +1,10 @@
 """Cross-rank distributed tracing: W3C-style span contexts.
 
 Counterpart of ``horovod_tpu/obs/trace.py``, a copy of it but for where
-a rank comes from (:func:`process_rank` reads ``torch.distributed``)
-and the Timeline mirror, which waits for the port's timeline and is a
-no-op until then.  Every *step* gets an identity that survives process
-boundaries:
+a rank comes from (:func:`process_rank` reads ``torch.distributed``).
+Each finished span is mirrored onto the live timeline
+(``basics.timeline``) as a slice, with flow arrows for RPC spans.  Every
+*step* gets an identity that survives process boundaries:
 
 * a **trace** is one step (``make_train_step``/``make_spmd_train_step``
   — rooted by ``obs.instrument.wrap_step``);
@@ -145,10 +145,30 @@ def _append(rec: Dict[str, Any]) -> None:
 
 
 def _emit_timeline(rec: Dict[str, Any]) -> None:
-    """Mirror one finished span onto the live framework Timeline: a
-    no-op until the port has a timeline (the reference's
-    ``basics.timeline``)."""
-    del rec
+    """Mirror one finished span onto the live framework Timeline (slice
+    + flow endpoints for RPC spans).  Timeline timestamps are relative
+    to ITS clock, so the slice is anchored by how long ago the span
+    *ended* on the wall clock — a reconstructed span (``record_span``
+    with historical timing) lands where it happened, not ending at
+    "now"."""
+    try:
+        from .. import basics
+
+        tl = basics.peek("timeline")   # fail-soft: None pre-init
+        if tl is None or not tl.enabled:
+            return
+        lag = max(0.0, now_us() - (rec["start_us"] + rec["dur_us"]))
+        end = tl._now_us() - lag
+        start = max(0.0, end - rec["dur_us"])
+        tl.record(rec["trace_id"][:8], rec["name"], start, rec["dur_us"],
+                  {"trace_id": rec["trace_id"], "span_id": rec["span_id"],
+                   "parent_id": rec["parent_id"]})
+        if rec["kind"] == "client":
+            tl.flow(rec["name"], rec["span_id"], "s", ts_us=start)
+        elif rec["kind"] == "server" and rec["parent_id"]:
+            tl.flow(rec["name"], rec["parent_id"], "f", ts_us=start)
+    except Exception:
+        pass   # observability never takes down the path being observed
 
 
 def record_span(name: str, *, parent: Optional[Tuple[str, str]],

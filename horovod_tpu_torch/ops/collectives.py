@@ -33,11 +33,17 @@ Each dispatch of the seven entry points (``allreduce``,
 ``grouped_allreduce``, ``allgather``, ``broadcast``, ``alltoall``,
 ``reducescatter``, ``grouped_reducescatter``; the other forms go through
 them) counts once in ``hvd_tpu_collective_dispatch_total{op}``, its
-payload bytes in ``hvd_tpu_wire_bytes_total{tier="slots"}``.
+payload bytes in ``hvd_tpu_wire_bytes_total{tier="slots"}``, and
+heartbeats both stall inspectors.  Each writes the reference's timeline
+events (``ENQUEUE`` and ``EXECUTE`` with the reference's names and
+arguments) when a timeline is open: ``allreduce`` both, ``{"op": op}``;
+the others ``EXECUTE`` (``grouped_*`` with ``{"op", "ntensors"}``,
+``broadcast`` with ``{"root"}``, ``reducescatter`` with ``{"op"}``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Sequence
 
 import torch
@@ -128,18 +134,42 @@ def divide(r: torch.Tensor, n: int) -> torch.Tensor:
     return torch.div(r, n, rounding_mode="floor")
 
 
+def _heartbeat(name: str) -> None:
+    """Feed both stall inspectors: this rank's watchdog and, at two ranks
+    or more, the cross-process monitor (``name`` must be the same on
+    every rank, as for every collective)."""
+    s = basics._session
+    if s is None:
+        return
+    if s.stall_inspector is not None:
+        s.stall_inspector.record_activity(name)
+    if s.cross_monitor is not None:
+        s.cross_monitor.record_dispatch(name)
+
+
 def _dispatch(kind: str, tensors: Sequence[torch.Tensor], name: str) -> None:
     """One dispatch of the entry point ``kind`` (reference:
     ``collectives._heartbeat``): the ``collective`` fault site ticks (and
     raises ``HorovodInternalError`` when the armed plan fires, whether
-    the metrics are on or not), then telemetry records the dispatch
-    under ``kind`` (a closed set of seven, never the caller's free-form
-    ``name``) with this rank's payload bytes."""
+    the metrics are on or not), the stall inspectors hear ``name``, then
+    telemetry records the dispatch under ``kind`` (a closed set of seven,
+    never the caller's free-form ``name``) with this rank's payload
+    bytes."""
     if _faults._active is not None:
         _faults.on_collective(name)
+    _heartbeat(name)
     if _obs.enabled():
         _obs.on_collective_dispatch(
             kind, sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _activity(name: str, phase: str, args=None):
+    """The timeline's ``activity(name, phase, args)`` (the reference's
+    ``ENQUEUE``/``EXECUTE`` events), or nothing without a session."""
+    tl = basics.peek("timeline")
+    if tl is None:
+        return contextlib.nullcontext()
+    return tl.activity(name, phase, args)
 
 
 def set_group(process_set, name: str):
@@ -280,15 +310,17 @@ def allreduce_async(tensor: torch.Tensor, *, op: str = Average,
     comp = _wire(op, compression)
     group = set_group(process_set, name)
     _dispatch("allreduce", (tensor,), name)
-    x = _scaled(tensor.detach(), prescale_factor)
-    inner = 0
-    if (basics.config().hierarchical_allreduce and op in (Sum, Average)
-            and group is None and comp is Compression.none):
-        inner = _resolve_hier_inner()
-    if inner:
-        h = _done(hierarchical_allreduce(x, op, inner), name)
-    else:
-        h = _reduce_start(x, op, group, comp)
+    with _activity(name, "ENQUEUE", {"op": op}):
+        x = _scaled(tensor.detach(), prescale_factor)
+        inner = 0
+        if (basics.config().hierarchical_allreduce and op in (Sum, Average)
+                and group is None and comp is Compression.none):
+            inner = _resolve_hier_inner()
+    with _activity(name, "EXECUTE", {"op": op}):
+        if inner:
+            h = _done(hierarchical_allreduce(x, op, inner), name)
+        else:
+            h = _reduce_start(x, op, group, comp)
     return h.then(lambda r: _scaled(r, postscale_factor))
 
 
@@ -321,19 +353,28 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], *,
     comp = _wire(op, compression)
     group = set_group(process_set, name)
     _dispatch("grouped_allreduce", tensors, name)
-    leaves = [_scaled(t.detach(), prescale_factor) for t in tensors]
     if op == Adasum:
+        # Tensor by tensor, as the reference's members (each an allreduce
+        # of its own, named ``name[i]``).
         from .adasum import adasum_allreduce
 
-        out = [_scaled(adasum_allreduce(x, group), postscale_factor)
-               for x in leaves]
+        out = []
+        for i, t in enumerate(tensors):
+            with _activity(f"{name}[{i}]", "ENQUEUE", {"op": op}):
+                x = _scaled(t.detach(), prescale_factor)
+            with _activity(f"{name}[{i}]", "EXECUTE", {"op": op}):
+                out.append(_scaled(adasum_allreduce(x, group),
+                                   postscale_factor))
         return _done(out, name)
-    buckets = plan_fused_buckets(leaves, basics.config().fusion_threshold)
-    started = [
-        (members, _reduce_start(torch.cat([leaves[i].reshape(-1)
-                                           for i in members]),
-                                op, group, comp))
-        for members in buckets]
+    leaves = [_scaled(t.detach(), prescale_factor) for t in tensors]
+    with _activity(name, "EXECUTE", {"op": op, "ntensors": len(leaves)}):
+        buckets = plan_fused_buckets(leaves,
+                                     basics.config().fusion_threshold)
+        started = [
+            (members, _reduce_start(torch.cat([leaves[i].reshape(-1)
+                                               for i in members]),
+                                    op, group, comp))
+            for members in buckets]
 
     def finish():
         out: List[torch.Tensor] = [None] * len(leaves)  # type: ignore
@@ -427,7 +468,8 @@ def allgather_async(tensor: torch.Tensor, *, process_set=None,
     tensor along dim 0; the lengths of dim 0 may differ."""
     group = set_group(process_set, name)
     _dispatch("allgather", (tensor,), name)
-    return allgather_start(tensor, group, name)[0]
+    with _activity(name, "EXECUTE"):
+        return allgather_start(tensor, group, name)[0]
 
 
 def allgather(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -459,8 +501,9 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0, *,
         raise ValueError(f"{name}: root rank {root_rank} not in process set")
     group = set_group(process_set, name)
     _dispatch("broadcast", (tensor,), name)
-    out = tensor.detach().clone().contiguous()
-    work = dist.broadcast(out, src=root_rank, group=group, async_op=True)
+    with _activity(name, "EXECUTE", {"root": root_rank}):
+        out = tensor.detach().clone().contiguous()
+        work = dist.broadcast(out, src=root_rank, group=group, async_op=True)
     return Handle([work], lambda: out, name)
 
 
@@ -491,6 +534,11 @@ def alltoall_async(tensor: torch.Tensor, splits=None, *, process_set=None,
     ``(gathered, received_splits)``, the second an int64 tensor."""
     group = set_group(process_set, name)
     _dispatch("alltoall", (tensor,), name)
+    with _activity(name, "EXECUTE"):
+        return _alltoall_start(tensor, splits, group, name)
+
+
+def _alltoall_start(tensor: torch.Tensor, splits, group, name: str) -> Handle:
     x = tensor.detach().contiguous()
     n = dist.get_world_size(group)
     if splits is None:
@@ -548,7 +596,8 @@ def reducescatter_async(tensor: torch.Tensor, *, op: str = Sum,
     its dim-0 piece (dim 0 must divide by the set's size)."""
     group = set_group(process_set, name)
     _dispatch("reducescatter", (tensor,), name)
-    return reducescatter_start(tensor, op, group, name)
+    with _activity(name, "EXECUTE", {"op": op}):
+        return reducescatter_start(tensor, op, group, name)
 
 
 def reducescatter(tensor: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -574,10 +623,13 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor], *,
             raise ValueError(f"{name}[{i}]: dim 0 of {tuple(x.shape)} is "
                              f"not divisible by the set's size ({n})")
     started = []
-    for members in plan_fused_buckets(xs, basics.config().fusion_threshold):
-        fused = torch.cat([xs[i].reshape(n, -1) for i in members], dim=1)
-        started.append((members, reducescatter_start(
-            fused.reshape(-1), op, group, name)))
+    with _activity(name, "EXECUTE", {"op": op, "ntensors": len(xs)}):
+        for members in plan_fused_buckets(xs,
+                                          basics.config().fusion_threshold):
+            fused = torch.cat([xs[i].reshape(n, -1) for i in members],
+                              dim=1)
+            started.append((members, reducescatter_start(
+                fused.reshape(-1), op, group, name)))
 
     def finish():
         out: List[torch.Tensor] = [None] * len(xs)  # type: ignore
@@ -599,11 +651,16 @@ def grouped_reducescatter(tensors, **kwargs) -> List[torch.Tensor]:
 
 def barrier(process_set=None, name: str = "barrier") -> None:
     """Reference: ``hvd.barrier``: return once every member has entered
-    it (a one-element allreduce, read back on the host)."""
+    it (a one-element allreduce, read back on the host).  It heartbeats
+    the stall inspectors and writes the reference's events (its barrier
+    is a Sum allreduce) but counts no dispatch."""
     group = set_group(process_set, name)
-    t = torch.ones(1, device=basics.device())
-    dist.all_reduce(t, group=group)
-    t.item()
+    _heartbeat(name)
+    with _activity(name, "ENQUEUE", {"op": Sum}):
+        t = torch.ones(1, device=basics.device())
+    with _activity(name, "EXECUTE", {"op": Sum}):
+        dist.all_reduce(t, group=group)
+        t.item()
 
 
 def join() -> int:

@@ -29,8 +29,11 @@ The two-tier topology compiler (:mod:`..topo.schedule`) plugs in as
 topo_schedule=)`` (resolved from ``HVD_TPU_TOPO_SCHEDULE`` when None)
 and the overlap wire's ``topo=``: per bucket, flat, two-phase, or
 hierarchical (reduce-scatter inside the node, exchange between nodes,
-all-gather inside the node).  The planner runs in Python (the
-reference's native C++ planner is not ported).
+all-gather inside the node).  The bucket and two-phase planners ask the
+native C++ planner first (``native/planner.py``), under
+``HVD_TPU_USE_NATIVE_PLANNER`` (on by default); their Python twins give
+the same plans bit for bit and run when the knob is off or the library
+is not built.
 
 Each plan is recorded (:func:`..obs.instrument.on_fusion_plan`, tiers
 ``spmd``, ``two_phase``, ``overlap`` and ``schedule``, the reference's
@@ -89,11 +92,27 @@ def plan_buckets_py(sizes_bytes: Sequence[int],
     return buckets
 
 
+def _use_native_planner() -> bool:
+    """``HVD_TPU_USE_NATIVE_PLANNER`` (on before ``init``) and the native
+    library built."""
+    from .. import basics
+
+    if basics.is_initialized() and not basics.config().use_native_planner:
+        return False
+    from ..native import planner as _native
+
+    return _native.available()
+
+
 def plan_buckets(sizes_bytes: Sequence[int],
                  threshold: int) -> List[List[int]]:
-    """The bucket plan (reference: ``plan_buckets``, which delegates to
-    its native planner when built): here always :func:`plan_buckets_py`,
-    the same contract."""
+    """The bucket plan (reference: ``plan_buckets``): the native planner
+    when built and not disabled, else :func:`plan_buckets_py`, the same
+    contract."""
+    if _use_native_planner():
+        from ..native import planner as _native
+
+        return _native.plan_buckets(list(sizes_bytes), threshold)
     return plan_buckets_py(sizes_bytes, threshold)
 
 
@@ -132,6 +151,19 @@ def plan_two_phase_flags(bucket_bytes: Sequence[int], n: int,
     into reduce-scatter + all-gather)."""
     crossover = two_phase_crossover_bytes(n, alpha_us, beta_gbps)
     return [b >= crossover for b in bucket_bytes]
+
+
+def _dispatch_two_phase_flags(payloads: Sequence[int], world_size: int,
+                              alpha_us: float,
+                              beta_gbps: float) -> List[bool]:
+    """Same contract as :func:`plan_two_phase_flags`; asks the native
+    planner first (mirroring :func:`plan_buckets`' dispatch)."""
+    if _use_native_planner():
+        from ..native import planner as _native
+
+        return _native.plan_two_phase_flags(list(payloads), world_size,
+                                            alpha_us, beta_gbps)
+    return plan_two_phase_flags(payloads, world_size, alpha_us, beta_gbps)
 
 
 def plan_overlap_priority(bucket_bytes: Sequence[int], world_size: int,
@@ -228,8 +260,8 @@ def plan_bucket_schedule(sizes_bytes: Sequence[int], threshold: int, *,
     buckets = plan_buckets(sizes_bytes, threshold)
     payloads = [sum(sizes_bytes[i] for i in b) for b in buckets]
     if two_phase and world_size > 1:
-        flags = plan_two_phase_flags(payloads, world_size, alpha_us,
-                                     beta_gbps)
+        flags = _dispatch_two_phase_flags(payloads, world_size, alpha_us,
+                                          beta_gbps)
     else:
         flags = [False] * len(buckets)
     priority = None
@@ -404,8 +436,8 @@ def fused_two_phase_apply(
     elif n <= 1:
         flags = [False] * len(packed)
     else:
-        flags = plan_two_phase_flags([b["bytes"] for b in packed], n,
-                                     alpha_us, beta_gbps)
+        flags = _dispatch_two_phase_flags([b["bytes"] for b in packed], n,
+                                          alpha_us, beta_gbps)
     if packed and _obs.recording_plans():
         # The plan record: every step replays exactly these collectives.
         exact = sum(b["bytes"] for b in packed)

@@ -17,8 +17,8 @@ payload bytes, a :class:`~.topology.MeshTopology` and per-tier α/β
 as a tuple of ``(op, tier, groups, payload)`` :class:`ScheduleStep`\\ s.
 The IR is bookkeeping over sizes: every rank compiles the same schedule,
 and it compares equal, field by field, to the reference's.  Its choice
-runs in Python (the reference's native twin, ``hvd_tpu_plan_hierarchical``,
-is not ported).
+asks the native twin (``hvd_tpu_plan_hierarchical``) first, as the
+reference does, and :func:`choose_algo` without it.
 
 :func:`execute_schedule` runs a schedule on a compressor's wire over the
 tiers' torch groups (:func:`~.topology.tier_groups`):
@@ -154,8 +154,19 @@ def choose_algo(nbytes: int, topo: MeshTopology,
 
 def _dispatch_algo(nbytes: int, topo: MeshTopology,
                    params: TopoCostParams) -> str:
-    """The planner's dispatch: :func:`choose_algo` (the reference asks
-    its native twin first when built; the port has none yet)."""
+    """The planner's dispatch: the native twin of :func:`choose_algo`
+    (``hvd_tpu_plan_hierarchical``) when built and
+    ``HVD_TPU_USE_NATIVE_PLANNER`` is on, else :func:`choose_algo`; the
+    same choice either way."""
+    from ..ops.fusion import _use_native_planner
+
+    if _use_native_planner():
+        from ..native import planner as _native
+
+        return _native.plan_hierarchical(
+            [int(nbytes)], topo.pods, topo.chips_per_pod,
+            params.ici.alpha_us, params.ici.beta_gbps,
+            params.dcn.alpha_us, params.dcn.beta_gbps)[0]
     return choose_algo(nbytes, topo, params)
 
 

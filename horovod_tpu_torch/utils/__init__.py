@@ -1,1 +1,3 @@
-"""Host-side helpers shared by the recovery layers."""
+"""Host-side helpers: retries (``retry``), leveled logging (``logging``),
+the Chrome-trace timeline (``timeline``) and the stall inspectors
+(``stall``, ``cross_stall``)."""

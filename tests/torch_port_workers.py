@@ -2151,3 +2151,150 @@ def dcn_chaos(store: str, fault_step: int, total: int) -> dict:
                     "weight": state.model.weight.detach().numpy().copy()}
     finally:
         state_mod.time.sleep = saved_sleep
+
+
+# --- the host runtime: native coordinator, timeline, cross-process monitor ----
+
+def _coordinator():
+    """A native Coordinator over this world, rank 0 serving on a port it
+    broadcasts (separate from the session's monitor)."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.native import runtime as rt
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    box = [None]
+    coord = None
+    if rank == 0:
+        coord = rt.Coordinator(0, n, port=0, timeout_s=30.0)
+        box = [coord.bound_port]
+    dist.broadcast_object_list(box, src=0)
+    if rank:
+        coord = rt.Coordinator(rank, n, port=box[0], timeout_s=30.0)
+    return coord
+
+
+def _responses(resps) -> list:
+    return [(r.op, r.dtype, r.total_bytes, r.root_rank, list(r.names))
+            for r in resps]
+
+
+def native_coordinator(scenario: str) -> list:
+    """One rank of ``test_native_runtime.py``'s coordinator cases, here
+    across processes: the responses of each negotiate cycle."""
+    import time
+
+    import torch.distributed as dist
+    from horovod_tpu_torch.native.runtime import Request
+
+    rank = dist.get_rank()
+    coord = _coordinator()
+    out: list = []
+    try:
+        if scenario == "negotiate":
+            out.append(_responses(coord.negotiate(
+                [Request(rank=rank, name="g0", size_bytes=64)]
+                if rank < 2 else [])))
+            out.append(_responses(coord.negotiate(
+                [Request(rank=rank, name="g0", size_bytes=64)]
+                if rank == 2 else [])))
+        elif scenario == "fusion":
+            for _ in range(4):
+                out.append(_responses(coord.negotiate(
+                    [Request(rank=rank, name=f"grad{i}", size_bytes=100)
+                     for i in range(3)])))
+            out.append(coord.cache_hits())
+        elif scenario == "barrier":
+            if rank == 1:
+                time.sleep(0.3)
+            t0 = time.monotonic()
+            coord.barrier()
+            out.append(time.monotonic() - t0)
+        elif scenario == "mismatch":
+            try:
+                coord.negotiate([Request(
+                    rank=rank, name="g",
+                    dtype="float32" if rank == 0 else "bfloat16")])
+                out.append("ok")
+            except RuntimeError:
+                out.append("error")
+    finally:
+        coord.shutdown()
+        coord.close()
+    return out
+
+
+def monitor_state() -> dict:
+    """The session's cross-process monitor, started by ``init``: live,
+    cycling over the native coordinator."""
+    import time
+
+    import horovod_tpu_torch as hvd
+
+    mon = hvd.peek("cross_monitor")
+    if mon is None:
+        return {"running": False}
+    deadline = time.monotonic() + 20
+    while mon._coord.cycles < 2 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    return {"running": mon._thread.is_alive(), "cycles": mon._coord.cycles,
+            "failure": mon.failure}
+
+
+def missing_rank_warning(warn_after_s: float) -> list:
+    """A monitor of its own (window ``warn_after_s``): every rank
+    dispatches ``both``, rank 0 alone ``only_rank0``; the warnings this
+    rank's monitor logs."""
+    import logging
+    import time
+
+    from horovod_tpu_torch.utils.cross_stall import CrossProcessMonitor
+
+    import torch.distributed as dist
+
+    records: list = []
+
+    class _Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = _Capture()
+    log = logging.getLogger("horovod_tpu_torch.utils.cross_stall")
+    log.addHandler(handler)
+    mon = CrossProcessMonitor(_coordinator(), warn_after_s=warn_after_s,
+                              interval_s=0.1)
+    try:
+        mon.record_dispatch("both")
+        if dist.get_rank() == 0:
+            mon.record_dispatch("only_rank0")
+        time.sleep(warn_after_s + 1.5)
+        dist.barrier()
+    finally:
+        mon.stop()
+        log.removeHandler(handler)
+    return records
+
+
+def timeline_program(path: str, program: list) -> list:
+    """Run ``program`` (``(call, kwargs)`` pairs of the eager API, tensors
+    given as numpy arrays) with a timeline open on ``path``; returns this
+    rank's ``(tensor, phase, args)`` collective events, in file order."""
+    import json
+
+    import horovod_tpu_torch as hvd
+
+    def tensor(v):
+        return torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+
+    hvd.start_timeline(path)
+    try:
+        for call, kwargs in program:
+            kwargs = {k: ([tensor(x) for x in v] if isinstance(v, list)
+                          else tensor(v)) for k, v in kwargs.items()}
+            getattr(hvd, call)(**kwargs)
+    finally:
+        hvd.stop_timeline()
+    with open(path if hvd.rank() == 0 else f"{path}.rank{hvd.rank()}") as f:
+        events = json.load(f)
+    return [(e["args"]["tensor"], e["name"],
+             {k: v for k, v in e["args"].items() if k != "tensor"})
+            for e in events if e.get("cat") == "collective"]
