@@ -5,7 +5,12 @@
 
 1. Prints the card's name and power limit, builds the kernels from
    ``horovod_tpu_torch/csrc`` (one nvcc per source, in parallel) and
-   prints the build time.
+   prints the build time.  The backend probe
+   (``utils.backend_probe.wait_for_backend(attempts=1)``, a subprocess
+   asking ``torch.cuda``) must find platform ``gpu``, this card's name
+   and at least one device; ``utils.mfu.peak_tflops_info`` must give
+   (989.0, ``device_kind_table``) on an H100 80GB HBM3 (printed on any
+   other card).
 2. Kernel phase: each hand-written kernel against its plain PyTorch
    version, on the card, at the shapes the main paths give it.  The int8
    kernels (B2-B4) and the fused apply kernels (B6, B7) must match bit
@@ -53,7 +58,10 @@
    ``flight.dump("chip_smoke")`` must write the 5 ``hvd_tpu_step``
    roots; then 4 pairs of builds of the same 5 steps, the metrics gate
    off then on (the hooks' overhead from the medians of steps 2-5,
-   printed, not a gate).
+   printed, not a gate).  Last, one more step under
+   ``utils.mfu.count_flops`` (aten's FLOPs; the flash forward, called
+   through ctypes, is not counted) and its ``mfu_pct`` at the median
+   synchronised step time of steps 2-5, printed, not a gate.
 5. ZeRO phase ("zero 1 rank"): the same model, batch and optimizer
    through ``make_zero_train_step`` (optimizer state on the rank's flat
    shards, int8+EF reduce-scatter wire, exact parameter all-gather), five
@@ -299,14 +307,43 @@
    seconds, the step times, each timeline's bytes and events, a
    timeline activity's host cost on each writer beside an eager
    allreduce's, and the native planner's time beside the Python one's.
-22. Route check: the profiler's device trace must show a bf16
+22. "remote 2 hosts": the multi-host launch on one machine: a child
+   driver process (``chip_smoke.py --remote-driver DIR``) runs ``python
+   -m horovod_tpu_torch.runner -H fake-host-a:1,fake-host-b:1`` with
+   ``remote.ssh_exec`` replaced by ``local_exec`` (two task agents on
+   loopback; the card's host has no sshd), three times.  (1) The ranks
+   (``--remote-worker train DIR``) record torchrun's variables: each
+   must have WORLD_SIZE 2, LOCAL_RANK 0, LOCAL_WORLD_SIZE 1, GROUP_RANK
+   its rank, GROUP_WORLD_SIZE 2, one MASTER_ADDR:MASTER_PORT on both and
+   the same key; ``cross_rank()`` its rank and ``cross_size()`` 2; then
+   "launcher 2 ranks"' steps (:func:`launch_steps`, deterministic
+   algorithms on in both): losses, parameter digest, launch counts and
+   fusion-plan tiers must equal that phase's bit for bit (the launch
+   route may change no number), B1-B4 launched.  (2) Failure drill:
+   rank 1 exits 7 while rank 0 sleeps; the launcher must return 7
+   within 60 s.  (3) Agent-ping drill under
+   ``HVD_TPU_AGENT_PING_INTERVAL=1``, ``HVD_TPU_AGENT_MAX_MISSED=2``:
+   both ranks sleep, the driver is killed with SIGKILL, and both agents
+   must abort their ranks and exit within 30 s.  After each launch no
+   agent, rank or child may be left running.
+23. "run_func 2 ranks": ``hvd.run(chip_smoke.run_func_body,
+   args=("cuda:0",), np=2)`` (the function reached through the module
+   ``chip_smoke``, so the standard pickle finds it in the workers), then
+   the same with ``hosts="fake-host-a:1,fake-host-b:1"`` and a
+   ``workdir`` through the agent mesh: each rank joins the world on the
+   card over gloo and int8-allreduces a [32000, 1024] f32 tensor from
+   seed ``rank`` (the eager stack tier: B2, then B3); the results must
+   come back in rank order, the digests alike and equal to the plain
+   B2/B3 composition over the same seeds computed here, B2 and B3
+   launched on every rank, no process left.
+24. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-23. Prints the ``kernels`` JSON line (all seven kernels, with their
+25. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -1153,6 +1190,42 @@ def obs_train_checks(dev, card: str, sync_times: list, model, batch) -> float:
     return time.perf_counter() - t0
 
 
+def probe_check(card: str) -> None:
+    """The backend probe (a subprocess asking ``torch.cuda``) must find
+    this card; the MFU table's peak for it is printed (989 TFLOP/s from
+    the table on an H100 80GB HBM3, the one gate)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils import backend_probe, mfu
+
+    info = backend_probe.wait_for_backend(attempts=1)
+    name = torch.cuda.get_device_name(0)
+    if info["platform"] != "gpu" or info["device_kind"] != name \
+            or info["n_devices"] < 1:
+        raise AssertionError(f"backend probe: {info} on {name}")
+    peak = mfu.peak_tflops_info(torch.device("cuda", 0))
+    if name == "NVIDIA H100 80GB HBM3" and peak != (989.0,
+                                                   "device_kind_table"):
+        raise AssertionError(f"peak_tflops_info on {name}: {peak}")
+    log(f"backend probe: {info['platform']}, {info['device_kind']}, "
+        f"{info['n_devices']} device(s), {info['elapsed_s']} s; "
+        f"peak_tflops_info {peak}; on {card}")
+
+
+def step_mfu(dev, card: str, model, batch, step_s: float) -> None:
+    """One more step under ``count_flops`` (aten's FLOPs; the flash
+    forward, called through ctypes, is not counted) and ``mfu_pct`` at
+    ``step_s`` against the card's peak: printed, not a gate."""
+    from horovod_tpu_torch.utils import mfu
+
+    _, flops = mfu.count_flops(dp_step(model), model, batch)
+    peak, source = mfu.peak_tflops_info(dev)
+    pct = 100.0 * flops / step_s / (peak * 1e12) if flops and peak else None
+    log(f"train: one step's counted aten FLOPs {flops}, mfu_pct {pct} at "
+        f"the synchronised step median {step_s} s and {peak} TFLOP/s "
+        f"({source}), on {card}")
+
+
 def train_phase(dev, card: str):
     from horovod_tpu_torch.obs import metrics, trace
 
@@ -1164,6 +1237,7 @@ def train_phase(dev, card: str):
                                              card)
     del step
     obs_s = obs_train_checks(dev, card, times, model, batch)
+    step_mfu(dev, card, model, batch, statistics.median(times[1:]))
     return counts, tok_s, peak, obs_s
 
 
@@ -4322,27 +4396,31 @@ def wire_checks(rank: int) -> dict:
     return out
 
 
-def launcher_ranks(dev, rank: int, tmp: str) -> dict:
-    """Path "launcher 2 ranks", one rank under the port's launcher:
-    full-depth GPT-medium, ``dp_step``'s AdamW on the int8+EF wire, 3
-    steps each followed by an eager ``allreduce`` of the loss; the
-    native planner's plans; the stall drill; the wire."""
+def fusion_tiers() -> list:
+    """The tiers of the fusion plans this process recorded
+    (``hvd_tpu_fusion_traces_total{tier}``)."""
+    from horovod_tpu_torch.obs import metrics
+
+    return sorted(dict(s["labels"])["tier"] for s in metrics.registry()
+                  .snapshot().get("hvd_tpu_fusion_traces_total", []))
+
+
+def launch_steps(dev, rank: int, plans=None) -> dict:
+    """The steps of "launcher 2 ranks" and "remote 2 hosts", one rank:
+    full-depth GPT-medium from seed 0, a batch from seed 0 + rank,
+    ``dp_step``'s AdamW on the int8+EF wire, LAUNCHER_STEPS steps each
+    followed by an eager ``allreduce`` of the loss, the launch counts set
+    to 0 just before and read just after.  Deterministic algorithms are
+    on, so that two launches can be held to each other bit for bit.
+    With a ``plans`` list, the native planner's plans of the steps are
+    appended to it."""
     import torch
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.native import bindings
     from horovod_tpu_torch.native import planner as nplanner
 
-    tl, monitor = hvd.timeline(), hvd.peek("cross_monitor")
-    if not bindings.available():
-        raise AssertionError("the native runtime did not load")
-    if not (tl.enabled and tl.native):
-        raise AssertionError("the timeline does not write through "
-                             "NativeTimeline")
-    if monitor is None or not monitor._thread.is_alive():
-        raise AssertionError("the cross-process monitor is not running")
+    torch.use_deterministic_algorithms(True, warn_only=True)
     model, batch = gpt_medium(dev, data_seed=rank)
     step = dp_step(model)
-    plans = []
     native_plan = nplanner.plan_buckets
 
     def recorded(sizes, threshold):
@@ -4350,7 +4428,8 @@ def launcher_ranks(dev, rank: int, tmp: str) -> dict:
         plans.append((list(sizes), int(threshold), got))
         return got
 
-    nplanner.plan_buckets = recorded
+    if plans is not None:
+        nplanner.plan_buckets = recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hvd.ops.reset_launch_counts()
@@ -4365,8 +4444,29 @@ def launcher_ranks(dev, rank: int, tmp: str) -> dict:
     finally:
         nplanner.plan_buckets = native_plan
     counts = hvd.ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    params = param_digest(model)
+    return dict(losses=losses, times=times, counts=counts,
+                peak=torch.cuda.max_memory_allocated(),
+                params=param_digest(model), tiers=fusion_tiers())
+
+
+def launcher_ranks(dev, rank: int, tmp: str) -> dict:
+    """Path "launcher 2 ranks", one rank under the port's launcher:
+    :func:`launch_steps`; the native planner's plans; the stall drill;
+    the wire."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.native import bindings
+
+    tl, monitor = hvd.timeline(), hvd.peek("cross_monitor")
+    if not bindings.available():
+        raise AssertionError("the native runtime did not load")
+    if not (tl.enabled and tl.native):
+        raise AssertionError("the timeline does not write through "
+                             "NativeTimeline")
+    if monitor is None or not monitor._thread.is_alive():
+        raise AssertionError("the cross-process monitor is not running")
+    plans = []
+    steps = launch_steps(dev, rank, plans)
     planner = planner_checks(plans)
     cost = timeline_cost(dev, tmp, rank)
     warns_before = stall_warns()
@@ -4378,8 +4478,7 @@ def launcher_ranks(dev, rank: int, tmp: str) -> dict:
     probe_wait = time.perf_counter() - t0
     warns_after = stall_warns()
     wire = wire_checks(rank)
-    return dict(losses=losses, times=times, counts=counts, peak=peak,
-                params=params, planner=planner, cost=cost,
+    return dict(**steps, planner=planner, cost=cost,
                 warns_before=warns_before, warns_after=warns_after,
                 reported_before=reported_before, probe_wait=probe_wait,
                 monitor_failure=monitor.failure, wire=wire,
@@ -4584,12 +4683,362 @@ def launcher_phase(card: str):
             [sys.executable, "-m", "horovod_tpu_torch.runner",
              "--check-build"], env=env, cwd=repo, capture_output=True,
             text=True, check=True, timeout=300).stdout
-        return check_launcher(res, logs, files, build, seconds,
-                              "launcher 2 ranks",
-                              "gloo staging through the host, 2 ranks on "
-                              "one card: not a wire's time", card)
+        counts = check_launcher(res, logs, files, build, seconds,
+                                "launcher 2 ranks",
+                                "gloo staging through the host, 2 ranks on "
+                                "one card: not a wire's time", card)
+        return counts, res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+REMOTE_DRIVER_FLAG = "--remote-driver"
+REMOTE_WORKER_FLAG = "--remote-worker"
+REMOTE_HOSTS = "fake-host-a:1,fake-host-b:1"   # two agents on loopback
+REMOTE_TIMEOUT_S = 600.0
+DRILL_EXIT = 7               # rank 1's exit code in the failure drill
+DRILL_LIMIT_S = 60.0         # the launcher must return it within this
+DRILL_SLEEP_S = 300.0        # the drills' sleeping ranks, never waited out
+PING_ENV = {"HVD_TPU_AGENT_PING_INTERVAL": "1",
+            "HVD_TPU_AGENT_MAX_MISSED": "2"}
+PING_LIMIT_S = 30.0          # agents and workers gone after the driver dies
+RUN_FUNC_SHAPE = (32000, 1024)   # lm_head's gradient, as "4 ranks"
+
+
+def remote_driver(tmp: str, argv: list) -> int:
+    """The child driver process of "remote 2 hosts": the launcher's CLI
+    (``argv``) with ``remote.ssh_exec`` replaced by ``local_exec`` (the
+    card's host has no sshd), each agent's pid appended to
+    ``DIR/agents``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch.runner import launch, remote
+
+    def exec_local(host, agent_argv, secret_hex, **ssh_opts):
+        proc = remote.local_exec(host, agent_argv, secret_hex, **ssh_opts)
+        with open(os.path.join(tmp, "agents"), "a") as f:
+            f.write(f"{proc.pid}\n")
+        return proc
+
+    remote.ssh_exec = exec_local
+    return launch.main(argv)
+
+
+def remote_worker(mode: str, tmp: str) -> None:
+    """One rank of "remote 2 hosts", started by a task agent; writes its
+    pid to ``DIR/pid<rank>``.  ``train``: checks nothing itself, records
+    torchrun's variables and the key's hash, joins the world on the card
+    over gloo and runs :func:`launch_steps`, results to
+    ``DIR/rank<r>.json``.  ``fail``: rank 1 exits DRILL_EXIT once rank 0
+    sleeps.  ``sleep``: both ranks sleep."""
+    import hashlib
+
+    env = os.environ
+    rank = int(env["RANK"])
+    with open(os.path.join(tmp, f"pid{rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    if mode == "fail" and rank == 1:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(os.path.join(tmp, "pid0")) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        sys.exit(DRILL_EXIT)
+    if mode in ("fail", "sleep"):
+        time.sleep(DRILL_SLEEP_S)
+        return
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.common.secret import SECRET_ENV
+
+    key = env.get(SECRET_ENV)
+    contract = {k: env.get(k) for k in CONTRACT_VARS}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cuda:0", backend="gloo")
+    try:
+        out = launch_steps(hvd.device(), rank)
+        out.update(env=contract, cross=[hvd.cross_rank(), hvd.cross_size()],
+                   local=[hvd.local_rank(), hvd.local_size()],
+                   key=hashlib.sha256(key.encode()).hexdigest()
+                   if key else None)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        hvd.shutdown()
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def launched_pids(tmp: str) -> list:
+    """The agents' and the ranks' pids one remote launch recorded."""
+    pids = []
+    agents = os.path.join(tmp, "agents")
+    if os.path.exists(agents):
+        with open(agents) as f:
+            pids += [int(p) for p in f.read().split()]
+    for r in range(LAUNCHER_RANKS):
+        path = os.path.join(tmp, f"pid{r}")
+        if os.path.exists(path):
+            with open(path) as f:
+                pids.append(int(f.read()))
+    return pids
+
+
+def remote_launch(tmp: str, mode: str, env=None):
+    """Start the child driver: ``chip_smoke.py --remote-driver DIR -H
+    REMOTE_HOSTS -- python chip_smoke.py --remote-worker MODE DIR``, in
+    a session of its own."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.abspath(__file__)
+    os.makedirs(tmp)
+    run_env = {**os.environ, **(env or {}),
+               "PYTHONPATH": os.pathsep.join(
+                   p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    return subprocess.Popen(
+        [sys.executable, script, REMOTE_DRIVER_FLAG, tmp, "-H",
+         REMOTE_HOSTS, "--", sys.executable, script, REMOTE_WORKER_FLAG,
+         mode, tmp], env=run_env, cwd=repo, start_new_session=True)
+
+
+def end_launch(proc, tmp: str) -> list:
+    """Kill whatever of a remote launch still runs (its driver's session,
+    then every recorded pid); returns the pids that were still alive."""
+    import signal
+
+    left = [p for p in launched_pids(tmp) if pid_alive(p)]
+    if proc.poll() is None:
+        left.append(proc.pid)
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    return left
+
+
+def check_remote(res: list, base: list, seconds: float, card: str) -> dict:
+    """"remote 2 hosts"'s steps against "launcher 2 ranks"' (``base``):
+    the environment contract a rank, then losses, parameters, launch
+    counts and fusion tiers bit for bit."""
+    label = "remote 2 hosts"
+    masters = {(r["env"]["MASTER_ADDR"], r["env"]["MASTER_PORT"])
+               for r in res}
+    for r, out in enumerate(res):
+        want = dict(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                    LOCAL_WORLD_SIZE="1", GROUP_RANK=str(r),
+                    GROUP_WORLD_SIZE="2")
+        got = {k: out["env"][k] for k in want}
+        if got != want or not out["key"] or out["key"] != res[0]["key"] \
+                or len(masters) != 1 or not out["env"]["MASTER_PORT"]:
+            raise AssertionError(f"{label}: rank {r}'s environment {got} "
+                                 f"(want {want}), rendezvous {masters}, "
+                                 f"key hashes {[o['key'] for o in res]}")
+        if out["cross"] != [r, 2] or out["local"] != [0, 1]:
+            raise AssertionError(f"{label}: rank {r} cross {out['cross']}, "
+                                 f"local {out['local']}")
+        b = base[r]
+        if (out["losses"], out["params"]) != (b["losses"], b["params"]):
+            raise AssertionError(
+                f"{label}: rank {r} differs from launcher 2 ranks: losses "
+                f"{out['losses']} against {b['losses']}, parameters "
+                f"{out['params'][:16]} against {b['params'][:16]}")
+        if out["counts"] != b["counts"] or out["tiers"] != b["tiers"]:
+            raise AssertionError(
+                f"{label}: rank {r} launches {out['counts']} tiers "
+                f"{out['tiers']} against launcher 2 ranks' {b['counts']} "
+                f"{b['tiers']}")
+        for name in ("flash_fwd", "quantize_blocks", "dequantize_blocks",
+                     "dequantize_accumulate"):
+            if out["counts"][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {label} "
+                                     f"path (rank {r})")
+    r0 = res[0]
+    log(f"{label}: python -m horovod_tpu_torch.runner -H {REMOTE_HOSTS} "
+        f"through the driver/task mesh, rendezvous {masters.pop()}; "
+        f"GPT-medium 24 layers, losses {r0['losses']} and parameters "
+        f"bitwise launcher 2 ranks', fusion tiers {r0['tiers']} (launcher "
+        f"2 ranks: {base[0]['tiers']}), cross {[o['cross'] for o in res]}")
+    log(f"{label}: step seconds {r0['times']} (median "
+        f"{statistics.median(r0['times']):.3f}), peak memory per rank "
+        f"{r0['peak'] / 2**30:.2f} / {res[1]['peak'] / 2**30:.2f} GiB, "
+        f"launch {seconds:.1f} s (gloo staging through the host, 2 ranks "
+        f"on one card: not a wire's time) on {card}; launches "
+        f"{r0['counts']}")
+    return r0["counts"]
+
+
+def remote_phase(card: str, base: list) -> dict:
+    """"remote 2 hosts": three launches of ``python -m
+    horovod_tpu_torch.runner -H fake-host-a:1,fake-host-b:1`` from a
+    child driver: the steps (against "launcher 2 ranks"), the failure
+    drill and the agent-ping drill.  None may leave a process behind."""
+    import signal
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as top:
+        tmp = os.path.join(top, "train")
+        t0 = time.perf_counter()
+        proc = remote_launch(tmp, "train")
+        try:
+            code = proc.wait(timeout=REMOTE_TIMEOUT_S)
+        finally:
+            left = end_launch(proc, tmp) + child_processes()
+        seconds = time.perf_counter() - t0
+        if code != 0 or left:
+            raise AssertionError(f"remote 2 hosts: the launcher exited "
+                                 f"{code}, processes left {left}")
+        res = []
+        for r in range(LAUNCHER_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        counts = check_remote(res, base, seconds, card)
+
+        tmp = os.path.join(top, "fail")
+        t0 = time.perf_counter()
+        proc = remote_launch(tmp, "fail")
+        try:
+            code = proc.wait(timeout=DRILL_LIMIT_S)
+        finally:
+            seconds = time.perf_counter() - t0
+            left = end_launch(proc, tmp) + child_processes()
+        if code != DRILL_EXIT or left:
+            raise AssertionError(f"remote 2 hosts: failure drill exited "
+                                 f"{code} in {seconds:.1f} s, processes "
+                                 f"left {left}")
+        log(f"remote 2 hosts: failure drill: rank 1 exited {DRILL_EXIT}, "
+            f"the launcher returned {code} in {seconds:.1f} s (limit "
+            f"{DRILL_LIMIT_S:.0f} s), rank 0 ended, no process left")
+
+        tmp = os.path.join(top, "ping")
+        proc = remote_launch(tmp, "sleep", env=PING_ENV)
+        try:
+            deadline = time.monotonic() + REMOTE_TIMEOUT_S
+            while len(launched_pids(tmp)) < 2 + LAUNCHER_RANKS \
+                    and proc.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.2)
+            pids = launched_pids(tmp)
+            if len(pids) < 2 + LAUNCHER_RANKS or proc.poll() is not None:
+                raise AssertionError(f"remote 2 hosts: ping drill: ranks not "
+                                     f"started (pids {pids}, driver "
+                                     f"{proc.poll()})")
+            os.kill(proc.pid, signal.SIGKILL)
+            proc.wait()
+            t0 = time.perf_counter()
+            while any(pid_alive(p) for p in pids) \
+                    and time.perf_counter() - t0 < PING_LIMIT_S:
+                time.sleep(0.2)
+            seconds = time.perf_counter() - t0
+        finally:
+            left = end_launch(proc, tmp) + child_processes()
+        if left:
+            raise AssertionError(f"remote 2 hosts: ping drill: processes "
+                                 f"left {PING_LIMIT_S:.0f} s after the "
+                                 f"driver's SIGKILL: {left}")
+        log(f"remote 2 hosts: agent-ping drill ({PING_ENV}): the driver "
+            f"killed, both agents aborted their ranks and exited; nothing "
+            f"left after {seconds:.1f} s (limit {PING_LIMIT_S:.0f} s)")
+    log(f"remote 2 hosts: phase {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return counts
+
+
+def run_func_body(device: str) -> tuple:
+    """One rank of "run_func 2 ranks", the function ``hvd.run`` ships (by
+    reference, as ``chip_smoke.run_func_body``): joins the world on
+    ``device`` over gloo, int8-allreduces a RUN_FUNC_SHAPE f32 tensor
+    from seed ``rank`` (the stack tier: B2, then B3), the launch counts
+    around it; returns ``(rank, digest, device name, counts)``."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device=device, backend="gloo")
+    rank = hvd.rank()
+    x = run_func_input(rank, device)
+    torch.cuda.synchronize()
+    hvd.ops.reset_launch_counts()
+    out = hvd.allreduce(x, compression=hvd.Compression.int8,
+                        name="run_func")
+    torch.cuda.synchronize()
+    counts = hvd.ops.launch_counts()
+    return rank, digest([out]), torch.cuda.get_device_name(0), counts
+
+
+def run_func_input(rank: int, device: str):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(rank)
+    return torch.randn(RUN_FUNC_SHAPE, generator=gen, device=device)
+
+
+def run_func_phase(card: str, device: str = "cuda:0") -> dict:
+    """"run_func 2 ranks": ``hvd.run(chip_smoke.run_func_body, np=2)``,
+    then the same through the agent mesh (``hosts=REMOTE_HOSTS``,
+    ``workdir=``, ``remote.ssh_exec`` replaced by ``local_exec`` for the
+    call): results in rank order, the digests alike on both ranks and
+    bit for bit the plain B2 and B3 over the same seeds, B2 and B3
+    launched, no process left."""
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner import remote
+
+    import chip_smoke   # by name, not __main__: the workers import it
+
+    want = digest([plain_stack_allreduce(
+        [run_func_input(r, device) for r in range(LAUNCHER_RANKS)],
+        "average")])
+    torch.cuda.empty_cache()
+    runs = {}
+    t0 = time.perf_counter()
+    runs["local"] = hvd.run(chip_smoke.run_func_body, args=(device,),
+                            np=LAUNCHER_RANKS)
+    seconds = {"local": time.perf_counter() - t0}
+    ssh_exec = remote.ssh_exec
+    remote.ssh_exec = remote.local_exec
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_run_func_") as wd:
+            t0 = time.perf_counter()
+            runs["agents"] = hvd.run(chip_smoke.run_func_body,
+                                     args=(device,), np=LAUNCHER_RANKS,
+                                     hosts=REMOTE_HOSTS, workdir=wd)
+            seconds["agents"] = time.perf_counter() - t0
+    finally:
+        remote.ssh_exec = ssh_exec
+    name = torch.cuda.get_device_name(0)
+    for route, results in runs.items():
+        ranks = [r[0] for r in results]
+        digests = {r[1] for r in results}
+        if ranks != list(range(LAUNCHER_RANKS)) or digests != {want} \
+                or {r[2] for r in results} != {name}:
+            raise AssertionError(
+                f"run_func 2 ranks ({route}): ranks {ranks}, digests "
+                f"{digests} against the plain {want}, cards "
+                f"{[r[2] for r in results]}")
+        for rank, *_, counts in results:
+            for kernel in ("quantize_blocks", "dequantize_accumulate"):
+                if counts[kernel] <= 0:
+                    raise AssertionError(f"{kernel} never launched on the "
+                                         f"run_func 2 ranks path ({route}, "
+                                         f"rank {rank})")
+    if child_processes():
+        raise AssertionError(f"run_func 2 ranks: processes left running: "
+                             f"{child_processes()}")
+    log(f"run_func 2 ranks: hvd.run(chip_smoke.run_func_body, np=2) local "
+        f"{seconds['local']:.1f} s and through the agent mesh "
+        f"{seconds['agents']:.1f} s: results in rank order, the int8 "
+        f"allreduce of {list(RUN_FUNC_SHAPE)} f32 bitwise its plain form "
+        f"({want[:16]}) on both ranks and routes, on {card}; launches "
+        f"{runs['local'][0][3]}")
+    return runs["local"][0][3]
 
 
 WORKER_FLAG = "--two-rank-worker"
@@ -4784,6 +5233,7 @@ def main() -> int:
     t0 = t_start = time.perf_counter()
     hvd.ops.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    probe_check(card)
 
     # The "1 rank" phase scrapes this process's /metrics; the ranks the
     # multi-rank phases spawn serve none (the variable is read at init).
@@ -4836,7 +5286,10 @@ def main() -> int:
             "gloo staging through the host, 2 ranks on one card: not a "
             "wire's time", card)
         torch.cuda.empty_cache()
-        launcher_counts = launcher_phase(card)
+        launcher_counts, launcher_res = launcher_phase(card)
+        torch.cuda.empty_cache()
+        remote_counts = remote_phase(card, launcher_res)
+        run_func_counts = run_func_phase(card)
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -4851,7 +5304,9 @@ def main() -> int:
                "bert-large 1 rank": bert_counts, **convnet_counts,
                "durable 1 rank": durable_counts,
                "elastic 2 ranks": elastic_counts,
-               "launcher 2 ranks": launcher_counts}
+               "launcher 2 ranks": launcher_counts,
+               "remote 2 hosts": remote_counts,
+               "run_func 2 ranks": run_func_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -4877,6 +5332,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [LAUNCHER_WORKER_FLAG]:
         launcher_worker(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == [REMOTE_DRIVER_FLAG]:
+        sys.exit(remote_driver(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == [REMOTE_WORKER_FLAG]:
+        remote_worker(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if sys.argv[1:2] and sys.argv[1] in WORKER_FLAGS:
         rank_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])

@@ -68,7 +68,10 @@ stall inspectors warn when a rank stops dispatching
 (``HOROVOD_STALL_CHECK_TIME_SECONDS``); ``python -m
 horovod_tpu_torch.runner -np N cmd ...`` launches a job (torchrun's
 variables, per-rank output, the HMAC-signed control plane of
-``runner/common/network.py``).
+``runner/common/network.py``), on other hosts too (``-H a:4,b:4``:
+ssh-started task agents; ``jsrun`` inside an LSF allocation), and
+``hvd.run(func, np=N)`` runs a function on every rank of a fresh world,
+returning the results in rank order.
 
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
@@ -118,3 +121,14 @@ from . import ops  # noqa: F401
 from . import optim  # noqa: F401
 from . import parallel  # noqa: F401
 from . import plan  # noqa: F401
+
+
+def __getattr__(name):
+    # hvd.run, imported on first use: ``python -m
+    # horovod_tpu_torch.runner.run_func`` (its workers) then runs that
+    # module once, as __main__ only.
+    if name == "run":
+        from .runner.run_func import launch
+
+        return launch
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,7 +10,9 @@ is how the tests run it.
 
 The world comes from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``/``GROUP_WORLD_SIZE``
-for the node, ``MASTER_ADDR``/``MASTER_PORT``) when it is set, from a
+for the node, ``MASTER_ADDR``/``MASTER_PORT``; without ``RANK``, a
+scheduler's ``PMIX_RANK``, ``OMPI_COMM_WORLD_RANK`` or
+``SLURM_PROCID``) when it is set, from a
 process group the caller already initialised, or else is a world of one
 on a free local TCP port.  A world without the node variables is one
 node.  The session owns the process-set table
@@ -106,15 +108,37 @@ def rendezvous_generation() -> int:
     return _rendezvous["generation"]
 
 
-def _init_group_from_env(kwargs: dict) -> None:
+# A scheduler's own per-task rank (jsrun, mpirun, srun: runner/lsf.py),
+# read when the launcher stamped no RANK.
+SCHEDULER_RANK_VARS = ("PMIX_RANK", "OMPI_COMM_WORLD_RANK", "SLURM_PROCID")
+
+
+def _env_rank() -> Optional[int]:
+    """This task's rank: ``RANK``, else the first scheduler variable set.
+    ``WORLD_SIZE`` > 1 with no rank raises: N tasks all taking rank 0
+    would hang in the rendezvous."""
+    env = os.environ
+    for var in ("RANK",) + SCHEDULER_RANK_VARS:
+        if var in env:
+            return int(env[var])
+    if int(env.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={env['WORLD_SIZE']} but no per-task rank was "
+            f"found: set RANK, or launch through a job-step manager that "
+            f"exports {' / '.join(SCHEDULER_RANK_VARS)}")
+    return None
+
+
+def _init_group_from_env(rank: int, kwargs: dict) -> None:
     """``init_process_group`` over torchrun's rendezvous, generation by
     generation: the first creates the store as ``env://`` does, later
     ones reuse it under a fresh prefix."""
     env = os.environ
-    key = (env.get("MASTER_ADDR"), env.get("MASTER_PORT"),
-           int(env["RANK"]), int(env["WORLD_SIZE"]))
+    key = (env.get("MASTER_ADDR"), env.get("MASTER_PORT"), rank,
+           int(env["WORLD_SIZE"]))
     if _rendezvous["store"] is None or _rendezvous["key"] != key:
-        dist.init_process_group(init_method="env://", **kwargs)
+        dist.init_process_group(init_method="env://", rank=key[2],
+                                world_size=key[3], **kwargs)
         _rendezvous.update(store=dist.distributed_c10d._get_default_store(),
                            key=key, generation=1)
         return
@@ -173,8 +197,9 @@ def init(device: Union[str, torch.device, None] = None,
         kwargs = dict(backend=backend, timeout=timedelta(minutes=10))
         if backend == "nccl":
             kwargs["device_id"] = dev
-        if "RANK" in env and "WORLD_SIZE" in env:
-            _init_group_from_env(kwargs)
+        rank = _env_rank()
+        if rank is not None and "WORLD_SIZE" in env:
+            _init_group_from_env(rank, kwargs)
         else:
             dist.init_process_group(
                 init_method=f"tcp://127.0.0.1:{_free_port()}",

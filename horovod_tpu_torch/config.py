@@ -491,6 +491,8 @@ class Config:
     discovery_failure_threshold: int = 3      # HVD_TPU_DISCOVERY_FAILURES (consecutive ⇒ membership loss)
     rpc_retries: int = 3                      # HVD_TPU_RPC_RETRIES (attempts per request)
     rpc_backoff_seconds: float = 0.3          # HVD_TPU_RPC_BACKOFF (base, jittered exponential)
+    agent_ping_interval_seconds: float = 15.0  # HVD_TPU_AGENT_PING_INTERVAL
+    agent_max_missed_pings: int = 4           # HVD_TPU_AGENT_MAX_MISSED
     checkpoint_digest: bool = True            # HVD_TPU_CHECKPOINT_DIGEST (integrity sidecar)
     ckpt_async: bool = True                   # HVD_TPU_CKPT_ASYNC (snapshot-and-offload saves)
     ckpt_inflight: int = 2                    # HVD_TPU_CKPT_INFLIGHT (bounded writer queue)
@@ -556,6 +558,9 @@ class Config:
             discovery_failure_threshold=_env_int("DISCOVERY_FAILURES", 3),
             rpc_retries=_env_int("RPC_RETRIES", 3),
             rpc_backoff_seconds=_env_float("RPC_BACKOFF", 0.3),
+            agent_ping_interval_seconds=_env_float("AGENT_PING_INTERVAL",
+                                                   15.0),
+            agent_max_missed_pings=_env_int("AGENT_MAX_MISSED", 4),
             checkpoint_digest=_env_bool("CHECKPOINT_DIGEST", True),
             ckpt_async=_env_bool("CKPT_ASYNC", True),
             ckpt_inflight=_env_pos_int("CKPT_INFLIGHT", 2),

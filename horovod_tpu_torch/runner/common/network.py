@@ -124,6 +124,17 @@ def routable_addresses(include_loopback: bool = True) -> List[str]:
     return addrs
 
 
+def resolvable_hostname() -> str:
+    """This host's name when it resolves, else ``127.0.0.1``: the
+    hostname a task agent registers with the driver."""
+    host = socket.gethostname()
+    try:
+        socket.gethostbyname(host)
+        return host
+    except OSError:
+        return "127.0.0.1"
+
+
 def free_port(host: str = "0.0.0.0") -> int:
     """A TCP port free on this machine now (the bind-port-0 race
     applies: claim it promptly)."""
@@ -270,16 +281,28 @@ def _default_rpc_policy() -> RetryPolicy:
 class BasicClient:
     """Client side: tries each candidate address until one answers the
     ping as ``name``.  Requests after the probe retry under the shared
-    policy; the probe and :meth:`ping` are single-shot."""
+    policy; the probe and :meth:`ping` are single-shot.
 
-    def __init__(self, name: str, addresses: List[Tuple[str, int]],
+    ``name=None`` accepts whichever service answers and takes its
+    advertised name (a scrape of whatever owns a port).  ``probe=False``
+    skips the probe and uses the first address: the request itself is
+    then the probe."""
+
+    def __init__(self, name: Optional[str],
+                 addresses: List[Tuple[str, int]],
                  key: bytes, probe_timeout: float = 5.0,
-                 retry_policy: Optional[RetryPolicy] = None):
+                 retry_policy: Optional[RetryPolicy] = None,
+                 probe: bool = True):
         self.name = name
         self._key = key
         self._timeout = probe_timeout
         self._retry_policy = retry_policy or _default_rpc_policy()
-        self._address = self._probe(addresses)
+        if probe:
+            self._address = self._probe(addresses)
+        else:
+            if not addresses:
+                raise ValueError("probe=False needs at least one address")
+            self._address = tuple(addresses[0])
 
     @property
     def address(self) -> Tuple[str, int]:
@@ -291,40 +314,56 @@ class BasicClient:
             try:
                 resp = self._call(PingRequest(), addr)
                 if isinstance(resp, PingResponse) \
-                        and resp.service_name == self.name:
+                        and self.name in (None, resp.service_name):
+                    if self.name is None:
+                        self.name = resp.service_name
                     return tuple(addr)
             except OSError as e:
                 errs.append((addr, e))
         raise ConnectionError(
-            f"no address of service {self.name!r} answered: {errs}")
+            f"no address of service {self.name or '<any>'!r} "
+            f"answered: {errs}")
 
-    def _call(self, req: Any, addr: Optional[Tuple[str, int]] = None) -> Any:
+    def _call(self, req: Any, addr: Optional[Tuple[str, int]] = None,
+              timeout: Optional[float] = None) -> Any:
         # Every exchange is a client span with its context on the
         # request, so the peer's server span parents under it.
         if not trace_mod.enabled():
-            return self._call_inner(req, addr)
+            return self._call_inner(req, addr, timeout)
         with trace_mod.span("hvd_tpu_rpc_client", kind="client",
                             args={"req": type(req).__name__,
                                   "service": self.name}) as ctx:
             trace_mod.inject(req, ctx)
-            return self._call_inner(req, addr)
+            return self._call_inner(req, addr, timeout)
 
-    def _call_inner(self, req: Any,
-                    addr: Optional[Tuple[str, int]] = None) -> Any:
+    def _call_inner(self, req: Any, addr: Optional[Tuple[str, int]] = None,
+                    timeout: Optional[float] = None) -> Any:
         # Fault site "rpc": drop (ConnectionError before the write, for
         # the retry policy to absorb) or delay (a slow peer).
         if faults_mod._active is not None:
             faults_mod.on_rpc(type(req).__name__)
         addr = addr or self._address
         with socket.create_connection(addr, timeout=self._timeout) as sock:
+            if timeout is not None:
+                # Connect under the probe timeout; wait for the response
+                # as long as the request legitimately takes.
+                sock.settimeout(timeout)
             write_message(sock, req, self._key)
             return read_message(sock, self._key)
 
-    def request(self, req: Any) -> Any:
+    def request(self, req: Any, *, idempotent: bool = True,
+                timeout: Optional[float] = None) -> Any:
         """One exchange, retried under the policy (``OSError``: refused,
-        reset or timed-out sockets)."""
+        reset or timed-out sockets).
+
+        ``idempotent=False`` makes one attempt: re-sending a request
+        whose response was lost would repeat its side effect (a
+        run-command landing twice).  ``timeout`` sets the response's
+        socket timeout; the connect keeps the probe timeout."""
+        if not idempotent:
+            return self._call(req, timeout=timeout)
         return retry_call(
-            lambda: self._call(req),
+            lambda: self._call(req, timeout=timeout),
             policy=self._retry_policy,
             retry_on=(OSError,),
             describe=f"rpc {type(req).__name__} -> {self.name}",

@@ -20,8 +20,11 @@ fusion knobs, ``--log-level`` ...) reach the workers through their
 ``--start-timeout`` (rank 0's rendezvous store must be up by then);
 ``--output-filename DIR`` writes ``DIR/rank.<r>.{stdout,stderr}``;
 :func:`run_elastic` restarts the world over ``elastic/driver.py``.
-A host list that names another host raises ``NotImplementedError``: the
-multi-host launch (task agents, ssh, LSF) is not ported yet.
+
+A host list that names another host goes through the driver/task mesh
+(:func:`.remote.remote_run`: a task agent a host over ssh, this host's
+too, so every rank gets the same layout); an LSF allocation without
+``-H`` goes through ``jsrun`` (:func:`.lsf.run_lsf`).
 """
 
 from __future__ import annotations
@@ -36,37 +39,23 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
+from . import lsf, remote
 from .common.secret import SECRET_ENV, make_secret_key
+from .remote import is_local_host, parse_hosts
 
-MULTI_HOST = ("the multi-host launch (task agents, ssh, LSF: ROADMAP "
-              "queue A item 3b) is not ported to horovod_tpu_torch yet; "
-              "run one launcher a host with torchrun's variables")
+# What the remote route forwards from the launcher's environment: the
+# framework's knobs and the interpreter's path.  Never the rank contract
+# (RANK, MASTER_*, ...), CUDA_VISIBLE_DEVICES or the launcher's own PATH
+# and HOME: a remote host has its own.  The key travels on the agent's
+# stdin, never in a request.
+FORWARD_PREFIXES = ("HOROVOD_", "HVD_TPU_", "NCCL_", "TORCH_", "PYTHONPATH",
+                    "PYTHONUNBUFFERED")
 
 
 def _free_port() -> int:
     from .common.network import free_port
 
     return free_port("127.0.0.1")
-
-
-def is_local_host(host: str) -> bool:
-    """This machine, for every launch path."""
-    return host in ("localhost", "127.0.0.1", socket.gethostname())
-
-
-def parse_hosts(spec: str) -> List[Tuple[str, int]]:
-    """``"a:2,b:4"`` -> ``[("a", 2), ("b", 4)]`` (the reference's -H
-    syntax; a bare host means one slot)."""
-    out: List[Tuple[str, int]] = []
-    for part in spec.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        host, _, slots = part.partition(":")
-        if not host:
-            raise ValueError(f"bad -H entry: {part!r}")
-        out.append((host, int(slots) if slots else 1))
-    return out
 
 
 def parse_hostfile(path: str) -> str:
@@ -508,6 +497,39 @@ def _knob_env(args: argparse.Namespace) -> Dict[str, str]:
     return env
 
 
+def _remote_main(args: argparse.Namespace, hosts: List[Tuple[str, int]],
+                 command: List[str], extra_env: Dict[str, str]) -> int:
+    """The remote route: every host, this one too, through a task agent
+    (:func:`.remote.remote_run`), the framework's variables forwarded."""
+    nics = ([n.strip() for n in args.network_interfaces.split(",")
+             if n.strip()] if args.network_interfaces else None)
+    env = {k: v for k, v in os.environ.items()
+           if k.startswith(FORWARD_PREFIXES) and k != SECRET_ENV}
+    env.update(extra_env)
+    try:
+        return remote.remote_run(
+            hosts, command, np_=args.num_proc, env=env, nics=nics,
+            ssh_port=args.ssh_port, ssh_identity_file=args.ssh_identity_file,
+            start_timeout=args.start_timeout, verbose=args.verbose)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+def _lsf_main(args: argparse.Namespace, command: List[str],
+              extra_env: Dict[str, str]) -> int:
+    """The LSF route: ``jsrun`` places the tasks (:func:`.lsf.run_lsf`);
+    ``-np`` unset means the whole allocation, an explicit ``-np`` is
+    honoured exactly.  The knob flags reach the tasks through jsrun's
+    environment."""
+    if args.output_filename:
+        print("[horovodtpurun-torch] --output-filename is ignored under "
+              "LSF/jsrun (the scheduler owns the tasks' output)",
+              file=sys.stderr)
+    return lsf.run_lsf(command, np_=args.num_proc, env=extra_env,
+                       verbose=args.verbose)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     if args.check_build:
@@ -543,10 +565,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-        remote = [h for h, _ in hosts if not is_local_host(h)]
-        if remote:
-            raise NotImplementedError(f"-H/--hostfile names {remote}: "
-                                      f"{MULTI_HOST}")
+        if any(not is_local_host(h) for h, _ in hosts):
+            return _remote_main(args, hosts, command, extra_env)
         # Local slots are the world's size (`-H localhost:8` runs 8); an
         # explicit -np must fit them.
         total_slots = sum(s for _, s in hosts)
@@ -560,6 +580,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: -np {num_proc} < --min-np {args.min_np}",
               file=sys.stderr)
         return 2
+    if args.hosts is None and not args.host_discovery_script \
+            and lsf.in_lsf():
+        return _lsf_main(args, command, extra_env)
     if args.host_discovery_script:
         # -np is the target size, bounded by --min-np/--max-np.
         return run_elastic(

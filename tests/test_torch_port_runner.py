@@ -7,8 +7,9 @@ subprocesses on loopback.  Parity: ``vars(parse_args(argv))`` equals the
 reference's on the reference tests' argvs and config files; the ``rpc``
 fault site fires at the same event index as the reference's.  The
 launcher gives each worker torchrun's variables (the reference's are the
-JAX coordination service's), so the env-contract cases check those, and
-a host list naming another host raises ``NotImplementedError``.
+JAX coordination service's), so the env-contract cases check those; a
+host list naming another host goes to ``remote.remote_run``
+(``tests/test_torch_port_remote.py`` forms that world).
 """
 
 import os
@@ -216,13 +217,26 @@ def test_no_command_and_bad_hosts_error():
     assert launch.main(["-np", "9", "-H", "localhost:4", "x"]) == 2
 
 
-def test_remote_hosts_raise_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        launch.main(["-np", "2", "-H", "otherhost:8", "x"])
+def test_remote_hosts_route_to_agent_mesh(tmp_path, monkeypatch):
+    """A host list naming another host goes through ``remote_run`` (the
+    reference's ``test_runner.py::test_remote_hosts_route_to_agent_mesh``
+    and its hostfile case); the world itself forms in
+    ``tests/test_torch_port_remote.py``."""
+    seen = {}
+
+    def fake_remote_run(hosts, command, **kw):
+        seen.update(hosts=hosts, command=command, np=kw.get("np_"))
+        return 0
+
+    monkeypatch.setattr("horovod_tpu_torch.runner.remote.remote_run",
+                        fake_remote_run)
+    assert launch.main(["-np", "2", "-H", "otherhost:8", "x"]) == 0
+    assert seen == {"hosts": [("otherhost", 8)], "command": ["x"], "np": 2}
     hf = tmp_path / "hosts"
     hf.write_text("# cluster A\nnodeA slots=4\nnodeB:2\nnodeC\n")
-    with pytest.raises(NotImplementedError, match=r"\['nodeA', 'nodeB'"):
-        launch.main(["--hostfile", str(hf), "x"])
+    assert launch.main(["--hostfile", str(hf), "x"]) == 0
+    assert seen["hosts"] == [("nodeA", 4), ("nodeB", 2), ("nodeC", 1)]
+    assert seen["np"] is None
 
 
 def test_hostfile_formats_and_local_slots(tmp_path, monkeypatch):
@@ -433,6 +447,99 @@ class TestNetwork:
                 bad.addresses()
         finally:
             bad.shutdown()
+
+    def test_request_keywords_match_the_reference(self, key):
+        """``request(req, *, idempotent=, timeout=)`` as the
+        reference's.  ``idempotent=False`` is one attempt: under the
+        ``rpc`` drop site it raises where the idempotent request retries,
+        and a request whose response is lost reaches the service once,
+        not once an attempt.  Both packages count the same."""
+        from horovod_tpu import faults as jfaults
+        from horovod_tpu.utils.retry import RetryPolicy as JRetryPolicy
+
+        from horovod_tpu_torch import faults
+        from horovod_tpu_torch.utils.retry import RetryPolicy
+
+        got = {}
+        for label, net, flt, policy in (
+                ("port", network, faults, RetryPolicy),
+                ("ref", jnetwork, jfaults, JRetryPolicy)):
+            seen = []
+
+            class Slow(net.BasicService):
+                def _handle(self, req, client_address):
+                    if isinstance(req, net.MetricsRequest):
+                        seen.append(req.fmt)
+                        time.sleep(0.5)
+                    return super()._handle(req, client_address)
+
+            svc = Slow("svc", key)
+            try:
+                client = net.BasicClient(
+                    "svc", [("127.0.0.1", svc.port)], key,
+                    retry_policy=policy(attempts=3, base_delay_s=0.001,
+                                        max_delay_s=0.002))
+                out = [type(client.request(net.PingRequest(),
+                                           idempotent=False)).__name__,
+                       type(client.request(net.PingRequest(),
+                                           timeout=30.0)).__name__]
+                with flt.inject("rpc:step=0,mode=drop"):
+                    with pytest.raises(ConnectionError):
+                        client.request(net.PingRequest(), idempotent=False)
+                    out.append(len(flt.history()))
+                with flt.inject("rpc:step=0,mode=drop"):
+                    out.append(type(client.request(net.PingRequest())
+                                    ).__name__)
+                    out.append([tuple(h)[:3] for h in flt.history()])
+                # The response lost (read timeout): one attempt reaches
+                # the service once; the idempotent request, each try.
+                with pytest.raises(OSError):
+                    client.request(net.MetricsRequest("once"),
+                                   idempotent=False, timeout=0.1)
+                with pytest.raises(OSError):
+                    client.request(net.MetricsRequest("retried"),
+                                   timeout=0.1)
+                time.sleep(0.6)
+                out.append(list(seen))
+            finally:
+                svc.shutdown()
+            got[label] = out
+        assert got["port"] == got["ref"]
+        assert got["port"][:3] == ["PingResponse", "PingResponse", 1]
+        assert got["port"][-1] == ["once"] + ["retried"] * 3
+
+    def test_any_name_and_no_probe(self, key):
+        """``name=None`` takes whichever service answers and its
+        name; ``probe=False`` uses the first address with no ping (the
+        request is the probe) and refuses an empty list."""
+        from horovod_tpu.utils.retry import RetryPolicy as JRetryPolicy
+
+        from horovod_tpu_torch.utils.retry import RetryPolicy
+
+        dead = ("127.0.0.1", network.free_port("127.0.0.1"))
+        got = {}
+        for label, net, policy in (("port", network, RetryPolicy),
+                                   ("ref", jnetwork, JRetryPolicy)):
+            svc = net.BasicService("actual", key)
+            live = ("127.0.0.1", svc.port)
+            try:
+                anyone = net.BasicClient(None, [dead, live], key,
+                                         probe_timeout=2.0)
+                blind = net.BasicClient("actual", [dead, live], key,
+                                        probe=False,
+                                        retry_policy=policy(attempts=1))
+                with pytest.raises(OSError):
+                    blind.request(net.PingRequest())
+                direct = net.BasicClient("whatever", [live], key,
+                                         probe=False)
+                with pytest.raises(ValueError, match="at least one"):
+                    net.BasicClient("actual", [], key, probe=False)
+                got[label] = (anyone.name, anyone.address == live,
+                              blind.address == dead,
+                              direct.ping().service_name)
+            finally:
+                svc.shutdown()
+        assert got["port"] == got["ref"] == ("actual", True, True, "actual")
 
     def test_rpc_fault_fires_at_the_references_event_index(self, key):
         """The same exchanges under the same plan in both packages: the

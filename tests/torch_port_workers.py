@@ -2298,3 +2298,18 @@ def timeline_program(path: str, program: list) -> list:
     return [(e["args"]["tensor"], e["name"],
              {k: v for k, v in e["args"].items() if k != "tensor"})
             for e in events if e.get("cat") == "collective"]
+
+
+def run_func_body(scale: float, bias: float = 0.0) -> dict:
+    """``hvd.run``'s payload in ``tests/test_torch_port_run_func.py``: a
+    module-level function, so the standard pickle takes it by reference.
+    Joins the world on the CPU and sums ``rank + 1`` over it."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    out = hvd.allreduce(torch.full((1, 2), hvd.rank() + 1.0), op=hvd.Sum,
+                        name="run_func")
+    return {"rank": hvd.rank(), "size": hvd.size(),
+            "cross": [hvd.cross_rank(), hvd.cross_size()],
+            "sum": float(out[0, 0]) * scale + bias,
+            "cloudpickle": "cloudpickle" in sys.modules}
