@@ -19,8 +19,11 @@
    (3e-2 on O, 1e-4 on lse) and, row by row, within 1e-2 of the row's
    largest |O|, on normal and on peaky (q * 8) scores, at GPT-medium's
    causal shape, at BERT-Large's non-causal one, at the ring's
-   blocks (causal and non-causal) and at the two rows a rank of the
-   pipeline, moe and fsdp paths runs (causal); the blocked
+   blocks (causal and non-causal), at the two rows a rank of the
+   pipeline, moe and fsdp paths runs (causal) and at the "serve 1
+   rank" oracle's ragged forwards (B*H 16, causal, T 17 and 900 in
+   bf16, T 17 and 931 through the f32 CUDA-core kernel within 2e-5 on
+   O, 1e-4 on lse, 1e-2 row-relative); the blocked
    matmul (B5) with a bf16 and with an f32 x within twice its plain
    version's error against an f64 product plus 1e-6 of the product's
    largest |value|.  B1 and B5 also print their TFLOP/s beside the
@@ -336,14 +339,69 @@
    come back in rank order, the digests alike and equal to the plain
    B2/B3 composition over the same seeds computed here, B2 and B3
    launched on every rank, no process left.
-24. Route check: the profiler's device trace must show a bf16
+24. "serve 1 rank", in a process of its own (``--serve-worker``, a gloo
+   world of one; after bf16 serving at these prompt lengths
+   ``torch.profiler`` records no device event in that process, and the
+   route check needs them): GPT-medium (``benchmarks/gpt_bench.py``'s widths,
+   24 layers, flash attention, f32 parameters from seed 0) served by
+   ``hvd.serve``'s engine at the reference's defaults (8 slots, buckets
+   64/256/1024, a paged cache of 16-token blocks, drafts of 4).  (a)
+   The model with f32 activations, then with bf16: prompts of 17, 200,
+   480 and 900 tokens from seed 0, 32 greedy tokens each through the
+   dense engine, the paged engine and the paged engine with the model
+   as its own drafter (``spec=True``), against the full-forward argmax
+   loop (B1 in every forward).  Tokens must equal the oracle's wherever
+   its top-1/top-2 logit gap is at least ``SERVE_MARGIN`` (1e-3 f32,
+   0.25 bf16, logit units); a first differing token is allowed only
+   under the margin and ends the comparison.  Prints the positions
+   compared and the largest |Δlogit| of the engine's ``lm_head`` rows
+   against the oracle's (dense and paged).  Then the dense and the
+   paged engine teacher-forced (each slot's next input set to the
+   oracle's token before every step): all 128 rows' logits within
+   ``SERVE_LOGIT_LIMIT`` (half the margin: 5e-4 f32, 0.125 bf16) of the
+   oracle's, and the tokens equal wherever the margin holds; two
+   control faults patched into ``cached_attention`` on the bf16 paged
+   engine (K/V rounded to fp8, positions one early) must exceed that
+   limit.  (b) The bf16 model behind
+   ``ContinuousBatcher`` with the self-drafter: 24 requests from seed 0
+   in a closed loop of 8 clients, prompts of 16-900 tokens, 32 tokens
+   each, half greedy and half at temperature 0.8 / top-k 50, 8 sharing
+   a 512-token system prompt and a 4-token turn header (prefix hits and
+   copy-on-write: at least 7 hits and 1 copy), 4 greedy ones
+   speculative: every request must finish whole; prints tokens/s, TTFT
+   and TPOT p50/p99, the prefix-hit ratio, tokens a verify, the KV
+   blocks in use at most, peak memory and, on an engine with no
+   drafter, the plain decode step's time with all 8 slots busy
+   (readings, not gates).  Then
+   the preemption drill on a one-slot engine of the f32 model (the
+   reference's sole-active-slot contract): a batch request preempted by
+   an interactive one with a 1 s deadline must resume to its
+   uninterrupted tokens, greedy (f32 margin rule) and at temperature
+   0.8 (exactly).  (c) ``serve:step=0,mode=evict`` at the allocation of
+   a request sharing a primed prompt's system tokens: it must fire
+   once, evict the primed prompt's cached tail, and the request and the
+   primed prompt served again must equal the oracle (f32 margin rule):
+   recomputed blocks, never stale ones.  B1 must launch exactly 24
+   times an oracle forward in (a) and never in the engine's traffic.
+25. "serve 2 replicas", in a process of its own (``--replicas-worker``):
+   two ``InferenceServer``s on the card, each with
+   its own engine of the bf16 model, behind a ``Router`` over the HMAC
+   wire: 8 greedy requests sent at once must finish with one replica's
+   tokens (the bf16 margin rule, margins from the full-forward oracle)
+   and both replicas must serve; then ``serve:step=3,mode=kill`` on
+   replica A mid-decode (a fresh router's first pick): the request must
+   complete on B with the same tokens, A dead, B's completed count up
+   by one, and a replay of its id answered from the router's cache (no
+   lost response, no duplicate).  Prints the phase's seconds and the
+   wire's.
+26. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-25. Prints the ``kernels`` JSON line (all seven kernels, with their
+27. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -358,6 +416,7 @@ TF32 is off for matmuls and convolutions.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -540,6 +599,13 @@ def kernel_phase(dev, gen):
                 f"{rr['plain_ms']} ms, bound {rr['bound_ms']} ms "
                 f"({rr['bound_by']}; bytes {rr['bytes_ms']} ms, operations "
                 f"{rr['ops_ms']} ms), SDPA {rr['library_ms']} ms")
+        for so in row.get("serve_oracle", []):
+            log(f"kernel {row['name']}: at {so['shape']} causal {so['dtype']} "
+                f"(the serve oracle) {so['ms']} ms, plain {so['plain_ms']} "
+                f"ms, bound {so['bound_ms']} ms ({so['bound_by']}; bytes "
+                f"{so['bytes_ms']} ms, operations {so['ops_ms']} ms), SDPA "
+                f"{so['library_ms']} ms, errors O {so['max_abs_err']} lse "
+                f"{so['max_abs_err_lse']} row {so['max_row_rel_err']}")
         for rb in row.get("ring_block", []):
             log(f"kernel {row['name']}: at {rb['shape']} "
                 f"{'causal' if rb['causal'] else 'non-causal'} (a ring "
@@ -750,9 +816,16 @@ def route_check(dev) -> None:
                 f"{[n for n in names if 'quantize' in n]}")
 
 
+# B1's limits against its plain version, by input type (the card test
+# ``test_flash_fwd_matches_plain_version``'s): on O, on lse, and on each
+# row of O relative to the row's largest |O|.
+FLASH_LIMITS = {"bfloat16": (3e-2, 1e-4, 1e-2), "float32": (2e-5, 1e-4, 1e-2)}
+
+
 def flash_errors(q3, k3, v3, scale: float, causal: bool = True):
     """(O, lse, row-relative) error of the kernel against its plain
-    version, and whether all three are inside the bf16 limits."""
+    version, and whether all three are inside the input type's
+    ``FLASH_LIMITS``."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     o, lse = fa.flash_fwd(q3, k3, v3, scale, causal)
@@ -766,28 +839,31 @@ def flash_errors(q3, k3, v3, scale: float, causal: bool = True):
     # so they may differ by one bf16 ulp, at most 2**-7 of the row's
     # largest |O|: the 1e-2 limit leaves room for that and no more.
     err_row = float((diff.amax(-1) / o_ref.float().abs().amax(-1)).max())
-    return err_o, err_lse, err_row, (err_o <= 3e-2 and err_lse <= 1e-4
-                                     and err_row <= 1e-2)
+    lim_o, lim_lse, lim_row = FLASH_LIMITS[str(q3.dtype).split(".")[-1]]
+    return err_o, err_lse, err_row, (err_o <= lim_o and err_lse <= lim_lse
+                                     and err_row <= lim_row)
 
 
 def flash_case(dev, gen, batch: int, heads: int, t: int, causal: bool,
-               label: str) -> dict:
-    """B1 at ``[batch * heads, t, 64]`` bf16 (the tensor-core kernel),
-    held to the bf16 limits on normal scores and on peaky ones (q * 8:
-    the running max moves by many units between key tiles, so the
-    rescale of O and of the denominator is exercised); then its time,
-    its plain version's, SDPA's and its bound (4·BH·pairs·D FLOPs,
-    pairs the (q, k) pairs the mask keeps)."""
+               label: str, dtype: str = "bfloat16") -> dict:
+    """B1 at ``[batch * heads, t, 64]`` in ``dtype`` (bf16: the
+    tensor-core kernel, f32: the CUDA-core one), held to the type's
+    ``FLASH_LIMITS`` on normal scores and on peaky ones (q * 8: the
+    running max moves by many units between key tiles, so the rescale
+    of O and of the denominator is exercised); then its time, its plain
+    version's, SDPA's and its bound (4·BH·pairs·D FLOPs, pairs the
+    (q, k) pairs the mask keeps)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
 
     bh, d = batch * heads, 64
-    q3, k3, v3 = (torch.randn((bh, t, d), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(3))
+    dt = getattr(torch, dtype)
+    q3, k3, v3 = (torch.randn((bh, t, d), generator=gen, device=dev).to(dt)
+                  for _ in range(3))
     scale = d ** -0.5
     errs = {}
-    for name, q in (("normal", q3), ("peaky", (q3.float() * 8).bfloat16())):
+    for name, q in (("normal", q3), ("peaky", (q3.float() * 8).to(dt))):
         err_o, err_lse, err_row, ok = flash_errors(q, k3, v3, scale, causal)
         log(f"kernel flash_fwd ({label}, {name} scores): O {err_o}, lse "
             f"{err_lse}, row-relative {err_row}")
@@ -803,12 +879,14 @@ def flash_case(dev, gen, batch: int, heads: int, t: int, causal: bool,
         q4, k4, v4, is_causal=causal))
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = 4 * bh * pairs * d
-    bnd = bound(4 * bh * t * d * 2 + bh * t * 4, flops, BF16_FLOPS)
+    bnd = bound(4 * bh * t * d * q3.element_size() + bh * t * 4, flops,
+                BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
     log(f"kernel flash_fwd ({label}): {flops / ms / 1e9} TFLOP/s, SDPA "
         f"{flops / lib / 1e9} TFLOP/s")
     (err_o, err_lse, err_row), peaky = errs["normal"], errs["peaky"]
-    return dict(shape=[bh, t, d], causal=causal, max_abs_err=err_o,
-                max_abs_err_lse=err_lse, max_row_rel_err=err_row,
+    return dict(shape=[bh, t, d], causal=causal, dtype=dtype,
+                max_abs_err=err_o, max_abs_err_lse=err_lse,
+                max_row_rel_err=err_row,
                 peaky_errs=peaky, tflops=flops / ms / 1e9,
                 library_tflops=flops / lib / 1e9, ms=ms, plain_ms=plain,
                 **bnd, library_ms=lib)
@@ -819,7 +897,10 @@ def flash_kernel_row(dev, gen):
     row's main shape, at BERT-Large's (B*H = 32*16, T = Tk = 128,
     D = 64, non-causal, bf16) as its ``bert_large`` shape, and at the
     "sequence-parallel 4 ranks" ring's blocks (B*H = 2*8, T = Tk = 2048,
-    D = 64, causal and non-causal) as its ``ring_block`` shapes."""
+    D = 64, causal and non-causal) as its ``ring_block`` shapes, and at
+    the "serve 1 rank" oracle's ragged forwards (B*H = 1*16, causal:
+    T = 17 and 900 bf16, T = 17 and 931 f32, the ends of its four
+    prompts' ranges) as its ``serve_oracle`` shapes."""
     row = flash_case(dev, gen, BATCH, GPT_MEDIUM["n_head"], SEQ, True,
                      "GPT-medium")
     bert = flash_case(dev, gen, BERT_BATCH, 16, BERT_SEQ, False,
@@ -833,11 +914,15 @@ def flash_kernel_row(dev, gen):
                            GPT_MEDIUM["n_head"], SEQ, True,
                            "two rows: a pipeline microbatch, a moe or fsdp "
                            "rank's batch")
-    del row["shape"], row["causal"]
+    serve = [flash_case(dev, gen, 1, GPT_MEDIUM["n_head"], t, True,
+                        f"serve oracle, {dtype} T={t}", dtype)
+             for dtype, t in SERVE_FLASH_SHAPES]
+    del row["shape"], row["causal"], row["dtype"]
     return dict(name="flash_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attention.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:38",
-                **row, bert_large=bert, ring_block=ring, rank_rows=rank_rows)
+                **row, bert_large=bert, ring_block=ring, rank_rows=rank_rows,
+                serve_oracle=serve)
 
 
 def apply_kernel_rows(dev, gen):
@@ -5041,6 +5126,720 @@ def run_func_phase(card: str, device: str = "cuda:0") -> dict:
     return runs["local"][0][3]
 
 
+# --- "serve 1 rank" and "serve 2 replicas" -------------------------------------
+
+# The engine at the reference's defaults (config.py: HVD_TPU_SERVE_*):
+# 8 slots, buckets (64, 256, 1024), a paged cache of 16-token blocks,
+# speculative drafts of 4.
+SERVE_ENGINE = dict(max_slots=8, prefill_buckets=(64, 256, 1024),
+                    kv_cache="paged", kv_block=16)
+SERVE_SPEC_K = 4
+SERVE_ORACLE_LENS = (17, 200, 480, 900)
+# B1's rows at the oracle's forwards (T from 17 to 931, B*H 16): the ends
+# of that range in each input type, held to the type's FLASH_LIMITS.
+SERVE_FLASH_SHAPES = (("bfloat16", 17), ("bfloat16", 900),
+                      ("float32", 17), ("float32", 931))
+SERVE_NEW_TOKENS = 32
+SERVE_REQUESTS, SERVE_CLIENTS = 24, 8      # the closed loop's
+SERVE_SYSTEM, SERVE_SHARED, SERVE_SPEC = 512, 8, 4
+SERVE_HEADER = (101, 102, 103, 104)        # a turn header after the system
+SERVE_TEMPERATURE, SERVE_TOP_K = 0.8, 50
+SERVE_REPLICA_REQUESTS = 8
+SERVE_KILL_STEP = 3                        # the decode event A dies at
+# The oracle's top-1/top-2 logit gap under which a cache path may pick
+# the other token: rounding differs between the full forward (flash
+# attention, T = n) and the cache paths (plain attention, T = 1 decode,
+# T = k + 1 verify).  Tokens are compared wherever the gap is at least
+# this, in logit units (the logits' scale is ~1 at these random
+# weights).  Fixed before the first chip run; never loosened.
+SERVE_MARGIN = {"float32": 1e-3, "bfloat16": 0.25}
+# The teacher-forced gate: the engine fed the oracle's tokens, every
+# logits row compared (no walk cut short by a near tie).  Half the token
+# margin: within it, no position whose oracle margin reaches SERVE_MARGIN
+# can change its argmax.  Fixed before its first chip run; never
+# loosened.  Each control fault (SERVE_CONTROLS) must exceed it.
+SERVE_LOGIT_LIMIT = {k: v / 2 for k, v in SERVE_MARGIN.items()}
+
+
+def serve_model(dev, dtype):
+    """GPT-medium (``benchmarks/gpt_bench.py``'s widths, 24 layers,
+    flash attention) from seed 0 with activations in ``dtype``."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    cfg = hvd.models.GPTConfig(**GPT_MEDIUM, dtype=dtype)
+    model = hvd.models.GPT(cfg, device=dev, seed=0)
+    model.requires_grad_(False)
+    return model
+
+
+def serve_oracle(model, prompts, n: int):
+    """The full-forward argmax loop (B1 in every forward): per prompt
+    ``(tokens, margins, logits [n, V] f32)``, the margin being the top-1
+    minus top-2 logit at each step."""
+    import torch
+
+    dev = next(model.parameters()).device
+    out = []
+    with torch.inference_mode():
+        for prompt in prompts:
+            seq, toks, margins, rows = list(prompt), [], [], []
+            for _ in range(n):
+                logits = model(torch.tensor([seq], device=dev))[0, -1].float()
+                top2 = logits.topk(2).values
+                toks.append(int(logits.argmax()))
+                margins.append(float(top2[0] - top2[1]))
+                rows.append(logits)
+                seq.append(toks[-1])
+            out.append((toks, margins, torch.stack(rows)))
+    return out
+
+
+def margin_match(got, want, margins, limit: float):
+    """Walk the two token lists: equal tokens are compared (counted
+    where the oracle's margin holds); the first difference is allowed
+    only where the margin is under ``limit`` (a near tie), and ends the
+    walk, since every later token follows another prefix.  Returns
+    ``(ok, positions compared, where the walk stopped or None)``."""
+    compared = 0
+    for j, (g, w, m) in enumerate(zip(got, want, margins)):
+        if g != w:
+            return m < limit, compared, j
+        compared += m >= limit
+    return len(got) == len(want), compared, None
+
+
+class LogitTap:
+    """Records the engine's ``lm_head`` outputs: a prefill's row of its
+    last prompt token, a decode's row of every slot."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.handle = model.lm_head.register_forward_hook(
+            lambda mod, inp, out: self.calls.append(out.detach().float()))
+
+    def rows(self, prompts, n: int):
+        """Per prompt ``[n, V]``: slot s's prefill (call s), then decode
+        call j's row s (the slots started one after another, then
+        stepped together)."""
+        import torch
+
+        k = len(prompts)
+        per = []
+        for s, prompt in enumerate(prompts):
+            first = self.calls[s][0, len(prompt) - 1]
+            dec = [self.calls[k + j][s, 0] for j in range(n - 1)]
+            per.append(torch.stack([first] + dec))
+        return per
+
+    def close(self):
+        self.handle.remove()
+
+
+def engine_tokens(engine, prompts, n: int, spec: bool = False):
+    """Start every prompt in its own slot, then step all together until
+    each has ``n`` tokens (a speculative burst may overshoot: cut)."""
+    from horovod_tpu_torch.serve import SamplingParams
+
+    toks = {s: [engine.start(s, p, SamplingParams(max_new_tokens=n,
+                                                  spec=spec))]
+            for s, p in enumerate(prompts)}
+    while any(len(t) < n for t in toks.values()):
+        for s, got in engine.step().items():
+            toks[s].extend(got)
+    for s in toks:
+        engine.release(s)
+    return [toks[s][:n] for s in range(len(prompts))]
+
+
+def forced_rows(engine, model, prompts, forced, n: int):
+    """The engine teacher-forced along ``forced`` (per prompt, the
+    oracle's ``n`` tokens): before every decode step each slot's next
+    input is set to the oracle's token, so every position sees the
+    oracle's context.  Returns per prompt the ``[n, V]`` ``lm_head``
+    rows and the engine's own greedy tokens."""
+    from horovod_tpu_torch.serve import SamplingParams
+
+    tap = LogitTap(model)
+    try:
+        toks = {s: [engine.start(s, p, SamplingParams(max_new_tokens=n))]
+                for s, p in enumerate(prompts)}
+        for j in range(n - 1):
+            with engine._slot_lock:      # the decode's input tokens
+                for s in toks:
+                    engine._last_tokens[s] = forced[s][j]
+            for s, got in engine.step().items():
+                toks[s].extend(got)
+        for s in toks:
+            engine.release(s)
+    finally:
+        tap.close()
+    return tap.rows(prompts, n), [toks[s] for s in range(len(prompts))]
+
+
+def forced_check(engine, model, prompts, oracle, name: str):
+    """:func:`forced_rows` against the oracle: ``(largest |Δlogit| over
+    every row, positions whose tokens were compared, the first position
+    where the tokens differ past the margin or None)``."""
+    n = SERVE_NEW_TOKENS
+    rows, toks = forced_rows(engine, model, prompts,
+                             [o[0] for o in oracle], n)
+    dlogit, compared, bad = 0.0, 0, None
+    for i, (want, margins, ref) in enumerate(oracle):
+        dlogit = max(dlogit, float((rows[i] - ref).abs().max()))
+        for j in range(n):
+            if margins[j] >= SERVE_MARGIN[name]:
+                compared += 1
+                if toks[i][j] != want[j] and bad is None:
+                    bad = (i, j)
+    return dlogit, compared, bad
+
+
+def _fp8_kv(attend):
+    """Control fault: the K/V written to the cache rounded to fp8."""
+    import torch
+
+    def fault(q, k, v, cache, positions):
+        k, v = (y.to(torch.float8_e4m3fn).to(y.dtype) for y in (k, v))
+        return attend(q, k, v, cache, positions)
+    return fault
+
+
+def _shifted_positions(attend):
+    """Control fault: the cache write and the mask one position early."""
+    def fault(q, k, v, cache, positions):
+        return attend(q, k, v, cache, (positions - 1).clamp(min=0))
+    return fault
+
+
+# Faults the teacher-forced gate must see on the bf16 paged engine: a
+# cache of a coarser type, and an off-by-one scatter and mask.
+SERVE_CONTROLS = {"fp8 K/V": _fp8_kv, "positions - 1": _shifted_positions}
+
+
+def forced_controls(model, prompts, oracle, name: str) -> dict:
+    """Each of SERVE_CONTROLS patched into the cache paths'
+    ``cached_attention``: the teacher-forced |Δlogit| must exceed
+    SERVE_LOGIT_LIMIT, or the gate could not see such a fault."""
+    import torch
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.serve import InferenceEngine
+
+    limit = SERVE_LOGIT_LIMIT[name]
+    attend, out = transformer.cached_attention, {}
+    for label, make in SERVE_CONTROLS.items():
+        transformer.cached_attention = make(attend)
+        try:
+            engine = InferenceEngine(model, **SERVE_ENGINE)
+            dlogit, _, _ = forced_check(engine, model, prompts, oracle,
+                                        name)
+        finally:
+            transformer.cached_attention = attend
+        del engine
+        gc.collect()
+        out[label] = dlogit
+        log(f"serve 1 rank: (a) control {label}, {name} paged, teacher-"
+            f"forced: largest |dlogit| {dlogit} (limit {limit}: must fail)")
+        if not dlogit > limit:
+            raise AssertionError(
+                f"serve 1 rank: the teacher-forced gate misses the control "
+                f"fault {label}: |dlogit| {dlogit} <= {limit}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_prompts(seed: int, lengths, vocab: int):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(0, vocab, n)] for n in lengths]
+
+
+def oracle_phase(dev, models: dict) -> dict:
+    """(a): the f32 and the bf16 model through the dense engine, the
+    paged engine and the paged engine with the self-drafter, against the
+    full-forward oracle, under :func:`margin_match`."""
+    import torch
+    from horovod_tpu_torch.serve import InferenceEngine
+
+    prompts = serve_prompts(0, SERVE_ORACLE_LENS, GPT_MEDIUM["vocab_size"])
+    report = {}
+    for name, model in models.items():
+        limit = SERVE_MARGIN[name]
+        oracle = serve_oracle(model, prompts, SERVE_NEW_TOKENS)
+        for path, kw in (("dense", dict(kv_cache="dense")),
+                         ("paged", {}),
+                         ("paged+spec", dict(drafter=model,
+                                             spec_k=SERVE_SPEC_K))):
+            engine = InferenceEngine(model, **{**SERVE_ENGINE, **kw})
+            spec = "drafter" in kw
+            tap = None if spec else LogitTap(model)
+            try:
+                got = engine_tokens(engine, prompts, SERVE_NEW_TOKENS, spec)
+            finally:
+                if tap is not None:
+                    tap.close()
+            tapped = (None if tap is None
+                      else tap.rows(prompts, SERVE_NEW_TOKENS))
+            compared, dlogit = 0, None
+            for i, (toks, margins, rows) in enumerate(oracle):
+                ok, n_cmp, stop = margin_match(got[i], toks, margins, limit)
+                if not ok:
+                    raise AssertionError(
+                        f"serve 1 rank: {name} {path} prompt of "
+                        f"{len(prompts[i])} tokens differs from the oracle "
+                        f"at token {stop} where its margin is "
+                        f"{margins[stop]} (limit {limit}): {got[i]} "
+                        f"against {toks}")
+                compared += n_cmp
+                if tapped is not None:
+                    upto = SERVE_NEW_TOKENS if stop is None else stop + 1
+                    d = float((tapped[i][:upto] - rows[:upto]).abs().max())
+                    dlogit = d if dlogit is None else max(dlogit, d)
+            report[f"{name} {path}"] = dict(
+                compared=compared, max_dlogit=dlogit,
+                kv=engine.kv_stats().get("spec_accept_per_verify"))
+            log(f"serve 1 rank: (a) {name} {path}: {compared} of "
+                f"{len(prompts) * SERVE_NEW_TOKENS} positions compared "
+                f"(margin >= {limit}), tokens equal the oracle's there; "
+                f"largest |dlogit| against the oracle "
+                f"{'not captured (self-drafter)' if dlogit is None else dlogit}"
+                + (f", {report[f'{name} {path}']['kv']} tokens a verify"
+                   if spec else ""))
+            del engine, tap, tapped
+            gc.collect()   # an engine and its block pool form a cycle
+            if not spec:
+                engine = InferenceEngine(model, **{**SERVE_ENGINE, **kw})
+                d, n_cmp, bad = forced_check(engine, model, prompts, oracle,
+                                             name)
+                del engine
+                gc.collect()
+                if d > SERVE_LOGIT_LIMIT[name] or bad is not None:
+                    raise AssertionError(
+                        f"serve 1 rank: {name} {path} teacher-forced: "
+                        f"|dlogit| {d} (limit {SERVE_LOGIT_LIMIT[name]}), "
+                        f"first token past the margin that differs "
+                        f"(prompt, position) {bad}")
+                report[f"{name} {path}"].update(forced_dlogit=d,
+                                                forced_compared=n_cmp)
+                log(f"serve 1 rank: (a) {name} {path}, teacher-forced: "
+                    f"largest |dlogit| over all "
+                    f"{len(prompts) * SERVE_NEW_TOKENS} rows {d} (limit "
+                    f"{SERVE_LOGIT_LIMIT[name]}), tokens equal the oracle's "
+                    f"at all {n_cmp} positions past the margin")
+            torch.cuda.empty_cache()
+        if name == "bfloat16":
+            report["controls"] = forced_controls(model, prompts, oracle,
+                                                 name)
+    return report
+
+
+def traffic_requests(vocab: int):
+    """SERVE_REQUESTS requests from seed 0: prompts of 16-900 tokens,
+    SERVE_SHARED of them a SERVE_SYSTEM-token system prompt plus a turn
+    header plus a user turn; every other one greedy, the rest at
+    temperature 0.8 / top-k 50; SERVE_SPEC greedy ones speculative."""
+    import numpy as np
+    from horovod_tpu_torch.serve import SamplingParams
+
+    rng = np.random.RandomState(0)
+    system = [int(t) for t in rng.randint(0, vocab, SERVE_SYSTEM)]
+    reqs, n_spec = [], 0
+    for i in range(SERVE_REQUESTS):
+        if i % 3 == 0 and len([r for r in reqs if r[2]]) < SERVE_SHARED:
+            user = int(rng.randint(8, 900 - SERVE_SYSTEM - len(SERVE_HEADER)))
+            prompt = (system + list(SERVE_HEADER)
+                      + [int(t) for t in rng.randint(0, vocab, user)])
+            shared = True
+        else:
+            prompt = [int(t) for t in
+                      rng.randint(0, vocab, int(rng.randint(16, 901)))]
+            shared = False
+        greedy = i % 2 == 0
+        spec = greedy and n_spec < SERVE_SPEC and not shared
+        n_spec += spec
+        sp = (SamplingParams(max_new_tokens=SERVE_NEW_TOKENS, spec=spec)
+              if greedy else
+              SamplingParams(max_new_tokens=SERVE_NEW_TOKENS,
+                             temperature=SERVE_TEMPERATURE,
+                             top_k=SERVE_TOP_K))
+        reqs.append((prompt, sp, shared))
+    return reqs
+
+
+def traffic_phase(model, card: str) -> dict:
+    """(b): the closed loop of SERVE_CLIENTS clients through
+    ``ContinuousBatcher`` on the engine with the self-drafter."""
+    import torch
+    from horovod_tpu_torch.serve import ContinuousBatcher, InferenceEngine
+
+    vocab = model.config.vocab_size
+    todo = traffic_requests(vocab)
+    assert sum(r[2] for r in todo) == SERVE_SHARED
+    assert sum(r[1].spec for r in todo) == SERVE_SPEC
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(model, **SERVE_ENGINE, drafter=model,
+                             spec_k=SERVE_SPEC_K)
+    batcher = ContinuousBatcher(engine, default_deadline_s=0)
+    done, live, peak_blocks = [], [], 0
+    t0 = time.perf_counter()
+    while todo or live:
+        while todo and len(live) < SERVE_CLIENTS:
+            prompt, sp, _ = todo.pop(0)
+            live.append(batcher.submit(prompt, sp))
+        batcher.step()
+        peak_blocks = max(peak_blocks, engine._kv.blocks_in_use())
+        done += [r for r in live if r.done.is_set()]
+        live = [r for r in live if not r.done.is_set()]
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(r.request_id, r.error, len(r.tokens)) for r in done
+           if r.error is not None or len(r.tokens) != SERVE_NEW_TOKENS
+           or not all(0 <= t < vocab for t in r.tokens)]
+    snap = batcher.snapshot()
+    if bad or len(done) != SERVE_REQUESTS:
+        raise AssertionError(f"serve 1 rank: traffic requests failed: {bad}")
+    if snap["kv_prefix_hits_total"] < SERVE_SHARED - 1 \
+            or snap["kv_cow_copies_total"] < 1:
+        raise AssertionError(
+            f"serve 1 rank: {snap['kv_prefix_hits_total']} prefix hits and "
+            f"{snap['kv_cow_copies_total']} copy-on-write copies for "
+            f"{SERVE_SHARED} requests sharing a system prompt")
+    tokens = sum(len(r.tokens) for r in done)
+    reading = dict(seconds=seconds, tok_per_s=tokens / seconds,
+                   ttft_ms_p50=snap["ttft_ms_p50"],
+                   ttft_ms_p99=snap["ttft_ms_p99"],
+                   tpot_ms_p50=snap["tpot_ms_p50"],
+                   tpot_ms_p99=snap["tpot_ms_p99"],
+                   prefix_hit_ratio=snap["prefix_hit_ratio"],
+                   spec_accept_per_verify=snap["spec_accept_per_verify"],
+                   cow=snap["kv_cow_copies_total"], peak_blocks=peak_blocks,
+                   blocks=snap["kv_blocks_total"], peak_gib=peak / 2**30)
+    del batcher, engine
+    reading.update(decode_cadence(model))
+    log(f"serve 1 rank: (b) {SERVE_REQUESTS} requests, {SERVE_CLIENTS} "
+        f"clients in a closed loop, {tokens} tokens in {seconds:.3f} s: "
+        f"{reading['tok_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{reading['ttft_ms_p50']} ms p99 {reading['ttft_ms_p99']} ms, TPOT "
+        f"p50 {reading['tpot_ms_p50']} ms p99 {reading['tpot_ms_p99']} ms, "
+        f"prefix-hit ratio {reading['prefix_hit_ratio']} "
+        f"({snap['kv_prefix_hits_total']} hits, {reading['cow']} "
+        f"copy-on-write copies), spec {reading['spec_accept_per_verify']} "
+        f"tokens a verify, KV blocks in use at most {peak_blocks} of "
+        f"{reading['blocks']}, peak memory {reading['peak_gib']:.2f} GiB; "
+        f"plain decode at {SERVE_ENGINE['max_slots']} busy slots (no "
+        f"drafter) {reading['decode_ms']:.3f} ms a step on the host clock "
+        f"({reading['decode_tok_s']:.1f} tokens/s), on {card}")
+    return reading
+
+
+def decode_cadence(model, steps: int = 16) -> dict:
+    """A reading beside the traffic: ``steps`` plain decode steps with
+    every slot busy (64-token prompts, greedy, no drafter), host clock
+    over synchronised steps."""
+    import torch
+    from horovod_tpu_torch.serve import InferenceEngine, SamplingParams
+
+    engine = InferenceEngine(model, **SERVE_ENGINE)
+    prompts = serve_prompts(5, (64,) * SERVE_ENGINE["max_slots"],
+                            model.config.vocab_size)
+    for s, p in enumerate(prompts):
+        engine.start(s, p, SamplingParams(max_new_tokens=steps + 4))
+    engine.step()                       # the decode's first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()                   # ends in a host copy: synchronised
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    del engine
+    gc.collect()
+    return dict(decode_ms=ms,
+                decode_tok_s=SERVE_ENGINE["max_slots"] * 1e3 / ms)
+
+
+def preempt_drill(model) -> dict:
+    """(b), the preemption drill on a one-slot engine (the reference's
+    sole-active-slot contract, ``tests/test_qos.py``): a batch request
+    of 200 prompt tokens is preempted after 4 steps by an interactive
+    one with a 1 s deadline, then resumes; its tokens must equal the
+    uninterrupted run's, greedy (under the f32 margin rule) and at
+    temperature 0.8 (exactly: the generator's state is restored)."""
+    from horovod_tpu_torch.serve import (ContinuousBatcher, InferenceEngine,
+                                         SamplingParams)
+
+    vocab = model.config.vocab_size
+    prompt = serve_prompts(2, (200,), vocab)[0]
+    interactive = serve_prompts(3, (64,), vocab)[0]
+    one_slot = {**SERVE_ENGINE, "max_slots": 1}
+    out = {}
+    for temp in (0.0, SERVE_TEMPERATURE):
+        sp = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS,
+                            temperature=temp,
+                            top_k=SERVE_TOP_K if temp else 0)
+        ref = InferenceEngine(model, **one_slot, seed=5)
+        want = [ref.start(0, prompt, sp)]
+        while len(want) < SERVE_NEW_TOKENS:
+            want.extend(ref.step()[0])
+        del ref
+        batcher = ContinuousBatcher(InferenceEngine(model, **one_slot,
+                                                    seed=5),
+                                    default_deadline_s=0)
+        breq = batcher.submit(prompt, sp, qos_class="batch")
+        for _ in range(4):
+            batcher.step()
+        ireq = batcher.submit(interactive, SamplingParams(max_new_tokens=4),
+                              deadline_s=1.0, qos_class="interactive")
+        while not (ireq.done.is_set() and breq.done.is_set()):
+            batcher.step()
+        if ireq.error is not None or breq.error is not None \
+                or breq.preemptions != 1:
+            raise AssertionError(
+                f"serve 1 rank: preemption drill at temperature {temp}: "
+                f"interactive {ireq.error}, batch {breq.error}, "
+                f"{breq.preemptions} preemptions")
+        out[temp] = (breq.tokens, want, breq.prefix_hit_tokens)
+    toks, margins, _ = serve_oracle(model, [prompt], SERVE_NEW_TOKENS)[0]
+    got, want, hit = out[0.0]
+    ok, compared, stop = margin_match(got, want, margins,
+                                      SERVE_MARGIN["float32"])
+    if not ok or out[SERVE_TEMPERATURE][0] != out[SERVE_TEMPERATURE][1]:
+        raise AssertionError(
+            f"serve 1 rank: a preempted request did not resume to its "
+            f"uninterrupted tokens: greedy {got} against {want} (stop "
+            f"{stop}), temperature {out[SERVE_TEMPERATURE][0]} against "
+            f"{out[SERVE_TEMPERATURE][1]}")
+    log(f"serve 1 rank: (b) preemption drill: a batch request preempted "
+        f"after 4 steps by an interactive one resumed with a prefix hit of "
+        f"{hit} tokens to its uninterrupted tokens, greedy ({compared} of "
+        f"{SERVE_NEW_TOKENS} positions past the f32 margin) and at "
+        f"temperature {SERVE_TEMPERATURE} (all {SERVE_NEW_TOKENS} equal)")
+    return dict(compared=compared, prefix_hit=hit)
+
+
+def evict_drill(model) -> dict:
+    """(c): prime a prompt (64 system tokens + 5), then under
+    ``serve:step=0,mode=evict`` (the next allocation) serve a prompt
+    sharing the system tokens: the forced eviction must drop the
+    primed prompt's cached tail; the request, and the primed prompt
+    served again, must give the oracle's tokens (f32 margin rule) from
+    recomputed, never stale, blocks."""
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.serve import (ContinuousBatcher, InferenceEngine,
+                                         SamplingParams)
+
+    vocab = model.config.vocab_size
+    system = serve_prompts(4, (64,), vocab)[0]
+    first, second = system + [7, 8, 9, 10, 11], system + [9, 9, 9]
+    n = 8
+    batcher = ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                                default_deadline_s=0)
+    engine = batcher.engine
+
+    def serve(prompt):
+        req = batcher.submit(prompt, SamplingParams(max_new_tokens=n))
+        while not req.done.is_set():
+            batcher.step()
+        if req.error is not None:
+            raise AssertionError(f"serve 1 rank: evict drill: {req.error}")
+        return req
+
+    primed = serve(first)
+    cached = engine.prefix_probe(first)
+    with faults.inject("serve:step=0,mode=evict"):
+        hit = serve(second)
+        fired = [h for h in faults.history() if h[0] == "serve"]
+    after = engine.prefix_probe(first)
+    again = serve(first)
+    stats = engine.kv_stats()
+    oracle = serve_oracle(model, [first, second], n)
+    checks = [margin_match(r.tokens, toks, margins, SERVE_MARGIN["float32"])
+              for r, (toks, margins, _) in zip((primed, hit, again),
+                                               (oracle[0], oracle[1],
+                                                oracle[0]))]
+    if fired != [("serve", 0, "evict")] or stats["kv_evictions_total"] < 1 \
+            or after >= cached or not all(ok for ok, *_ in checks):
+        raise AssertionError(
+            f"serve 1 rank: evict drill: fired {fired}, evictions "
+            f"{stats['kv_evictions_total']}, resident prefix {cached} -> "
+            f"{after}, oracle checks {checks}")
+    log(f"serve 1 rank: (c) serve:step=0,mode=evict fired once, "
+        f"{stats['kv_evictions_total']} block(s) evicted, the primed "
+        f"prompt's resident prefix {cached} -> {after} tokens; the three "
+        f"requests equal the oracle at {[c[1] for c in checks]} of {n} "
+        f"positions each (f32 margin)")
+    return dict(evictions=stats["kv_evictions_total"])
+
+
+def serve_phase(dev, card: str) -> dict:
+    """Path "serve 1 rank": (a) the oracle, (b) the traffic and the
+    preemption drill, (c) the evict drill.  The launch counts are set
+    to 0 just before and read just after; B1 runs in the oracle's
+    forwards only (the engine's attention is plain torch, as the
+    reference's is)."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    bf16 = serve_model(dev, torch.bfloat16)
+    f32 = serve_model(dev, torch.float32)
+    f32.load_state_dict(bf16.state_dict())
+    hvd.ops.reset_launch_counts()
+    oracle = oracle_phase(dev, {"float32": f32, "bfloat16": bf16})
+    counts_a = hvd.ops.launch_counts()
+    traffic = traffic_phase(bf16, card)
+    engine_counts = {k: v - counts_a[k]
+                     for k, v in hvd.ops.launch_counts().items()}
+    preempt = preempt_drill(f32)
+    evict = evict_drill(f32)
+    counts = hvd.ops.launch_counts()
+    n_forwards = 2 * len(SERVE_ORACLE_LENS) * SERVE_NEW_TOKENS
+    want = n_forwards * GPT_MEDIUM["n_layer"]
+    if counts_a["flash_fwd"] != want or any(engine_counts.values()):
+        raise AssertionError(
+            f"serve 1 rank: the oracle launched flash_fwd "
+            f"{counts_a['flash_fwd']} times (want {want}); the traffic "
+            f"launched {engine_counts}")
+    seconds = time.perf_counter() - t0
+    log(f"serve 1 rank: {seconds:.1f} s; the oracle's {n_forwards} forwards "
+        f"launched flash_fwd {want} times, the engine's traffic no kernel "
+        f"({engine_counts}); launches {counts}; on {card}")
+    del bf16, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(seconds=seconds, oracle=oracle, traffic=traffic,
+                        preempt=preempt, evict=evict)
+
+
+def serve_ranks(dev, rank: int) -> dict:
+    """Path "serve 1 rank" in a process of its own (``--serve-worker``):
+    after bf16 serving at these prompt lengths ``torch.profiler`` records
+    no device event in the process that served (bisected on the card:
+    the bf16 oracle and the traffic leave it so, the f32 drills do not),
+    and the route check, last in the main process, reads those events."""
+    counts, report = serve_phase(dev, card_and_power_limit())
+    return dict(counts=counts, report=report)
+
+
+def replica_ranks(dev, rank: int) -> dict:
+    """Path "serve 2 replicas" in a process of its own
+    (``--replicas-worker``), as :func:`serve_ranks`."""
+    counts, report = replicas_phase(dev, card_and_power_limit())
+    return dict(counts=counts, report=report)
+
+
+def replicas_phase(dev, card: str) -> dict:
+    """Path "serve 2 replicas": two ``InferenceServer``s on the card,
+    each with its own engine of the bf16 model, behind a ``Router`` over
+    the HMAC wire.  SERVE_REPLICA_REQUESTS greedy requests sent at once
+    must finish with their one-replica tokens (the bf16 margin rule,
+    margins from the full-forward oracle); then ``serve:mode=kill`` at
+    replica A's decode event SERVE_KILL_STEP: the request completes on
+    B with the same tokens, A dead, B's count up by one, a replay of the
+    request id answered from the router's cache (no duplicate)."""
+    import concurrent.futures
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.runner.common.secret import make_secret_key
+    from horovod_tpu_torch.serve import (ContinuousBatcher, InferenceEngine,
+                                         InferenceServer, ReplicaSpec, Router,
+                                         SamplingParams)
+    from horovod_tpu_torch.utils.retry import RetryPolicy
+
+    t0 = time.perf_counter()
+    model = serve_model(dev, torch.bfloat16)
+    vocab = model.config.vocab_size
+    rng_lens = [16 + 37 * i for i in range(SERVE_REPLICA_REQUESTS + 1)]
+    prompts = serve_prompts(1, rng_lens, vocab)
+    hvd.ops.reset_launch_counts()
+    # One replica's tokens: the same prompts through one engine.
+    one = ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                            default_deadline_s=0)
+    reqs = [one.submit(p, SamplingParams(max_new_tokens=SERVE_NEW_TOKENS))
+            for p in prompts]
+    while not all(r.done.is_set() for r in reqs):
+        one.step()
+    want = [r.tokens for r in reqs]
+    del one
+    gc.collect()
+    oracle = serve_oracle(model, prompts, SERVE_NEW_TOKENS)
+    key = make_secret_key()
+    servers = [InferenceServer(
+        ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                          default_deadline_s=0),
+        key=key, name=name, host="127.0.0.1") for name in ("serve-a",
+                                                           "serve-b")]
+    specs = [ReplicaSpec(s.name, [("127.0.0.1", s.port)]) for s in servers]
+    policy = RetryPolicy(attempts=6, base_delay_s=0.02, max_delay_s=0.2)
+    limit = SERVE_MARGIN["bfloat16"]
+    try:
+        router = Router(specs, key, retry_policy=policy)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(
+                SERVE_REPLICA_REQUESTS) as pool:
+            resps = list(pool.map(
+                lambda i: router.generate(prompts[i],
+                                          max_new_tokens=SERVE_NEW_TOKENS,
+                                          request_id=f"rep-{i}"),
+                range(SERVE_REPLICA_REQUESTS)))
+        wire_s = time.perf_counter() - t1
+        compared = 0
+        for i, resp in enumerate(resps):
+            ok, n_cmp, stop = margin_match(resp.tokens or [], want[i],
+                                           oracle[i][1], limit)
+            if resp.error is not None or not ok:
+                raise AssertionError(
+                    f"serve 2 replicas: request {i}: {resp.error}, tokens "
+                    f"{resp.tokens} against one replica's {want[i]} (stop "
+                    f"{stop})")
+            compared += n_cmp
+        served = {n: e["completed"] for n, e in router.replica_stats().items()}
+        if sorted(served.values())[0] == 0:
+            raise AssertionError(f"serve 2 replicas: one replica served "
+                                 f"nothing: {served}")
+        # The kill drill: a fresh router sends its first request to A.
+        drill = Router(specs, key, retry_policy=policy)
+        i = SERVE_REPLICA_REQUESTS
+        before = servers[1]._batcher.stats.snapshot()["requests_completed"]
+        with faults.inject(f"serve:step={SERVE_KILL_STEP},mode=kill"):
+            resp = drill.generate(prompts[i], max_new_tokens=SERVE_NEW_TOKENS,
+                                  request_id="kill-0")
+            fired = [h for h in faults.history() if h[0] == "serve"]
+        again = drill.generate([1], max_new_tokens=2, request_id="kill-0")
+        after = servers[1]._batcher.stats.snapshot()["requests_completed"]
+        ok, n_kill, stop = margin_match(resp.tokens or [], want[i],
+                                        oracle[i][1], limit)
+        if resp.error is not None or not ok or again is not resp \
+                or fired != [("serve", SERVE_KILL_STEP, "kill")] \
+                or [s.dead for s in servers] != [True, False] \
+                or after != before + 1:
+            raise AssertionError(
+                f"serve 2 replicas: kill drill: {resp.error}, tokens "
+                f"{resp.tokens} against {want[i]} (stop {stop}), fired "
+                f"{fired}, dead {[s.dead for s in servers]}, B completed "
+                f"{before} -> {after}, replay cached {again is resp}")
+    finally:
+        for s in servers:
+            s.shutdown()
+        gc.collect()
+    counts = hvd.ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    log(f"serve 2 replicas: {SERVE_REPLICA_REQUESTS} requests over the HMAC "
+        f"wire in {wire_s:.3f} s, served {served}, tokens equal one "
+        f"replica's at {compared} positions past the bf16 margin; kill "
+        f"drill: replica A died at decode event {SERVE_KILL_STEP}, the "
+        f"request completed on B ({n_kill} positions compared), one "
+        f"response, the replay answered from the router's cache; "
+        f"{seconds:.1f} s in all; launches {counts} (the oracle's "
+        f"forwards); on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, dict(seconds=seconds, wire_s=wire_s, served=served)
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -5052,12 +5851,16 @@ MOE_WORKER_FLAG = "--moe-worker"
 FSDP_WORKER_FLAG = "--fsdp-worker"
 AUTOTUNE_WORKER_FLAG = "--autotune-worker"
 ELASTIC_WORKER_FLAG = "--elastic-worker"
+SERVE_WORKER_FLAG = "--serve-worker"
+REPLICAS_WORKER_FLAG = "--replicas-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
     MOE_WORKER_FLAG: (SET_RANKS, {}, "moe_ranks"),
     FSDP_WORKER_FLAG: (SET_RANKS, FSDP_ENV, "fsdp_ranks"),
     AUTOTUNE_WORKER_FLAG: (WIRE_RANKS, AUTOTUNE_ENV, "autotune_ranks"),
+    SERVE_WORKER_FLAG: (1, {}, "serve_ranks"),
+    REPLICAS_WORKER_FLAG: (1, {}, "replica_ranks"),
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
@@ -5290,6 +6093,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         remote_counts = remote_phase(card, launcher_res)
         run_func_counts = run_func_phase(card)
+        torch.cuda.empty_cache()
+        serve_counts = spawn_ranks(SERVE_WORKER_FLAG, 1)[0]["counts"]
+        replica_counts = spawn_ranks(REPLICAS_WORKER_FLAG, 1)[0]["counts"]
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -5306,7 +6112,9 @@ def main() -> int:
                "elastic 2 ranks": elastic_counts,
                "launcher 2 ranks": launcher_counts,
                "remote 2 hosts": remote_counts,
-               "run_func 2 ranks": run_func_counts}
+               "run_func 2 ranks": run_func_counts,
+               "serve 1 rank": serve_counts,
+               "serve 2 replicas": replica_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:

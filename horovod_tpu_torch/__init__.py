@@ -73,6 +73,10 @@ ssh-started task agents; ``jsrun`` inside an LSF allocation), and
 ``hvd.run(func, np=N)`` runs a function on every rank of a fresh world,
 returning the results in rank order.
 
+Serving (``hvd.serve``, imported on first use): ``InferenceEngine(GPT)``
+(prefill/decode over a dense or paged KV cache, speculative decoding),
+``ContinuousBatcher``, ``InferenceServer`` and ``Router``.
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """
@@ -131,4 +135,10 @@ def __getattr__(name):
         from .runner.run_func import launch
 
         return launch
+    if name == "serve":
+        # The serving stack, imported on first touch as the
+        # reference's ``hvd.serve``.
+        import importlib
+
+        return importlib.import_module(".serve", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -204,6 +204,84 @@ def parse_mesh_plan(spec: str,
     return out
 
 
+def _env_int_tuple(name: str, default: tuple) -> tuple:
+    """Comma-separated positive ints → sorted, deduplicated tuple
+    (``HVD_TPU_SERVE_PREFILL_BUCKETS``: a malformed list fails at
+    init)."""
+    val = _env(name)
+    if val is None:
+        return default
+    try:
+        items = tuple(sorted({int(v.strip()) for v in val.split(",")
+                              if v.strip()}))
+    except ValueError as e:
+        raise ValueError(
+            f"Env var {name!r} has unparseable value {val!r}; expected "
+            f"comma-separated ints") from e
+    if not items or any(v <= 0 for v in items):
+        raise ValueError(
+            f"Env var {name!r} needs at least one positive int, got {val!r}")
+    return items
+
+
+# --- multi-tenant QoS grammar (HVD_TPU_QOS_*) --------------------------------
+# Service classes of the serving scheduler (serve/qos/): `interactive`
+# is deadline-protected (never shed, may preempt), `standard` is the
+# default, `batch` is throughput traffic (first preempted and shed).
+# The weight/share/budget maps share one ``key=value`` comma grammar,
+# parsed at init so a typo'd policy fails loudly.
+
+QOS_CLASSES = ("interactive", "standard", "batch")
+
+
+def parse_qos_map(spec: str, what: str,
+                  keys: Optional[tuple] = None,
+                  positive: Optional[bool] = None) -> "dict[str, float]":
+    """Parse ``a=2,b=0.5`` into ``{key: float}``.  ``keys`` restricts
+    the key namespace (class-weight maps must name QoS classes); tenant
+    maps accept any non-empty tenant id.  ``positive`` requires values
+    > 0 (default: True for keyed maps): weights and shares must be
+    positive — a share of 0 would starve the tenant — while budget maps
+    keep 0 = unlimited."""
+    require_pos = positive if positive is not None else keys is not None
+    out: dict = {}
+    for raw in spec.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        key, sep, val = raw.partition("=")
+        key, val = key.strip(), val.strip()
+        if not sep or not key or not val:
+            raise ValueError(
+                f"{what}: expected key=value entries, got {raw!r}")
+        if keys is not None and key not in keys:
+            raise ValueError(
+                f"{what}: unknown key {key!r}; expected one of {keys}")
+        if key in out:
+            raise ValueError(f"{what}: duplicate key {key!r}")
+        try:
+            fval = float(val)
+        except ValueError as e:
+            raise ValueError(
+                f"{what}: bad value {val!r} for {key!r}") from e
+        if fval < 0 or (require_pos and fval <= 0):
+            raise ValueError(
+                f"{what}: value for {key!r} must be "
+                f"{'> 0' if require_pos else '>= 0'}, got {fval}")
+        out[key] = fval
+    return out
+
+
+def _validated_qos_map(spec: Optional[str], what: str,
+                       keys: Optional[tuple] = None,
+                       positive: Optional[bool] = None) -> Optional[str]:
+    """Empty or unset: None; anything else must parse (fails at init)."""
+    if not spec or not spec.strip():
+        return None
+    parse_qos_map(spec, what, keys, positive=positive)
+    return spec
+
+
 def _validated_mesh_plan(spec: Optional[str]) -> Optional[str]:
     """Empty or unset: None; anything else must parse (fails at init).
     Whether it factors the world is checked when the plan is built."""
@@ -506,6 +584,30 @@ class Config:
     stall_shutdown_time_seconds: float = 0.0  # HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (0 = never)
     use_native_planner: bool = True           # HVD_TPU_USE_NATIVE_PLANNER (C++ fusion and schedule planners)
     native_coordinator: bool = True           # HVD_TPU_NATIVE_COORD (cross-process stall monitor)
+    # Inference serving (serve/).
+    serve_max_batch: int = 8                  # HVD_TPU_SERVE_MAX_BATCH (continuous-batching slots)
+    serve_queue_depth: int = 64               # HVD_TPU_SERVE_QUEUE_DEPTH (admission queue bound; full ⇒ reject)
+    serve_prefill_buckets: tuple = (64, 256, 1024)  # HVD_TPU_SERVE_PREFILL_BUCKETS (padded prompt shapes)
+    serve_max_new_tokens: int = 256           # HVD_TPU_SERVE_MAX_TOKENS (per-request generation cap)
+    serve_deadline_seconds: float = 30.0      # HVD_TPU_SERVE_DEADLINE_S (default per-request deadline; 0 = none)
+    serve_replica_strikes: int = 2            # HVD_TPU_SERVE_REPLICA_STRIKES (failures before a replica is benched)
+    serve_probation_seconds: float = 10.0     # HVD_TPU_SERVE_PROBATION_S (bench time before a half-open retry)
+    serve_kv: str = "paged"                   # HVD_TPU_SERVE_KV (paged|dense cache layout)
+    serve_kv_block: int = 16                  # HVD_TPU_SERVE_KV_BLOCK (tokens per KV block)
+    serve_kv_blocks: int = 0                  # HVD_TPU_SERVE_KV_BLOCKS (pool budget in blocks; 0 = auto)
+    serve_spec_k: int = 4                     # HVD_TPU_SERVE_SPEC_K (draft tokens per speculative verify step)
+    fleet_role: str = "unified"               # HVD_TPU_FLEET_ROLE (prefill|decode|unified: this replica's class)
+    # Multi-tenant QoS scheduling (serve/qos/).
+    qos_class_weights: str = "interactive=8,standard=4,batch=1"  # HVD_TPU_QOS_CLASS_WEIGHTS (WFQ weight per class)
+    qos_tenant_shares: Optional[str] = None   # HVD_TPU_QOS_TENANT_SHARES ("tenant=share,..."; unset = 1 each)
+    qos_tenant_budgets: Optional[str] = None  # HVD_TPU_QOS_TENANT_BUDGETS ("tenant=tokens_per_s,..."; 0 = unlimited)
+    qos_default_budget: float = 0.0           # HVD_TPU_QOS_DEFAULT_BUDGET (tokens/s for other tenants; 0 = unlimited)
+    qos_burst_s: float = 2.0                  # HVD_TPU_QOS_BURST_S (bucket capacity = rate x burst window)
+    qos_preempt: bool = True                  # HVD_TPU_QOS_PREEMPT (deadline-aware batch preemption)
+    qos_slo_ttft_ms: float = 0.0              # HVD_TPU_QOS_SLO_TTFT_MS (interactive p99 TTFT SLO; 0 = off)
+    qos_brownout_high: float = 0.75           # HVD_TPU_QOS_BROWNOUT_HIGH (queue fraction that steps the ladder up)
+    qos_brownout_low: float = 0.25            # HVD_TPU_QOS_BROWNOUT_LOW (queue fraction below which it may step down)
+    qos_brownout_hold_s: float = 5.0          # HVD_TPU_QOS_BROWNOUT_HOLD_S (calm hold before each step down)
     cycle_time_ms: float = 1.0                # HOROVOD_CYCLE_TIME (no-op: warns)
     cache_capacity: Optional[int] = None      # HOROVOD_CACHE_CAPACITY (no-op: warns)
 
@@ -574,6 +676,39 @@ class Config:
                 "STALL_SHUTDOWN_TIME_SECONDS", 0.0),
             use_native_planner=_env_bool("USE_NATIVE_PLANNER", True),
             native_coordinator=_env_bool("NATIVE_COORD", True),
+            serve_max_batch=_env_int("SERVE_MAX_BATCH", 8),
+            serve_queue_depth=_env_int("SERVE_QUEUE_DEPTH", 64),
+            serve_prefill_buckets=_env_int_tuple("SERVE_PREFILL_BUCKETS",
+                                                 (64, 256, 1024)),
+            serve_max_new_tokens=_env_int("SERVE_MAX_TOKENS", 256),
+            serve_deadline_seconds=_env_float("SERVE_DEADLINE_S", 30.0),
+            serve_replica_strikes=_env_int("SERVE_REPLICA_STRIKES", 2),
+            serve_probation_seconds=_env_float("SERVE_PROBATION_S", 10.0),
+            serve_kv=_env_choice("SERVE_KV", "paged",
+                                 ("paged", "dense")) or "paged",
+            serve_kv_block=_env_pos_int("SERVE_KV_BLOCK", 16),
+            serve_kv_blocks=_env_int("SERVE_KV_BLOCKS", 0),
+            serve_spec_k=_env_pos_int("SERVE_SPEC_K", 4),
+            fleet_role=_env_choice("FLEET_ROLE", "unified",
+                                   ("prefill", "decode", "unified"))
+            or "unified",
+            qos_class_weights=_validated_qos_map(
+                _env("QOS_CLASS_WEIGHTS")
+                or "interactive=8,standard=4,batch=1",
+                "qos class weights", QOS_CLASSES)
+            or "interactive=8,standard=4,batch=1",
+            qos_tenant_shares=_validated_qos_map(
+                _env("QOS_TENANT_SHARES"), "qos tenant shares",
+                positive=True),
+            qos_tenant_budgets=_validated_qos_map(
+                _env("QOS_TENANT_BUDGETS"), "qos tenant budgets"),
+            qos_default_budget=_env_float("QOS_DEFAULT_BUDGET", 0.0),
+            qos_burst_s=_env_float("QOS_BURST_S", 2.0),
+            qos_preempt=_env_bool("QOS_PREEMPT", True),
+            qos_slo_ttft_ms=_env_float("QOS_SLO_TTFT_MS", 0.0),
+            qos_brownout_high=_env_float("QOS_BROWNOUT_HIGH", 0.75),
+            qos_brownout_low=_env_float("QOS_BROWNOUT_LOW", 0.25),
+            qos_brownout_hold_s=_env_float("QOS_BROWNOUT_HOLD_S", 5.0),
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             cache_capacity=_env_opt_int("CACHE_CAPACITY"),
         )

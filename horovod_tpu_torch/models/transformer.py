@@ -28,8 +28,12 @@ over the mesh's ``ep`` axis; a caller adds
 :func:`..parallel.moe.moe_aux_loss` to its loss when it wants the
 load-balancing term.
 
-The KV-cache paths and tensor-parallel serving (``tp_mesh``) are not
-ported yet.
+Serving (``serve/engine.py``) runs the KV-cache paths:
+``model(tokens, kv_caches=caches, positions=pos)`` returns ``(logits,
+new_caches)`` over a dense ``{"k", "v"}`` cache per block
+(:func:`init_kv_cache`) or a paged ``{"k_pool", "v_pool", "table"}``
+one.  The caches are written in place.  Tensor-parallel serving
+(``tp_mesh``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,9 +52,14 @@ from ..parallel.sharding import split_group
 from ..parallel.ring_attention import full_attention, ring_self_attention
 from ..parallel.ulysses import ulysses_attention
 from ..plan import resolve_plan
-from .layers import Dense, Embed, Init, LayerNorm, load_jax_params  # noqa: F401
+from .layers import (Dense, Embed, Init, LayerNorm, default_device,  # noqa: F401
+                     load_jax_params)
 
 SEQ_ATTENTIONS = ("ring", "ulysses")
+_NEG_INF = -1e30  # additive mask value (matches parallel/ring_attention)
+TP_SERVING_ITEM = ("tensor-parallel serving (serve/tp.py with GPT's "
+                   "tp_mesh) waits for its slice of the port: ROADMAP.md, "
+                   "queue A item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +81,71 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32
 
 
+def init_kv_cache(config: GPTConfig, batch_size: int, max_len: int,
+                  device=None):
+    """Preallocated per-layer KV cache for autoregressive decode
+    (``serve/engine.py``): one ``{"k", "v"}`` pair of ``[B, max_len, H,
+    D]`` zeros in ``config.dtype`` per block, on ``device`` (this rank's
+    card by default).  The engine allocates it once and writes it in
+    place, so decode never reallocates.
+
+    The paged alternative (``serve/kv/``) holds one ``[num_blocks,
+    block, H, D]`` pool per layer and a per-slot block table;
+    :class:`Attention` takes either layout (``{"k", "v"}`` or
+    ``{"k_pool", "v_pool", "table"}``)."""
+    if device is None:
+        device = default_device()
+    head_dim = config.d_model // config.n_head
+    shape = (batch_size, max_len, config.n_head, head_dim)
+    return [{"k": torch.zeros(shape, dtype=config.dtype, device=device),
+             "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+            for _ in range(config.n_layer)]
+
+
+def cached_attention(q, k, v, cache, positions):
+    """The KV-cache path's attention (serving prefill chunks and decode
+    steps), plain torch as the reference computes it outside any kernel.
+
+    ``positions`` (``[B, T]``) are the chunk's absolute positions, one
+    offset per row.  The chunk's K/V are written at them, then exact
+    masked attention runs over the whole cache row: keys past a row's
+    position are stale or padding, and the ``<= position`` mask hides
+    them; a write past the cache is dropped.  Dense ``{"k", "v"}``: the
+    rows are written in place and returned.  Paged ``{"k_pool",
+    "v_pool", "table"}``: the view is gathered through the block table
+    (view row ``i`` is position ``i`` of that row's chain), the chunk
+    is written into the view for the chunk's own causality, and the raw
+    chunk K/V are returned for the engine to scatter into the pools.
+    Returns ``(out [B, T, H, D], new_cache)``."""
+    b, _, h, d = q.shape
+    paged = "k_pool" in cache
+    if paged:
+        table = cache["table"]
+        k_all = cache["k_pool"][table].reshape(b, -1, h, d)
+        v_all = cache["v_pool"][table].reshape(b, -1, h, d)
+    else:
+        k_all, v_all = cache["k"], cache["v"]
+    s = k_all.shape[1]
+    # A position past the cache (the drafter's last draft rows near the
+    # cache end) drops its write, as JAX drops an out-of-range scatter:
+    # its index is clamped and the row there rewritten with itself.
+    row = torch.arange(b, device=q.device)[:, None]
+    idx = positions.clamp(max=s - 1)
+    inb = (positions < s)[..., None, None]
+    k_all[row, idx] = torch.where(inb, k.to(k_all.dtype), k_all[row, idx])
+    v_all[row, idx] = torch.where(inb, v.to(v_all.dtype), v_all[row, idx])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all)
+    scores = scores.to(torch.float32) * (d ** -0.5)
+    visible = (torch.arange(s, device=q.device)[None, None, :]
+               <= positions[:, :, None])
+    scores = torch.where(visible[:, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v_all)
+    if paged:
+        return out, {"k": k, "v": v}
+    return out, {"k": k_all, "v": v_all}
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: GPTConfig, init: Init, plan=None) -> None:
         super().__init__()
@@ -81,17 +155,24 @@ class Attention(nn.Module):
         self.qkv = Dense(c, 3 * c, cfg.dtype, init)
         self.out = Dense(c, c, cfg.dtype, init)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, positions=None):
+        """``cache`` (one block's KV cache) and ``positions`` (``[B,
+        T]``) take the KV-cache path and return ``(y, new_cache)``."""
         cfg = self.cfg
         b, t, c = x.shape
         d = c // cfg.n_head
         # Under tp, shard_params left this rank h of the heads.
         h = self.qkv.kernel.shape[1] // (3 * d)
         tp = split_group(self.plan, "tp", h, cfg.n_head, "attention heads")
+        if cache is not None and tp is not None:
+            raise NotImplementedError(TP_SERVING_ITEM)
         if tp is not None:
             x = copy_to(x, tp)
         q, k, v = self.qkv(x).split(h * d, dim=-1)
         q, k, v = (y.reshape(b, t, h, d) for y in (q, k, v))
+        if cache is not None:
+            out, new_cache = cached_attention(q, k, v, cache, positions)
+            return self.out(out.reshape(b, t, h * d)), new_cache
         if cfg.attention in SEQ_ATTENTIONS:
             if self.plan is None:
                 raise ValueError(
@@ -152,10 +233,21 @@ class Block(nn.Module):
         else:
             self.mlp = MlpBlock(cfg, init, plan)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, cache=None, positions=None):
+        """With ``cache`` (and ``positions``) returns ``(x,
+        new_cache)``."""
+        new_cache = None
+        if cache is not None:
+            a, new_cache = self.attn(self.ln1(x), cache=cache,
+                                     positions=positions)
+        else:
+            a = self.attn(self.ln1(x))
+        x = x + a
         ffn = self.moe if self.use_moe else self.mlp
-        return x + ffn(self.ln2(x))
+        x = x + ffn(self.ln2(x))
+        if cache is not None:
+            return x, new_cache
+        return x
 
 
 class GPT(nn.Module):
@@ -201,12 +293,41 @@ class GPT(nn.Module):
         """The model's :class:`..plan.MeshPlan`, or None off a mesh."""
         return self.plan
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def forward(self, tokens, return_hidden: bool = False,
+                kv_caches=None, positions=None):
         """Logits, or with ``return_hidden`` the pre-head activations
         ``[B, T, d_model]`` (after ``ln_f``), for the chunked loss
-        (:mod:`..ops.xent`), which runs the head product itself."""
+        (:mod:`..ops.xent`), which runs the head product itself.
+
+        Serving: ``kv_caches`` (one cache per block, from
+        :func:`init_kv_cache` or the engine's paged pools) and
+        ``positions`` (``[B, T]`` absolute positions of the chunk)
+        return ``(logits, new_caches)``.  A position past the
+        positional table (the engine's trash rows) reads its last row,
+        as the reference's clamped gather does."""
         cfg = self.config
         t = tokens.shape[1]
+        if kv_caches is not None:
+            if cfg.attention in SEQ_ATTENTIONS:
+                # Sequence-sharded training layouts have no KV-cache
+                # analogue; decode is a per-replica workload.
+                raise ValueError(
+                    f"KV-cache decode requires attention='full' or "
+                    f"'flash', not {cfg.attention!r}")
+            if positions is None:
+                raise ValueError("kv_caches requires positions ([B, T] "
+                                 "absolute token positions)")
+            pos = self.pos_embed[positions.clamp(max=cfg.max_seq_len - 1)]
+            x = self.embed(tokens) + pos.to(cfg.dtype)
+            new_caches = []
+            for i in range(cfg.n_layer):
+                x, c = getattr(self, f"block_{i}")(
+                    x, cache=kv_caches[i], positions=positions)
+                new_caches.append(c)
+            x = self.ln_f(x)
+            if return_hidden:
+                return x
+            return self.lm_head(x), new_caches
         start = 0
         if self.plan is not None and self.plan.has_axis("sp"):
             # A sequence shard: rank s of sp holds positions [s·t, (s+1)·t).

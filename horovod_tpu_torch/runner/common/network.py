@@ -13,7 +13,8 @@ ring, ``obs.trace.snapshot``, for ``obs.trace.merge_traces``); anything
 else gets :class:`AckResponse`.  :class:`BasicClient` retries under the
 port's ``utils/retry.py`` policy (``HVD_TPU_RPC_RETRIES``,
 ``HVD_TPU_RPC_BACKOFF``) and passes every exchange through the ``rpc``
-fault site (``faults.on_rpc``).
+fault site (``faults.on_rpc``).  The serving replicas' messages
+(:class:`DrainRequest`, :class:`DropConnection`) live here too.
 
 Security: a frame is authenticated *before* it is unpickled; a frame
 whose HMAC does not match the launcher-minted secret is dropped.
@@ -98,6 +99,24 @@ class TraceResponse:
         self.now_us = now_us
         self.rank = rank
         self.pid = pid
+
+
+class DrainRequest:
+    """Stop admitting new work on a serving replica (drain-and-retire):
+    queued and in-flight requests finish, new submissions answer
+    ``draining`` so the router shifts load elsewhere.  ``cancel=True``
+    reverses an in-progress drain.  Answered with ``AckResponse``."""
+
+    def __init__(self, reason: str = "", cancel: bool = False):
+        self.reason = reason
+        self.cancel = cancel
+
+
+class DropConnection(Exception):
+    """Raised from a ``BasicService._handle`` override to close the
+    connection without writing a response — the wire signature of a
+    crashed peer (the serving endpoint's ``serve:mode=drop`` fault
+    site; clients see a mid-frame ConnectionError and retry)."""
 
 
 def local_addresses() -> Dict[str, List[str]]:
@@ -201,8 +220,11 @@ class BasicService:
                                              "service": outer.name})
                         if ctx is not None and trace_mod.enabled()
                         else contextlib.nullcontext())
-                with span:
-                    resp = outer._handle(req, self.client_address)
+                try:
+                    with span:
+                        resp = outer._handle(req, self.client_address)
+                except DropConnection:
+                    return  # the handler chose to die on the wire
                 try:
                     write_message(self.request, resp, outer._key)
                 except OSError:

@@ -2,7 +2,7 @@
 """Where the device time of a train step of horovod_tpu_torch goes, on
 one CUDA card.
 
-    python3 scripts/torch_port_profile.py [--zero] [--model resnet50]
+    python3 scripts/torch_port_profile.py [--zero] [--model resnet50 | gpt-medium-decode]
 
 Runs a train step of ``chip_smoke.py`` in a one-rank NCCL world: by
 default GPT-medium's (24 layers, d_model 1024, 16 heads, seq 1024,
@@ -11,7 +11,11 @@ error feedback), the data-parallel step or, with ``--zero``, the ZeRO-1
 step (``make_zero_train_step``); with ``--model resnet50`` the
 "resnet50 1 rank" step (``bench.py``'s ResNet-50 at batch 256, bf16,
 BatchNorm in train mode, SGD-momentum on the int8 + error-feedback
-wire).  Two warm-up steps, then STEPS steps timed on the host clock,
+wire); with ``--model gpt-medium-decode`` one serving decode step of
+``chip_smoke.py``'s "serve 1 rank" engine (GPT-medium, bf16, the paged
+cache at the reference's defaults) with all 8 slots busy (64-token
+prompts, greedy), DECODE_STEPS steps a window.  Two warm-up steps, then
+STEPS steps timed on the host clock,
 then as many under ``torch.profiler``.  Prints the card's name and
 power limit, the step time, the device time by group (the port's
 kernels, convolutions, matrix products, the rest) and the device's idle
@@ -37,6 +41,7 @@ sys.path.insert(0, ROOT)
 from horovod_tpu_torch.ops.int8_kernels import ROUTE_KERNELS  # noqa: E402
 
 STEPS = 2      # profiled steps, after as many timed without the profiler
+DECODE_STEPS = 8   # the same for a decode step, a few ms long
 TOP = 25       # kernels listed by device time
 
 # Device-time groups, by substrings of the CUDA kernel's name; the first
@@ -106,7 +111,8 @@ def main() -> int:
     parser.add_argument("--zero", action="store_true",
                         help="profile the ZeRO-1 step, not the "
                              "data-parallel one")
-    parser.add_argument("--model", choices=["gpt-medium", "resnet50"],
+    parser.add_argument("--model", choices=["gpt-medium", "resnet50",
+                                            "gpt-medium-decode"],
                         default="gpt-medium",
                         help="the model whose step is profiled")
     args = parser.parse_args()
@@ -128,9 +134,25 @@ def main() -> int:
     print(card, flush=True)
     hvd.ops.build_kernels()
     hvd.init()
+    steps = DECODE_STEPS if args.model == "gpt-medium-decode" else STEPS
     try:
         dev = hvd.device()
-        if args.model == "resnet50":
+        if args.model == "gpt-medium-decode":
+            from chip_smoke import SERVE_ENGINE, serve_model, serve_prompts
+            from horovod_tpu_torch.serve import (InferenceEngine,
+                                                 SamplingParams)
+
+            attn = batch = None
+            model = serve_model(dev, torch.bfloat16)
+            engine = InferenceEngine(model, **SERVE_ENGINE)
+            slots = SERVE_ENGINE["max_slots"]
+            for s, prompt in enumerate(serve_prompts(
+                    5, (64,) * slots, model.config.vocab_size)):
+                engine.start(s, prompt, SamplingParams(max_new_tokens=64))
+
+            def step(_model, _batch):
+                return engine.step()
+        elif args.model == "resnet50":
             attn = None
             model = hvd.models.ResNet50(num_classes=IMAGE_CLASSES,
                                         dtype=torch.bfloat16, device=dev)
@@ -145,13 +167,13 @@ def main() -> int:
             step(model, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(steps):
             step(model, batch)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEPS):
+            for _ in range(steps):
                 step(model, batch)
             torch.cuda.synchronize()
     finally:
@@ -176,21 +198,29 @@ def main() -> int:
         groups[group_of(name)] += ms
     # The profiler slows the host, so the idle share is taken against the
     # step time of the same steps without it.
-    result = dict(card=card, model=args.model,
-                  step="zero" if args.zero else "data-parallel",
-                  steps=STEPS, step_ms=step_ms,
-                  device_busy_ms_per_step=busy_ms / STEPS,
-                  idle_share=1.0 - busy_ms / STEPS / step_ms,
-                  groups_ms_per_step={g: ms / STEPS
+    kind = ("decode" if args.model == "gpt-medium-decode"
+            else "zero" if args.zero else "data-parallel")
+    result = dict(card=card, model=args.model, step=kind,
+                  steps=steps, step_ms=step_ms,
+                  device_busy_ms_per_step=busy_ms / steps,
+                  idle_share=1.0 - busy_ms / steps / step_ms,
+                  kernel_launches_per_step=sum(c for _, c, _ in kernels)
+                  / steps,
+                  groups_ms_per_step={g: ms / steps
                                       for g, ms in groups.items()},
                   attention_one_layer=attn)
     if args.model == "resnet50":
         result["images_per_s"] = RESNET_BATCH / (step_ms / 1e3)
+    if kind == "decode":
+        result["tokens_per_s"] = slots / (step_ms / 1e3)
 
     print(f"step {step_ms} ms, device busy {result['device_busy_ms_per_step']}"
           f" ms, idle share {result['idle_share']}"
           + (f", {result['images_per_s']} images/s"
-             if "images_per_s" in result else ""))
+             if "images_per_s" in result else "")
+          + (f", {result['tokens_per_s']} tokens/s"
+             if "tokens_per_s" in result else "")
+          + f", {result['kernel_launches_per_step']} kernels a step")
     for g, ms in result["groups_ms_per_step"].items():
         print(f"  {g}: {ms} ms per step")
     if attn is not None:
@@ -198,7 +228,7 @@ def main() -> int:
     print(f"the {TOP} largest kernels: ms per step, launches per step, "
           "group, name")
     for ms, count, name in kernels[:TOP]:
-        print(f"{ms / STEPS:12.4f} {count // STEPS:6d}  "
+        print(f"{ms / steps:12.4f} {count // steps:6d}  "
               f"{group_of(name)}  {name[:120]}")
     print(json.dumps(result))
     return 0
