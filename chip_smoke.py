@@ -250,7 +250,8 @@
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-19. "durable 1 rank": GPT-medium (24 layers) with the "1 rank"
+19. "durable 1 rank": GPT-medium's widths at 8 layers (DURABLE_LAYERS,
+   cut from 24 for the script's time limit) with the "1 rank"
    phase's AdamW on the int8+EF wire, a batch of 8 x 1024 tokens a
    step from seed 1000 + step, deterministic algorithms on.  Run A: 6
    steps, twice (the run-to-run floor).  Run B: ``TorchState(model,
@@ -265,7 +266,7 @@
    bit-flipped; a model from a third seed ``resume()``s at step 2 with
    the journal's 3-6, the flight ring holds the damaged-step event, and
    the replay of 3-6 must equal run A.  The temp dir's free space is
-   checked first (a save is ~5.9 GB).  Prints the save stall (p50, max),
+   checked first (a save is ~2.7 GB).  Prints the save stall (p50, max),
    the write time, bytes a save, the restore time, the commit (device to
    pinned host) and the step times with and without saves.  Its launch
    counts are run B's, the resume's and the replay's (not run A's).
@@ -394,14 +395,58 @@
    by one, and a replay of its id answered from the router's cache (no
    lost response, no duplicate).  Prints the phase's seconds and the
    wire's.
-26. Route check: the profiler's device trace must show a bf16
+26. "fleet 3 replicas", in a process of its own (``--fleet-worker``):
+   a prefill replica and two decode replicas (``InferenceServer``s on
+   the card, each with its own engine of the bf16 model at the
+   reference's defaults) behind a ``Router`` over the HMAC wire.  12
+   greedy requests from seed 0 sent at once (prompts of 17 to 900
+   tokens, 4 of them the 512-token system prompt, the turn header and a
+   user turn; 32 tokens each): every response must name a decode
+   replica in ``migrated_to``, every transfer must verify its block
+   digests on the receiver (12 verified, none rejected, the blocks each
+   prompt holds), and the tokens must equal one unified replica's
+   wherever the full-forward oracle's margin holds (bf16 margin rule).
+   Drills: ``serve:step=0,mode=migrate`` (one block damaged after its
+   digest): the receiver rejects it and the prefill replica decodes the
+   request with the same tokens; a ``FleetController`` with
+   ``collector=`` a ``TelemetryPlane``'s collector: a round on the
+   plane's scrape of the three replicas (the router's own stats poll
+   never called, no action), a forced ``scale_out("decode")`` through
+   an in-process ``ReplicaLauncher`` (the new replica scraped, requests
+   served), then its ``drain_and_retire`` under requests in flight,
+   retired with every request answered; ``serve:step=0,mode=kill`` on
+   the prefill replica at its handoff (mid-migration): the request
+   completes exactly once, on a decode replica, the prefill replica
+   dead, a replay of its id answered from the router's cache.  Prints
+   ``migrate_ms`` p50 and p99, the bytes moved a request, TTFT and TPOT
+   p50 on the disaggregated route, one request's ``migrate_ms`` alone
+   on the idle fleet and the peak memory (readings).
+27. "swap 2 replicas", in a process of its own (``--swap-worker``):
+   step 1 (the bf16 model's boot weights, f32 parameters) and step 2
+   (the boot weights with ``lm_head`` and the last block's MLP moved by
+   a seeded draw) written through ``AsyncCheckpointer``; two unified
+   replicas, each with its own copy of the boot model and a
+   ``WeightSubscriber`` on the store (polling off: the controller's
+   roll is the only swap), behind a ``Router``.
+   ``FleetController.roll_swap(2, max_concurrent=1)`` under a closed
+   loop of 8 clients: no request dropped, each response's tokens its
+   version's (a fresh engine on that step's weights, the bf16 margin
+   rule with that step's full-forward margins), the pulled leaves
+   exactly the three moved ones, ``pulled_bytes`` their bytes and under
+   the step's; every request after the roll step 2's.  The rollback to
+   step 1 restores the boot parameters bit for bit and the boot tokens,
+   each prompt served alone, bit for bit.  ``swap:p=1,mode=corrupt-
+   shard``: the swap is rejected, ``SwapResponse.weights_version`` is
+   still 1, the boot tokens still served.  Prints the write, roll and
+   swap times and the pulled bytes.
+28. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-27. Prints the ``kernels`` JSON line (all seven kernels, with their
+29. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -3929,6 +3974,9 @@ def convnet_phase(dev, card: str):
 # --- durable state and recovery ------------------------------------------------
 
 DURABLE_STEPS, DURABLE_EVERY, DURABLE_CRASH = 6, 2, 4
+# "durable 1 rank"'s depth, cut from 24 to keep the whole script inside
+# its time limit beside the serving fleet's phases; the widths are kept.
+DURABLE_LAYERS = 8
 DURABLE_SEED0 = 1000             # step s draws its tokens from seed 1000 + s
 ELASTIC_STEPS, ELASTIC_FAULT = 4, 2   # "elastic 2 ranks": dispatch 2 fails
 
@@ -3944,8 +3992,8 @@ def durable_batch(dev, seed: int):
     return tokens[:, :-1], tokens[:, 1:]
 
 
-def durable_model(dev, seed: int, n_layer: int = GPT_MEDIUM["n_layer"]):
-    """(model, optimizer, step): GPT-medium from ``seed`` and
+def durable_model(dev, seed: int, n_layer: int = DURABLE_LAYERS):
+    """(model, optimizer, step): GPT-medium's widths from ``seed`` and
     :func:`dp_step`'s AdamW on the int8+EF wire, the optimizer kept."""
     import torch
     import horovod_tpu_torch as hvd
@@ -3994,8 +4042,8 @@ def ckpt_summary(name: str) -> dict:
 
 
 def durable_phase(dev, card: str) -> dict:
-    """Path "durable 1 rank": GPT-medium at full width and depth with
-    :func:`dp_step`'s AdamW on the int8+EF wire.
+    """Path "durable 1 rank": GPT-medium at full width, DURABLE_LAYERS
+    layers deep, with :func:`dp_step`'s AdamW on the int8+EF wire.
 
     Run A (twice: the run-to-run floor): DURABLE_STEPS steps.  Run B: a
     ``TorchState`` with ``attach_durable(AsyncCheckpointer, every=2)``,
@@ -5840,6 +5888,628 @@ def replicas_phase(dev, card: str) -> dict:
     return counts, dict(seconds=seconds, wire_s=wire_s, served=served)
 
 
+# "fleet 3 replicas": a prefill replica and two decode replicas.
+FLEET_REQUESTS = 12
+FLEET_SHARED = 4                      # of them a SERVE_SYSTEM-token prefix
+FLEET_DRILL_PROMPTS = 7               # migrate, 4 controller, kill, alone
+FLEET_DRAIN_S = 60.0                  # the controller drill's bound
+
+
+def fleet_prompts(vocab: int):
+    """FLEET_REQUESTS prompts from seed 0, 17 to 900 tokens, FLEET_SHARED
+    of them the SERVE_SYSTEM-token system prompt, the turn header and a
+    user turn; then the drills' prompts (40 to 240 tokens)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    system = [int(t) for t in rng.randint(0, vocab, SERVE_SYSTEM)]
+    lengths = [17, 900] + [int(n) for n in rng.randint(
+        17, 901, FLEET_REQUESTS - FLEET_SHARED - 2)]
+    prompts = []
+    for i in range(FLEET_REQUESTS):
+        if i % 3 == 1:
+            user = int(rng.randint(8, 900 - SERVE_SYSTEM - len(SERVE_HEADER)))
+            prompts.append(system + list(SERVE_HEADER)
+                           + [int(t) for t in rng.randint(0, vocab, user)])
+        else:
+            prompts.append([int(t) for t in rng.randint(0, vocab,
+                                                       lengths.pop(0))])
+    drills = [[int(t) for t in rng.randint(0, vocab, 40 + 40 * j)]
+              for j in range(FLEET_DRILL_PROMPTS)]
+    return prompts, drills
+
+
+class MigrationTap:
+    """Counts the transfers a decode server's receive buffer completed
+    (every block digest-verified there) and the ones it rejected."""
+
+    def __init__(self, server):
+        self.verified, self.rejected, self.blocks, self.bytes = 0, 0, [], []
+        add = server._migrations.add
+
+        def tapped(frame):
+            from horovod_tpu_torch.serve.fleet import MigrationError
+
+            try:
+                out = add(frame)
+            except MigrationError:
+                self.rejected += 1
+                raise
+            if out is not None:
+                manifest, k, v = out
+                self.verified += 1
+                self.blocks.append(int(manifest["n_blocks"]))
+                self.bytes.append(int(k.numel() * k.element_size()
+                                      + v.numel() * v.element_size()))
+            return out
+
+        server._migrations.add = tapped
+
+
+def fleet_ranks(dev, rank: int) -> dict:
+    """Path "fleet 3 replicas" in a process of its own
+    (``--fleet-worker``), as :func:`serve_ranks`."""
+    counts, report = fleet_phase(dev, card_and_power_limit())
+    return dict(counts=counts, report=report)
+
+
+def fleet_phase(dev, card: str):
+    """Path "fleet 3 replicas": a prefill replica and two decode
+    replicas (``InferenceServer``s on the card, each with its own
+    engine of the bf16 model at the reference's defaults) behind a
+    ``Router`` over the HMAC wire on loopback.  FLEET_REQUESTS greedy
+    requests sent at once must each be migrated to a decode replica
+    (``migrated_to``), every transfer digest-verified on the receiver,
+    and their tokens one unified replica's wherever the oracle's margin
+    holds.  Drills: ``serve:mode=migrate`` (the receiver rejects the
+    damaged block, the prefill replica decodes the request itself with
+    the same tokens); a ``FleetController`` round on a real
+    ``TelemetryPlane`` scrape, a forced ``scale_out("decode")`` through
+    an in-process ``ReplicaLauncher``, then ``drain_and_retire`` of the
+    new replica under traffic, no request lost; ``serve:mode=kill`` on
+    the prefill replica at its handoff (mid-migration): the request
+    completes once, on a decode replica, and a replay of its id is
+    answered from the router's cache."""
+    import concurrent.futures
+    import threading
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.obs.collector import (FleetCollector, Target,
+                                                 TelemetryPlane)
+    from horovod_tpu_torch.runner.common.secret import make_secret_key
+    from horovod_tpu_torch.serve import (ContinuousBatcher, FleetController,
+                                         InferenceEngine, InferenceServer,
+                                         ReplicaLauncher, ReplicaSpec, Router,
+                                         SamplingParams)
+    from horovod_tpu_torch.serve.metrics import percentile
+    from horovod_tpu_torch.utils.retry import RetryPolicy
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = serve_model(dev, torch.bfloat16)
+    prompts, drills = fleet_prompts(model.config.vocab_size)
+    every = prompts + drills
+    n = SERVE_NEW_TOKENS
+    limit = SERVE_MARGIN["bfloat16"]
+    hvd.ops.reset_launch_counts()
+    # One unified replica's tokens: every prompt through one engine.
+    one = ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                            default_deadline_s=0)
+    reqs = [one.submit(p, SamplingParams(max_new_tokens=n)) for p in every]
+    while not all(r.done.is_set() for r in reqs):
+        one.step()
+    want = [r.tokens for r in reqs]
+    del one, reqs
+    gc.collect()
+    oracle = serve_oracle(model, every, n)
+    key = make_secret_key()
+
+    def server(name, role):
+        return InferenceServer(
+            ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                              default_deadline_s=0, role=role),
+            key=key, name=name, host="127.0.0.1")
+
+    def spec(s):
+        return ReplicaSpec(s.name, [("127.0.0.1", s.port)], role=s.role)
+
+    def check(i, resp, what, migrated):
+        ok, cmp, stop = margin_match(resp.tokens or [], want[i],
+                                     oracle[i][1], limit)
+        if resp.error is not None or not ok or (
+                migrated is not None and resp.migrated_to not in migrated):
+            raise AssertionError(
+                f"fleet 3 replicas: {what}: {resp.error}, migrated to "
+                f"{resp.migrated_to}, tokens {resp.tokens} against one "
+                f"replica's {want[i]} (stop {stop})")
+        return cmp
+
+    servers = [server("fleet-pre", "prefill"), server("fleet-d0", "decode"),
+               server("fleet-d1", "decode")]
+    taps = [MigrationTap(s) for s in servers[1:]]
+    policy = RetryPolicy(attempts=8, base_delay_s=0.02, max_delay_s=0.2)
+    decoders = {s.name for s in servers[1:]}
+
+    class Launcher(ReplicaLauncher):
+        def __init__(self):
+            self.live, self.retired = {}, []
+
+        def launch(self, role, host=None):
+            s = server(f"fleet-new-{len(self.live) + len(self.retired)}",
+                       role)
+            self.live[s.name] = s
+            return spec(s)
+
+        def retire(self, name):
+            self.live.pop(name).shutdown()
+            self.retired.append(name)
+
+    launcher = Launcher()
+    try:
+        router = Router([spec(s) for s in servers], key, retry_policy=policy)
+        timing = {}
+
+        def send(i):
+            t = time.perf_counter()
+            resp = router.generate(every[i], max_new_tokens=n,
+                                   request_id=f"fleet-{i}")
+            timing[i] = time.perf_counter() - t
+            return resp
+
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(FLEET_REQUESTS) as pool:
+            resps = list(pool.map(send, range(FLEET_REQUESTS)))
+        wire_s = time.perf_counter() - t1
+        compared = sum(check(i, r, f"request {i}", decoders)
+                       for i, r in enumerate(resps))
+        verified = sum(t.verified for t in taps)
+        if verified != FLEET_REQUESTS or any(t.rejected for t in taps):
+            raise AssertionError(
+                f"fleet 3 replicas: {verified} transfers verified, "
+                f"{[t.rejected for t in taps]} rejected")
+        want_blocks = sorted(-(-len(p) // SERVE_ENGINE["kv_block"])
+                             for p in prompts)
+        if sorted(b for t in taps for b in t.blocks) != want_blocks:
+            raise AssertionError(f"fleet 3 replicas: blocks moved "
+                                 f"{[t.blocks for t in taps]}")
+        moved = [b for t in taps for b in t.bytes]
+        migrate_ms = [r.migrate_ms for r in resps]
+        ttft = [r.ttft_ms for r in resps]
+        tpot = [(timing[i] * 1e3 - r.ttft_ms) / (n - 1)
+                for i, r in enumerate(resps)]
+        by_target = {d: sum(r.migrated_to == d for r in resps)
+                     for d in sorted(decoders)}
+        # One migration on an idle fleet: the transfer without the other
+        # replicas' threads competing for the interpreter.
+        i = FLEET_REQUESTS + 6
+        alone = router.generate(every[i], max_new_tokens=n,
+                                request_id="fleet-alone")
+        check(i, alone, "the request alone", decoders)
+        alone_bytes = taps[0].bytes[-1] if alone.migrated_to == \
+            servers[1].name else taps[1].bytes[-1]
+
+        # serve:mode=migrate — one block damaged after its digest.
+        i = FLEET_REQUESTS
+        with faults.inject("serve:step=0,mode=migrate"):
+            resp = router.generate(every[i], max_new_tokens=n,
+                                   request_id="fleet-migrate")
+            fired = [h for h in faults.history() if h[0] == "serve"]
+        check(i, resp, "migrate drill", {None})
+        rejected = sum(t.rejected for t in taps)
+        if fired != [("serve", 0, "migrate")] or rejected != 1:
+            raise AssertionError(f"fleet 3 replicas: migrate drill fired "
+                                 f"{fired}, {rejected} rejections")
+
+        # The controller on a real TelemetryPlane scrape.
+        def targets():
+            live = servers + list(launcher.live.values())
+            return [Target(s.name, (("127.0.0.1", s.port),), s.role)
+                    for s in live if not s.dead]
+
+        plane = TelemetryPlane(FleetCollector(targets, key=key,
+                                              timeout_s=2.0), period_s=1.0)
+        controller = FleetController(router, launcher,
+                                     collector=plane.collector,
+                                     scale_in_idle_s=3600.0,
+                                     drain_deadline_s=FLEET_DRAIN_S,
+                                     stats_timeout_s=2.0)
+        polled = []
+        direct = router.replica_stats
+        router.replica_stats = lambda **kw: polled.append(1) or direct(**kw)
+        alerts = plane.run_round()
+        scraped = plane.collector.latest_stats()
+        first = controller.poll_once()
+        if polled or sorted(scraped) != sorted(s.name for s in servers) \
+                or any("stats" not in e for e in scraped.values()) \
+                or first:
+            raise AssertionError(
+                f"fleet 3 replicas: controller round: polled the router "
+                f"{len(polled)} times, scraped {scraped}, acted {first}")
+        new = controller.scale_out("decode")
+        plane.run_round()
+        scaled = plane.collector.latest_stats()
+        idx = list(range(FLEET_REQUESTS + 1, FLEET_REQUESTS + 3))
+        with concurrent.futures.ThreadPoolExecutor(len(idx)) as pool:
+            during = list(pool.map(send, idx))
+        controller.drain_and_retire(new.name)
+        late = list(range(FLEET_REQUESTS + 3, FLEET_REQUESTS + 5))
+        lost = []
+        threads = [threading.Thread(
+            target=lambda j=j: lost.append((j, send(j))), daemon=True)
+            for j in late]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + FLEET_DRAIN_S + 30.0
+        retire_actions = []
+        while controller.draining() and time.monotonic() < deadline:
+            plane.run_round()
+            retire_actions += controller.poll_once()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=300.0)
+        for j, r in zip(idx, during):
+            check(j, r, f"scale-out request {j}", decoders | {new.name})
+        for j, r in lost:
+            check(j, r, f"drain request {j}", decoders | {new.name, None})
+        if controller.draining() or launcher.retired != [new.name] \
+                or len(lost) != len(late) or len(scaled) != 4 \
+                or [a["action"] for a in retire_actions] != ["retire"]:
+            raise AssertionError(
+                f"fleet 3 replicas: scale cycle: draining "
+                f"{controller.draining()}, retired {launcher.retired}, "
+                f"{len(lost)} of {len(late)} drain requests answered, "
+                f"{len(scaled)} replicas scraped, {retire_actions}")
+        router.replica_stats = direct
+
+        # serve:mode=kill on the prefill replica at its handoff.
+        i = FLEET_REQUESTS + 5
+        drill = Router([spec(s) for s in servers], key, retry_policy=policy)
+        before = {s.name: s._batcher.stats.snapshot()["requests_completed"]
+                  for s in servers}
+        with faults.inject("serve:step=0,mode=kill"):
+            resp = drill.generate(every[i], max_new_tokens=n,
+                                  request_id="fleet-kill")
+            fired = [h for h in faults.history() if h[0] == "serve"]
+        again = drill.generate([1], max_new_tokens=2, request_id="fleet-kill")
+        after = {s.name: s._batcher.stats.snapshot()["requests_completed"]
+                 for s in servers}
+        done = {k: after[k] - before[k] for k in after}
+        check(i, resp, "kill drill", {None})
+        if fired != [("serve", 0, "kill")] or again is not resp \
+                or [s.dead for s in servers] != [True, False, False] \
+                or sorted(done.values()) != [0, 0, 1] \
+                or done["fleet-pre"] != 0:
+            raise AssertionError(
+                f"fleet 3 replicas: kill drill: fired {fired}, dead "
+                f"{[s.dead for s in servers]}, completed {done}, replay "
+                f"cached {again is resp}")
+    finally:
+        for s in list(launcher.live.values()) + servers:
+            s.shutdown()
+        gc.collect()
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    seconds = time.perf_counter() - t0
+    report = dict(
+        seconds=seconds, wire_s=wire_s, compared=compared,
+        by_target=by_target,
+        migrate_ms_p50=percentile(migrate_ms, 50),
+        migrate_ms_p99=percentile(migrate_ms, 99),
+        bytes_per_request=statistics.mean(moved),
+        ttft_ms_p50=percentile(ttft, 50), tpot_ms_p50=percentile(tpot, 50),
+        alone_migrate_ms=alone.migrate_ms, alone_bytes=alone_bytes,
+        peak_gib=peak / 2**30, alerts=[a["alert"] for a in alerts])
+    log(f"fleet 3 replicas: {FLEET_REQUESTS} requests prefilled on "
+        f"fleet-pre and migrated ({by_target}) in {wire_s:.3f} s, "
+        f"{verified} transfers digest-verified, tokens one unified "
+        f"replica's at {compared} positions past the bf16 margin; "
+        f"migrate_ms p50 {report['migrate_ms_p50']} p99 "
+        f"{report['migrate_ms_p99']}, {report['bytes_per_request']:.0f} "
+        f"bytes a request, TTFT p50 {report['ttft_ms_p50']} ms, TPOT p50 "
+        f"{report['tpot_ms_p50']} ms; alone on an idle fleet "
+        f"{alone.migrate_ms} ms for {alone_bytes} bytes; migrate drill "
+        f"rejected at the "
+        f"receiver and decoded locally; controller round on the plane's "
+        f"scrape, scale-out to {new.name} and its drain-and-retire with no "
+        f"request lost; kill drill on fleet-pre answered once by a decode "
+        f"replica; peak {report['peak_gib']:.2f} GiB; {seconds:.1f} s in "
+        f"all; launches {counts} (the oracle's forwards); on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, report
+
+
+# "swap 2 replicas": two unified replicas on a checkpoint store.
+SWAP_PROMPT_LENS = (16, 48, 96, 160, 224, 288, 352, 416)
+SWAP_CLIENTS = 8
+SWAP_BITWISE = 4                      # prompts served alone, boot vs rollback
+SWAP_PERTURBED = ("lm_head.kernel",
+                  f"block_{GPT_MEDIUM['n_layer'] - 1}.mlp.up.kernel",
+                  f"block_{GPT_MEDIUM['n_layer'] - 1}.mlp.down.kernel")
+
+
+def swap_ranks(dev, rank: int) -> dict:
+    """Path "swap 2 replicas" in a process of its own
+    (``--swap-worker``), as :func:`serve_ranks`."""
+    counts, report = swap_phase(dev, card_and_power_limit())
+    return dict(counts=counts, report=report)
+
+
+def swap_step2(boot: dict, dev) -> dict:
+    """Step 2's tree: the boot weights with SWAP_PERTURBED moved by a
+    seeded draw of each leaf's own spread."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = dict(boot)
+    for name in SWAP_PERTURBED:
+        p = boot[name]
+        out[name] = p + p.std() * torch.randn(p.shape, generator=gen,
+                                             device=dev, dtype=p.dtype)
+    return out
+
+
+def routed_tokens(router, prompts, tag: str, alone: bool = True):
+    """Each prompt through the router, one after another (``alone``) or
+    all at once: ``(tokens, version)`` in prompt order."""
+    import concurrent.futures
+
+    def one(i):
+        resp = router.generate(prompts[i], max_new_tokens=SERVE_NEW_TOKENS,
+                               request_id=f"{tag}-{i}")
+        if resp.error is not None:
+            raise AssertionError(f"swap 2 replicas: {tag} {i}: {resp.error}")
+        return resp.tokens, resp.weights_version
+
+    if alone:
+        return [one(i) for i in range(len(prompts))]
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        return list(pool.map(one, range(len(prompts))))
+
+
+def swap_phase(dev, card: str):
+    """Path "swap 2 replicas": step 1 (the boot weights of the bf16
+    model, f32 parameters) and step 2 (SWAP_PERTURBED moved) written
+    through ``AsyncCheckpointer``; two unified ``InferenceServer``s,
+    each with its own copy of the boot model and a ``WeightSubscriber``
+    on the store (``swap_store=``; polling off, so the controller's roll
+    is the only swap), behind a ``Router``.  ``FleetController.
+    roll_swap(2, max_concurrent=1)`` under a closed loop of SWAP_CLIENTS
+    clients: no request dropped, every response's tokens its version's
+    (the bf16 margin rule against a fresh engine on that step's weights,
+    margins from that step's full-forward oracle), the pulled leaves
+    exactly SWAP_PERTURBED, ``pulled_bytes`` their bytes and under the
+    step's; after the roll every request is step 2's.  The rollback to
+    step 1 restores the boot parameters bit for bit and the boot tokens
+    of SWAP_BITWISE prompts, each served alone, bit for bit.  ``swap:mode=corrupt-shard``:
+    the swap is rejected, ``SwapResponse.weights_version`` is still 1
+    and the replicas keep serving step 1."""
+    import tempfile
+    import threading
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.ckpt import (AsyncCheckpointer, ShardStore,
+                                        diff_manifest)
+    from horovod_tpu_torch.runner.common.secret import make_secret_key
+    from horovod_tpu_torch.serve import (ContinuousBatcher, FleetController,
+                                         InferenceEngine, InferenceServer,
+                                         ReplicaLauncher, ReplicaSpec, Router,
+                                         SamplingParams)
+    from horovod_tpu_torch.serve.swap import leaf_digests
+    from horovod_tpu_torch.utils.retry import RetryPolicy
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n = SERVE_NEW_TOKENS
+    limit = SERVE_MARGIN["bfloat16"]
+    models = [serve_model(dev, torch.bfloat16) for _ in range(2)]
+    vocab = models[0].config.vocab_size
+    prompts = serve_prompts(3, SWAP_PROMPT_LENS, vocab)
+    boot = {k: p.detach() for k, p in models[0].named_parameters()}
+    boot_host = {k: p.to("cpu", copy=True) for k, p in boot.items()}
+    step2 = swap_step2(boot, dev)
+    hvd.ops.reset_launch_counts()
+
+    def engine_ref(model):
+        b = ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                              default_deadline_s=0)
+        reqs = [b.submit(p, SamplingParams(max_new_tokens=n))
+                for p in prompts]
+        while not all(r.done.is_set() for r in reqs):
+            b.step()
+        return [r.tokens for r in reqs]
+
+    # Each step's oracle: a fresh engine's tokens, the full forward's
+    # margins (step 2's model built only for this, then dropped).
+    refs = {1: (engine_ref(models[0]),
+                serve_oracle(models[0], prompts, n))}
+    m2 = serve_model(dev, torch.bfloat16)
+    with torch.no_grad():
+        for k, p in m2.named_parameters():
+            p.copy_(step2[k])
+    refs[2] = (engine_ref(m2), serve_oracle(m2, prompts, n))
+    del m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = sum(a != b for a, b in zip(refs[1][0], refs[2][0]))
+    if not differ:
+        raise AssertionError("swap 2 replicas: step 2's tokens equal step "
+                             "1's: the oracle cannot tell the versions")
+
+    def check(i, tokens, version, what):
+        if version not in refs:
+            raise AssertionError(f"swap 2 replicas: {what}: version "
+                                 f"{version}")
+        ok, cmp, stop = margin_match(tokens or [], refs[version][0][i],
+                                     refs[version][1][i][1], limit)
+        if not ok:
+            raise AssertionError(
+                f"swap 2 replicas: {what}: tokens {tokens} against step "
+                f"{version}'s {refs[version][0][i]} (stop {stop})")
+        return cmp
+
+    class NoLaunch(ReplicaLauncher):
+        def launch(self, role, host=None):
+            raise AssertionError("the swap path launches no replica")
+
+        def retire(self, name):
+            pass
+
+    key = make_secret_key()
+    with tempfile.TemporaryDirectory() as store_dir:
+        t1 = time.perf_counter()
+        with AsyncCheckpointer(store_dir, world=1, scheme="dp",
+                               async_save=False) as ckpt:
+            for step, tree in ((1, boot), (2, step2)):
+                ckpt.save(step, tree)
+                ckpt.journal_step(step)
+        write_s = time.perf_counter() - t1
+        manifest2 = ShardStore(store_dir).validate_step(2)
+        changed = sorted(diff_manifest(manifest2, {
+            p: d for p, (d, _) in leaf_digests(boot).items()})[1].values())
+        if changed != sorted(repr(k) for k in SWAP_PERTURBED):
+            raise AssertionError(f"swap 2 replicas: step 2 differs from "
+                                 f"the boot weights at {changed}")
+        want_bytes = sum(step2[k].numel() * step2[k].element_size()
+                         for k in SWAP_PERTURBED)
+        del step2
+        servers = [InferenceServer(
+            ContinuousBatcher(InferenceEngine(m, weights_version=1,
+                                              **SERVE_ENGINE),
+                              default_deadline_s=0),
+            key=key, name=f"swap-{c}", host="127.0.0.1",
+            swap_store=store_dir, subscribe=False)
+            for c, m in zip("ab", models)]
+        try:
+            router = Router([ReplicaSpec(s.name, [("127.0.0.1", s.port)])
+                             for s in servers], key,
+                            retry_policy=RetryPolicy(attempts=10,
+                                                     base_delay_s=0.02,
+                                                     max_delay_s=0.3))
+            controller = FleetController(router, NoLaunch(),
+                                         min_per_role=1)
+            boot_seq = routed_tokens(router, prompts[:SWAP_BITWISE], "boot")
+            for i, (toks, v) in enumerate(boot_seq):
+                check(i, toks, v, f"boot request {i}")
+            # The roll under a closed loop of SWAP_CLIENTS clients.
+            rows, lock, stop = [], threading.Lock(), threading.Event()
+
+            def client(c):
+                k = 0
+                while not stop.is_set():
+                    i = (c + k) % len(prompts)
+                    try:
+                        resp = router.generate(
+                            prompts[i], max_new_tokens=n,
+                            request_id=f"loop-{c}-{k}")
+                        row = (i, resp.tokens, resp.weights_version,
+                               resp.error)
+                    except Exception as e:   # a dropped request
+                        row = (i, None, None, repr(e))
+                    with lock:
+                        rows.append(row)
+                    k += 1
+
+            clients = [threading.Thread(target=client, args=(c,),
+                                        daemon=True)
+                       for c in range(SWAP_CLIENTS)]
+            for t in clients:
+                t.start()
+            time.sleep(0.5)
+            t2 = time.perf_counter()
+            outcomes = controller.roll_swap(2, max_concurrent=1,
+                                            timeout=300.0)
+            roll_s = time.perf_counter() - t2
+            time.sleep(0.5)
+            stop.set()
+            for t in clients:
+                t.join(timeout=300.0)
+            if any(t.is_alive() for t in clients):
+                raise AssertionError("swap 2 replicas: a client hung")
+            dropped = [r for r in rows if r[3] is not None]
+            if dropped or not rows:
+                raise AssertionError(f"swap 2 replicas: {len(dropped)} of "
+                                     f"{len(rows)} requests dropped: "
+                                     f"{dropped[:3]}")
+            compared = sum(check(i, toks, v, f"loop request {i}")
+                           for i, toks, v, _ in rows)
+            versions = {v: sum(r[2] == v for r in rows) for v in (1, 2)}
+            pulls = [s.subscriber.last_swap for s in servers]
+            if not all(o["ok"] and o["weights_version"] == 2
+                       for o in outcomes) \
+                    or any(p["pulled_leaves"] != len(SWAP_PERTURBED)
+                           or p["pulled_bytes"] != want_bytes
+                           or not p["pulled_bytes"] < p["total_bytes"]
+                           for p in pulls):
+                raise AssertionError(f"swap 2 replicas: roll {outcomes}, "
+                                     f"pulls {pulls}")
+            after = routed_tokens(router, prompts, "step2", alone=False)
+            for i, (toks, v) in enumerate(after):
+                if v != 2:
+                    raise AssertionError(f"swap 2 replicas: request {i} "
+                                         f"after the roll on version {v}")
+                check(i, toks, v, f"post-roll request {i}")
+            # Back to step 1: the boot parameters and tokens, bitwise.
+            back = controller.rollback(1, timeout=300.0)
+            again = routed_tokens(router, prompts[:SWAP_BITWISE],
+                                  "rollback")
+            bitwise = all(
+                torch.equal(p.detach().cpu(), boot_host[k])
+                for s in servers
+                for k, p in s._batcher.engine.params.items())
+            if not all(o["ok"] and o["weights_version"] == 1 for o in back) \
+                    or again != boot_seq or not bitwise:
+                raise AssertionError(
+                    f"swap 2 replicas: rollback {back}: parameters bitwise "
+                    f"{bitwise}, tokens bitwise {again == boot_seq}")
+            # swap:mode=corrupt-shard: rejected, step 1 keeps serving.
+            with faults.inject("swap:p=1,mode=corrupt-shard"):
+                bad = [router.swap_replica(s.name, 2, timeout=300.0)
+                       for s in servers]
+                fired = [h for h in faults.history() if h[0] == "swap"]
+            still = routed_tokens(router, prompts[:2], "corrupt")
+            if any(not (b.error or "").startswith("rejected")
+                   or b.weights_version != 1 for b in bad) \
+                    or still != boot_seq[:2] or not fired:
+                raise AssertionError(
+                    f"swap 2 replicas: corrupt drill: "
+                    f"{[(b.error, b.weights_version) for b in bad]}, "
+                    f"fired {len(fired)}, step 1 still served "
+                    f"{still == boot_seq[:2]}")
+        finally:
+            for s in servers:
+                s.shutdown()
+            gc.collect()
+    counts = hvd.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    seconds = time.perf_counter() - t0
+    report = dict(seconds=seconds, write_s=write_s, roll_s=roll_s,
+                  swap_ms=[o["swap_ms"] for o in outcomes],
+                  rollback_ms=[o["swap_ms"] for o in back],
+                  pulled_bytes=[o["pulled_bytes"] for o in outcomes],
+                  total_bytes=pulls[0]["total_bytes"], requests=len(rows),
+                  versions=versions, compared=compared, differ=differ,
+                  peak_gib=peak / 2**30)
+    log(f"swap 2 replicas: steps 1 and 2 written in {write_s:.1f} s; "
+        f"roll_swap(2, max_concurrent=1) in {roll_s:.3f} s under "
+        f"{SWAP_CLIENTS} clients: {len(rows)} requests, none dropped "
+        f"(by version {versions}), tokens their version's at {compared} "
+        f"positions past the bf16 margin ({differ} of {len(prompts)} "
+        f"prompts differ between the steps); swap ms "
+        f"{report['swap_ms']}, pulled {report['pulled_bytes']} of "
+        f"{report['total_bytes']} bytes ({len(SWAP_PERTURBED)} leaves: "
+        f"{', '.join(SWAP_PERTURBED)}); rollback ms "
+        f"{report['rollback_ms']}, parameters and tokens bit for bit the "
+        f"boot's; corrupt-shard rejected ({len(fired)} firings), version 1 "
+        f"serving; peak {report['peak_gib']:.2f} GiB; {seconds:.1f} s in "
+        f"all; launches {counts} (the oracles' forwards); on {card}")
+    del models
+    torch.cuda.empty_cache()
+    return counts, report
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -5853,6 +6523,8 @@ AUTOTUNE_WORKER_FLAG = "--autotune-worker"
 ELASTIC_WORKER_FLAG = "--elastic-worker"
 SERVE_WORKER_FLAG = "--serve-worker"
 REPLICAS_WORKER_FLAG = "--replicas-worker"
+FLEET_WORKER_FLAG = "--fleet-worker"
+SWAP_WORKER_FLAG = "--swap-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
@@ -5861,6 +6533,8 @@ RANK_PATHS = {
     AUTOTUNE_WORKER_FLAG: (WIRE_RANKS, AUTOTUNE_ENV, "autotune_ranks"),
     SERVE_WORKER_FLAG: (1, {}, "serve_ranks"),
     REPLICAS_WORKER_FLAG: (1, {}, "replica_ranks"),
+    FLEET_WORKER_FLAG: (1, {}, "fleet_ranks"),
+    SWAP_WORKER_FLAG: (1, {}, "swap_ranks"),
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
@@ -6096,6 +6770,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_counts = spawn_ranks(SERVE_WORKER_FLAG, 1)[0]["counts"]
         replica_counts = spawn_ranks(REPLICAS_WORKER_FLAG, 1)[0]["counts"]
+        fleet_counts = spawn_ranks(FLEET_WORKER_FLAG, 1)[0]["counts"]
+        swap_counts = spawn_ranks(SWAP_WORKER_FLAG, 1)[0]["counts"]
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -6114,7 +6790,9 @@ def main() -> int:
                "remote 2 hosts": remote_counts,
                "run_func 2 ranks": run_func_counts,
                "serve 1 rank": serve_counts,
-               "serve 2 replicas": replica_counts}
+               "serve 2 replicas": replica_counts,
+               "fleet 3 replicas": fleet_counts,
+               "swap 2 replicas": swap_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:

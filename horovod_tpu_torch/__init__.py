@@ -75,7 +75,12 @@ returning the results in rank order.
 
 Serving (``hvd.serve``, imported on first use): ``InferenceEngine(GPT)``
 (prefill/decode over a dense or paged KV cache, speculative decoding),
-``ContinuousBatcher``, ``InferenceServer`` and ``Router``.
+``ContinuousBatcher``, ``InferenceServer`` and ``Router``; the fleet
+(prefill and decode replicas with live KV migration, ``FleetController``),
+the weight hot swap from a checkpoint store (``WeightSubscriber``,
+``swap_store=``) and the fleet telemetry plane (``hvd.obs.collector.
+TelemetryPlane``).  ``hvd.init(config)`` takes an explicit ``Config`` in
+the place of the environment's.
 
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
@@ -91,6 +96,8 @@ from .basics import (  # noqa: F401
     xla_enabled, mpi_threads_supported,
 )
 from .config import Config  # noqa: F401
+from .plan import MeshPlan  # noqa: F401
+from .version import __version__  # noqa: F401
 from .process_sets import (  # noqa: F401
     ProcessSet, add_process_set, remove_process_set, global_process_set,
 )

@@ -156,11 +156,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init(device: Union[str, torch.device, None] = None,
+def init(config: Optional[Config] = None,
+         device: Union[str, torch.device, None] = None,
          backend: Optional[str] = None) -> None:
     """Join (or start) the process group and pick this rank's device.
 
-    ``device=None`` means ``cuda:<local_rank>`` with NCCL, and raises
+    ``config`` is an explicit :class:`Config` used in the place of the
+    environment's (``Config.from_env()`` when None), as the reference's
+    ``init(config)``: every knob read here, the fault plan included,
+    comes from it.  ``device=None`` means ``cuda:<local_rank>`` with NCCL, and raises
     ``RuntimeError`` without a CUDA device.  An explicit device is used
     as given: ``"cpu"`` runs over gloo.  ``backend`` overrides the
     device's backend for a group this call creates (``"gloo"`` on CUDA
@@ -171,7 +175,7 @@ def init(device: Union[str, torch.device, None] = None,
     global _session
     if _session is not None:
         return
-    cfg = Config.from_env()
+    cfg = config if config is not None else Config.from_env()
     _arm_faults(cfg)
     env = os.environ
     # An adopted group without torchrun's env runs on one host.
@@ -213,7 +217,8 @@ def init(device: Union[str, torch.device, None] = None,
         device=dev, config=cfg, owns_group=owns,
         backend=str(dist.get_backend()).lower(),
         process_sets=ProcessSetTable(size),
-        mesh=GlobalMesh.build(size, me, local_rank, local_size))
+        mesh=GlobalMesh.build(size, me, local_rank, local_size,
+                              axis_name=cfg.mesh_axis_name))
     warn_noop_knobs(logger)
     _configure_obs(cfg, me)
     # The session plan: the 1-D default over the global mesh, or the

@@ -291,6 +291,137 @@ def _validated_mesh_plan(spec: Optional[str]) -> Optional[str]:
     return spec
 
 
+# --- SLO spec grammar (HVD_TPU_SLO_SPEC) -------------------------------------
+# ``name:signal=<sig>,target=<v>[,budget=<frac>][,window=<s>][,short=<s>]
+# [,burn=<x>][,severity=page|ticket];name2:...`` — one clause per SLO,
+# evaluated by obs/slo.py as Google-SRE-style multi-window burn-rate
+# alerts (docs/observability.md).  Parsed here so a typo'd SLO fails at
+# init: a silently-misparsed SLO is an alert that never fires.
+
+# Signals the collector can classify good/bad per collection round
+# (obs/slo.py holds the classification semantics for each).
+SLO_SIGNALS = ("ttft_p99_ms", "queue_depth", "scrape_ok")
+
+SLO_SEVERITIES = ("page", "ticket")
+
+
+@dataclasses.dataclass(frozen=True)
+class SloClause:
+    """One parsed SLO: a signal, its objective, and the burn-rate alert
+    geometry.  ``budget`` is the allowed bad-round fraction over
+    ``window_s``; the alert fires when the measured bad fraction burns
+    the budget at >= ``burn``x the sustainable rate in BOTH the long
+    window and the ``short_s`` confirmation window (the short window is
+    what un-fires the alert quickly once the incident ends)."""
+
+    name: str
+    signal: str
+    target: float
+    budget: float = 0.01
+    window_s: float = 3600.0
+    short_s: float = 300.0
+    burn: float = 14.4
+    severity: str = "page"
+
+
+def parse_slo_spec(spec: str) -> "dict[str, SloClause]":
+    """Parse ``HVD_TPU_SLO_SPEC`` (e.g.
+    ``ttft:signal=ttft_p99_ms,target=500,burn=6;avail:signal=scrape_ok,
+    target=0.9``) into named clauses.  Raises ``ValueError`` on unknown
+    signals/keys or inconsistent windows."""
+    clauses: dict = {}
+    for raw in spec.split(";"):
+        raw = raw.strip()
+        if not raw:
+            continue
+        name, sep, body = raw.partition(":")
+        name = name.strip()
+        if not sep or not name:
+            raise ValueError(
+                f"slo spec: clause {raw!r} needs the form "
+                f"'name:signal=...,target=...'")
+        if name in clauses:
+            raise ValueError(f"slo spec: duplicate clause for {name!r}")
+        kw: dict = {"name": name}
+        for kv in body.split(","):
+            kv = kv.strip()
+            if not kv:
+                continue
+            if "=" not in kv:
+                raise ValueError(
+                    f"slo spec [{name}]: expected key=value, got {kv!r}")
+            key, _, val = kv.partition("=")
+            key, val = key.strip(), val.strip()
+            try:
+                if key == "signal":
+                    kw["signal"] = val
+                elif key == "target":
+                    kw["target"] = float(val)
+                elif key == "budget":
+                    kw["budget"] = float(val)
+                elif key == "window":
+                    kw["window_s"] = float(val)
+                elif key == "short":
+                    kw["short_s"] = float(val)
+                elif key == "burn":
+                    kw["burn"] = float(val)
+                elif key == "severity":
+                    kw["severity"] = val
+                else:
+                    raise ValueError(
+                        f"slo spec [{name}]: unknown key {key!r}")
+            except ValueError as e:
+                if "slo spec" in str(e):
+                    raise
+                raise ValueError(
+                    f"slo spec [{name}]: bad value {val!r} for "
+                    f"{key!r}") from e
+        if "short_s" not in kw and "window_s" in kw:
+            # Default confirmation window: 1/12 of the long window, the
+            # SRE-workbook page-alert geometry.
+            kw["short_s"] = max(1.0, kw["window_s"] / 12.0)
+        if err := _slo_clause_error(kw):
+            raise ValueError(f"slo spec [{name}]: {err}")
+        clauses[name] = SloClause(**kw)
+    return clauses
+
+
+def _slo_clause_error(kw: dict) -> Optional[str]:
+    sig = kw.get("signal")
+    if sig is None:
+        return "clause needs signal=<sig>"
+    if sig not in SLO_SIGNALS:
+        return f"unknown signal {sig!r}; expected one of {SLO_SIGNALS}"
+    if "target" not in kw:
+        return "clause needs target=<value>"
+    sev = kw.get("severity", "page")
+    if sev not in SLO_SEVERITIES:
+        return (f"unknown severity {sev!r}; expected one of "
+                f"{SLO_SEVERITIES}")
+    if not 0.0 < kw.get("budget", 0.01) <= 1.0:
+        return f"budget must be in (0, 1], got {kw['budget']}"
+    if kw.get("burn", 14.4) <= 0.0:
+        return f"burn threshold must be > 0, got {kw['burn']}"
+    window = kw.get("window_s", 3600.0)
+    short = kw.get("short_s", 300.0)
+    if window <= 0.0 or short <= 0.0:
+        return "windows must be > 0 seconds"
+    if short > window:
+        return (f"short window ({short}s) must not exceed the long "
+                f"window ({window}s)")
+    return None
+
+
+def _validated_slo_spec(spec: Optional[str]) -> Optional[str]:
+    """Empty/unset → None (obs/slo.py applies its default catalog);
+    anything else must parse — fail at init, not as an alert that never
+    fires."""
+    if not spec or not spec.strip():
+        return None
+    parse_slo_spec(spec)  # raises ValueError on a malformed spec
+    return spec
+
+
 # --- fault-injection spec grammar (HVD_TPU_FAULT_SPEC) ----------------------
 # ``site:key=val,key=val;site2:...``: one clause per injection site
 # (faults.py threads the sites through the layers).  Parsed here so a
@@ -501,6 +632,9 @@ _NOOP_KNOBS = {
                    "could be tuned"),
     "CACHE_CAPACITY": ("an eager collective builds no program to cache; "
                        "there is no dispatch cache to bound"),
+    "BATCH_D2D_MEMCOPIES": ("the fusion buffer is packed by one torch.cat "
+                            "a bucket on the device; there are no separate "
+                            "device-to-device copy launches to batch"),
     "HIERARCHICAL_ALLGATHER": ("torch.distributed's all-gather runs over "
                                "the whole group; use "
                                "HOROVOD_HIERARCHICAL_ALLREDUCE for the "
@@ -542,6 +676,7 @@ class Config:
     hierarchical_allgather: bool = False  # HOROVOD_HIERARCHICAL_ALLGATHER (no-op: warns)
     hierarchical_inner_size: int = 0      # HVD_TPU_HIERARCHICAL_INNER (0 = ranks a node)
     mesh_plan: Optional[str] = None    # HVD_TPU_MESH_PLAN ("data=4,fsdp=2"; unset = the 1-D plan)
+    mesh_axis_name: str = "hvd"        # HVD_TPU_MESH_AXIS_NAME (the 1-D world's axis)
     # The online autotuner (optim/autotune.py, optim/parameter_manager.py).
     autotune: bool = False                # HOROVOD_AUTOTUNE
     autotune_log: Optional[str] = None    # HOROVOD_AUTOTUNE_LOG (JSON lines, rank 0)
@@ -559,6 +694,13 @@ class Config:
     flight: bool = True                   # HVD_TPU_FLIGHT (crash-dump gate)
     flight_dir: str = ""                  # HVD_TPU_FLIGHT_DIR ("" = <tempdir>/hvd_tpu_flight)
     flight_ring: int = 512                # HVD_TPU_FLIGHT_RING (event ring size)
+    # The fleet telemetry plane (obs/timeseries.py, collector.py, slo.py,
+    # detect.py).
+    slo_spec: Optional[str] = None        # HVD_TPU_SLO_SPEC (SLO catalog; unset = obs/slo.py defaults)
+    collect_period_s: float = 1.0         # HVD_TPU_COLLECT_PERIOD_S (fleet scrape cadence)
+    collect_timeout_s: float = 1.0        # HVD_TPU_COLLECT_TIMEOUT_S (ONE shared deadline per scrape round)
+    collect_window: int = 512             # HVD_TPU_COLLECT_WINDOW (TSDB points kept per series)
+    collect_stale_s: float = 10.0         # HVD_TPU_COLLECT_STALE_S (scrape-plane staleness alert bound)
     # Durable state and recovery (faults.py, ckpt/, elastic/, utils/retry.py).
     fault_spec: Optional[str] = None          # HVD_TPU_FAULT_SPEC (armed at init)
     elastic_timeout_seconds: float = 600.0    # HOROVOD_ELASTIC_TIMEOUT
@@ -597,6 +739,16 @@ class Config:
     serve_kv_blocks: int = 0                  # HVD_TPU_SERVE_KV_BLOCKS (pool budget in blocks; 0 = auto)
     serve_spec_k: int = 4                     # HVD_TPU_SERVE_SPEC_K (draft tokens per speculative verify step)
     fleet_role: str = "unified"               # HVD_TPU_FLEET_ROLE (prefill|decode|unified: this replica's class)
+    fleet_migrate_chunk: int = 1 << 20        # HVD_TPU_FLEET_MIGRATE_CHUNK (KV-transfer bytes per wire frame)
+    fleet_scale_out_queue: float = 4.0        # HVD_TPU_FLEET_SCALE_OUT_QUEUE (per-replica queue depth that saturates a role)
+    fleet_scale_out_ttft_ms: float = 0.0      # HVD_TPU_FLEET_SCALE_OUT_TTFT_MS (p99 TTFT that saturates a role; 0 = off)
+    fleet_scale_in_idle_s: float = 30.0       # HVD_TPU_FLEET_SCALE_IN_IDLE_S (role idle window before drain-and-retire)
+    fleet_drain_deadline_s: float = 30.0      # HVD_TPU_FLEET_DRAIN_DEADLINE_S (max drain wait before forced retire)
+    # Weight hot-swap from a checkpoint store (serve/swap.py).
+    swap_poll_s: float = 5.0                  # HVD_TPU_SWAP_POLL_S (subscriber store-poll cadence)
+    swap_deadline_s: float = 60.0             # HVD_TPU_SWAP_DEADLINE_S (pull+stage+flip budget per swap; 0 = no deadline, 7-day backstop at the barrier)
+    swap_max_concurrent: int = 1              # HVD_TPU_SWAP_MAX_CONCURRENT (replicas flipping at once in a rolling fleet swap)
+    swap_retries: int = 3                     # HVD_TPU_SWAP_RETRIES (pull attempts per swap before the rejection is final)
     # Multi-tenant QoS scheduling (serve/qos/).
     qos_class_weights: str = "interactive=8,standard=4,batch=1"  # HVD_TPU_QOS_CLASS_WEIGHTS (WFQ weight per class)
     qos_tenant_shares: Optional[str] = None   # HVD_TPU_QOS_TENANT_SHARES ("tenant=share,..."; unset = 1 each)
@@ -609,6 +761,7 @@ class Config:
     qos_brownout_low: float = 0.25            # HVD_TPU_QOS_BROWNOUT_LOW (queue fraction below which it may step down)
     qos_brownout_hold_s: float = 5.0          # HVD_TPU_QOS_BROWNOUT_HOLD_S (calm hold before each step down)
     cycle_time_ms: float = 1.0                # HOROVOD_CYCLE_TIME (no-op: warns)
+    batch_d2d_memcopies: bool = True          # HOROVOD_BATCH_D2D_MEMCOPIES (no-op: warns)
     cache_capacity: Optional[int] = None      # HOROVOD_CACHE_CAPACITY (no-op: warns)
 
     @classmethod
@@ -636,6 +789,7 @@ class Config:
             hierarchical_allgather=_env_bool("HIERARCHICAL_ALLGATHER", False),
             hierarchical_inner_size=_env_int("HIERARCHICAL_INNER", 0),
             mesh_plan=_validated_mesh_plan(_env("MESH_PLAN")),
+            mesh_axis_name=_env("MESH_AXIS_NAME") or "hvd",
             autotune=_env_bool("AUTOTUNE", False),
             autotune_log=_env("AUTOTUNE_LOG") or None,
             autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),
@@ -651,6 +805,11 @@ class Config:
             flight=_env_bool("FLIGHT", True),
             flight_dir=_env("FLIGHT_DIR") or "",
             flight_ring=_env_pos_int("FLIGHT_RING", 512),
+            slo_spec=_validated_slo_spec(_env("SLO_SPEC")),
+            collect_period_s=_env_float("COLLECT_PERIOD_S", 1.0),
+            collect_timeout_s=_env_float("COLLECT_TIMEOUT_S", 1.0),
+            collect_window=_env_pos_int("COLLECT_WINDOW", 512),
+            collect_stale_s=_env_float("COLLECT_STALE_S", 10.0),
             fault_spec=_validated_fault_spec(_env("FAULT_SPEC")),
             elastic_timeout_seconds=_env_float("ELASTIC_TIMEOUT", 600.0),
             reset_limit=_env_int("ELASTIC_RESET_LIMIT", 0),
@@ -692,6 +851,18 @@ class Config:
             fleet_role=_env_choice("FLEET_ROLE", "unified",
                                    ("prefill", "decode", "unified"))
             or "unified",
+            fleet_migrate_chunk=_env_pos_int("FLEET_MIGRATE_CHUNK",
+                                             1 << 20),
+            fleet_scale_out_queue=_env_float("FLEET_SCALE_OUT_QUEUE", 4.0),
+            fleet_scale_out_ttft_ms=_env_float("FLEET_SCALE_OUT_TTFT_MS",
+                                               0.0),
+            fleet_scale_in_idle_s=_env_float("FLEET_SCALE_IN_IDLE_S", 30.0),
+            fleet_drain_deadline_s=_env_float("FLEET_DRAIN_DEADLINE_S",
+                                              30.0),
+            swap_poll_s=_env_float("SWAP_POLL_S", 5.0),
+            swap_deadline_s=_env_float("SWAP_DEADLINE_S", 60.0),
+            swap_max_concurrent=_env_pos_int("SWAP_MAX_CONCURRENT", 1),
+            swap_retries=_env_pos_int("SWAP_RETRIES", 3),
             qos_class_weights=_validated_qos_map(
                 _env("QOS_CLASS_WEIGHTS")
                 or "interactive=8,standard=4,batch=1",
@@ -710,5 +881,6 @@ class Config:
             qos_brownout_low=_env_float("QOS_BROWNOUT_LOW", 0.25),
             qos_brownout_hold_s=_env_float("QOS_BROWNOUT_HOLD_S", 5.0),
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
+            batch_d2d_memcopies=_env_bool("BATCH_D2D_MEMCOPIES", True),
             cache_capacity=_env_opt_int("CACHE_CAPACITY"),
         )

@@ -25,10 +25,19 @@ Knobs (read at ``hvd.init``): ``HVD_TPU_METRICS`` (default on),
 ``HVD_TPU_METRICS_PORT``, ``HVD_TPU_METRICS_WINDOW``,
 ``HVD_TPU_STRAGGLER_FACTOR``, ``HVD_TPU_TRACE``, ``HVD_TPU_TRACE_RING``,
 ``HVD_TPU_FLIGHT``, ``HVD_TPU_FLIGHT_DIR``, ``HVD_TPU_FLIGHT_RING``.
-The fleet telemetry plane (``timeseries``, ``collector``, ``slo``,
-``detect``) comes with the serving stack.
+
+The fleet telemetry plane: :mod:`.timeseries` (a bounded ring TSDB),
+:mod:`.collector` (the shared-deadline fleet scraper over the serving
+replicas' ``StatsRequest``, and :class:`~.collector.TelemetryPlane`),
+:mod:`.slo` (burn-rate alerts) and :mod:`.detect` (the online invariant
+detectors, alerts into the flight recorder, ``hvd_tpu_alerts_total``
+and a bounded journal); knobs ``HVD_TPU_SLO_SPEC``,
+``HVD_TPU_COLLECT_PERIOD_S``, ``HVD_TPU_COLLECT_TIMEOUT_S``,
+``HVD_TPU_COLLECT_WINDOW``, ``HVD_TPU_COLLECT_STALE_S``.
 """
 
-from . import aggregate, export, flight, instrument, metrics, trace  # noqa: F401
+from . import (aggregate, collector, detect, export, flight,  # noqa: F401
+               instrument, metrics, slo, timeseries, trace)
 
-__all__ = ["aggregate", "export", "flight", "instrument", "metrics", "trace"]
+__all__ = ["aggregate", "collector", "detect", "export", "flight",
+           "instrument", "metrics", "slo", "timeseries", "trace"]

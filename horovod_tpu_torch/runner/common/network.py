@@ -14,7 +14,9 @@ else gets :class:`AckResponse`.  :class:`BasicClient` retries under the
 port's ``utils/retry.py`` policy (``HVD_TPU_RPC_RETRIES``,
 ``HVD_TPU_RPC_BACKOFF``) and passes every exchange through the ``rpc``
 fault site (``faults.on_rpc``).  The serving replicas' messages
-(:class:`DrainRequest`, :class:`DropConnection`) live here too.
+(:class:`DrainRequest`, :class:`DropConnection`) and the fleet's KV
+migration frames (:class:`KvMigrateRequest` / :class:`KvMigrateResponse`,
+:class:`CollectRequest`) live here too.
 
 Security: a frame is authenticated *before* it is unpickled; a frame
 whose HMAC does not match the launcher-minted secret is dropped.
@@ -99,6 +101,58 @@ class TraceResponse:
         self.now_us = now_us
         self.rank = rank
         self.pid = pid
+
+
+class KvMigrateRequest:
+    """One chunk of a live KV migration (disaggregated serving,
+    ``serve/fleet/migration.py``): a prefill replica streams a
+    request's paged KV blocks to a decode replica over this HMAC
+    control plane — the block table is the transfer manifest, so only
+    live, non-trash blocks move.  ``manifest`` rides the first frame
+    (``seq == 0``) and carries per-block sha256 digests the receiver
+    verifies before binding anything into its own pool; ``k_blocks`` /
+    ``v_blocks`` are ``[n_layer, frame_blocks, block, H, D]`` CPU
+    tensors (a bf16 cache stays bf16: numpy has no bf16), chunked so each frame stays under
+    ``HVD_TPU_FLEET_MIGRATE_CHUNK`` bytes.
+
+    Tensor-parallel senders (docs/tp_serving.md) split the transfer
+    head-wise into ``n_shards`` independent streams — frame arrays then
+    carry only that shard's ``H/tp`` heads, ``seq``/``total`` count
+    within the shard, and the manifest's ``shard_digests`` verify each
+    stream before the receiver concatenates heads back together."""
+
+    def __init__(self, request_id: str, seq: int, total: int,
+                 k_blocks, v_blocks, manifest: Optional[dict] = None,
+                 shard: int = 0, n_shards: int = 1):
+        self.request_id = request_id
+        self.seq = seq
+        self.total = total
+        self.k_blocks = k_blocks
+        self.v_blocks = v_blocks
+        self.manifest = manifest
+        self.shard = shard
+        self.n_shards = n_shards
+
+
+class KvMigrateResponse:
+    """Per-frame ack; the FINAL frame's response reports the whole
+    transfer: ``error`` is None once the digests verified and the
+    request was adopted into the decode replica's batcher, else
+    ``digest_mismatch`` / ``busy`` / ``draining`` / ``replica_dead`` —
+    the sender falls back to decoding locally (never wrong tokens)."""
+
+    def __init__(self, request_id: str, error: Optional[str] = None):
+        self.request_id = request_id
+        self.error = error
+
+
+class CollectRequest:
+    """Fetch the finished generation a migrated request produced on
+    this (decode) replica; blocks until the adopted request completes
+    and answers with a ``GenerateResponse``."""
+
+    def __init__(self, request_id: str):
+        self.request_id = request_id
 
 
 class DrainRequest:

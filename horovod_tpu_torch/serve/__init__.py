@@ -19,16 +19,26 @@ Counterpart of ``horovod_tpu/serve``, under the reference's names:
   strike/probation health, failover, prefix affinity through
   :mod:`~.fleet.directory`
 * :mod:`~.metrics` — TTFT/TPOT/occupancy snapshots
+* :mod:`~.fleet` — the disaggregated prefill/decode tier: live KV
+  migration over the HMAC wire (per-block digests, token-identical
+  continuation), the global prefix directory, and a
+  :class:`FleetController` driving per-role scale-out /
+  drain-and-retire and rolling weight swaps
+* :mod:`~.swap` — zero-downtime weight hot-swap from a checkpoint store
+  (``ckpt/``): a :class:`WeightSubscriber` per replica diff-pulls only
+  the changed leaves (digest-verified), stages them beside the live
+  parameters and flips at the batcher's swap barrier; rollbacks ride
+  the same path (``SwapRequest`` / ``RollbackRequest``)
 
 The engine and the servers run on the card unless the model was built
-with ``device="cpu"``.  The fleet tier (KV migration, controller,
-simulator), the weight hot-swap from a checkpoint store and
-tensor-parallel replicas are the next serving slice (ROADMAP.md, queue
-A item 4).
+with ``device="cpu"``.  Tensor-parallel replicas (``serve/tp.py``) and
+the fleet simulator are the next serving slices (ROADMAP.md, queue A).
 
 Chaos: the ``serve`` fault site drops or delays requests at the
-endpoint, kills a replica mid-decode and force-evicts the prefix cache;
-the ``qos`` site drills priority inversion and budget floods.
+endpoint, kills a replica mid-decode or mid-migration, damages KV
+transfers and force-evicts the prefix cache; the ``swap`` site corrupts
+or stalls a pull, kills a replica at the flip and aborts a roll; the
+``qos`` site drills priority inversion and budget floods.
 """
 
 from .batcher import (  # noqa: F401
@@ -38,7 +48,9 @@ from .batcher import (  # noqa: F401
 from .engine import (  # noqa: F401
     InferenceEngine, PromptTooLongError, SamplingParams,
 )
-from .fleet import PrefixDirectory  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetController, MigrationError, PrefixDirectory, ReplicaLauncher,
+)
 from .kv import (  # noqa: F401
     BlockPool, KVPoolExhaustedError, PrefixIndex,
 )
@@ -55,4 +67,8 @@ from .server import (  # noqa: F401
     CancelRequest, GenerateRequest, GenerateResponse, InferenceServer,
     RollbackRequest, StatsRequest, StatsResponse, SwapRequest,
     SwapResponse,
+)
+from .swap import (  # noqa: F401
+    SwapAbandonedError, SwapFailedError, SwapRejectedError,
+    WeightSubscriber,
 )

@@ -1,11 +1,11 @@
 """Continuous-batching scheduler: admission, deadlines, backpressure.
 
 Counterpart of ``horovod_tpu/serve/batcher.py``.  The disaggregated
-fleet's handoff (``set_migrator``, ``adopt``) and tensor-parallel
-lockstep (``set_lockstep``) wait for their slices of the port
-(ROADMAP.md, queue A item 4): those entry points raise
-``NotImplementedError``.  A ``prefill``-role replica with no migrator
-serves its requests itself, as the reference's does.
+fleet's handoff (``set_migrator`` on a prefill replica, ``adopt`` on the
+receiving one) runs as the reference's; tensor-parallel lockstep
+(``set_lockstep``) waits for its slice of the port (ROADMAP.md, queue A
+item 4) and raises ``NotImplementedError``.  A ``prefill``-role replica
+with no migrator serves its requests itself, as the reference's does.
 
 The scheduling loop interleaves prefill and decode over the engine's
 slot batch: each :meth:`ContinuousBatcher.step` admits up to
@@ -61,11 +61,6 @@ logger = get_logger(__name__)
 
 _ids = itertools.count()
 
-FLEET_ITEM = ("the disaggregated fleet (serve/fleet/: KV migration, the "
-              "controller, traces, the simulator) waits for the next "
-              "serving slice of the port: ROADMAP.md, queue A item 4")
-
-
 class QueueFullError(RuntimeError):
     """Admission queue at capacity — reject-when-full backpressure."""
 
@@ -105,7 +100,15 @@ class ServeRequest:
     # batcher thread reconstructs queued/prefill/decode phase spans
     # against it, so the request's trace crosses the thread handoff.
     trace_ctx: Optional[tuple] = None
-    # Weight flip (the swap barrier below): the version this request's
+    # Disaggregated fleet (serve/fleet/): the decode target the router
+    # asked this (prefill) replica to migrate to, the wire-received KV
+    # payload on the adopting (decode) side, and the migration outcome
+    # the response frame reports.
+    migrate_to: Optional[tuple] = None      # (name, [(ip, port), ...])
+    kv_import: Optional[tuple] = None       # (manifest, k_blocks, v_blocks)
+    migrated: bool = False
+    migrate_ms: Optional[float] = None
+    # Weight hot-swap (serve/swap.py): the version this request's
     # generation ran under, captured at slot binding — the response
     # must report THIS, not the engine's version at response-build
     # time (a flip can land between the last token and the reply).
@@ -155,13 +158,15 @@ class ContinuousBatcher:
             default_deadline_s if default_deadline_s is not None
             else cfg.serve_deadline_seconds)
         self.max_new_tokens_cap = cfg.serve_max_new_tokens
-        # Fleet role: a scheduling policy, not a capability — every
-        # replica runs a full generation (with no migrator a prefill
-        # replica serves its requests itself).
+        # Fleet role (serve/fleet/): a prefill replica hands each
+        # request's KV to its decode target after the first token; the
+        # role is a scheduling policy, not a capability — every replica
+        # can run a full generation (the recompute fallback path).
         self.role = (role or cfg.fleet_role).lower()
         if self.role not in ("prefill", "decode", "unified"):
             raise ValueError(f"unknown fleet role {self.role!r}; "
                              f"expected prefill|decode|unified")
+        self._migrator = None    # set by the server on prefill replicas
         self.stats = ServingStats(weights_version=engine.weights_version)
         # Multi-tenant QoS (serve/qos/): flow weights + tenant budgets
         # from the HVD_TPU_QOS_* knobs; the admission queue is the
@@ -186,7 +191,7 @@ class ContinuousBatcher:
         self._slots: Dict[int, ServeRequest] = {}    # guarded-by: _lock
         self._killed: Optional[str] = None           # guarded-by: _lock
         self._draining = False                       # guarded-by: _lock
-        # Weight flip barrier (engine.commit_staged): a pending flip holds
+        # Weight hot-swap barrier (serve/swap.py): a pending flip holds
         # admission, lets in-flight generations run dry, then runs at
         # the step boundary — no request ever sees mixed weights.
         self._pending_flip: Optional[tuple] = None   # guarded-by: _lock
@@ -229,7 +234,7 @@ class ContinuousBatcher:
             self._draining = False
         logger.info("serving replica drain cancelled (admitting again)")
 
-    # --- weight flip barrier (docs/hot_swap.md) -----------------------------
+    # --- weight hot-swap barrier (serve/swap.py; docs/hot_swap.md) ----------
 
     def flip_at_barrier(self, fn, timeout: float = 60.0):
         """Run ``fn`` (the engine's ``commit_staged``) at the next step
@@ -305,8 +310,11 @@ class ContinuousBatcher:
             event.set()
 
     def set_migrator(self, migrator) -> None:
-        """The fleet's prefill→decode handoff: not ported yet."""
-        raise NotImplementedError(FLEET_ITEM)
+        """Install the prefill→decode handoff callable
+        (``migrator(engine, slot, req) -> bool``; the server wires
+        ``serve/fleet/migration.migrate_slot`` here on prefill
+        replicas)."""
+        self._migrator = migrator
 
     def set_lockstep(self, lockstep) -> None:
         """Tensor-parallel follower dispatch: not ported yet."""
@@ -316,6 +324,7 @@ class ContinuousBatcher:
                sampling: Optional[SamplingParams] = None,
                request_id: Optional[str] = None,
                deadline_s: Optional[float] = None,
+               migrate_to: Optional[tuple] = None,
                tenant: Optional[str] = None,
                qos_class: Optional[str] = None) -> ServeRequest:
         """Enqueue one generation.  Raises :class:`QueueFullError` at
@@ -324,9 +333,10 @@ class ContinuousBatcher:
         :class:`~horovod_tpu.serve.qos.BudgetExhaustedError` when the
         tenant's token bucket cannot cover the request; oversized
         prompts raise :class:`PromptTooLongError` up front (admitting
-        them would waste a slot to fail later).  ``tenant`` /
-        ``qos_class`` place the request in the weighted-fair scheduler
-        (docs/qos.md)."""
+        them would waste a slot to fail later).  ``migrate_to`` is the
+        decode target a prefill-role replica hands this request's KV to
+        after the first token; ``tenant``/``qos_class`` place the
+        request in the weighted-fair scheduler (docs/qos.md)."""
         sampling = sampling or SamplingParams()
         qos_class = validate_class(qos_class)
         if sampling.max_new_tokens > self.max_new_tokens_cap:
@@ -350,14 +360,58 @@ class ContinuousBatcher:
             submitted_at=time.monotonic(),
             prefix_hit_tokens=hit,
             trace_ctx=trace_mod.current(),
+            migrate_to=migrate_to,
             tenant=(tenant or "default"), qos_class=qos_class)
         self._admit(req)
         return req
 
     def adopt(self, manifest: dict, k_blocks, v_blocks) -> ServeRequest:
-        """Adopt a migrated request: the fleet's receiving half, not
-        ported yet."""
-        raise NotImplementedError(FLEET_ITEM)
+        """Adopt a migrated request (serve/fleet/migration.py): the
+        digest-verified KV payload is queued like a submission, and the
+        batcher thread binds it into the pool in place of a prefill —
+        generation continues token-identically from the sender's
+        state.  Same admission contract as :meth:`submit` (queue bound,
+        killed/draining refusal, poison-prompt rejection)."""
+        s = manifest["sampling"]
+        sampling = SamplingParams(
+            max_new_tokens=int(s["max_new_tokens"]),
+            temperature=float(s["temperature"]), top_k=int(s["top_k"]),
+            stop_token=s["stop_token"], spec=bool(s["spec"]))
+        prompt = [int(t) for t in manifest["prompt"]]
+        if self.engine.kv_mode != "paged":
+            raise ValueError("KV adoption requires the paged cache "
+                             "(HVD_TPU_SERVE_KV=paged)")
+        # Poison defense on the receiving side too: the sender already
+        # validated, but a pool-poisoning prompt must die at EVERY
+        # admission boundary, not only the first.
+        self.engine.check_prompt_tokens(prompt)
+        # Mixed-version guard (serve/swap.py): imported KV was computed
+        # under the sender's weights; continuing it under different
+        # ones would be silently wrong.  The refusal sends the request
+        # back to the sender's pristine KV + matching weights.
+        sender_v = manifest.get("weights_version")
+        if sender_v is not None and int(sender_v) != \
+                self.engine.weights_version:
+            raise ValueError(
+                f"version_mismatch: migrated KV from weights version "
+                f"{sender_v}, this replica serves "
+                f"{self.engine.weights_version}")
+        if not manifest.get("tokens"):
+            raise ValueError("migration manifest carries no emitted "
+                             "tokens — nothing to continue from")
+        limit = manifest.get("deadline_s")
+        now = time.monotonic()
+        req = ServeRequest(
+            request_id=manifest["request_id"], prompt=prompt,
+            sampling=sampling,
+            deadline=(now + limit) if limit and limit > 0 else None,
+            submitted_at=now,
+            trace_ctx=trace_mod.current(),
+            kv_import=(manifest, k_blocks, v_blocks),
+            tenant=manifest.get("tenant", "default"),
+            qos_class=validate_class(manifest.get("qos_class")))
+        self._admit(req)
+        return req
 
     def _admit(self, req: ServeRequest) -> None:
         # Tenant budget BEFORE the queue bound: an over-budget request
@@ -504,25 +558,52 @@ class ContinuousBatcher:
             self._finish_slot(slot, req)
 
     def _prefill_into(self, slot: int, req: ServeRequest) -> int:
-        """Bring ``req`` into ``slot`` — local prefill or preemption
-        resume — and emit its first token; returns the tokens emitted.
-        The caller already placed ``req`` in ``self._slots[slot]``."""
+        """Bring ``req`` into ``slot`` — local prefill, migrated-KV
+        import, or preemption resume — and emit its first token(s);
+        returns the tokens emitted.  The caller already placed ``req``
+        in ``self._slots[slot]``."""
         emitted = 0
         prefill_t0 = time.monotonic()
+        imported = req.kv_import is not None
         resumed = req.resume_state is not None
         if resumed and req.weights_version is not None and \
                 req.weights_version != self.engine.weights_version:
-            # Mixed-version guard: the tokens emitted before the
-            # preemption came from the weights the replica served THEN;
-            # a flip landed while the request sat requeued, and resuming
+            # Mixed-version guard (docs/hot_swap.md): the tokens
+            # emitted before the preemption came from the weights the
+            # replica served THEN; a hot-swap flip landed while the
+            # request sat requeued, and resuming under the new weights
             # would splice two models' outputs into one response.
-            # Restart from scratch on the current version (the flip
-            # already flushed the parked KV).
+            # Restart from scratch on the current version — the client
+            # sees only the final, single-version stream (the flip
+            # already flushed the parked KV, so nothing stale is
+            # reused either way).
             req.resume_state = None
             req.tokens.clear()
             resumed = False
         try:
-            if resumed:
+            if imported:
+                # Migrated-in request: bind the wire-received KV in
+                # place of a prefill; the sender's emitted tokens
+                # replay below so the token stream is seamless.
+                manifest, kb, vb = req.kv_import
+                req.kv_import = None    # payload freed after binding
+                # Re-check the version at BIND time: a weight flip
+                # between adoption and this pop would bind KV from
+                # the old weights under the new ones — the
+                # import_failed answer routes the request to a
+                # recompute instead (never wrong tokens).
+                sender_v = manifest.get("weights_version")
+                if sender_v is not None and int(sender_v) != \
+                        self.engine.weights_version:
+                    raise ValueError(
+                        f"version_mismatch at bind: KV from "
+                        f"weights version {sender_v}, replica now "
+                        f"serves {self.engine.weights_version}")
+                tokens = [int(t) for t in manifest["tokens"]]
+                self.engine.import_slot_kv(
+                    slot, req.prompt, kb, vb, tokens[-1],
+                    req.sampling, rng=manifest.get("rng"))
+            elif resumed:
                 # Preempted generation coming back (serve/qos/): the
                 # prefix cache covers what survived, the engine
                 # recomputes the tail, and nothing already emitted is
@@ -541,10 +622,11 @@ class ContinuousBatcher:
             self.engine.release(slot)
             self._settle_budget(req)
             self.stats.record_failed(req.qos_class)
-            req.finish(error=f"prefill_failed: {e}")
+            req.finish(error=(f"import_failed: {e}" if imported
+                              else f"prefill_failed: {e}"))
             return 0
         req.weights_version = self.engine.weights_version
-        if not resumed:
+        if not imported and not resumed:
             req.prefix_hit_tokens = self.engine.prefix_hit_tokens(slot)
             self.stats.record_prefix(req.prefix_hit_tokens > 0)
         self._record_phase(req, "hvd_tpu_serve_queued",
@@ -553,7 +635,7 @@ class ContinuousBatcher:
                            time.monotonic(),
                            prompt_len=len(req.prompt), slot=slot,
                            prefix_hit=req.prefix_hit_tokens,
-                           resumed=resumed)
+                           imported=imported, resumed=resumed)
         if req.done.is_set():
             # Cancelled/expired between admission and prefill
             # completion: cancel() found no active slot to release
@@ -564,9 +646,17 @@ class ContinuousBatcher:
             self.engine.release(slot)
             return emitted
         now2 = time.monotonic()
-        for token in tokens:
+        for j, token in enumerate(tokens):
             emitted += 1
-            self._emit(slot, req, token, now2)
+            self._emit(slot, req, token, now2,
+                       check_full=(j == len(tokens) - 1))
+            if req.done.is_set():
+                break
+        if (not imported and not resumed and self.role == "prefill"
+                and self._migrator is not None
+                and req.migrate_to is not None
+                and not req.done.is_set()):
+            self._handoff(slot, req)
         return emitted
 
     def _maybe_preempt(self, now: float) -> int:
@@ -787,3 +877,33 @@ class ContinuousBatcher:
                         draining=self._draining,
                         swap_pending=self._pending_flip is not None)
         return snap
+
+    def _handoff(self, slot: int, req: ServeRequest) -> None:
+        """Prefill→decode handoff: stream ``slot``'s KV to the
+        request's decode target, then free the slot and answer the
+        router with the migration outcome.  A failed transfer (wire
+        death, digest rejection, busy/draining receiver) falls back to
+        decoding HERE — the local KV is pristine (a corrupt fault only
+        damaged the wire copy), so the request finishes with exactly
+        the right tokens and only the disaggregation economics are
+        lost.
+
+        The ``serve:mode=kill`` fault's step-dispatch coordinate fires
+        at this dispatch too: prefill replicas never dispatch decode,
+        so the handoff is their step event — ``serve:step=N,mode=kill``
+        kills a prefill replica mid-migration (the fleet failover
+        drill)."""
+        if faults_mod._active is not None and faults_mod.on_serve_decode():
+            reason = "injected replica kill mid-migration"
+            self._die(reason)
+            raise ReplicaKilledError(reason)
+        try:
+            ok = self._migrator(self.engine, slot, req)
+        except Exception as e:
+            logger.warning("KV handoff of %s failed (%s); decoding "
+                           "locally", req.request_id, e)
+            ok = False
+        if not ok:
+            return   # local fallback: the slot keeps decoding here
+        req.migrated = True
+        self._finish_slot(slot, req)

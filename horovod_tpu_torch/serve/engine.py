@@ -814,6 +814,8 @@ class InferenceEngine:
         the live parameters: the tensors land on the device now, so the
         later flip is one reference assignment a leaf.  Replaces any
         previously staged version."""
+        from ..ckpt.snapshot import to_tensor
+
         flat = _flat_tree(tree)
         own = dict(self._model.named_parameters())
         if set(flat) != set(own):
@@ -825,7 +827,8 @@ class InferenceEngine:
         for name, p in own.items():
             t = flat[name]
             if not torch.is_tensor(t):
-                t = torch.from_numpy(np.array(t))
+                # A store's bf16 leaf reads back as its ``V2`` bytes.
+                t = to_tensor(t)
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: staged shape {tuple(t.shape)} "
                                  f"!= {tuple(p.shape)}")

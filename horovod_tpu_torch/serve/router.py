@@ -1,12 +1,7 @@
 """Replicated request router: spread, health, failover.
 
-Counterpart of ``horovod_tpu/serve/router.py``.  The fleet's
-role-split pipeline (admit→prefill→migrate→decode over
-``CollectRequest``) and the weight hot-swap requests wait for their
-slices of the port (ROADMAP.md, queue A item 4): a router whose healthy
-replicas include both a ``prefill`` and a ``decode`` one raises
-``NotImplementedError`` where the reference would run that pipeline,
-and ``swap_replica`` / ``rollback_replica`` raise it too.
+Counterpart of ``horovod_tpu/serve/router.py``, the role-aware
+pipeline and the hot-swap requests included.
 
 Horovod's lineage is data-parallel replicas coordinated over
 collectives (SURVEY §0); serving maps the same shape onto request
@@ -37,6 +32,17 @@ drops a replica's entries when it is benched, and consumes eviction
 notifications piggybacked on response frames.  Residency is a
 preference, not a pin: a benched or saturated resident falls back to
 the least-loaded spread, so the failure handling above is unchanged.
+
+**Role-aware dispatch** (serve/fleet/): when the fleet carries both
+``prefill`` and ``decode`` replicas, a directory-miss request runs the
+admit→prefill→migrate→decode pipeline — the router sends the request
+to a prefill replica with its decode target attached, the prefill
+replica streams the KV over the wire after the first token, and the
+router collects the finished generation from the decode replica.  Any
+pipeline failure (prefill death mid-migration, digest rejection, lost
+continuation) re-routes to a unified full-generation recompute path on
+whatever healthy replica remains — requests are never lost and tokens
+are never wrong, the disaggregation only ever costs economics.
 """
 
 from __future__ import annotations
@@ -50,15 +56,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..obs import instrument as _obs
 from ..obs import trace as trace_mod
-from ..runner.common.network import BasicClient, DrainRequest
+from ..runner.common.network import (BasicClient, CollectRequest,
+                                     DrainRequest)
 from ..utils.logging import get_logger
 from ..utils.retry import RetryPolicy, retry_call
-from .batcher import FLEET_ITEM
 from .engine import resolved_config
 from .fleet.directory import PrefixDirectory
 from .qos import QosGate, validate_class
-from .server import (SWAP_ITEM, CancelRequest, GenerateRequest,
-                     GenerateResponse, StatsRequest)
+from .server import (CancelRequest, GenerateRequest, GenerateResponse,
+                     RollbackRequest, StatsRequest, SwapRequest)
 
 logger = get_logger(__name__)
 
@@ -481,12 +487,30 @@ class Router:
 
     def swap_replica(self, name: str, step: int, *,
                      rollback: bool = False, timeout: float = 120.0):
-        """Hot-swap (or roll back) one replica: the swap slice."""
-        raise NotImplementedError(SWAP_ITEM)
+        """Tell one replica to hot-swap (or roll back) to ``step``;
+        returns its ``SwapResponse``.  A refused/failed swap is NOT a
+        health event — the replica answered, and it is still serving
+        its old weights — so nothing here strikes it; only a wire
+        death does (via the normal strike path)."""
+        rep = self._find(name)
+        if rep is None:
+            raise ValueError(f"unknown replica {name!r}")
+        frame = (RollbackRequest(step) if rollback
+                 else SwapRequest(step))
+        try:
+            resp = self._client(rep).request(frame, idempotent=False,
+                                             timeout=timeout)
+        except OSError as e:
+            self._strike(rep)
+            raise ReplicaUnavailableError(
+                f"replica {name}: {e}") from e
+        self._note_version(rep, getattr(resp, "weights_version", None))
+        return resp
 
     def rollback_replica(self, name: str, step: int, *,
                          timeout: float = 120.0):
-        raise NotImplementedError(SWAP_ITEM)
+        return self.swap_replica(name, step, rollback=True,
+                                 timeout=timeout)
 
     # --- request path -------------------------------------------------------
 
@@ -532,13 +556,20 @@ class Router:
                         if effective_deadline and effective_deadline > 0
                         else 600.0)
 
-        def mk_req() -> GenerateRequest:
+        def mk_req(migrate_to=None) -> GenerateRequest:
             return GenerateRequest(rid, list(prompt),
                                    max_new_tokens=max_new_tokens,
                                    temperature=temperature, top_k=top_k,
                                    stop_token=stop_token,
                                    deadline_s=deadline_s, spec=spec,
+                                   migrate_to=migrate_to,
                                    tenant=tenant, qos_class=qos_class)
+
+        # A collect failure means the decode replica lost the migrated
+        # continuation — later attempts recompute on the unified path
+        # instead of re-entering the pipeline (never wrong tokens, at
+        # worst one redundant prefill).
+        state = {"force_unified": False}
 
         def run_on(rep: _ReplicaState, wire_req) -> GenerateResponse:
             with self._lock:
@@ -586,13 +617,83 @@ class Router:
                                     getattr(resp, "weights_version",
                                             None))
                 return resp
-            # 2. Disaggregated pipeline (admit→prefill→migrate→decode
-            # when both role classes have healthy members): the fleet
-            # slice, not ported yet — refused, never silently skipped.
-            if (self._pick_role("prefill") is not None
-                    and self._pick_role("decode") is not None):
-                raise NotImplementedError(FLEET_ITEM)
-            # 3. Unified spread.
+            # 2. Disaggregated pipeline: admit→prefill→migrate→decode
+            # when both role classes have healthy members.
+            if not state["force_unified"]:
+                pre = self._pick_role("prefill")
+                dec = self._pick_role("decode")
+                if pre is not None and dec is not None:
+                    # Reserve the decode target for the whole
+                    # prefill+migrate window.  ``inflight`` on the
+                    # decode otherwise only rises when the collect
+                    # starts — so N concurrent submits all see the same
+                    # least-loaded decode and the fleet convoys its
+                    # migrations into one receiver (found at simulated
+                    # scale by serve/fleet/sim.py's no_migration_convoy
+                    # invariant).  Inbound migration is load from the
+                    # moment the target is chosen.
+                    with self._lock:
+                        dec.inflight += 1
+                    reserved = True
+                    try:
+                        resp = run_on(pre, mk_req(
+                            migrate_to=(dec.spec.name,
+                                        dec.spec.addresses)))
+                        pre_v = getattr(resp, "weights_version", None)
+                        if getattr(resp, "migrated_to", None) is None:
+                            # Migration fell back (digest rejection,
+                            # wire drop, busy receiver): the prefill
+                            # replica finished the generation itself.
+                            self._note_affinity(prefix_key, pre, pre_v)
+                            return resp
+                        self._note_affinity(prefix_key, pre, pre_v)
+                        # Hand the reservation off to the collect: from
+                        # here ``run_on(dec, …)`` carries the count.
+                        with self._lock:
+                            dec.inflight -= 1
+                        reserved = False
+                        try:
+                            final = run_on(dec, CollectRequest(rid))
+                        except ReplicaUnavailableError:
+                            state["force_unified"] = True
+                            raise
+                    finally:
+                        if reserved:
+                            with self._lock:
+                                dec.inflight -= 1
+                    if final.error == "unknown_request" or (
+                            final.error or "").startswith("import_failed"):
+                        # The decode replica lost the continuation
+                        # (restart / cancel race) or could not bind the
+                        # adopted KV (pool exhausted at deferred import
+                        # time — adopt() only checks the queue): both
+                        # are recoverable by recomputing elsewhere, and
+                        # returning them to the caller would lose a
+                        # request every replica could still serve.
+                        state["force_unified"] = True
+                        raise ReplicaUnavailableError(
+                            f"replica {dec.spec.name}: {final.error} "
+                            f"for migrated request {rid}")
+                    # The caller-visible response is the collect frame;
+                    # carry the prefill half's migration metadata onto
+                    # it (which replica carried the decode, what the
+                    # transfer cost — the bench's overhead signal) AND
+                    # the prefill-side TTFT: the collect frame's own
+                    # ttft_ms covers only adoption→first-replayed-token
+                    # (~0), while the first token was really produced on
+                    # the prefill replica after its queueing + prefill —
+                    # the same submit→first-token definition the unified
+                    # path reports, so fleet and unified TTFT compare
+                    # like for like.
+                    final.migrated_to = resp.migrated_to
+                    final.migrate_ms = resp.migrate_ms
+                    final.ttft_ms = resp.ttft_ms
+                    self._note_affinity(prefix_key, dec,
+                                        getattr(final, "weights_version",
+                                                None))
+                    return final
+            # 3. Unified spread (also the recompute fallback when the
+            # pipeline cannot run or lost a continuation).
             # NoHealthyReplicasError is retryable: probation may clear
             # under the policy's backoff.
             rep = self._pick(prefix_key)
@@ -650,7 +751,7 @@ class Router:
         now = self._clock()
         entries: List[Dict[str, object]] = []
         with self._lock:
-            # Snapshot the health fields UNDER the lock: strike
+            # Snapshot the health fields UNDER the lock: swap/strike
             # threads mutate them concurrently.
             reps = list(self._replicas)
             for rep in reps:

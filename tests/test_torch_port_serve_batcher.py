@@ -327,13 +327,22 @@ def test_prefill_role_without_migrator_serves_itself():
 
 
 def test_fleet_and_tensor_parallel_hooks_wait_for_their_slices():
+    """The fleet's hooks are ported (the migrator installs; ``adopt``
+    refuses a dense cache as the reference's does); tensor-parallel
+    lockstep still waits for its slice."""
     b = _batcher()
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        b.set_migrator(lambda *a: True)
+    migrator = lambda *a: True  # noqa: E731
+    b.set_migrator(migrator)
+    assert b._migrator is migrator
     with pytest.raises(NotImplementedError, match="queue A item 4"):
         b.set_lockstep(lambda *a: [])
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        b.adopt({}, None, None)
+    manifest = {"request_id": "m", "prompt": [1, 2], "tokens": [3],
+                "sampling": {"max_new_tokens": 2, "temperature": 0.0,
+                             "top_k": 0, "stop_token": None,
+                             "spec": False}}
+    with pytest.raises(ValueError, match="paged"):
+        _batcher(engine_kw={"kv_cache": "dense"}).adopt(manifest, None,
+                                                        None)
 
 
 # --- the serve fault site -----------------------------------------------------

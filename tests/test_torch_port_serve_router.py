@@ -340,42 +340,50 @@ def test_drained_replica_is_shielded_then_readmitted():
 
 
 def test_later_slices_are_refused_not_ignored():
-    """The swap requests and a migrating GenerateRequest are answered
-    ``unsupported``; the server's swap/fleet/TP keywords, the router's
-    swap calls and a prefill+decode fleet raise NotImplementedError."""
+    """The swap requests and a migrating GenerateRequest are served (a
+    replica with no store answers ``no_swap_store``; a unified replica
+    runs a request that names a decode target itself); the router's
+    swap calls and a prefill+decode fleet run; tensor-parallel replicas
+    (``tp_peers=``) still raise NotImplementedError naming their
+    slice."""
     srv = _replica("r0")
     try:
         client = BasicClient("r0", [("127.0.0.1", srv.port)], KEY)
         for req in (SwapRequest(3), RollbackRequest(2)):
             resp = client.request(req, idempotent=False)
             assert isinstance(resp, SwapResponse)
-            assert resp.error.startswith("unsupported")
+            assert resp.error == "no_swap_store"
             assert resp.weights_version == 0
         resp = client.request(GenerateRequest(
-            "m", [1, 2], migrate_to=("dec", [("127.0.0.1", 1)])),
-            idempotent=False)
-        assert resp.error.startswith("unsupported") and resp.tokens is None
+            "m", [1, 2], max_new_tokens=3,
+            migrate_to=("dec", [("127.0.0.1", 1)])), idempotent=False)
+        assert resp.error is None and resp.migrated_to is None
+        assert resp.tokens == greedy_reference(fixture()[2], [1, 2], 3)
         router = _fast_router([_spec(srv)])
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            router.swap_replica("r0", 3)
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            router.rollback_replica("r0", 2)
-        fleet = _fast_router([
-            ReplicaSpec("p", [("127.0.0.1", srv.port)], role="prefill"),
-            ReplicaSpec("d", [("127.0.0.1", srv.port)], role="decode")])
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            fleet.generate([1, 2], max_new_tokens=2)
+        assert router.swap_replica("r0", 3).error == "no_swap_store"
+        assert router.rollback_replica("r0", 2).error == "no_swap_store"
+        pre = _replica("p", role="prefill")
+        dec = _replica("d", role="decode")
+        try:
+            fleet = _fast_router([
+                ReplicaSpec("p", [("127.0.0.1", pre.port)], role="prefill"),
+                ReplicaSpec("d", [("127.0.0.1", dec.port)], role="decode")])
+            out = fleet.generate([1, 2], max_new_tokens=2)
+        finally:
+            pre.shutdown()
+            dec.shutdown()
+        assert out.error is None and out.migrated_to == "d"
+        assert out.tokens == greedy_reference(fixture()[2], [1, 2], 2)
         assert client.request(DrainRequest(cancel=True),
                               idempotent=False) is not None
     finally:
         srv.shutdown()
     batcher = ContinuousBatcher(InferenceEngine(fixture()[2],
                                                 **ENGINE_DEFAULTS))
-    for kw in ({"swap_store": "/nonexistent"}, {"migrate_chunk_bytes": 1},
-               {"tp_peers": [("x", [("127.0.0.1", 1)])]}):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            InferenceServer(batcher, key=KEY, host="127.0.0.1",
-                            start_batcher=False, **kw)
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        InferenceServer(batcher, key=KEY, host="127.0.0.1",
+                        start_batcher=False,
+                        tp_peers=[("x", [("127.0.0.1", 1)])])
 
 
 # --- prefix affinity ----------------------------------------------------------
