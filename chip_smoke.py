@@ -421,7 +421,9 @@
    ``migrate_ms`` p50 and p99, the bytes moved a request, TTFT and TPOT
    p50 on the disaggregated route, one request's ``migrate_ms`` alone
    on the idle fleet and the peak memory (readings).
-27. "swap 2 replicas", in a process of its own (``--swap-worker``):
+27. "swap 2 replicas", in a process of its own (``--swap-worker``),
+   GPT-medium's widths at 8 layers (SWAP_LAYERS; cut from 24 for the
+   script's time limit beside the TP phases):
    step 1 (the bf16 model's boot weights, f32 parameters) and step 2
    (the boot weights with ``lm_head`` and the last block's MLP moved by
    a seeded draw) written through ``AsyncCheckpointer``; two unified
@@ -439,14 +441,64 @@
    shard``: the swap is rejected, ``SwapResponse.weights_version`` is
    still 1, the boot tokens still served.  Prints the write, roll and
    swap times and the pulled bytes.
-28. Route check: the profiler's device trace must show a bf16
+28. "serve tp 2", in a process of its own (``--tp-worker``): GPT-medium
+   (24 layers, bf16 activations, f32 parameters from seed 0) in a
+   tensor-parallel engine of two shards on the one card
+   (``devices=["cuda:0", "cuda:0"]``) beside a tp = 1 engine on the same
+   weights, both at the reference's defaults.  (a) Greedy on prompts of
+   17/200/480/900 tokens, 32 tokens, with both engines' ``lm_head``
+   rows tapped: prints whether they are bit for bit tp = 1's, else the
+   largest |Δlogit|, and the tokens must equal tp = 1's under the bf16
+   margin rule; temperature 0.8 / top-k 50 tokens must be equal when
+   the logits are; a prefix hit and a copy-on-write divergence (the hit
+   counted, the shared tokens, one copy at least) and a self-drafted
+   speculative batch, tokens under the margin rule.  (b) A tp = 2
+   prefill replica hands 4 requests (17/200/280/480 tokens), one at a
+   time, to a tp = 1 decode replica over the HMAC wire, two shard
+   streams each (both shards' frames, the manifest with ``tp_degree``
+   2 on each shard's first frame, every transfer verified); then
+   ``serve:step=0,mode=migrate`` on a fresh prompt: rejected on the
+   receiver, decoded by the sender.  Prints each ``migrate_ms`` and
+   the bytes moved.  (c) "swap 2 replicas"' step 1 → step 2 (3 leaves)
+   pulled by a ``WeightSubscriber`` into a tp = 2 engine:
+   ``pulled_bytes_per_shard`` must sum to ``pulled_bytes_full`` plus
+   the replicated leaves' extra copies, ``pulled_bytes`` be the widest
+   shard, and the tokens after the flip be step 2's (margin rule).
+   (d) The lockstep drill: a leader ``InferenceServer(tp_peers=)`` and a
+   follower ``ShardServer`` in a child (``--tp-shard-worker``, with
+   ``serve:step=2,mode=kill`` armed there), each driving a whole
+   engine, behind a ``Router`` beside a tp = 1 survivor: 12 greedy
+   requests must all complete with the survivor's tokens, the replica
+   die once (``shard_rank_lost``), the router bench it with one strike,
+   the follower's fault fire once.  B1 must launch 24 times an oracle
+   forward and nothing else any kernel.  Prints tokens/s and TPOT p50
+   of 8 requests of 64 tokens at once on each engine (readings: two
+   shards on one card cannot show tensor parallelism's gain) and the
+   peak memory.
+29. "fleet sim (host)", in a process of its own (``--sim-worker``), no
+   device work: the port's ``FleetSim`` over the real router, fleet
+   controller, QoS gate and queues on a virtual clock.  Capacity: 1000
+   replicas, 10^4 requests at 2000 rps, seed 1, ``serve:p=0.001,seed=2,
+   mode=kill``: no invariant violated, at least one kill, under 60 s of
+   wall time; prints events/s.  Calibration: an unloaded 4-replica run
+   (2000 requests at 5 rps) on a ``ReplicaProfile`` fitted by
+   ``LatencyDist`` from this run's readings (TTFT and TPOT p50/p99 of
+   "serve 1 rank"'s traffic and ``migrate_ms`` mean/p99 of "fleet 3
+   replicas", all at 24 layers; the swap ms of "swap 2 replicas", at
+   its 8 layers): TTFT p50 and p99 within ±15% of the profile's.  The
+   band checks the simulator's fit to the profile (its sampler and
+   queueing), not the card: the profile is the card's readings, and an
+   unloaded sim returns them whatever they are.  The death-spiral and migration-convoy
+   drills must page within 3 collection rounds; clean seeded runs must
+   stay silent.  The card's name is printed beside the readings.
+30. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-29. Prints the ``kernels`` JSON line (all seven kernels, with their
+31. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -5209,13 +5261,15 @@ SERVE_MARGIN = {"float32": 1e-3, "bfloat16": 0.25}
 SERVE_LOGIT_LIMIT = {k: v / 2 for k, v in SERVE_MARGIN.items()}
 
 
-def serve_model(dev, dtype):
-    """GPT-medium (``benchmarks/gpt_bench.py``'s widths, 24 layers,
-    flash attention) from seed 0 with activations in ``dtype``."""
+def serve_model(dev, dtype, n_layer: int = GPT_MEDIUM["n_layer"]):
+    """GPT-medium (``benchmarks/gpt_bench.py``'s widths, 24 layers unless
+    ``n_layer`` cuts the depth, flash attention) from seed 0 with
+    activations in ``dtype``."""
     import torch
     import horovod_tpu_torch as hvd
 
-    cfg = hvd.models.GPTConfig(**GPT_MEDIUM, dtype=dtype)
+    cfg = hvd.models.GPTConfig(**dict(GPT_MEDIUM, n_layer=n_layer),
+                               dtype=dtype)
     model = hvd.models.GPT(cfg, device=dev, seed=0)
     model.requires_grad_(False)
     return model
@@ -6194,6 +6248,7 @@ def fleet_phase(dev, card: str):
     report = dict(
         seconds=seconds, wire_s=wire_s, compared=compared,
         by_target=by_target,
+        migrate_ms_mean=statistics.mean(migrate_ms),
         migrate_ms_p50=percentile(migrate_ms, 50),
         migrate_ms_p99=percentile(migrate_ms, 99),
         bytes_per_request=statistics.mean(moved),
@@ -6224,9 +6279,12 @@ def fleet_phase(dev, card: str):
 SWAP_PROMPT_LENS = (16, 48, 96, 160, 224, 288, 352, 416)
 SWAP_CLIENTS = 8
 SWAP_BITWISE = 4                      # prompts served alone, boot vs rollback
+# Depth cut for the script's time limit beside the TP phases; widths
+# kept (PERF.md section 4).
+SWAP_LAYERS = 8
 SWAP_PERTURBED = ("lm_head.kernel",
-                  f"block_{GPT_MEDIUM['n_layer'] - 1}.mlp.up.kernel",
-                  f"block_{GPT_MEDIUM['n_layer'] - 1}.mlp.down.kernel")
+                  f"block_{SWAP_LAYERS - 1}.mlp.up.kernel",
+                  f"block_{SWAP_LAYERS - 1}.mlp.down.kernel")
 
 
 def swap_ranks(dev, rank: int) -> dict:
@@ -6269,7 +6327,8 @@ def routed_tokens(router, prompts, tag: str, alone: bool = True):
 
 
 def swap_phase(dev, card: str):
-    """Path "swap 2 replicas": step 1 (the boot weights of the bf16
+    """Path "swap 2 replicas" (GPT-medium's widths at SWAP_LAYERS
+    layers): step 1 (the boot weights of the bf16
     model, f32 parameters) and step 2 (SWAP_PERTURBED moved) written
     through ``AsyncCheckpointer``; two unified ``InferenceServer``s,
     each with its own copy of the boot model and a ``WeightSubscriber``
@@ -6304,7 +6363,8 @@ def swap_phase(dev, card: str):
     torch.cuda.reset_peak_memory_stats()
     n = SERVE_NEW_TOKENS
     limit = SERVE_MARGIN["bfloat16"]
-    models = [serve_model(dev, torch.bfloat16) for _ in range(2)]
+    models = [serve_model(dev, torch.bfloat16, SWAP_LAYERS)
+              for _ in range(2)]
     vocab = models[0].config.vocab_size
     prompts = serve_prompts(3, SWAP_PROMPT_LENS, vocab)
     boot = {k: p.detach() for k, p in models[0].named_parameters()}
@@ -6325,7 +6385,7 @@ def swap_phase(dev, card: str):
     # margins (step 2's model built only for this, then dropped).
     refs = {1: (engine_ref(models[0]),
                 serve_oracle(models[0], prompts, n))}
-    m2 = serve_model(dev, torch.bfloat16)
+    m2 = serve_model(dev, torch.bfloat16, SWAP_LAYERS)
     with torch.no_grad():
         for k, p in m2.named_parameters():
             p.copy_(step2[k])
@@ -6510,6 +6570,672 @@ def swap_phase(dev, card: str):
     return counts, report
 
 
+# --- "serve tp 2": a tensor-parallel replica, two shards on one card ----------
+
+TP_DEGREE = 2
+TP_DEVICES = ("cuda:0", "cuda:0")     # the shard list: both on the one card
+TP_MIGRATE_LENS = (17, 200, 280, 480)  # 280: the lone transfer compared
+TP_ALONE_LEN = 280
+TP_DRILL_REQUESTS, TP_DRILL_TOKENS = 12, 6
+TP_KILL_STEP = 2                      # the follower's decode event it dies at
+TP_LOAD_REQUESTS, TP_LOAD_PROMPT = 8, 64   # the tokens/s reading's batch
+TP_SWAP_PROMPTS = 2
+TP_SHARD_FLAG = "--tp-shard-worker"
+
+
+def tp_ranks(dev, rank: int) -> dict:
+    """Path "serve tp 2" in a process of its own (``--tp-worker``), as
+    :func:`serve_ranks`."""
+    counts, report = tp_phase(dev, card_and_power_limit())
+    return dict(counts=counts, report=report)
+
+
+def tp_shard_worker(tmp: str) -> None:
+    """The lockstep drill's follower shard, run as ``chip_smoke.py
+    --tp-shard-worker DIR``: a ``ShardServer`` over a whole engine of
+    the bf16 model (the same seed as the leader's) with
+    ``serve:step=TP_KILL_STEP,mode=kill`` armed in this process only;
+    writes its port to ``DIR/port``, waits for ``DIR/done``, then writes
+    the fault history to ``DIR/shard.json``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.serve import InferenceEngine, ShardServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(tmp, "key"), "rb") as f:
+        key = f.read()
+    engine = InferenceEngine(serve_model(torch.device(TP_DEVICES[0]),
+                                         torch.bfloat16), **SERVE_ENGINE)
+    shard = ShardServer(engine, key, name="tp-shard-1", host="127.0.0.1")
+    try:
+        faults.configure(f"serve:step={TP_KILL_STEP},mode=kill")
+        with open(os.path.join(tmp, "port.part"), "w") as f:
+            f.write(str(shard.port))
+        os.replace(os.path.join(tmp, "port.part"),
+                   os.path.join(tmp, "port"))
+        deadline = time.monotonic() + 600
+        while not os.path.exists(os.path.join(tmp, "done")):
+            if time.monotonic() > deadline:
+                raise TimeoutError("tp shard: the leader never finished")
+            time.sleep(0.1)
+        with open(os.path.join(tmp, "shard.json"), "w") as f:
+            json.dump({"history": faults.history(), "dead": shard._dead}, f)
+    finally:
+        shard.shutdown()
+
+
+def tp_phase(dev, card: str):
+    """Path "serve tp 2": GPT-medium (bf16 activations, f32 parameters
+    from seed 0) in a tensor-parallel engine of two shards on the one
+    card (``devices=TP_DEVICES``) beside a tp = 1 engine on the same
+    weights, both at the reference's defaults.  (a) Token identity:
+    greedy (the ``lm_head`` rows tapped on both engines: bit for bit or
+    the largest |Δlogit|, the tokens under the bf16 margin rule against
+    tp = 1's) and temperature 0.8 / top-k 50 (equal when the logits
+    are) on prompts of 17/200/480/900 tokens, 32 tokens; a prefix hit
+    and a copy-on-write divergence; a self-drafted speculative batch.
+    (b) A tp = 2 prefill replica hands TP_MIGRATE_LENS' requests, one at
+    a time, to a tp = 1 decode replica over the HMAC wire, one stream a
+    head shard, both shards' digests verified on the receiver;
+    ``serve:mode=migrate``: the damaged shard rejected, the request
+    decoded by the sender.  (c) Step 1 → step 2 of "swap 2 replicas"
+    (SWAP_PERTURBED) pulled by a ``WeightSubscriber`` into a tp = 2
+    engine: the shards' pulled bytes sum to the whole diff plus the
+    replicated leaves' extra copies, and the tokens after the flip are
+    step 2's.  (d) The lockstep drill: a leader ``InferenceServer(
+    tp_peers=)`` and a follower ``ShardServer`` in a child process
+    (``--tp-shard-worker``, ``serve:step=TP_KILL_STEP,mode=kill`` armed
+    there), each driving a whole engine, behind a ``Router`` beside a
+    tp = 1 survivor: TP_DRILL_REQUESTS greedy requests all complete with
+    the survivor's tokens, the replica dies once (``shard_rank_lost``)
+    and is benched with one strike.  Readings: tokens/s and TPOT p50 of
+    TP_LOAD_REQUESTS requests at once on each engine, the peak memory.
+    B1 runs only in the full-forward oracles."""
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.ckpt import AsyncCheckpointer
+    from horovod_tpu_torch.plan import tp_owned_slice
+    from horovod_tpu_torch.runner.common.secret import make_secret_key
+    from horovod_tpu_torch.serve import (ContinuousBatcher, InferenceEngine,
+                                         InferenceServer, ReplicaSpec, Router,
+                                         SamplingParams, WeightSubscriber)
+    from horovod_tpu_torch.serve.metrics import percentile
+    from horovod_tpu_torch.utils.retry import RetryPolicy
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = serve_model(dev, torch.bfloat16)
+    vocab = model.config.vocab_size
+    n = SERVE_NEW_TOKENS
+    limit = SERVE_MARGIN["bfloat16"]
+    prompts = serve_prompts(0, SERVE_ORACLE_LENS, vocab)
+    forwards = 0
+    hvd.ops.reset_launch_counts()
+
+    def oracle_of(model_, ps, k):
+        nonlocal forwards
+        forwards += len(ps) * k
+        return serve_oracle(model_, ps, k)
+
+    def pair(**kw):
+        return (InferenceEngine(model, **SERVE_ENGINE, **kw),
+                InferenceEngine(model, tp=TP_DEGREE, devices=TP_DEVICES,
+                                **SERVE_ENGINE, **kw))
+
+    def margin_check(got, want, margins, what):
+        ok, cmp, stop = margin_match(got, want, margins, limit)
+        if not ok:
+            raise AssertionError(f"serve tp 2: {what}: tokens {got} against "
+                                 f"{want} (stop {stop})")
+        return cmp
+
+    def sampled(engine):
+        sp = SamplingParams(max_new_tokens=n, temperature=SERVE_TEMPERATURE,
+                            top_k=SERVE_TOP_K)
+        toks = {s: [engine.start(s, p, sp)] for s, p in enumerate(prompts)}
+        while any(len(t) < n for t in toks.values()):
+            for s, got in engine.step().items():
+                toks[s].extend(got)
+        for s in toks:
+            engine.release(s)
+        return [toks[s][:n] for s in range(len(prompts))]
+
+    def agree(a, b):
+        return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    len(a))
+
+    # (a) token identity.
+    oracle = oracle_of(model, prompts, n)
+    e1, e2 = pair()
+    taps = [LogitTap(e._model) for e in (e1, e2)]
+    try:
+        greedy = [engine_tokens(e, prompts, n) for e in (e1, e2)]
+    finally:
+        for t in taps:
+            t.close()
+    rows = [t.rows(prompts, n) for t in taps]
+    bitwise = greedy[0] == greedy[1] and all(
+        torch.equal(a, b) for a, b in zip(rows[0], rows[1]))
+    dlogit = 0.0
+    for i in range(len(prompts)):
+        j = min(agree(greedy[0][i], greedy[1][i]), n - 1) + 1
+        dlogit = max(dlogit, float((rows[0][i][:j] - rows[1][i][:j])
+                                   .abs().max()))
+    del taps, rows
+    compared = sum(margin_check(greedy[1][i], greedy[0][i], oracle[i][1],
+                                f"greedy prompt {i}")
+                   for i in range(len(prompts)))
+    temps = [sampled(e) for e in (e1, e2)]
+    temp_agree = [agree(a, b) for a, b in zip(temps[0], temps[1])]
+    if bitwise and temps[0] != temps[1]:
+        raise AssertionError(f"serve tp 2: bitwise logits but temperature "
+                             f"tokens agree only to {temp_agree}")
+    del e1, e2
+    gc.collect()
+    # A prefix hit, then two live requests sharing a partial tail block.
+    blk = SERVE_ENGINE["kv_block"]
+    pre = prompts[3][:2 * blk]
+    pa, pb = pre + [1], pre + [2]
+    ca = prompts[2][:blk + 4]
+    cb = ca + [3]
+    side = [pa, pb, ca, cb]
+    side_n = 8
+    side_oracle = oracle_of(model, side, side_n)
+    cache_runs = []
+    for eng in pair():
+        a = engine_tokens(eng, [pa], side_n)[0]
+        hits0 = eng.kv_stats()["kv_prefix_hits_total"]
+        b = engine_tokens(eng, [pb], side_n)[0]
+        hit = eng.kv_stats()["kv_prefix_hits_total"] > hits0
+        x = [eng.start(0, ca, SamplingParams(max_new_tokens=side_n))]
+        x.extend(eng.step()[0])
+        y = [eng.start(1, cb, SamplingParams(max_new_tokens=side_n))]
+        shared = eng.prefix_hit_tokens(1)
+        while len(x) < side_n or len(y) < side_n:
+            got = eng.step()
+            x.extend(got[0])
+            y.extend(got[1])
+        cow = eng.kv_stats()["kv_cow_copies_total"]
+        eng.release(0)
+        eng.release(1)
+        if not hit or shared != len(ca) or cow < 1:
+            raise AssertionError(
+                f"serve tp 2: tp={eng.tp}: prefix hit {hit}, shared "
+                f"{shared} of {len(ca)} tokens, {cow} copy-on-write copies")
+        cache_runs.append((a, b, x[:side_n], y[:side_n], cow))
+        del eng
+        gc.collect()
+    compared += sum(margin_check(cache_runs[1][i], cache_runs[0][i],
+                                 side_oracle[i][1], f"prefix/COW {i}")
+                    for i in range(4))
+    # A self-drafted speculative batch.
+    spec_runs, accept = [], []
+    for eng in pair(drafter=model, spec_k=SERVE_SPEC_K):
+        spec_runs.append(engine_tokens(eng, prompts, n, spec=True))
+        accept.append(eng.kv_stats()["spec_accept_per_verify"])
+        del eng
+        gc.collect()
+    compared += sum(margin_check(spec_runs[1][i], spec_runs[0][i],
+                                 oracle[i][1], f"speculative prompt {i}")
+                    for i in range(len(prompts)))
+    log(f"serve tp 2: (a) logits bit for bit tp=1's: {bitwise} (largest "
+        f"|dlogit| {dlogit} over the greedy rows); greedy, prefix hit + "
+        f"copy-on-write ({cache_runs[1][4]} copies) and speculative tokens "
+        f"equal tp=1's at {compared} positions past the bf16 margin; "
+        f"temperature {SERVE_TEMPERATURE} / top-k {SERVE_TOP_K} tokens "
+        f"agree for {temp_agree} of {n} positions; tokens a verify "
+        f"{accept[0]} (tp=1) / {accept[1]} (tp=2)")
+
+    # (b) per-shard migration, tp=2 prefill -> tp=1 decode.
+    key = make_secret_key()
+    policy = RetryPolicy(attempts=8, base_delay_s=0.02, max_delay_s=0.2)
+    # The last prompt, fresh to the prefix directory, is the drill's.
+    mig_prompts = serve_prompts(4, TP_MIGRATE_LENS + TP_MIGRATE_LENS[:1],
+                                vocab)
+    mig_oracle = oracle_of(model, mig_prompts, n)
+    want = engine_tokens(InferenceEngine(model, **SERVE_ENGINE),
+                         mig_prompts, n)
+    gc.collect()
+
+    def spec_of(s):
+        return ReplicaSpec(s.name, [("127.0.0.1", s.port)], role=s.role)
+
+    pre_s = InferenceServer(
+        ContinuousBatcher(InferenceEngine(model, tp=TP_DEGREE,
+                                          devices=TP_DEVICES,
+                                          **SERVE_ENGINE),
+                          default_deadline_s=0, role="prefill"),
+        key=key, name="tp-pre", host="127.0.0.1")
+    dec_s = InferenceServer(
+        ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                          default_deadline_s=0, role="decode"),
+        key=key, name="tp-dec", host="127.0.0.1")
+    tap = MigrationTap(dec_s)
+    shards_seen = []
+    add = dec_s._migrations.add
+
+    def seen(frame):
+        shards_seen.append((frame.shard, frame.n_shards,
+                            None if frame.manifest is None
+                            else frame.manifest.get("tp_degree")))
+        return add(frame)
+
+    dec_s._migrations.add = seen
+    try:
+        router = Router([spec_of(pre_s), spec_of(dec_s)], key,
+                        retry_policy=policy)
+        mig = []
+        for i, p in enumerate(mig_prompts[:-1]):
+            resp = router.generate(p, max_new_tokens=n,
+                                   request_id=f"tp-mig-{i}")
+            if resp.error is not None or resp.migrated_to != "tp-dec":
+                raise AssertionError(f"serve tp 2: migration {i}: "
+                                     f"{resp.error}, {resp.migrated_to}")
+            compared += margin_check(resp.tokens, want[i], mig_oracle[i][1],
+                                     f"migrated request {i}")
+            mig.append(resp.migrate_ms)
+        firsts = [s for s in shards_seen if s[2] is not None]
+        if tap.verified != len(mig) or tap.rejected \
+                or sorted({s[:2] for s in shards_seen}) != [(0, 2), (1, 2)] \
+                or len(firsts) != 2 * len(mig) \
+                or any(s[2] != TP_DEGREE for s in firsts):
+            raise AssertionError(
+                f"serve tp 2: {tap.verified} transfers verified, "
+                f"{tap.rejected} rejected, frames {sorted(set(shards_seen))}")
+        alone = TP_MIGRATE_LENS.index(TP_ALONE_LEN)
+        with faults.inject("serve:step=0,mode=migrate"):
+            bad = router.generate(mig_prompts[-1], max_new_tokens=n,
+                                  request_id="tp-mig-bad")
+            fired = [h for h in faults.history() if h[0] == "serve"]
+        if fired != [("serve", 0, "migrate")] or tap.rejected != 1 \
+                or bad.error is not None or bad.migrated_to is not None:
+            raise AssertionError(
+                f"serve tp 2: migrate drill: fired {fired}, "
+                f"{tap.rejected} rejected, {bad.error}, {bad.migrated_to}")
+        compared += margin_check(bad.tokens, want[-1], mig_oracle[-1][1],
+                                 "migrate drill")
+    finally:
+        pre_s.shutdown()
+        dec_s.shutdown()
+        gc.collect()
+    log(f"serve tp 2: (b) {len(mig)} requests ({TP_MIGRATE_LENS} "
+        f"tokens) migrated tp=2 -> tp=1 one at a time, two shard streams "
+        f"each, every transfer's shard digests verified; migrate_ms {mig} "
+        f"for {tap.bytes} bytes ({TP_ALONE_LEN} tokens: {mig[alone]} ms for "
+        f"{tap.bytes[alone]} bytes); serve:mode=migrate rejected on the "
+        f"receiver, decoded by the sender")
+
+    # (c) the swap's shard pull into a tp=2 engine.
+    boot = {k: p.detach() for k, p in model.named_parameters()}
+    step2 = swap_step2(boot, dev)
+    swap_prompts = serve_prompts(3, SWAP_PROMPT_LENS, vocab)[:TP_SWAP_PROMPTS]
+    m2 = serve_model(dev, torch.bfloat16)
+    with torch.no_grad():
+        for k, p in m2.named_parameters():
+            p.copy_(step2[k])
+    swap_oracle = oracle_of(m2, swap_prompts, n)
+    swap_want = engine_tokens(InferenceEngine(m2, **SERVE_ENGINE),
+                              swap_prompts, n)
+    del m2
+    gc.collect()
+    full = sum(step2[k].numel() * step2[k].element_size()
+               for k in SWAP_PERTURBED)
+    extra = sum((TP_DEGREE - 1) * step2[k].numel() * step2[k].element_size()
+                for k in SWAP_PERTURBED
+                if tp_owned_slice(k, tuple(step2[k].shape), TP_DEGREE, 0)
+                is None)
+    with tempfile.TemporaryDirectory() as store_dir:
+        with AsyncCheckpointer(store_dir, world=1, scheme="dp",
+                               async_save=False) as ckpt:
+            for step, tree in ((1, boot), (2, step2)):
+                ckpt.save(step, tree)
+                ckpt.journal_step(step)
+        del step2
+        engine = InferenceEngine(model, tp=TP_DEGREE, devices=TP_DEVICES,
+                                 weights_version=1, **SERVE_ENGINE)
+        batcher = ContinuousBatcher(engine, default_deadline_s=0)
+        batcher.start()
+        try:
+            sub = WeightSubscriber(batcher, store_dir, deadline_s=300.0)
+            flipped = sub.poll_once()
+            last = dict(sub.last_swap)
+            reqs = [batcher.submit(p, SamplingParams(max_new_tokens=n))
+                    for p in swap_prompts]
+            for r in reqs:
+                if not r.done.wait(timeout=300) or r.error is not None:
+                    raise AssertionError(f"serve tp 2: post-swap request: "
+                                         f"{r.error}")
+        finally:
+            batcher.stop()
+        del engine, batcher
+        gc.collect()
+    per_shard = last.get("pulled_bytes_per_shard") or []
+    if flipped != 2 or last.get("tp") != TP_DEGREE \
+            or last["pulled_leaves"] != len(SWAP_PERTURBED) \
+            or last["pulled_bytes_full"] != full \
+            or sum(per_shard) != full + extra \
+            or last["pulled_bytes"] != max(per_shard):
+        raise AssertionError(f"serve tp 2: swap pull {last} (want full "
+                             f"{full}, replicated extra {extra})")
+    compared += sum(margin_check(r.tokens, swap_want[i], swap_oracle[i][1],
+                                 f"post-swap request {i}")
+                    for i, r in enumerate(reqs))
+    log(f"serve tp 2: (c) step 1 -> 2 pulled by shard: "
+        f"{last['pulled_bytes_per_shard']} bytes a shard, sum "
+        f"{sum(per_shard)} = the whole diff {full} + replicated extra "
+        f"{extra}, pulled_bytes (the widest shard) {last['pulled_bytes']}; "
+        f"pull, stage and flip {last['ms']} ms; tokens after the flip step "
+        f"2's")
+
+    # (d) the lockstep drill: the follower in a child process, started
+    # first so that its start-up overlaps the drill's oracle.
+    drill = [[i + 1, i + 2, i + 3] for i in range(TP_DRILL_REQUESTS)]
+    script = os.path.abspath(__file__)
+    servers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "key"), "wb") as f:
+            f.write(key)
+        proc = subprocess.Popen([sys.executable, script, TP_SHARD_FLAG, tmp])
+        try:
+            drill_oracle = oracle_of(model, drill, TP_DRILL_TOKENS)
+            ref = InferenceEngine(model, **SERVE_ENGINE)
+            solo_want = [engine_tokens(ref, [p], TP_DRILL_TOKENS)[0]
+                         for p in drill]
+            del ref
+            gc.collect()
+            deadline = time.monotonic() + 600
+            while not os.path.exists(os.path.join(tmp, "port")):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"serve tp 2: the follower shard "
+                                         f"never served (exit "
+                                         f"{proc.returncode})")
+                time.sleep(0.2)
+            with open(os.path.join(tmp, "port")) as f:
+                port = int(f.read())
+            leader = InferenceServer(
+                ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                                  default_deadline_s=0),
+                key=key, name="tp-leader", host="127.0.0.1",
+                tp_peers=[("tp-shard-1", [("127.0.0.1", port)])])
+            servers.append(leader)
+            solo = InferenceServer(
+                ContinuousBatcher(InferenceEngine(model, **SERVE_ENGINE),
+                                  default_deadline_s=0),
+                key=key, name="tp-solo", host="127.0.0.1")
+            servers.append(solo)
+            router = Router([spec_of(leader), spec_of(solo)], key,
+                            probation_s=300.0,
+                            retry_policy=RetryPolicy(attempts=10,
+                                                     base_delay_s=0.05,
+                                                     max_delay_s=0.5))
+            t1 = time.perf_counter()
+            answers = []
+            for i, p in enumerate(drill):
+                resp = router.generate(p, max_new_tokens=TP_DRILL_TOKENS,
+                                       request_id=f"tp-drill-{i}")
+                if resp.error is not None \
+                        or len(resp.tokens) != TP_DRILL_TOKENS:
+                    raise AssertionError(f"serve tp 2: drill request {i}: "
+                                         f"{resp.error}")
+                answers.append(resp.tokens)
+            drill_s = time.perf_counter() - t1
+            stats = router.replica_stats()
+            benched = sorted(k for k, v in stats.items() if not v["healthy"])
+            reason = leader._batcher._killed or ""
+            dead = (leader.dead, solo.dead)
+            with open(os.path.join(tmp, "done"), "w") as f:
+                f.write("ok")
+            proc.wait(timeout=120)
+            with open(os.path.join(tmp, "shard.json")) as f:
+                shard = json.load(f)
+        finally:
+            for s in servers:
+                s.shutdown()
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    if proc.returncode or shard["history"] != [["serve", TP_KILL_STEP,
+                                                "kill"]] \
+            or dead != (True, False) \
+            or not reason.startswith("shard_rank_lost") \
+            or benched != ["tp-leader"]:
+        raise AssertionError(
+            f"serve tp 2: drill: follower exit {proc.returncode}, history "
+            f"{shard['history']}, leader and survivor dead {dead} "
+            f"({reason}), benched {benched}")
+    compared += sum(margin_check(a, solo_want[i], drill_oracle[i][1],
+                                 f"drill request {i}")
+                    for i, a in enumerate(answers))
+    counts = hvd.ops.launch_counts()
+    want_b1 = forwards * GPT_MEDIUM["n_layer"]
+    if counts["flash_fwd"] != want_b1 or any(
+            v for k, v in counts.items() if k != "flash_fwd"):
+        raise AssertionError(f"serve tp 2: launches {counts}; the oracles' "
+                             f"{forwards} forwards want flash_fwd {want_b1}")
+    log(f"serve tp 2: (d) lockstep drill: follower killed at its decode "
+        f"event {TP_KILL_STEP} ({shard['dead']}), the replica died once "
+        f"({reason.split(':')[0]}), benched {benched} with one strike, all "
+        f"{TP_DRILL_REQUESTS} requests answered by the survivor in "
+        f"{drill_s:.3f} s with its tokens")
+
+    # Readings: TP_LOAD_REQUESTS requests at once on each engine.
+    load = serve_prompts(5, [TP_LOAD_PROMPT] * TP_LOAD_REQUESTS, vocab)
+    speed = {}
+    for eng in pair():
+        b = ContinuousBatcher(eng, default_deadline_s=0)
+        reqs = [b.submit(p, SamplingParams(max_new_tokens=n)) for p in load]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        while not all(r.done.is_set() for r in reqs):
+            b.step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        snap = b.snapshot()
+        speed[eng.tp] = dict(tok_per_s=sum(len(r.tokens) for r in reqs)
+                             / secs, tpot_ms_p50=snap["tpot_ms_p50"],
+                             ttft_ms_p50=snap["ttft_ms_p50"], seconds=secs)
+        del b, eng, reqs
+        gc.collect()
+    peak = torch.cuda.max_memory_allocated()
+    seconds = time.perf_counter() - t0
+    report = dict(seconds=seconds, bitwise=bitwise, dlogit=dlogit,
+                  compared=compared, temp_agree=temp_agree,
+                  spec_accept=accept, migrate_ms=mig, migrate_bytes=tap.bytes,
+                  alone_ms=mig[alone], alone_bytes=tap.bytes[alone],
+                  swap=last, drill_s=drill_s, speed=speed,
+                  peak_gib=peak / 2**30)
+    log(f"serve tp 2: {TP_LOAD_REQUESTS} requests of {TP_LOAD_PROMPT} "
+        f"tokens at once: tp=1 {speed[1]['tok_per_s']:.1f} tokens/s, TPOT "
+        f"p50 {speed[1]['tpot_ms_p50']} ms; tp=2 (two shards on one card) "
+        f"{speed[2]['tok_per_s']:.1f} tokens/s, TPOT p50 "
+        f"{speed[2]['tpot_ms_p50']} ms; peak {report['peak_gib']:.2f} GiB; "
+        f"{seconds:.1f} s in all; launches {counts} (the oracles' "
+        f"{forwards} forwards); on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, report
+
+
+# --- "fleet sim (host)": the fleet simulator on this run's readings -----------
+
+SIM_CAPACITY = dict(replicas=1000, requests=10_000, rate_rps=2000.0, seed=1,
+                    fault="serve:p=0.001,seed=2,mode=kill", wall_s=60.0)
+SIM_CALIBRATION = dict(replicas=4, requests=2000, rate_rps=5.0, seed=13,
+                       band=0.15)
+SIM_DRILL_ROUNDS = 3
+SIM_CLEAN_SEEDS = (1, 2, 4)
+SIM_READINGS_ENV = "CHIP_SMOKE_SIM_READINGS"
+
+
+def sim_ranks(dev, rank: int) -> dict:
+    """Path "fleet sim (host)" in a process of its own
+    (``--sim-worker``); the earlier phases' readings arrive as JSON in
+    ``CHIP_SMOKE_SIM_READINGS``."""
+    counts, report = sim_phase(card_and_power_limit(),
+                               json.loads(os.environ[SIM_READINGS_ENV]))
+    return dict(counts=counts, report=report)
+
+
+def sim_profile(readings: dict):
+    """A ``ReplicaProfile`` fitted by ``LatencyDist`` from this run's
+    readings: TTFT and TPOT p50/p99 of "serve 1 rank"'s traffic and
+    ``migrate_ms`` mean/p99 of "fleet 3 replicas", at GPT-medium's 24
+    layers; the swap ms of "swap 2 replicas" (mean and largest, as
+    ``load_profile`` fits its swap), which runs at SWAP_LAYERS (8)."""
+    from horovod_tpu_torch.serve.fleet.traces import (LatencyDist,
+                                                      ReplicaProfile)
+
+    return ReplicaProfile(
+        ttft_ms=LatencyDist(readings["ttft_ms_p50"],
+                            readings["ttft_ms_p99"]),
+        tpot_ms=LatencyDist(readings["tpot_ms_p50"],
+                            readings["tpot_ms_p99"]),
+        migrate_ms=LatencyDist.from_mean_p99(readings["migrate_ms_mean"],
+                                             readings["migrate_ms_p99"]),
+        swap_ms=LatencyDist.from_mean_p99(statistics.mean(readings["swap_ms"]),
+                                          max(readings["swap_ms"])),
+        source=(f"chip_smoke: serve 1 rank, fleet 3 replicas (24 layers), "
+                f"swap 2 replicas ({SWAP_LAYERS} layers)"))
+
+
+def sim_phase(card: str, readings: dict):
+    """Path "fleet sim (host)": the port's ``FleetSim`` (the real router,
+    fleet controller, QoS gate and queues on a virtual clock; no device
+    work).  Capacity: SIM_CAPACITY's 1000 replicas and 10^4 requests
+    under ``serve:p=0.001,mode=kill``: no invariant violated, at least
+    one kill, under 60 s of wall time.  Calibration: an unloaded
+    4-replica run on :func:`sim_profile` (this run's card readings) must
+    give TTFT p50 and p99 within ±15% of the profile's: a check of the
+    simulator's fit to its profile, not of the card.  Drills: the
+    death spiral (``control:mode=spiral``) and the migration convoy
+    (``control:mode=convoy``) page within SIM_DRILL_ROUNDS collection
+    rounds of their onset; clean seeded runs raise no alert."""
+    import logging
+    import math
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.serve.fleet.sim import FleetSim
+    from horovod_tpu_torch.serve.fleet.traces import (LatencyDist,
+                                                      ReplicaProfile,
+                                                      make_trace)
+
+    t0 = time.perf_counter()
+    hvd.ops.reset_launch_counts()
+    logging.disable(logging.WARNING)     # strikes and brownout, by the 1000
+    try:
+        cap = SIM_CAPACITY
+        t1 = time.perf_counter()
+        sim = FleetSim(replicas=cap["replicas"], seed=cap["seed"],
+                       max_replicas=cap["replicas"], record_events=False)
+        rep = sim.run(make_trace(cap["requests"], seed=cap["seed"],
+                                 rate_rps=cap["rate_rps"]),
+                      fault_spec=cap["fault"])
+        wall = time.perf_counter() - t1
+        capacity = dict(wall_s=wall, events=rep["events"],
+                        events_per_s=rep["events"] / wall,
+                        kills=rep["kills"], delivered=rep["delivered"],
+                        violations=rep["invariants"]["violations_total"],
+                        checks=rep["invariants"]["checks_total"])
+        if wall >= cap["wall_s"] or rep["kills"] < 1 \
+                or capacity["violations"] or rep["requests"] != \
+                cap["requests"]:
+            raise AssertionError(f"fleet sim (host): capacity {capacity}")
+        prof = sim_profile(readings)
+        cal = SIM_CALIBRATION
+        sim = FleetSim(replicas=cal["replicas"], seed=cal["seed"],
+                       profile=prof, scale_in_idle_s=1e9)
+        rep = sim.run(make_trace(cal["requests"], seed=cal["seed"],
+                                 rate_rps=cal["rate_rps"], burst_factor=1.0))
+        calibration = dict(
+            profile={f: [getattr(prof, f).p50_ms, getattr(prof, f).p99_ms]
+                     for f in ("ttft_ms", "tpot_ms", "migrate_ms",
+                               "swap_ms")},
+            ttft_ms_p50=rep["ttft_ms_p50"], ttft_ms_p99=rep["ttft_ms_p99"])
+        off = [abs(got - want) / want
+               for got, want in ((rep["ttft_ms_p50"], prof.ttft_ms.p50_ms),
+                                 (rep["ttft_ms_p99"], prof.ttft_ms.p99_ms))]
+        calibration["off"] = off
+        if rep["shed"] or rep["expired"] or max(off) >= cal["band"]:
+            raise AssertionError(f"fleet sim (host): calibration "
+                                 f"{calibration}, shed {rep['shed']}, "
+                                 f"expired {rep['expired']}")
+
+        def rounds_to_fire(alerts, onset, alert_id):
+            fired = [a for a in alerts if a["alert"] == alert_id]
+            if not fired:
+                return None
+            return max(1, math.ceil(fired[0]["t"] - onset))
+
+        sim = FleetSim(replicas=4, seed=3, max_slots=2, queue_capacity=16,
+                       brownout_high=0.5, brownout_low=0.2,
+                       brownout_hold_s=10.0, scale_in_idle_s=1.0,
+                       record_events=False)
+        sim.attach_telemetry()
+        rep = sim.run(make_trace(2000, seed=3, rate_rps=120.0,
+                                 burst_factor=6.0),
+                      fault_spec="control:p=1.0,seed=1,mode=spiral")
+        spiral = rounds_to_fire(sim.alerts, rep["spiral_onset_t"],
+                                "ladder_oscillation")
+        pages = [a for a in sim.alerts if a["alert"] == "ladder_oscillation"]
+        prof_convoy = ReplicaProfile(
+            ttft_ms=LatencyDist(80.0, 300.0), tpot_ms=LatencyDist(30.0, 60.0),
+            migrate_ms=LatencyDist(2500.0, 5000.0),
+            swap_ms=LatencyDist(950.0, 3600.0))
+        sim = FleetSim(roles={"prefill": 4, "decode": 4}, seed=5,
+                       max_slots=4, profile=prof_convoy, convoy_bound=8,
+                       record_events=False)
+        sim.attach_telemetry(detect_overrides={"convoy_bound": 8.0})
+        rep = sim.run(make_trace(1200, seed=5, rate_rps=150.0,
+                                 prefix_pool=4096, prefix_skew=1.0,
+                                 max_new_tokens=128),
+                      fault_spec="control:p=1.0,seed=2,mode=convoy")
+        onsets = [v["t"] for v in rep["invariants"]["violations"]
+                  if v["invariant"] == "no_migration_convoy"]
+        convoy = (rounds_to_fire(sim.alerts, min(onsets), "migration_convoy")
+                  if onsets else None)
+        clean = {}
+        for seed in SIM_CLEAN_SEEDS:
+            sim = FleetSim(replicas=6, seed=seed, record_events=False)
+            sim.attach_telemetry()
+            rep = sim.run(make_trace(300, seed=seed, rate_rps=40.0))
+            clean[seed] = (rep["alerts_fired"],
+                           rep["invariants"]["violations_total"])
+        if spiral is None or spiral > SIM_DRILL_ROUNDS \
+                or pages[0]["severity"] != "page" \
+                or convoy is None or convoy > SIM_DRILL_ROUNDS \
+                or any(a or v for a, v in clean.values()):
+            raise AssertionError(
+                f"fleet sim (host): drills: spiral paged in {spiral} "
+                f"rounds, convoy in {convoy}, clean runs {clean}")
+    finally:
+        logging.disable(logging.NOTSET)
+    counts = hvd.ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    report = dict(seconds=seconds, capacity=capacity,
+                  calibration=calibration, spiral_rounds=spiral,
+                  convoy_rounds=convoy)
+    log(f"fleet sim (host): capacity {cap['replicas']} replicas, "
+        f"{cap['requests']} requests at {cap['rate_rps']} rps under "
+        f"{cap['fault']}: {capacity['events']} events in "
+        f"{capacity['wall_s']:.3f} s of wall time "
+        f"({capacity['events_per_s']:.1f} events/s), {capacity['kills']} "
+        f"kills, {capacity['delivered']} delivered, 0 of "
+        f"{capacity['checks']} invariant checks violated; calibration (the "
+        f"sim's fit to its profile, not a check of the card) on this run's "
+        f"profile {calibration['profile']} (TTFT, TPOT, migrate_ms at 24 "
+        f"layers, swap_ms at {SWAP_LAYERS}): TTFT p50 "
+        f"{calibration['ttft_ms_p50']} ms p99 {calibration['ttft_ms_p99']} "
+        f"ms, off by {[round(x, 4) for x in off]} (band "
+        f"{SIM_CALIBRATION['band']}); death spiral paged in {spiral} "
+        f"round(s), migration convoy in {convoy}, clean seeds "
+        f"{list(SIM_CLEAN_SEEDS)} silent; {seconds:.1f} s in all, no device "
+        f"work (launches {counts}); readings of {card}")
+    return counts, report
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -6525,6 +7251,8 @@ SERVE_WORKER_FLAG = "--serve-worker"
 REPLICAS_WORKER_FLAG = "--replicas-worker"
 FLEET_WORKER_FLAG = "--fleet-worker"
 SWAP_WORKER_FLAG = "--swap-worker"
+TP_WORKER_FLAG = "--tp-worker"
+SIM_WORKER_FLAG = "--sim-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
@@ -6535,6 +7263,8 @@ RANK_PATHS = {
     REPLICAS_WORKER_FLAG: (1, {}, "replica_ranks"),
     FLEET_WORKER_FLAG: (1, {}, "fleet_ranks"),
     SWAP_WORKER_FLAG: (1, {}, "swap_ranks"),
+    TP_WORKER_FLAG: (1, {}, "tp_ranks"),
+    SIM_WORKER_FLAG: (1, {}, "sim_ranks"),
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
@@ -6768,10 +7498,21 @@ def main() -> int:
         remote_counts = remote_phase(card, launcher_res)
         run_func_counts = run_func_phase(card)
         torch.cuda.empty_cache()
-        serve_counts = spawn_ranks(SERVE_WORKER_FLAG, 1)[0]["counts"]
+        serve = spawn_ranks(SERVE_WORKER_FLAG, 1)[0]
         replica_counts = spawn_ranks(REPLICAS_WORKER_FLAG, 1)[0]["counts"]
-        fleet_counts = spawn_ranks(FLEET_WORKER_FLAG, 1)[0]["counts"]
-        swap_counts = spawn_ranks(SWAP_WORKER_FLAG, 1)[0]["counts"]
+        fleet = spawn_ranks(FLEET_WORKER_FLAG, 1)[0]
+        swap = spawn_ranks(SWAP_WORKER_FLAG, 1)[0]
+        tp_counts = spawn_ranks(TP_WORKER_FLAG, 1)[0]["counts"]
+        # The simulator's profile: this run's readings of the card.
+        traffic = serve["report"]["traffic"]
+        readings = {k: traffic[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                            "tpot_ms_p50", "tpot_ms_p99")}
+        readings.update(migrate_ms_mean=fleet["report"]["migrate_ms_mean"],
+                        migrate_ms_p99=fleet["report"]["migrate_ms_p99"],
+                        swap_ms=swap["report"]["swap_ms"])
+        sim_counts = spawn_ranks(
+            SIM_WORKER_FLAG, 1,
+            env={SIM_READINGS_ENV: json.dumps(readings)})[0]["counts"]
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -6789,10 +7530,12 @@ def main() -> int:
                "launcher 2 ranks": launcher_counts,
                "remote 2 hosts": remote_counts,
                "run_func 2 ranks": run_func_counts,
-               "serve 1 rank": serve_counts,
+               "serve 1 rank": serve["counts"],
                "serve 2 replicas": replica_counts,
-               "fleet 3 replicas": fleet_counts,
-               "swap 2 replicas": swap_counts}
+               "fleet 3 replicas": fleet["counts"],
+               "swap 2 replicas": swap["counts"],
+               "serve tp 2": tp_counts,
+               "fleet sim (host)": sim_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:
@@ -6823,6 +7566,9 @@ if __name__ == "__main__":
         sys.exit(remote_driver(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [REMOTE_WORKER_FLAG]:
         remote_worker(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == [TP_SHARD_FLAG]:
+        tp_shard_worker(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] and sys.argv[1] in WORKER_FLAGS:
         rank_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3])

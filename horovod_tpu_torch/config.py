@@ -738,6 +738,9 @@ class Config:
     serve_kv_block: int = 16                  # HVD_TPU_SERVE_KV_BLOCK (tokens per KV block)
     serve_kv_blocks: int = 0                  # HVD_TPU_SERVE_KV_BLOCKS (pool budget in blocks; 0 = auto)
     serve_spec_k: int = 4                     # HVD_TPU_SERVE_SPEC_K (draft tokens per speculative verify step)
+    # Tensor-parallel serving replicas (serve/tp.py)
+    serve_tp: int = 1                         # HVD_TPU_SERVE_TP (tensor-parallel shard count per replica; 1 = off)
+    serve_tp_step_timeout_s: float = 30.0     # HVD_TPU_SERVE_TP_STEP_TIMEOUT_S (lockstep frame deadline before the replica declares itself dead)
     fleet_role: str = "unified"               # HVD_TPU_FLEET_ROLE (prefill|decode|unified: this replica's class)
     fleet_migrate_chunk: int = 1 << 20        # HVD_TPU_FLEET_MIGRATE_CHUNK (KV-transfer bytes per wire frame)
     fleet_scale_out_queue: float = 4.0        # HVD_TPU_FLEET_SCALE_OUT_QUEUE (per-replica queue depth that saturates a role)
@@ -848,6 +851,9 @@ class Config:
             serve_kv_block=_env_pos_int("SERVE_KV_BLOCK", 16),
             serve_kv_blocks=_env_int("SERVE_KV_BLOCKS", 0),
             serve_spec_k=_env_pos_int("SERVE_SPEC_K", 4),
+            serve_tp=_env_pos_int("SERVE_TP", 1),
+            serve_tp_step_timeout_s=_env_float("SERVE_TP_STEP_TIMEOUT_S",
+                                               30.0),
             fleet_role=_env_choice("FLEET_ROLE", "unified",
                                    ("prefill", "decode", "unified"))
             or "unified",

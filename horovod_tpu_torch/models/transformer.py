@@ -32,14 +32,29 @@ Serving (``serve/engine.py``) runs the KV-cache paths:
 ``model(tokens, kv_caches=caches, positions=pos)`` returns ``(logits,
 new_caches)`` over a dense ``{"k", "v"}`` cache per block
 (:func:`init_kv_cache`) or a paged ``{"k_pool", "v_pool", "table"}``
-one.  The caches are written in place.  Tensor-parallel serving
-(``tp_mesh``) is not ported yet.
+one.  The caches are written in place.
+
+A tensor-parallel serving replica (:func:`tensor_parallel_replica`, the
+counterpart of the reference's ``GPTConfig.tp_mesh``) is one module
+over an explicit list of shard devices (``ColumnShards.devices``): shard
+``s`` holds its columns of every ``qkv`` and ``up`` kernel
+(:class:`ColumnShards`; of ``qkv`` the ``s``-th heads of q, of k and of
+v) on ``devices[s]`` and computes its heads' attention there, over
+its own KV cache (a block's cache is a list, one cache a shard); everything else is replicated and lives once, on the
+first shard's device.  The reference's gather points become copies in
+shard order: the head outputs (cache path and full path) and the
+``gelu(up)`` activations are concatenated there before the ``out`` and
+``down`` contractions, which run once, on the first shard's device.
+Every output element is the same full contraction as in the unsharded
+model, so the logits are the unsharded model's wherever a column slice
+of a product rounds as the whole product does.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,9 +72,6 @@ from .layers import (Dense, Embed, Init, LayerNorm, default_device,  # noqa: F40
 
 SEQ_ATTENTIONS = ("ring", "ulysses")
 _NEG_INF = -1e30  # additive mask value (matches parallel/ring_attention)
-TP_SERVING_ITEM = ("tensor-parallel serving (serve/tp.py with GPT's "
-                   "tp_mesh) waits for its slice of the port: ROADMAP.md, "
-                   "queue A item 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +105,9 @@ def init_kv_cache(config: GPTConfig, batch_size: int, max_len: int,
     block, H, D]`` pool per layer and a per-slot block table;
     :class:`Attention` takes either layout (``{"k", "v"}`` or
     ``{"k_pool", "v_pool", "table"}``)."""
+    head_dim = config.d_model // config.n_head
     if device is None:
         device = default_device()
-    head_dim = config.d_model // config.n_head
     shape = (batch_size, max_len, config.n_head, head_dim)
     return [{"k": torch.zeros(shape, dtype=config.dtype, device=device),
              "v": torch.zeros(shape, dtype=config.dtype, device=device)}
@@ -146,6 +158,65 @@ def cached_attention(q, k, v, cache, positions):
     return out, {"k": k_all, "v": v_all}
 
 
+def column_shard(kernel: torch.Tensor, tp: int, s: int,
+                 fused_qkv: bool) -> torch.Tensor:
+    """Shard ``s`` of ``tp`` of a column-parallel ``[in, out]`` kernel:
+    the ``s``-th contiguous block of columns, or of a fused ``qkv``
+    kernel ``[C, 3C]`` the ``s``-th heads of q, of k and of v (as
+    :func:`..parallel.sharding.shard_params` cuts it for training)."""
+    if fused_qkv:
+        third = kernel.shape[1] // 3
+        span = third // tp
+        return torch.cat([kernel.narrow(1, j * third + s * span, span)
+                          for j in range(3)], dim=1)
+    span = kernel.shape[1] // tp
+    return kernel.narrow(1, s * span, span)
+
+
+class ColumnShards(nn.Module):
+    """A column-parallel Dense of a tensor-parallel serving replica
+    (``qkv`` or ``up``): shard ``s`` holds :func:`column_shard` ``s`` of
+    the whole kernel on ``devices[s]``.  ``forward`` takes one input a
+    shard (on its device) and returns one output a shard; the reference
+    places the same slices with ``plan.tp_param_spec``."""
+
+    def __init__(self, kernel: torch.Tensor, devices: Sequence,
+                 dtype: torch.dtype, fused_qkv: bool) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.fused_qkv = fused_qkv
+        self.shards = nn.ParameterList(
+            nn.Parameter(piece, requires_grad=False)
+            for piece in self.place(kernel))
+
+    def place(self, kernel: torch.Tensor) -> list:
+        """The whole ``kernel`` cut into this layer's shards, each a
+        compact copy on its shard's device."""
+        tp = len(self.devices)
+        return [column_shard(kernel, tp, s, self.fused_qkv).to(
+                    device=d, dtype=kernel.dtype, copy=True).contiguous()
+                for s, d in enumerate(self.devices)]
+
+    def load(self, pieces: Sequence[torch.Tensor]) -> None:
+        """Re-point every shard at ``pieces`` (from :meth:`place`)."""
+        for p, piece in zip(self.shards, pieces):
+            p.data = piece
+
+    def whole(self) -> torch.Tensor:
+        """The whole kernel, reassembled on the first shard's device."""
+        pieces = [p.detach().to(self.devices[0]) for p in self.shards]
+        if not self.fused_qkv:
+            return torch.cat(pieces, dim=1)
+        thirds = [piece.chunk(3, dim=1) for piece in pieces]
+        return torch.cat([torch.cat([t[j] for t in thirds], dim=1)
+                          for j in range(3)], dim=1)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> list:
+        return [torch.matmul(x.to(self.dtype), k.to(self.dtype))
+                for x, k in zip(xs, self.shards)]
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: GPTConfig, init: Init, plan=None) -> None:
         super().__init__()
@@ -158,6 +229,8 @@ class Attention(nn.Module):
     def forward(self, x, cache=None, positions=None):
         """``cache`` (one block's KV cache) and ``positions`` (``[B,
         T]``) take the KV-cache path and return ``(y, new_cache)``."""
+        if isinstance(self.qkv, ColumnShards):
+            return self._tp_forward(x, cache, positions)
         cfg = self.cfg
         b, t, c = x.shape
         d = c // cfg.n_head
@@ -165,7 +238,9 @@ class Attention(nn.Module):
         h = self.qkv.kernel.shape[1] // (3 * d)
         tp = split_group(self.plan, "tp", h, cfg.n_head, "attention heads")
         if cache is not None and tp is not None:
-            raise NotImplementedError(TP_SERVING_ITEM)
+            raise ValueError(
+                "a training tensor-parallel mesh has no KV-cache path; "
+                "serve through tensor_parallel_replica (the engine's tp=)")
         if tp is not None:
             x = copy_to(x, tp)
         q, k, v = self.qkv(x).split(h * d, dim=-1)
@@ -173,6 +248,38 @@ class Attention(nn.Module):
         if cache is not None:
             out, new_cache = cached_attention(q, k, v, cache, positions)
             return self.out(out.reshape(b, t, h * d)), new_cache
+        y = self.out(self._attend(q, k, v).reshape(b, t, h * d))
+        return y if tp is None else reduce_from(y, tp)
+
+    def _tp_forward(self, x, cache, positions):
+        """A tensor-parallel serving replica's attention: each shard
+        computes its heads' q, k, v and attention on its device (over
+        its own cache under ``cache``, one cache a shard), then the
+        head outputs are concatenated in shard order on ``x``'s device
+        (the reference's gather points) before the replicated ``out``."""
+        cfg = self.cfg
+        b, t, c = x.shape
+        d = c // cfg.n_head
+        devices = self.qkv.devices
+        h = cfg.n_head // len(devices)
+        outs, new_caches = [], []
+        for s, (dev, y) in enumerate(zip(devices, self.qkv(
+                [x.to(dev) for dev in devices]))):
+            q, k, v = (z.reshape(b, t, h, d) for z in y.split(h * d, dim=-1))
+            if cache is not None:
+                out, new_cache = cached_attention(q, k, v, cache[s],
+                                                  positions.to(dev))
+                new_caches.append(new_cache)
+            else:
+                out = self._attend(q, k, v)
+            outs.append(out.to(x.device))
+        y = self.out(torch.cat(outs, dim=2).reshape(b, t, c))
+        return (y, new_caches) if cache is not None else y
+
+    def _attend(self, q, k, v):
+        """The full-sequence attention of ``cfg.attention`` over
+        ``[B, T, H, D]`` q, k, v."""
+        cfg = self.cfg
         if cfg.attention in SEQ_ATTENTIONS:
             if self.plan is None:
                 raise ValueError(
@@ -193,8 +300,7 @@ class Attention(nn.Module):
             out = full_attention(q, k, v, causal=cfg.causal)
         else:
             raise ValueError(f"Unknown attention {cfg.attention!r}")
-        y = self.out(out.reshape(b, t, h * d))
-        return y if tp is None else reduce_from(y, tp)
+        return out
 
 
 class MlpBlock(nn.Module):
@@ -206,6 +312,12 @@ class MlpBlock(nn.Module):
         self.down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, init)
 
     def forward(self, x):
+        if isinstance(self.up, ColumnShards):
+            # Tensor-parallel serving: each shard's gelu(up) columns,
+            # concatenated in shard order before the replicated down.
+            acts = [F.gelu(u, approximate="tanh").to(x.device)
+                    for u in self.up([x.to(d) for d in self.up.devices])]
+            return self.down(torch.cat(acts, dim=-1))
         tp = split_group(self.plan, "tp", self.up.kernel.shape[1],
                          self.cfg.d_ff, "the FFN")
         if tp is not None:
@@ -340,6 +452,50 @@ class GPT(nn.Module):
         if return_hidden:
             return x
         return self.lm_head(x)
+
+
+def tensor_parallel_replica(model: GPT, devices: Sequence) -> GPT:
+    """A tensor-parallel serving replica of ``model`` over ``devices``
+    (shard order; repeats allowed), for ``serve/engine.py``'s ``tp``.
+
+    The replica is a copy of the module: its replicated parameters are
+    ``model``'s, on ``devices[0]`` (the same storage when ``model``
+    lives there), held by parameter objects of its own, so a weight
+    flip on the replica leaves ``model`` as it was; each ``qkv`` and
+    ``up`` is a :class:`ColumnShards` over ``devices``.  ``model`` is
+    not changed."""
+    cfg = model.config
+    devices = tuple(torch.device(d) for d in devices)
+    tp = len(devices)
+    if model.plan is not None:
+        raise ValueError("a tensor-parallel serving replica starts from "
+                         "an unsharded model (no training mesh)")
+    if cfg.moe_experts:
+        raise ValueError("tensor-parallel serving covers the dense FFN, "
+                         "not MoE blocks")
+    if cfg.attention in SEQ_ATTENTIONS:
+        raise ValueError(f"attention={cfg.attention!r} has no serving "
+                         f"path")
+    if cfg.n_head % tp or cfg.d_ff % tp:
+        raise ValueError(f"tp={tp} must divide the head count "
+                         f"({cfg.n_head}) and d_ff ({cfg.d_ff})")
+    sharded = {id(getattr(model, f"block_{i}").attn.qkv.kernel)
+               for i in range(cfg.n_layer)}
+    sharded |= {id(getattr(model, f"block_{i}").mlp.up.kernel)
+                for i in range(cfg.n_layer)}
+    # Replicated leaves: new parameter objects over the same (or moved)
+    # storage; the whole qkv/up kernels are replaced below.
+    memo = {id(p): (p if id(p) in sharded else nn.Parameter(
+                p.detach().to(devices[0]), requires_grad=False))
+            for p in model.parameters()}
+    replica = copy.deepcopy(model, memo)
+    for i in range(cfg.n_layer):
+        src, blk = getattr(model, f"block_{i}"), getattr(replica, f"block_{i}")
+        blk.attn.qkv = ColumnShards(src.attn.qkv.kernel.detach(), devices,
+                                    cfg.dtype, fused_qkv=True)
+        blk.mlp.up = ColumnShards(src.mlp.up.kernel.detach(), devices,
+                                  cfg.dtype, fused_qkv=False)
+    return replica
 
 
 def lm_loss_fn(model: GPT, *, vocab_chunk_size: int = 0) -> Callable:

@@ -20,8 +20,10 @@ for the session (as ``topo/topology.py::tier_groups`` does).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 
 from ..config import MESH_AXES, parse_mesh_plan
@@ -105,11 +107,13 @@ def fsdp_param_spec(leaf, n: int, axis: str) -> P:
 def tp_param_spec(path: str, leaf, tp: int, axis: str = "tensor") -> P:
     """Placement of one parameter of a tensor-parallel serving shard:
     only the column-parallel ``qkv`` and ``up`` projections shard (their
-    output dim over ``axis``), everything else is replicated."""
+    output dim over ``axis``), everything else is replicated.  ``path``
+    is a slashed flax path or a dotted parameter name."""
     shape = tuple(getattr(leaf, "shape", ()))
     if tp <= 1:
         return P()
-    segs = path.split("/")
+    # The reference's slashed paths and the port's dotted names alike.
+    segs = re.split(r"[./]", path)
     if "qkv" in segs or "up" in segs:
         if len(shape) == 2 and shape[1] % tp == 0:
             return P(None, axis)
@@ -135,9 +139,37 @@ def tp_owned_slice(path: str, shape: Sequence[int], tp: int,
     return (dim, rank * span, (rank + 1) * span)
 
 
-def tp_plan(tp: int) -> "MeshPlan":
-    """A 1-D ``tensor`` plan over the first ``tp`` ranks."""
-    return MeshPlan.from_axes({"tensor": int(tp)}, world=int(tp))
+def tp_plan(tp: int, *, devices=None):
+    """Without ``devices``: a 1-D ``tensor`` plan over the first ``tp``
+    ranks (training's rank plan).
+
+    With ``devices``: the device list of one tensor-parallel serving
+    replica: ``tp`` torch devices in shard order, the port's
+    counterpart of the reference's ``tensor`` mesh over local devices.
+    One process drives every shard of a replica, so the list is a
+    replica's, never the world's.  ``devices="cuda"`` asks for the first
+    ``tp`` CUDA devices and raises when there are fewer: the shards are
+    never stacked on one card or moved to the CPU unasked.  An explicit
+    list is used as given; repeats are allowed (two shards on one
+    card)."""
+    tp = int(tp)
+    if devices is None:
+        return MeshPlan.from_axes({"tensor": tp}, world=tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if isinstance(devices, str) and devices == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < tp:
+            raise RuntimeError(
+                f"tp={tp} needs {tp} CUDA devices, {have} visible; pass "
+                f"the shard devices explicitly (devices=) to place "
+                f"several shards on one card or on the CPU")
+        return tuple(torch.device("cuda", i) for i in range(tp))
+    out = tuple(torch.device(d) for d in devices)
+    if len(out) != tp:
+        raise ValueError(f"tp={tp} needs {tp} shard devices, got "
+                         f"{len(out)}: {[str(d) for d in out]}")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,9 +30,18 @@ Counterpart of ``horovod_tpu/serve``, under the reference's names:
   parameters and flips at the batcher's swap barrier; rollbacks ride
   the same path (``SwapRequest`` / ``RollbackRequest``)
 
+* :mod:`~.tp` — tensor-parallel replicas: the leader dispatches every
+  start / step / release to its follower shards in lockstep over the
+  HMAC wire (:class:`ShardFollower` → :class:`ShardServer`), and a lost
+  shard kills the whole replica (``shard_rank_lost``); the engine's
+  ``tp=`` / ``devices=`` shards heads and MLP columns over explicit
+  devices inside one process
+* :mod:`~.fleet.sim` — the fleet simulator: the real router, fleet
+  controller, QoS gate and queues driven on a virtual clock over
+  simulated replicas
+
 The engine and the servers run on the card unless the model was built
-with ``device="cpu"``.  Tensor-parallel replicas (``serve/tp.py``) and
-the fleet simulator are the next serving slices (ROADMAP.md, queue A).
+with ``device="cpu"``.
 
 Chaos: the ``serve`` fault site drops or delays requests at the
 endpoint, kills a replica mid-decode or mid-migration, damages KV
@@ -71,4 +80,8 @@ from .server import (  # noqa: F401
 from .swap import (  # noqa: F401
     SwapAbandonedError, SwapFailedError, SwapRejectedError,
     WeightSubscriber,
+)
+from .tp import (  # noqa: F401
+    ShardFollower, ShardLockstepError, ShardServer, ShardStepRequest,
+    ShardStepResponse,
 )

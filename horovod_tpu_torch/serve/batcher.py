@@ -2,10 +2,10 @@
 
 Counterpart of ``horovod_tpu/serve/batcher.py``.  The disaggregated
 fleet's handoff (``set_migrator`` on a prefill replica, ``adopt`` on the
-receiving one) runs as the reference's; tensor-parallel lockstep
-(``set_lockstep``) waits for its slice of the port (ROADMAP.md, queue A
-item 4) and raises ``NotImplementedError``.  A ``prefill``-role replica
-with no migrator serves its requests itself, as the reference's does.
+receiving one) and tensor-parallel lockstep (``set_lockstep`` on a TP
+replica's leader, :mod:`.tp`) run as the reference's.  A
+``prefill``-role replica with no migrator serves its requests itself,
+as the reference's does.
 
 The scheduling loop interleaves prefill and decode over the engine's
 slot batch: each :meth:`ContinuousBatcher.step` admits up to
@@ -51,7 +51,6 @@ from ..obs import flight as flight_mod
 from ..obs import instrument as _obs
 from ..obs import trace as trace_mod
 from ..utils.logging import get_logger
-from ..models.transformer import TP_SERVING_ITEM
 from .engine import InferenceEngine, SamplingParams, resolved_config
 from .metrics import ServingStats
 from .qos import QosPolicy, QosQueue, validate_class
@@ -167,6 +166,7 @@ class ContinuousBatcher:
             raise ValueError(f"unknown fleet role {self.role!r}; "
                              f"expected prefill|decode|unified")
         self._migrator = None    # set by the server on prefill replicas
+        self._lockstep = None    # set on TP replica leaders (serve/tp.py)
         self.stats = ServingStats(weights_version=engine.weights_version)
         # Multi-tenant QoS (serve/qos/): flow weights + tenant budgets
         # from the HVD_TPU_QOS_* knobs; the admission queue is the
@@ -317,8 +317,26 @@ class ContinuousBatcher:
         self._migrator = migrator
 
     def set_lockstep(self, lockstep) -> None:
-        """Tensor-parallel follower dispatch: not ported yet."""
-        raise NotImplementedError(TP_SERVING_ITEM)
+        """Install the TP follower-dispatch callable
+        (``lockstep(op, payload) -> list``; the leader of a
+        tensor-parallel replica wires :class:`~.tp.ShardFollower` here).
+        Every prefill start, decode step and slot release is dispatched
+        to the follower shards BEFORE the local engine executes it, so
+        every shard holds the same host-side KV state at each step
+        boundary; any lockstep failure kills the whole replica
+        (``shard_rank_lost``)."""
+        self._lockstep = lockstep
+
+    def _lockstep_dispatch(self, op: str, payload=None) -> None:
+        """One follower dispatch; a lost, refusing or hung shard is
+        replica death — a partial shard group never keeps serving (the
+        router re-runs the failed requests on a survivor)."""
+        try:
+            self._lockstep(op, payload)
+        except Exception as e:
+            reason = f"shard_rank_lost: {e}"
+            self._die(reason)
+            raise ReplicaKilledError(reason) from e
 
     def submit(self, prompt: Sequence[int],
                sampling: Optional[SamplingParams] = None,
@@ -469,6 +487,8 @@ class ContinuousBatcher:
         if req is None:
             return False
         if target_slot is not None:
+            if self._lockstep is not None:
+                self._lockstep_dispatch("release", {"slot": target_slot})
             self.engine.release(target_slot)
         self._settle_budget(req)
         req.finish(error="cancelled")
@@ -487,6 +507,12 @@ class ContinuousBatcher:
             for s, r in running:
                 del self._slots[s]
                 self.engine.release(s)
+        if self._lockstep is not None:
+            # Outside the lock (_die on a lost shard needs it); the
+            # batcher thread owns slot reuse, so the release dispatch
+            # still precedes any new "start" for these slots.
+            for s, _ in running:
+                self._lockstep_dispatch("release", {"slot": s})
         for r in queued + [r for _, r in running]:
             self._settle_budget(r)
             self.stats.record_expired(r.qos_class)
@@ -518,6 +544,11 @@ class ContinuousBatcher:
     def _finish_slot(self, slot: int, req: ServeRequest) -> None:
         with self._lock:
             self._slots.pop(slot, None)
+        if self._lockstep is not None:
+            # TP lockstep: followers free the slot before the leader —
+            # the next admission dispatches a "start" for it, and a
+            # follower whose slot is still active would refuse it.
+            self._lockstep_dispatch("release", {"slot": slot})
         self.engine.release(slot)
         # Stats and trace record BEFORE `done` fires: the instant
         # finish() unblocks the waiting RPC handler, a client can get
@@ -580,6 +611,13 @@ class ContinuousBatcher:
             req.resume_state = None
             req.tokens.clear()
             resumed = False
+        if self._lockstep is not None and not imported and not resumed:
+            # TP lockstep: followers prefill the same slot before the
+            # leader does — a lost shard here kills the replica, never
+            # just this request (partial shard groups do not serve).
+            self._lockstep_dispatch("start", {
+                "slot": slot, "prompt": list(req.prompt),
+                "sampling": req.sampling})
         try:
             if imported:
                 # Migrated-in request: bind the wire-received KV in
@@ -619,6 +657,10 @@ class ContinuousBatcher:
         except Exception as e:   # defensive: engine bug ≠ wedged slot
             with self._lock:
                 self._slots.pop(slot, None)
+            if self._lockstep is not None and not imported and not resumed:
+                # Followers already prefilled this slot; free it there
+                # too or the next admission's "start" finds it active.
+                self._lockstep_dispatch("release", {"slot": slot})
             self.engine.release(slot)
             self._settle_budget(req)
             self.stats.record_failed(req.qos_class)
@@ -643,6 +685,8 @@ class ContinuousBatcher:
             # here or the slot leaks as a ghost forever.
             with self._lock:
                 self._slots.pop(slot, None)
+            if self._lockstep is not None and not imported and not resumed:
+                self._lockstep_dispatch("release", {"slot": slot})
             self.engine.release(slot)
             return emitted
         now2 = time.monotonic()
@@ -773,6 +817,12 @@ class ContinuousBatcher:
                 reason = "injected replica kill mid-decode"
                 self._die(reason)
                 raise ReplicaKilledError(reason)
+            if self._lockstep is not None:
+                # TP lockstep: followers decode this round first; their
+                # acks carry token digests (tp.step_digest) the leader
+                # could cross-check — a wire death or deadline here is
+                # replica death, single-strike.
+                self._lockstep_dispatch("step", {})
             tokens = self.engine.step()
             now = time.monotonic()
             for slot, toks in tokens.items():

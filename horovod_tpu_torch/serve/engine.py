@@ -48,7 +48,14 @@ Where the port differs from the reference on purpose:
 * the engine takes the port's :class:`~..models.transformer.GPT`
   module, which holds its parameters, where the reference takes
   ``(model, params)``; a drafter is such a module too;
-* tensor-parallel replicas (``tp > 1``) are not ported yet.
+* a tensor-parallel replica (``tp > 1``) is one process over an explicit
+  list of shard devices (``devices=``, passed to ``plan.tp_plan(tp,
+  devices=)``; the counterpart of the reference's ``tensor`` mesh): the
+  model becomes :func:`~..models.transformer.tensor_parallel_replica`
+  (``qkv`` and ``up`` column slices on each shard's device, everything
+  else once on the first shard's device) and each shard's device holds
+  the ``H / tp`` heads of every pool block.  With no ``devices`` the
+  first ``tp`` CUDA devices are used, and fewer raise.
 
 Threads: the batcher's thread drives the card (start, step, resume,
 preempt, import).  Handler threads call :meth:`release` and read slot
@@ -66,7 +73,8 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.transformer import GPT, TP_SERVING_ITEM, init_kv_cache
+from ..models.transformer import (ColumnShards, GPT, init_kv_cache,
+                                  tensor_parallel_replica)
 from .kv import BlockPool, TRASH_BLOCK
 
 def resolved_config():
@@ -153,12 +161,16 @@ class InferenceEngine:
                  drafter: Optional[GPT] = None,
                  spec_k: Optional[int] = None,
                  tp: Optional[int] = None,
+                 devices: Optional[Sequence] = None,
                  weights_version: int = 0,
                  seed: int = 0):
         cfg = resolved_config()
         mcfg = model.config
         self._model = model
         self._dev = next(model.parameters()).device
+        # Reference names and shapes of the weights (the swap's tree).
+        self._param_shapes = {n: tuple(p.shape)
+                              for n, p in model.named_parameters()}
         self.max_slots = int(max_slots or cfg.serve_max_batch)
         self.max_seq_len = int(max_seq_len or mcfg.max_seq_len)
         if self.max_seq_len > mcfg.max_seq_len:
@@ -175,11 +187,38 @@ class InferenceEngine:
         if self.kv_mode not in ("paged", "dense"):
             raise ValueError(f"unknown kv_cache mode {self.kv_mode!r}; "
                              f"expected 'paged' or 'dense'")
-        self.tp = int(tp if tp is not None else 1)
+        # Tensor-parallel replica: the forward shards over ``devices``
+        # (column-parallel qkv/up, heads through attention, the head
+        # outputs and gelu(up) gathered in shard order before the
+        # replicated out/down), so the logits are tp=1's wherever a
+        # column slice of a product rounds as the whole product does.
+        # The paged pool shards on its head dim (each shard's device
+        # holds H/tp heads of every block) while the block table and
+        # the BlockPool bookkeeping stay one host state.
+        self.tp = int(tp if tp is not None else cfg.serve_tp)
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
+        self.devices = (self._dev,)
         if self.tp > 1:
-            raise NotImplementedError(TP_SERVING_ITEM)
+            if self.kv_mode != "paged":
+                raise ValueError(
+                    "tensor-parallel serving requires the paged KV "
+                    "cache (HVD_TPU_SERVE_KV=paged) — the head-sharded "
+                    "pool is the TP layout")
+            if mcfg.n_head % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} must divide the model's head count "
+                    f"({mcfg.n_head}) for the head-sharded pool")
+            from ..plan import tp_plan
+
+            self.devices = tp_plan(
+                self.tp, devices=devices if devices is not None else "cuda")
+            self._model = model = tensor_parallel_replica(model,
+                                                          self.devices)
+            self._dev = self.devices[0]
+        elif devices is not None:
+            raise ValueError("devices= lists a tensor-parallel replica's "
+                             "shards; tp=1 runs on the model's device")
         # Slot state: every mutation goes through the guarded helpers
         # below (_bind_slot / _advance_slot / _clear_slot) — release()
         # arrives from RPC handler threads while the batcher thread is
@@ -224,13 +263,17 @@ class InferenceEngine:
                         f"(1 trash + slots x blocks_per_slot) — active "
                         f"requests could deadlock on allocation")
                 self.kv_blocks = budget
-                shape = (budget, self.kv_block, mcfg.n_head, head_dim)
-                self._pools = [
-                    {"k": torch.zeros(shape, dtype=mcfg.dtype,
-                                      device=self._dev),
-                     "v": torch.zeros(shape, dtype=mcfg.dtype,
-                                      device=self._dev)}
-                    for _ in range(n_layer)]
+                heads = mcfg.n_head // self.tp
+                shape = (budget, self.kv_block, heads, head_dim)
+                # One pool list a shard (its heads of every block, on
+                # its device); ``_pools`` (the reference's name) is
+                # tp=1's single list.
+                self._shard_pools = [
+                    [{"k": torch.zeros(shape, dtype=mcfg.dtype, device=d),
+                      "v": torch.zeros(shape, dtype=mcfg.dtype, device=d)}
+                     for _ in range(n_layer)]
+                    for d in self.devices]
+                self._pools = self._shard_pools[0] if self.tp == 1 else None
                 # Block table: one trailing trash column the programs
                 # route invalid positions into (serve/kv/pool.py).
                 self._table = np.full(
@@ -239,9 +282,11 @@ class InferenceEngine:
                 dt_size = torch.empty((), dtype=mcfg.dtype).element_size()
                 self._kv = BlockPool(
                     budget, self.kv_block, self._table, self._copy_block,
-                    heads=mcfg.n_head, tp_degree=1,
+                    heads=heads, tp_degree=self.tp,
+                    # Per-SHARD bytes of one block: K+V rows for the
+                    # H/tp heads a shard holds, across every layer.
                     bytes_per_block=(2 * n_layer * self.kv_block
-                                     * mcfg.n_head * head_dim * dt_size))
+                                     * heads * head_dim * dt_size))
                 self._caches = None
             else:
                 self.kv_block = 0
@@ -270,7 +315,8 @@ class InferenceEngine:
                     f"the model's ({mcfg.vocab_size})")
             if next(drafter.parameters()).device != self._dev:
                 raise ValueError("the drafter must live on the model's "
-                                 "device")
+                                 "device (a tensor-parallel replica's "
+                                 "first shard device)")
             self._drafter = drafter
             with torch.inference_mode():
                 self._drafter_caches = init_kv_cache(
@@ -326,28 +372,44 @@ class InferenceEngine:
     # --- programs: paged tier ---------------------------------------------
 
     def _paged_caches(self, tables):
-        return [{"k_pool": p["k"], "v_pool": p["v"], "table": tables}
-                for p in self._pools]
+        """The model's per-block caches over the pools; under tp each
+        block's is a list, one cache a shard (its pools, the table on
+        its device)."""
+        if self.tp == 1:
+            return [{"k_pool": p["k"], "v_pool": p["v"], "table": tables}
+                    for p in self._pools]
+        shard_tables = [tables.to(d) for d in self.devices]
+        return [[{"k_pool": pools[i]["k"], "v_pool": pools[i]["v"],
+                  "table": t}
+                 for pools, t in zip(self._shard_pools, shard_tables)]
+                for i in range(len(self._shard_pools[0]))]
 
     def _scatter_chunk(self, chunk, blk, off) -> None:
         """Write chunk K/V rows into the pools at ``(blk, off)`` (flat
         index tensors; invalid rows already routed to the trash block).
         Many invalid rows may hit the same trash row: no valid query
-        reads it, so the order of those writes does not matter."""
-        for pool, c in zip(self._pools, chunk):
-            kc = c["k"].reshape((-1,) + c["k"].shape[-2:])
-            vc = c["v"].reshape((-1,) + c["v"].shape[-2:])
-            pool["k"][blk, off] = kc.to(pool["k"].dtype)
-            pool["v"][blk, off] = vc.to(pool["v"].dtype)
+        reads it, so the order of those writes does not matter.  Under
+        tp each block's chunk is a list, one a shard."""
+        for s, (dev, pools) in enumerate(zip(self.devices,
+                                             self._shard_pools)):
+            b, o = blk.to(dev), off.to(dev)
+            for pool, c in zip(pools, chunk):
+                c = c if self.tp == 1 else c[s]
+                kc = c["k"].reshape((-1,) + c["k"].shape[-2:])
+                vc = c["v"].reshape((-1,) + c["v"].shape[-2:])
+                pool["k"][b, o] = kc.to(pool["k"].dtype)
+                pool["v"][b, o] = vc.to(pool["v"].dtype)
 
     def _copy_block(self, src: int, dst: int) -> None:
         """Device block copy (COW / partial-prefix admission) — the
-        callback :class:`BlockPool` drives."""
+        callback :class:`BlockPool` drives; every shard copies its
+        heads."""
         self._trace("kv_copy")
         with torch.inference_mode():
-            for p in self._pools:
-                p["k"][dst] = p["k"][src]
-                p["v"][dst] = p["v"][src]
+            for pools in self._shard_pools:
+                for p in pools:
+                    p["k"][dst] = p["k"][src]
+                    p["v"][dst] = p["v"][src]
 
     def _prefill_paged(self, L: int, table_row, tokens, start: int,
                        length: int, temp: float, topk: int) -> int:
@@ -407,7 +469,9 @@ class InferenceEngine:
             toks = logits[:, -1].float().argmax(dim=-1)
             drafts.append(toks)
             pos = pos + 1
-        return torch.stack(drafts[:self.spec_k], dim=1)
+        # The drafter runs unsharded on the first shard's device, where
+        # a tensor-parallel verify reads its draft.
+        return torch.stack(drafts[:self.spec_k], dim=1).to(self._dev)
 
     def _spec_verify(self, tables, tokens, draft, positions, temps, topks,
                      spec_ok):
@@ -800,8 +864,24 @@ class InferenceEngine:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The live parameters by name (treat as read-only)."""
-        return dict(self._model.named_parameters())
+        """The live parameters by name (treat as read-only); a
+        tensor-parallel replica's ``qkv``/``up`` kernels reassembled
+        whole on the first shard's device."""
+        if self.tp == 1:
+            return dict(self._model.named_parameters())
+        out = {}
+        for name in self._param_shapes:
+            owner, leaf = self._param_owner(name)
+            out[name] = (owner.whole() if isinstance(owner, ColumnShards)
+                         else getattr(owner, leaf))
+        return out
+
+    def _param_owner(self, name: str):
+        """``(module, leaf)`` holding the weight the reference calls
+        ``name`` (a :class:`ColumnShards` for a sharded kernel)."""
+        path, _, leaf = name.rpartition(".")
+        return (self._model.get_submodule(path) if path else self._model,
+                leaf)
 
     @property
     def weights_version(self) -> int:
@@ -817,22 +897,31 @@ class InferenceEngine:
         from ..ckpt.snapshot import to_tensor
 
         flat = _flat_tree(tree)
-        own = dict(self._model.named_parameters())
+        own = self._param_shapes
         if set(flat) != set(own):
             raise ValueError(
                 f"staged tree differs from the model's: missing "
                 f"{sorted(set(own) - set(flat))}, extra "
                 f"{sorted(set(flat) - set(own))}")
         staged = {}
-        for name, p in own.items():
+        for name, shape in own.items():
             t = flat[name]
             if not torch.is_tensor(t):
                 # A store's bf16 leaf reads back as its ``V2`` bytes.
                 t = to_tensor(t)
-            if tuple(t.shape) != tuple(p.shape):
+            if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: staged shape {tuple(t.shape)} "
-                                 f"!= {tuple(p.shape)}")
-            staged[name] = t.to(device=self._dev, dtype=p.dtype, copy=True)
+                                 f"!= {shape}")
+            owner, leaf = self._param_owner(name)
+            if isinstance(owner, ColumnShards):
+                # The sharded layout the replica runs: a hot swap lands
+                # each shard's columns on its device.
+                staged[name] = owner.place(
+                    t.to(dtype=owner.shards[0].dtype))
+            else:
+                staged[name] = t.to(device=self._dev,
+                                    dtype=getattr(owner, leaf).dtype,
+                                    copy=True)
         with self._slot_lock:
             self._staged_params = staged
             self._staged_version = int(version)
@@ -865,8 +954,12 @@ class InferenceEngine:
             self._staged_params = None
             self._staged_version = None
             self._weights_version = version
-        for name, p in self._model.named_parameters():
-            p.data = staged[name]
+        for name, value in staged.items():
+            owner, leaf = self._param_owner(name)
+            if isinstance(owner, ColumnShards):
+                owner.load(value)
+            else:
+                getattr(owner, leaf).data = value
         if self._kv is not None:
             self._kv.flush_cache()
         from ..obs import instrument as _obs
@@ -881,18 +974,26 @@ class InferenceEngine:
         """Export ``slot``'s resident KV as ``(chain_len, k, v)``, CPU
         tensors of shape ``[n_layer, n_blocks, block, H, D]`` in the
         pool's dtype — the slot's block table is the manifest: only its
-        live, non-trash chain blocks move."""
+        live, non-trash chain blocks move.  A tensor-parallel replica
+        exports every head: the shards' heads concatenated in shard
+        order."""
         if self.kv_mode != "paged":
             raise RuntimeError("KV export requires the paged cache "
                                "(HVD_TPU_SERVE_KV=paged)")
         chain = self._kv.chain_blocks(slot)
         if not chain:
             raise RuntimeError(f"slot {slot} has no KV chain to export")
-        idx = self._tensor(chain)
+        out = []
         with torch.inference_mode():
-            k = torch.stack([p["k"][idx] for p in self._pools]).cpu()
-            v = torch.stack([p["v"][idx] for p in self._pools]).cpu()
-        return len(chain), k, v
+            for key in ("k", "v"):
+                parts = []
+                for dev, pools in zip(self.devices, self._shard_pools):
+                    idx = torch.tensor(chain, dtype=torch.int64, device=dev)
+                    parts.append(torch.stack([p[key][idx]
+                                              for p in pools]).cpu())
+                out.append(parts[0] if len(parts) == 1
+                           else torch.cat(parts, dim=3))
+        return len(chain), out[0], out[1]
 
     def import_slot_kv(self, slot: int, prompt: Sequence[int],
                        k_blocks, v_blocks, first_token: int,
@@ -924,10 +1025,18 @@ class InferenceEngine:
         chain = self._kv.bind_imported(slot, nb)
         with torch.inference_mode():
             self._trace("kv_import")
-            for i, p in enumerate(self._pools):
-                for j, blk in enumerate(chain):
-                    p["k"][blk] = k_blocks[i, j].to(self._dev, p["k"].dtype)
-                    p["v"][blk] = v_blocks[i, j].to(self._dev, p["v"].dtype)
+            # Shard s of a tensor-parallel replica takes heads
+            # [s·H/tp, (s+1)·H/tp) of every block.
+            hs = int(k_blocks.shape[3]) // self.tp
+            for s, (dev, pools) in enumerate(zip(self.devices,
+                                                 self._shard_pools)):
+                heads = slice(s * hs, (s + 1) * hs)
+                for i, p in enumerate(pools):
+                    for j, blk in enumerate(chain):
+                        p["k"][blk] = k_blocks[i, j, :, heads].to(
+                            dev, p["k"].dtype)
+                        p["v"][blk] = v_blocks[i, j, :, heads].to(
+                            dev, p["v"].dtype)
             # The imported prefix is resident here now: index it so
             # later admissions hit it.
             self._kv.index_prompt(slot, prompt)

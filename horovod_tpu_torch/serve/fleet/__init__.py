@@ -21,9 +21,13 @@ classes:
 
 ``serve/router.py`` owns the role-aware dispatch
 (admit→prefill→migrate→decode pipeline); this package owns the data
-handoff, the directory and the control loop.  The fleet simulator
-(``sim.py``, ``sim_replica.py``, ``traces.py``) is the next slice of the
-port (ROADMAP.md, queue A).
+handoff, the directory and the control loop.
+
+* **the fleet simulator** (:mod:`.sim`, :mod:`.sim_replica`,
+  :mod:`.traces`) — a seeded discrete-event simulation that drives the
+  real router, controller, QoS gate and queues on a virtual clock over
+  simulated replicas whose service times are lognormal fits
+  (``FleetSim``).
 """
 
 from .controller import FleetController, ReplicaLauncher, ROLES  # noqa: F401

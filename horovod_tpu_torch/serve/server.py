@@ -31,9 +31,9 @@ router named (``migrate_chunk_bytes=``; :mod:`.fleet.migration`), and
 every replica adopts migrated requests (:class:`KvMigrateRequest`
 frames, then :class:`CollectRequest`).  With ``swap_store=`` the replica
 subscribes to a checkpoint store and answers :class:`SwapRequest` /
-:class:`RollbackRequest` (:mod:`.swap`).  Tensor-parallel replicas
-(``tp_peers=``) wait for their slice of the port (ROADMAP.md, queue A
-item 4): the keyword raises ``NotImplementedError``.
+:class:`RollbackRequest` (:mod:`.swap`).  ``tp_peers=`` makes the
+server the leader of a tensor-parallel replica: it installs a
+:class:`~.tp.ShardFollower` over the follower shards on the batcher.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from collections import OrderedDict
 from typing import Any, List, Optional, Tuple
 
 from .. import faults as faults_mod
-from ..models.transformer import TP_SERVING_ITEM
 from ..runner.common.network import (AckResponse, BasicService,
                                      CollectRequest, DrainRequest,
                                      DropConnection, KvMigrateRequest,
@@ -198,8 +197,6 @@ class InferenceServer(BasicService):
                  subscribe: bool = True,
                  tp_peers: Optional[List[Tuple[str, List[Tuple[str,
                                                                int]]]]] = None):
-        if tp_peers:
-            raise NotImplementedError(TP_SERVING_ITEM)
         super().__init__(name, key, host=host, nics=nics)
         self._batcher = batcher
         self.replica_ranks = list(replica_ranks) if replica_ranks else None
@@ -228,6 +225,15 @@ class InferenceServer(BasicService):
                                     self._key, chunk_bytes=chunk)
 
             batcher.set_migrator(_migrator)
+        # Tensor-parallel replica leader (serve/tp.py): ``tp_peers``
+        # names this replica's follower shards — ``[(service_name,
+        # [(ip, port), ...]), ...]`` — and installs the lockstep
+        # dispatch on the batcher BEFORE it starts, over the same HMAC
+        # key (one credential system).
+        if tp_peers:
+            from .tp import ShardFollower
+
+            batcher.set_lockstep(ShardFollower(list(tp_peers), key))
         if start_batcher:
             batcher.start()
 

@@ -63,7 +63,6 @@ from ..ckpt.manifest import Manifest, ManifestError, diff_manifest
 from ..ckpt.snapshot import (leaf_record_digest, path_string, to_numpy,
                              tree_flatten_with_path)
 from ..ckpt.store import ShardStore
-from ..models.transformer import TP_SERVING_ITEM
 from ..obs import flight as flight_mod
 from ..obs import instrument as _obs
 from ..obs import trace as trace_mod
@@ -451,9 +450,29 @@ class WeightSubscriber:
 
     def _shard_pull(self, leaves: Dict[str, np.ndarray],
                     manifest: Manifest, tp: int):
-        """Carve each pulled leaf into the slices a tensor-parallel
-        replica's shards own: the tensor-parallel slice of the port."""
-        raise NotImplementedError(TP_SERVING_ITEM)
+        """The bytes each of ``tp`` shards pulls of ``leaves``: of a
+        leaf the planner's ownership rule divides
+        (``plan.tp_owned_slice``), the shard's contiguous slice; of a
+        leaf too small to divide, the whole leaf (every shard pulls it).
+        A replica whose shards read the store separately moves ~1/tp of
+        the diff a shard.  One process reads the store once here, so
+        the counts follow from the slices' spans and ``leaves`` stays as
+        it is (the reference carves each leaf and joins the parts back,
+        an equal array)."""
+        from ..plan import tp_owned_slice
+
+        per_shard = [0] * tp
+        for leaf_id, arr in leaves.items():
+            path = manifest.entries[leaf_id]["path"]
+            for r in range(tp):
+                owned = tp_owned_slice(path, arr.shape, tp, r)
+                if owned is None:
+                    per_shard[r] += int(arr.nbytes)
+                    continue
+                dim, start, stop = owned
+                per_shard[r] += (int(arr.nbytes) // arr.shape[dim]
+                                 * (stop - start))
+        return per_shard
 
     def _merge(self, manifest: Manifest,
                leaves: Dict[str, np.ndarray]) -> Any:

@@ -190,8 +190,7 @@ def test_top_level_names_match_the_reference():
 
 # Reference fields and module names the port does not hold yet, each
 # waiting for its ROADMAP queue A item.
-NOT_YET = {"serve_tp": "item 4", "serve_tp_step_timeout_s": "item 4",
-           "PRE_INIT_KNOBS": "item 6"}
+NOT_YET = {"PRE_INIT_KNOBS": "item 6"}
 
 
 def test_config_fields_match_the_reference():

@@ -328,14 +328,16 @@ def test_prefill_role_without_migrator_serves_itself():
 
 def test_fleet_and_tensor_parallel_hooks_wait_for_their_slices():
     """The fleet's hooks are ported (the migrator installs; ``adopt``
-    refuses a dense cache as the reference's does); tensor-parallel
-    lockstep still waits for its slice."""
+    refuses a dense cache as the reference's does), and so is
+    tensor-parallel lockstep: ``set_lockstep`` installs the follower
+    dispatch (its wire is ``tests/test_torch_port_tp_serving.py``'s)."""
     b = _batcher()
     migrator = lambda *a: True  # noqa: E731
     b.set_migrator(migrator)
     assert b._migrator is migrator
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        b.set_lockstep(lambda *a: [])
+    lockstep = lambda *a: []  # noqa: E731
+    b.set_lockstep(lockstep)
+    assert b._lockstep is lockstep
     manifest = {"request_id": "m", "prompt": [1, 2], "tokens": [3],
                 "sampling": {"max_new_tokens": 2, "temperature": 0.0,
                              "top_k": 0, "stop_token": None,

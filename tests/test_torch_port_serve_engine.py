@@ -154,9 +154,36 @@ def test_cache_path_refuses_sequence_attentions_and_needs_positions():
         model(torch.zeros((1, 2), dtype=torch.long), kv_caches=cache)
 
 
-def test_tensor_parallel_replica_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+def test_tensor_parallel_replica_not_ported_yet(monkeypatch):
+    """Tensor-parallel replicas are ported
+    (``tests/test_torch_port_tp_serving.py``); what stays refused is a
+    hidden device: ``tp=2`` with no ``devices=`` takes the first two
+    CUDA devices and raises when there are fewer, never stacking the
+    shards on one card or moving them to the CPU unasked.  The host's
+    card count is set to one, so the refusal runs on every host."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 CUDA devices, 1 visible"):
         _engine(tp=2)
+    with pytest.raises(ValueError, match="tp=1"):
+        _engine(devices=["cpu"])
+    assert _engine(tp=2, devices=["cpu", "cpu"]).tp == 2
+
+
+@pytest.mark.cuda
+def test_tp_without_devices_takes_the_first_cuda_devices():
+    """On a host with two cards ``tp=2`` and no ``devices=`` puts shard
+    ``s`` on ``cuda:s`` and decodes."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    eng = _engine(tp=2)
+    assert eng.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    toks = _run(eng, 0, [3, 1, 4, 1, 5], 4)
+    assert len(toks) == 4
 
 
 # --- the port's engine against the JAX engine --------------------------------

@@ -30,8 +30,8 @@ from horovod_tpu_torch.serve import (
     ContinuousBatcher, GenerateRequest, GenerateResponse, InferenceEngine,
     InferenceServer, NoHealthyReplicasError, PrefixDirectory,
     QueueFullError, ReplicaSpec, Router, RollbackRequest, SamplingParams,
-    SwapRequest, SwapResponse, register_replica_process_sets,
-    replica_slot_groups,
+    ShardFollower, ShardServer, SwapRequest, SwapResponse,
+    register_replica_process_sets, replica_slot_groups,
 )
 from horovod_tpu_torch.utils.retry import RetryPolicy
 
@@ -343,9 +343,10 @@ def test_later_slices_are_refused_not_ignored():
     """The swap requests and a migrating GenerateRequest are served (a
     replica with no store answers ``no_swap_store``; a unified replica
     runs a request that names a decode target itself); the router's
-    swap calls and a prefill+decode fleet run; tensor-parallel replicas
-    (``tp_peers=``) still raise NotImplementedError naming their
-    slice."""
+    swap calls and a prefill+decode fleet run; ``tp_peers=`` makes the
+    server a tensor-parallel replica's leader, its batcher dispatching
+    to a :class:`ShardFollower` (the wire is
+    ``tests/test_torch_port_tp_serving.py``'s)."""
     srv = _replica("r0")
     try:
         client = BasicClient("r0", [("127.0.0.1", srv.port)], KEY)
@@ -380,10 +381,18 @@ def test_later_slices_are_refused_not_ignored():
         srv.shutdown()
     batcher = ContinuousBatcher(InferenceEngine(fixture()[2],
                                                 **ENGINE_DEFAULTS))
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        InferenceServer(batcher, key=KEY, host="127.0.0.1",
-                        start_batcher=False,
-                        tp_peers=[("x", [("127.0.0.1", 1)])])
+    shard = ShardServer(InferenceEngine(fixture()[2], **ENGINE_DEFAULTS),
+                        KEY, name="x", host="127.0.0.1")
+    try:
+        leader = InferenceServer(batcher, key=KEY, host="127.0.0.1",
+                                 start_batcher=False,
+                                 tp_peers=[("x", [("127.0.0.1",
+                                                   shard.port)])])
+        leader.shutdown()
+        assert isinstance(batcher._lockstep, ShardFollower)
+        assert batcher._lockstep.n_shards == 1
+    finally:
+        shard.shutdown()
 
 
 # --- prefix affinity ----------------------------------------------------------
