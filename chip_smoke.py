@@ -10,7 +10,11 @@
    asking ``torch.cuda``) must find platform ``gpu``, this card's name
    and at least one device; ``utils.mfu.peak_tflops_info`` must give
    (989.0, ``device_kind_table``) on an H100 80GB HBM3 (printed on any
-   other card).
+   other card).  Then "hvdlint (host)": ``horovod_tpu_torch.analysis.
+   run()`` over this checkout (the AST checkers, the kernel check
+   included) must give 0 unsuppressed findings and the kernel check
+   must see the seven ``@kernel`` wrappers; prints the seconds, the
+   checkers and check ids run and the modules read.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
    version, on the card, at the shapes the main paths give it.  The int8
    kernels (B2-B4) and the fused apply kernels (B6, B7) must match bit
@@ -75,7 +79,11 @@
    layers, each rank on its own batch.
    - "2 ranks": two data-parallel steps on the int8+EF wire, whose
      reduce-scatter runs the dequantize-accumulate kernel (B3); the
-     replicas must agree.
+     replicas must agree.  The steps run under the step recorder
+     (``analysis.step_check.record_collectives``): the two ranks'
+     sequences of collectives (op, dtype, element count, group width)
+     must be equal; prints their length and ops (the ZeRO steps of
+     "sharded 2 ranks" likewise).
    - "sharded 2 ranks": (a) two ZeRO steps on the int8+EF wire, after
      which the replicas' parameters must be bit-identical; (b) for every
      leaf of one backward's gradients, ``fused_quantize_reducescatter``
@@ -128,7 +136,11 @@
    ``two_phase=True`` and one microbatch from the same weights, its
    reduced gradients bit for bit the single-phase int8 allreduce of the
    same gradients; (c) replicas bitwise equal after every step; (d)
-   finite losses; (e) B1-B4 launched.  Prints the phase's seconds, each
+   finite losses; (e) B1-B4 launched; (f) each step's recorded
+   collectives equal on both ranks, its int8 overlap wire 4 × buckets
+   reduce-scatter phases and one all-gather phase a bucket, the
+   planner's (two calls a phase: payload and scales).  Prints the
+   sequences' lengths, the phase's seconds, each
    rank's peak memory and the step times with the overlap wire and with
    ``overlap=False`` (gloo on one card: not a wire's time).
 9. "resnet50 1 rank": ``bench.py``'s full preset, ResNet-50 (1000
@@ -188,8 +200,9 @@
    under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2`` (init must have run one
    ``hvd_tpu_plan_compile`` span, and ``hvd_tpu_plan_axes`` must equal
    the plan's axes).  (1) GPT-medium's widths
-   (``benchmarks/gpt_bench.py``'s: vocab 32000, 24 layers, 16 heads,
-   d_model 1024, d_ff 4096, bf16 activations, f32 parameters) at 4096
+   (``benchmarks/gpt_bench.py``'s: vocab 32000, 16 heads, d_model 1024,
+   d_ff 4096, bf16 activations, f32 parameters; 12 layers, SP_LAYERS,
+   cut from 24 for the script's time) at 4096
    positions, ``attention='ring'`` on the ``'flash'`` engine, on the
    mesh ``{'dp': 1, 'sp': 2, 'tp': 2}`` (``examples/
    gpt_long_context.py``'s at four slots): ``shard_params``,
@@ -219,18 +232,20 @@
    step 13's oracle); at 4 layers (one block a stage) a remat step: the
    plain step's loss (1e-6) and parameters (1e-6), B1 twice as often.
 15. "moe 4 ranks": four processes share the card over gloo.
-   GPT-medium's widths, 24 layers, every second FFN a mixture of 8
+   GPT-medium's widths, 12 layers (MOE_LAYERS, cut from 24 for the
+   script's time), every second FFN a mixture of 8
    experts (top-2, capacity factor 1.25) on ``{'dp': 2, 'ep': 2}``
    (``shard_params``: four experts a rank), 4 × 1024 tokens from seed 0,
    3 AdamW steps on ``lm_loss_fn``: finite losses, the same on every
    rank, the replicated leaves bitwise equal on the four ranks and the
-   experts on each dp pair, B1 24 times a step; step 1 against the
-   one-rank MoE GPT on the whole batch, full depth, rank 0 alone.
+   experts on each dp pair, B1 12 times a step; step 1 against the
+   one-rank MoE GPT on the whole batch, at the same depth, rank 0 alone.
 16. "fsdp 4 ranks": four processes share the card over gloo under
-   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (24 layers) through
+   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (12 layers, FSDP_LAYERS,
+   cut from 24 for the script's time) through
    ``make_fsdp_train_step`` (each parameter cut on its largest
    divisible dim, AdamW on the slices), 2 × 1024 tokens a rank, 3 steps:
-   finite losses, the same on every rank, B1 24 times a step; step 1
+   finite losses, the same on every rank, B1 12 times a step; step 1
    against the one-rank data-parallel step on the whole batch; peak
    memory a rank beside the oracle's; at 2 layers one HSDP step
    (``data=2,fsdp=2``, derived from the session plan) against one
@@ -442,7 +457,8 @@
    still 1, the boot tokens still served.  Prints the write, roll and
    swap times and the pulled bytes.
 28. "serve tp 2", in a process of its own (``--tp-worker``): GPT-medium
-   (24 layers, bf16 activations, f32 parameters from seed 0) in a
+   (12 layers, TP_LAYERS, cut from 24 for the script's time;
+   bf16 activations, f32 parameters from seed 0) in a
    tensor-parallel engine of two shards on the one card
    (``devices=["cuda:0", "cuda:0"]``) beside a tp = 1 engine on the same
    weights, both at the reference's defaults.  (a) Greedy on prompts of
@@ -470,8 +486,8 @@
    engine, behind a ``Router`` beside a tp = 1 survivor: 12 greedy
    requests must all complete with the survivor's tokens, the replica
    die once (``shard_rank_lost``), the router bench it with one strike,
-   the follower's fault fire once.  B1 must launch 24 times an oracle
-   forward and nothing else any kernel.  Prints tokens/s and TPOT p50
+   the follower's fault fire once.  B1 must launch TP_LAYERS times an
+   oracle forward and nothing else any kernel.  Prints tokens/s and TPOT p50
    of 8 requests of 64 tokens at once on each engine (readings: two
    shards on one card cannot show tensor parallelism's gain) and the
    peak memory.
@@ -491,14 +507,29 @@
    unloaded sim returns them whatever they are.  The death-spiral and migration-convoy
    drills must page within 3 collection rounds; clean seeded runs must
    stay silent.  The card's name is printed beside the readings.
-30. Route check: the profiler's device trace must show a bf16
+30. "sanitize serve 1 rank", in a process of its own
+   (``--sanitize-worker``) started with ``HVD_TPU_SANITIZE=raise`` in its
+   environment: ``analysis.sanitizer.install()`` over the package, then
+   GPT-medium's widths at SANITIZE_LAYERS layers (bf16 activations, f32
+   parameters from seed 0): an ``InferenceServer`` on the paged engine
+   (two slots) and the batcher with QoS over the HMAC wire takes 8
+   requests of 64 tokens (two batch requests, an interactive one that
+   preempts one of them under a 1 ms TTFT SLO, one cancelled while
+   queued, four standard ones at once), then one ``AsyncCheckpointer``
+   save of the parameters.  Every request must finish with its tokens
+   (the cancelled one with "cancelled"), one preemption; no sanitizer
+   violation, and ``audit_check`` must find no KV block or buffer set
+   held (the pool and the buffer pool registered).  Prints, not gated,
+   tokens/s of the same traffic run warm with the sanitizer on and,
+   after ``uninstall()``, off.
+31. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-31. Prints the ``kernels`` JSON line (all seven kernels, with their
+32. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -1476,13 +1507,16 @@ def dp_two_ranks(dev, rank: int) -> dict:
     import torch
     import horovod_tpu_torch as hvd
 
+    from horovod_tpu_torch.analysis.step_check import record_collectives
+
     model, batch = gpt_medium(dev, n_layer=WIRE_LAYERS, data_seed=1 + rank)
     step = dp_step(model)
     torch.cuda.reset_peak_memory_stats()
     hvd.ops.reset_launch_counts()
-    losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    with record_collectives() as seq:
+        losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
     counts = hvd.ops.launch_counts()
-    return dict(losses=losses, counts=counts,
+    return dict(losses=losses, counts=counts, seq=[list(e) for e in seq],
                 peak=torch.cuda.max_memory_allocated(),
                 params=digest(p for _, p in sorted(model.named_parameters())))
 
@@ -1521,6 +1555,7 @@ def sharded_two_ranks(dev, rank: int) -> dict:
     import torch
     import torch.distributed as dist
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis.step_check import record_collectives
     from horovod_tpu_torch.ops import fused_collectives as fc
     from horovod_tpu_torch.ops.fusion import tree_flatten
     from horovod_tpu_torch.ops.quantization import int8_allgather
@@ -1530,7 +1565,9 @@ def sharded_two_ranks(dev, rank: int) -> dict:
     step = zero_step(model)
     torch.cuda.reset_peak_memory_stats()
     hvd.ops.reset_launch_counts()
-    losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    with record_collectives() as seq:
+        losses = [float(step(model, batch)) for _ in range(WIRE_STEPS)]
+    zero_seq = [list(e) for e in seq]
     peak = torch.cuda.max_memory_allocated()
     params = digest(p for _, p in sorted(model.named_parameters()))
 
@@ -1596,7 +1633,7 @@ def sharded_two_ranks(dev, rank: int) -> dict:
                      for t in (*a1, *a2, sgd))
     return dict(losses=losses, counts=counts, params=params, peak=peak,
                 results=results + digest(y for *_, y in unshard),
-                apply_err=worst, unshard=errors)
+                apply_err=worst, unshard=errors, seq=zero_seq)
 
 
 def plain_stack_allreduce(xs, op: str):
@@ -2213,6 +2250,7 @@ def microbatch_ranks(dev, rank: int) -> dict:
     the step time with ``overlap=False``."""
     import torch
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis.step_check import record_collectives
     from horovod_tpu_torch.ops import fusion
     from horovod_tpu_torch.ops.fusion import tree_flatten
 
@@ -2228,7 +2266,7 @@ def microbatch_ranks(dev, rank: int) -> dict:
             plans.append(plan)
         return wire(leaves, plan, **kwargs)
 
-    losses, digests, times = [], [], []
+    losses, digests, times, seqs = [], [], [], []
     fusion.overlap_reduce_scatter = capture
     try:
         torch.cuda.synchronize()
@@ -2237,9 +2275,11 @@ def microbatch_ranks(dev, rank: int) -> dict:
         t0 = time.perf_counter()
         for i in range(MB_STEPS):
             t = time.perf_counter()
-            losses.append(float(step(model, batch)))
+            with record_collectives() as seq:
+                losses.append(float(step(model, batch)))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
+            seqs.append([list(e) for e in seq])
             if i == 0:
                 reduced = [p.grad.detach().clone() for p in tree_flatten(
                     dict(model.named_parameters()))[1]]
@@ -2304,7 +2344,7 @@ def microbatch_ranks(dev, rank: int) -> dict:
                 off_times=off_times, seconds=seconds, counts=counts,
                 peak=peak, plan_ok=plan_ok, a_bad=a_bad, buckets=buckets,
                 b_bad=b_bad, two_phase_buckets=sum(flags),
-                tp_loss=tp_loss)
+                tp_loss=tp_loss, seqs=seqs)
 
 
 def microbatch_phase():
@@ -2343,6 +2383,10 @@ def check_microbatch(res: list, seconds: float, label: str, wire: str):
     if any(out["digests"] != res[0]["digests"] for out in res):
         raise AssertionError(f"{label}: replicas differ")
     r0 = res[0]
+    for i in range(MB_STEPS):
+        recorded_sequences(label, [out["seqs"][i] for out in res],
+                           f"step {i + 1}", microbatches=MICROBATCHES,
+                           buckets=r0["buckets"], compression="int8")
     log(f"{label}: GPT-medium, all {GPT_MEDIUM['n_layer']} layers, "
         f"batch {BATCH} a rank in {MICROBATCHES} microbatches, int8 overlap "
         f"wire over {r0['buckets']} buckets, chunked head ({VOCAB_CHUNK}); "
@@ -2997,6 +3041,9 @@ def check_hierarchical(res: list, seconds: float, label: str, wire: str):
 SEQ_ENV = {"HVD_TPU_MESH_PLAN": "data=2,fsdp=2"}
 SP_LAYOUT = {"dp": 1, "sp": 2, "tp": 2}  # examples/gpt_long_context.py, 4 slots
 SP_SEQ, SP_BATCH, SP_STEPS, SP_SHORT_LAYERS = 4096, 2, 3, 2
+# The main run's depth: cut from 24, widths kept (the script's
+# time beside the analysis tier's paths).
+SP_LAYERS = 12
 # Step 1 against the one-rank flash step (bf16 activations both): the
 # loss within 1e-2 of it; an Adam step moves an element by at most lr
 # (plus a weight decay of lr·1e-4·|p|), so no updated parameter may
@@ -3036,7 +3083,7 @@ def sp_tokens(dev):
 
 def sp_main(dev, rank: int) -> dict:
     """The main run: SP_STEPS ``make_spmd_train_step`` steps of the
-    24-layer model on SP_LAYOUT, ring attention on the flash engine,
+    SP_LAYERS-layer model on SP_LAYOUT, ring attention on the flash engine,
     AdamW; the launch counts set to 0 just before and read just after.
     Step 1's parameters, gathered, go back on rank 0 (on the host)."""
     import torch
@@ -3046,7 +3093,7 @@ def sp_main(dev, rank: int) -> dict:
                                             param_shardings, shard_batch)
     from horovod_tpu_torch.plan import P
 
-    model, mesh = sp_model(dev, SP_LAYOUT, GPT_MEDIUM["n_layer"])
+    model, mesh = sp_model(dev, SP_LAYOUT, SP_LAYERS)
     opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
     step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
     batch = shard_batch(sp_tokens(dev), mesh, P("dp", "sp"))
@@ -3163,7 +3210,8 @@ def sp_oracle(dev, first: dict, loss: float) -> dict:
     parameters against the ring run's."""
     import horovod_tpu_torch as hvd
 
-    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "max_seq_len": SP_SEQ})
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "max_seq_len": SP_SEQ,
+                                  "n_layer": SP_LAYERS})
     return one_rank_oracle(dev, cfg, sp_tokens(dev), first, loss)
 
 
@@ -3304,7 +3352,7 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
         raise AssertionError(f"{label}: step 1 off the one-rank flash step: "
                              f"{o}")
     layout = ",".join(f"{k}={v}" for k, v in SP_LAYOUT.items())
-    log(f"{label}: GPT-medium widths, {GPT_MEDIUM['n_layer']} layers, "
+    log(f"{label}: GPT-medium widths, {SP_LAYERS} layers, "
         f"{SP_BATCH} x {SP_SEQ} tokens, ring attention on the flash engine, "
         f"{layout}, {r0['params']} parameters a rank, AdamW, losses "
         f"{r0['losses']} (every rank); replicated leaves bitwise equal on "
@@ -3340,8 +3388,12 @@ MOE_LAYOUT = {"dp": 2, "ep": 2}
 MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
            moe_every=2)                    # GPTConfig's MoE defaults
 MOE_BATCH, MOE_STEPS = 4, 3
+# Cut from 24, widths kept: the script's time beside the
+# analysis tier's paths ("hvdlint (host)", "sanitize serve 1 rank").
+MOE_LAYERS = 12
 FSDP_ENV = {"HVD_TPU_MESH_PLAN": "fsdp=4"}
 FSDP_STEPS, FSDP_SHORT_LAYERS = 3, 2
+FSDP_LAYERS = 12    # cut from 24, widths kept (the script's time)
 AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
                 "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
@@ -3494,8 +3546,8 @@ def pipe_ranks(dev, rank: int) -> dict:
 
 
 def moe_ranks(dev, rank: int) -> dict:
-    """Path "moe 4 ranks": GPT-medium's widths, 24 layers, every second
-    FFN a mixture of 8 experts (top-2, capacity factor 1.25) on
+    """Path "moe 4 ranks": GPT-medium's widths, MOE_LAYERS layers, every
+    second FFN a mixture of 8 experts (top-2, capacity factor 1.25) on
     MOE_LAYOUT (the experts cut over ep, the batch over dp), MOE_BATCH ×
     SEQ tokens from seed 0, MOE_STEPS AdamW steps of
     ``make_spmd_train_step`` on ``lm_loss_fn`` alone; step 1's parameters
@@ -3510,7 +3562,8 @@ def moe_ranks(dev, rank: int) -> dict:
     from horovod_tpu_torch.plan import P
 
     t0 = time.perf_counter()
-    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, **MOE})
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, **MOE,
+                                  "n_layer": MOE_LAYERS})
     mesh = make_mesh(MOE_LAYOUT)
     model = shard_params(hvd.models.GPT(cfg, mesh=mesh, device=dev, seed=0),
                          mesh)
@@ -3604,7 +3657,7 @@ def fsdp_short(dev, rank: int) -> dict:
 
 def fsdp_ranks(dev, rank: int) -> dict:
     """Path "fsdp 4 ranks" under ``HVD_TPU_MESH_PLAN=fsdp=4``: GPT-medium
-    (24 layers) through ``make_fsdp_train_step`` (every parameter cut on
+    (FSDP_LAYERS layers) through ``make_fsdp_train_step`` (every parameter cut on
     its largest divisible dim over the four ranks, AdamW on the slices),
     BATCH / 4 rows a rank, FSDP_STEPS steps; step 1's parameters gathered
     to the host; the HSDP check at FSDP_SHORT_LAYERS layers; then rank 0
@@ -3613,7 +3666,7 @@ def fsdp_ranks(dev, rank: int) -> dict:
     import horovod_tpu_torch as hvd
 
     t0 = time.perf_counter()
-    model, opt, step = fsdp_model_step(dev, GPT_MEDIUM["n_layer"])
+    model, opt, step = fsdp_model_step(dev, FSDP_LAYERS)
     first = None
 
     def slices_then_gather(m):
@@ -3636,7 +3689,7 @@ def fsdp_ranks(dev, rank: int) -> dict:
     torch.cuda.empty_cache()
     hvd.barrier()
     if rank == 0:
-        cfg = hvd.models.GPTConfig(**GPT_MEDIUM)
+        cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": FSDP_LAYERS})
         run["oracle"] = one_rank_oracle(dev, cfg, whole_tokens(dev, BATCH),
                                         first, run["losses"][0])
     return run
@@ -3743,15 +3796,15 @@ def check_moe(res: list, seconds: float, label: str, wire: str, card: str):
         if out["expert_digest"] != res[twin]["expert_digest"]:
             raise AssertionError(f"{label}: the experts of ranks {r} and "
                                  f"{twin} (one ep index) differ")
-        if out["counts"]["flash_fwd"] != MOE_STEPS * GPT_MEDIUM["n_layer"]:
+        if out["counts"]["flash_fwd"] != MOE_STEPS * MOE_LAYERS:
             raise AssertionError(f"{label}: rank {r} launched flash_fwd "
                                  f"{out['counts']['flash_fwd']} times")
     if not oracle_ok(r0["oracle"]):
         raise AssertionError(f"{label}: step 1 off the one-rank step: "
                              f"{r0['oracle']}")
     layout = ",".join(f"{k}={v}" for k, v in MOE_LAYOUT.items())
-    log(f"{label}: GPT-medium widths, {GPT_MEDIUM['n_layer']} layers, "
-        f"{GPT_MEDIUM['n_layer'] // MOE['moe_every']} MoE blocks of "
+    log(f"{label}: GPT-medium widths, {MOE_LAYERS} layers, "
+        f"{MOE_LAYERS // MOE['moe_every']} MoE blocks of "
         f"{MOE['moe_experts']} experts (top-{MOE['moe_top_k']}, capacity "
         f"factor {MOE['moe_capacity_factor']}), {layout}, {MOE_BATCH} x "
         f"{SEQ} tokens, {[o['params'] for o in res]} parameters a rank, "
@@ -3775,7 +3828,7 @@ def check_fsdp(res: list, seconds: float, label: str, wire: str, card: str):
                 or out["losses"] != r0["losses"]:
             raise AssertionError(f"{label}: losses differ or are not finite "
                                  f"on rank {r}: {out['losses']}")
-        if out["counts"]["flash_fwd"] != FSDP_STEPS * GPT_MEDIUM["n_layer"]:
+        if out["counts"]["flash_fwd"] != FSDP_STEPS * FSDP_LAYERS:
             raise AssertionError(f"{label}: rank {r} launched flash_fwd "
                                  f"{out['counts']['flash_fwd']} times")
         s = out["short"]
@@ -3792,7 +3845,7 @@ def check_fsdp(res: list, seconds: float, label: str, wire: str, card: str):
     if not oracle_ok(r0["oracle"]):
         raise AssertionError(f"{label}: step 1 off the one-rank step: "
                              f"{r0['oracle']}")
-    log(f"{label}: GPT-medium, {GPT_MEDIUM['n_layer']} layers, "
+    log(f"{label}: GPT-medium, {FSDP_LAYERS} layers, "
         f"make_fsdp_train_step under HVD_TPU_MESH_PLAN="
         f"{FSDP_ENV['HVD_TPU_MESH_PLAN']}, {BATCH // SET_RANKS} x {SEQ} "
         f"tokens a rank, {[o['params'] for o in res]} parameters a rank (the "
@@ -6581,6 +6634,7 @@ TP_KILL_STEP = 2                      # the follower's decode event it dies at
 TP_LOAD_REQUESTS, TP_LOAD_PROMPT = 8, 64   # the tokens/s reading's batch
 TP_SWAP_PROMPTS = 2
 TP_SHARD_FLAG = "--tp-shard-worker"
+TP_LAYERS = 12    # cut from 24, widths kept (the script's time)
 
 
 def tp_ranks(dev, rank: int) -> dict:
@@ -6607,7 +6661,8 @@ def tp_shard_worker(tmp: str) -> None:
     with open(os.path.join(tmp, "key"), "rb") as f:
         key = f.read()
     engine = InferenceEngine(serve_model(torch.device(TP_DEVICES[0]),
-                                         torch.bfloat16), **SERVE_ENGINE)
+                                         torch.bfloat16, TP_LAYERS),
+                             **SERVE_ENGINE)
     shard = ShardServer(engine, key, name="tp-shard-1", host="127.0.0.1")
     try:
         faults.configure(f"serve:step={TP_KILL_STEP},mode=kill")
@@ -6668,7 +6723,7 @@ def tp_phase(dev, card: str):
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = serve_model(dev, torch.bfloat16)
+    model = serve_model(dev, torch.bfloat16, TP_LAYERS)
     vocab = model.config.vocab_size
     n = SERVE_NEW_TOKENS
     limit = SERVE_MARGIN["bfloat16"]
@@ -6873,7 +6928,7 @@ def tp_phase(dev, card: str):
     boot = {k: p.detach() for k, p in model.named_parameters()}
     step2 = swap_step2(boot, dev)
     swap_prompts = serve_prompts(3, SWAP_PROMPT_LENS, vocab)[:TP_SWAP_PROMPTS]
-    m2 = serve_model(dev, torch.bfloat16)
+    m2 = serve_model(dev, torch.bfloat16, TP_LAYERS)
     with torch.no_grad():
         for k, p in m2.named_parameters():
             p.copy_(step2[k])
@@ -7011,7 +7066,7 @@ def tp_phase(dev, card: str):
                                  f"drill request {i}")
                     for i, a in enumerate(answers))
     counts = hvd.ops.launch_counts()
-    want_b1 = forwards * GPT_MEDIUM["n_layer"]
+    want_b1 = forwards * TP_LAYERS
     if counts["flash_fwd"] != want_b1 or any(
             v for k, v in counts.items() if k != "flash_fwd"):
         raise AssertionError(f"serve tp 2: launches {counts}; the oracles' "
@@ -7236,6 +7291,241 @@ def sim_phase(card: str, readings: dict):
     return counts, report
 
 
+# --- the analysis tier: hvdlint, the step recorder, hvdsan -------------------
+
+SANITIZE_LAYERS = 4                  # GPT-medium's widths, cut to 4 layers
+SANITIZE_PROMPT = 64                 # tokens a prompt, every request
+SANITIZE_BATCH_TOKENS = 96           # the two batch requests' generations
+SANITIZE_NEW_TOKENS = 32             # every other request's
+SANITIZE_CANCEL_TOKENS = 200         # the request cancelled while queued
+SANITIZE_ENV = {"HVD_TPU_SANITIZE": "raise"}
+
+
+def hvdlint_phase() -> dict:
+    """Path "hvdlint (host)": ``horovod_tpu_torch.analysis.run()`` over
+    this checkout must give 0 unsuppressed findings, and the kernel check
+    must see all seven ``@kernel`` wrappers.  Prints the seconds, the
+    checkers and check ids run and the modules read."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import analysis
+    from horovod_tpu_torch.analysis import kernels as lint_kernels
+
+    t0 = time.perf_counter()
+    findings = analysis.run()
+    seconds = time.perf_counter() - t0
+    if findings:
+        raise AssertionError(
+            f"hvdlint (host): {len(findings)} unsuppressed finding(s):\n"
+            + "\n".join(f.format() for f in findings))
+    wrappers = lint_kernels.kernel_wrappers()
+    if sorted(wrappers) != sorted(hvd.ops.launch_counts()):
+        raise AssertionError(
+            f"hvdlint (host): the kernel check sees {sorted(wrappers)}, "
+            f"the package registers {sorted(hvd.ops.launch_counts())}")
+    checkers = analysis.default_checkers()
+    ids = sorted({c for k in checkers for c in k.checks})
+    modules = len(analysis.iter_source_files(
+        analysis.LintConfig(root=analysis.repo_root())))
+    log(f"hvdlint (host): 0 findings from {len(checkers)} checkers "
+        f"({len(ids)} check ids) over {modules} modules in {seconds:.3f} s "
+        f"on this host; the kernel check sees the {len(wrappers)} wrappers "
+        f"{sorted(wrappers)}")
+    return dict(seconds=seconds, checkers=len(checkers), checks=len(ids),
+                modules=modules)
+
+
+def recorded_sequences(path: str, seqs: list, what: str,
+                       microbatches: int = 0, buckets: int = 0,
+                       compression: str = "none") -> None:
+    """The step recorder's gate on a multi-rank path: every rank's
+    recorded collectives (``analysis.step_check.record_collectives``)
+    equal rank 0's and, with ``microbatches``, the overlap wire's
+    reduce-scatter and all-gather phases the planner's ``buckets``.
+    Logs the length and the ops of rank 0's sequence."""
+    import collections
+    from horovod_tpu_torch.analysis import step_check
+
+    findings = step_check.compare_sequences(
+        seqs, path="chip_smoke.py", what=f"{path}: {what}")
+    if microbatches:
+        findings += step_check.planner_findings(
+            [tuple(e) for e in seqs[0]], microbatches=microbatches,
+            n_buckets=buckets, compression=compression,
+            what=f"{path}: {what}")
+    if findings or not seqs[0]:
+        raise AssertionError(f"{path}: the step recorder: "
+                             + ("; ".join(f.message for f in findings)
+                                or "no collective recorded"))
+    ops = dict(collections.Counter(e[0] for e in seqs[0]))
+    extra = ""
+    if microbatches:
+        rs, ag = step_check.wire_counts(seqs[0], compression)
+        extra = (f"; {rs} reduce-scatter and {ag} all-gather phases = "
+                 f"{microbatches} microbatches x {buckets} buckets and "
+                 f"{buckets}, the planner's")
+    log(f"{path}: {what} recorded {[len(q) for q in seqs]} collectives "
+        f"per rank, equal on every rank ({ops}){extra}")
+
+
+def sanitize_traffic(model, key: bytes) -> dict:
+    """"sanitize serve 1 rank"'s traffic: an ``InferenceServer`` on the
+    paged engine (two slots) and the batcher with QoS (a 1 ms interactive
+    TTFT SLO, so an interactive arrival preempts a batch generation) over
+    the HMAC wire, 8 requests of SANITIZE_PROMPT tokens: two batch ones,
+    an interactive one that preempts one of them, one cancelled while
+    queued, four standard ones at once.  Returns the responses' tokens
+    and errors, the preemption count and the seconds."""
+    import concurrent.futures
+    from horovod_tpu_torch.runner.common.network import BasicClient
+    from horovod_tpu_torch.serve import (ContinuousBatcher, InferenceEngine,
+                                         InferenceServer)
+    from horovod_tpu_torch.serve.server import (CancelRequest,
+                                                GenerateRequest)
+
+    prompts = serve_prompts(11, (SANITIZE_PROMPT,) * 8,
+                            model.config.vocab_size)
+    engine = InferenceEngine(model, max_slots=2, prefill_buckets=(64, 256),
+                             kv_cache="paged")
+    batcher = ContinuousBatcher(engine, default_deadline_s=0,
+                                qos_slo_ttft_ms=1.0)
+    server = InferenceServer(batcher, key, name="sanitize", host="127.0.0.1")
+
+    def client():
+        return BasicClient("sanitize", [("127.0.0.1", server.port)], key)
+
+    def gen(i: int, n: int, qos: str):
+        return client().request(GenerateRequest(
+            f"san-{i}", prompts[i], max_new_tokens=n, qos_class=qos),
+            timeout=300.0)
+
+    def wait_until(cond, what: str) -> None:
+        deadline = time.monotonic() + 60.0
+        while not cond(batcher.snapshot()):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"sanitize serve 1 rank: no {what} "
+                                     f"within 60 s: {batcher.snapshot()}")
+            time.sleep(0.002)
+
+    plan = ([(0, SANITIZE_BATCH_TOKENS, "batch"),
+             (1, SANITIZE_BATCH_TOKENS, "batch")],
+            (2, SANITIZE_NEW_TOKENS, "interactive"),
+            (3, SANITIZE_CANCEL_TOKENS, "standard"),
+            [(i, SANITIZE_NEW_TOKENS, "standard") for i in range(4, 8)])
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = {i: pool.submit(gen, i, n, q) for i, n, q in plan[0]}
+            wait_until(lambda s: s["active_slots"] == 2, "two active slots")
+            i, n, q = plan[1]
+            futs[i] = pool.submit(gen, i, n, q)
+            futs[i].result(timeout=300.0)
+            i, n, q = plan[2]
+            futs[i] = pool.submit(gen, i, n, q)
+            wait_until(lambda s: s["queue_depth"] >= 1, "queued request")
+            client().request(CancelRequest(f"san-{i}"), timeout=60.0)
+            for i, n, q in plan[3]:
+                futs[i] = pool.submit(gen, i, n, q)
+            resps = {i: f.result(timeout=300.0) for i, f in futs.items()}
+        seconds = time.perf_counter() - t0
+        stats = batcher.stats.snapshot()
+    finally:
+        server.shutdown()
+    want = {i: n for i, n, _ in plan[0] + [plan[1]] + plan[3]}
+    bad = [(i, r.error, len(r.tokens or [])) for i, r in resps.items()
+           if (i in want and (r.error is not None
+                              or len(r.tokens or []) != want[i]))
+           or (i == plan[2][0] and r.error != "cancelled")]
+    if bad or stats.get("preemptions") != 1:
+        from horovod_tpu_torch.analysis import sanitizer
+
+        raise AssertionError(
+            f"sanitize serve 1 rank: requests {bad}, "
+            f"{stats.get('preemptions')} preemptions (want 1), violations "
+            f"{sanitizer.violations()}")
+    tokens = sum(len(r.tokens or []) for r in resps.values())
+    return dict(seconds=seconds, tokens=tokens, tok_s=tokens / seconds,
+                engine=engine)
+
+
+def sanitize_ranks(dev, rank: int) -> dict:
+    """Path "sanitize serve 1 rank", in a process of its own
+    (``--sanitize-worker``) started with ``HVD_TPU_SANITIZE=raise`` in its
+    environment: ``sanitizer.install()`` over the package, then GPT-medium's
+    widths at SANITIZE_LAYERS layers (bf16 activations, f32 parameters
+    from seed 0) through :func:`sanitize_traffic` and one
+    ``AsyncCheckpointer`` save of its parameters (so a ``BufferPool``
+    registers).  Gates: no violation, and ``audit_check`` finds no KV
+    block, buffer set or elastic slot held.  Then, printed and not gated,
+    the same traffic warm, once instrumented and once after
+    ``uninstall()``: tokens/s with the sanitizer on against off."""
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import sanitizer
+    from horovod_tpu_torch.ckpt import AsyncCheckpointer
+    from horovod_tpu_torch.runner.common.secret import make_secret_key
+
+    if sanitizer.mode() != "raise":
+        raise AssertionError(f"sanitize serve 1 rank: sanitizer mode "
+                             f"{sanitizer.mode()!r}, want 'raise'")
+    t0 = time.perf_counter()
+    stats = sanitizer.install()
+    if not stats["installed"] or stats["skipped"]:
+        raise AssertionError(f"sanitize serve 1 rank: install {stats}")
+    model = serve_model(dev, torch.bfloat16, n_layer=SANITIZE_LAYERS)
+    key = make_secret_key()
+    hvd.ops.reset_launch_counts()
+    gated = sanitize_traffic(model, key)
+    counts = hvd.ops.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = AsyncCheckpointer(tmp, world=1, rank=0, async_save=True,
+                               max_to_keep=1)
+        t1 = time.perf_counter()
+        ck.save(1, {n: p for n, p in model.named_parameters()})
+        ck.wait_until_finished()
+        save_s = time.perf_counter() - t1
+        saved = ck._store.read_manifest(1).nbytes
+        kinds = sanitizer.registered()
+        leaks = sanitizer.audit_check(record=False)
+        ck.close()
+    del gated["engine"]
+    violations = sanitizer.violations()
+    if violations or leaks or not {"kv_pool", "buffer_pool"} <= set(kinds):
+        raise AssertionError(
+            f"sanitize serve 1 rank: violations {violations}, leaks {leaks}, "
+            f"registered {kinds}")
+    # The readings: the same traffic again, warm, instrumented and then
+    # not (the gated run above is the process's first and pays its
+    # warm-up).
+    on = sanitize_traffic(model, key)
+    del on["engine"]
+    if sanitizer.violations():
+        raise AssertionError(f"sanitize serve 1 rank: violations "
+                             f"{sanitizer.violations()}")
+    sanitizer.uninstall()
+    off = sanitize_traffic(model, key)
+    del off["engine"]
+    seconds = time.perf_counter() - t0
+    log(f"sanitize serve 1 rank: {stats['attributes']} guarded attributes "
+        f"on {stats['classes']} classes in {stats['modules']} modules "
+        f"instrumented (mode raise); GPT-medium's widths at "
+        f"{SANITIZE_LAYERS} layers, bf16: 8 requests of {SANITIZE_PROMPT} "
+        f"tokens through the server, the batcher, QoS and the paged engine "
+        f"(one preempted, one cancelled), {gated['tokens']} tokens in "
+        f"{gated['seconds']:.3f} s, the process's first; one "
+        f"AsyncCheckpointer save of {saved} bytes in {save_s:.3f} s; 0 "
+        f"violations, no resource held at audit (watching {kinds}); the "
+        f"same traffic warm, instrumented, {on['tokens']} tokens in "
+        f"{on['seconds']:.3f} s ({on['tok_s']:.1f} tokens/s), after "
+        f"uninstall {off['tokens']} tokens in {off['seconds']:.3f} s "
+        f"({off['tok_s']:.1f} tokens/s): on/off "
+        f"{on['tok_s'] / off['tok_s']:.3f}; {seconds:.1f} s in all; "
+        f"launches {counts}; on {card_and_power_limit()}")
+    return dict(counts=counts, seconds=seconds, tok_s_first=gated["tok_s"],
+                tok_s_on=on["tok_s"], tok_s_off=off["tok_s"], save_s=save_s,
+                saved=saved)
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -7253,6 +7543,7 @@ FLEET_WORKER_FLAG = "--fleet-worker"
 SWAP_WORKER_FLAG = "--swap-worker"
 TP_WORKER_FLAG = "--tp-worker"
 SIM_WORKER_FLAG = "--sim-worker"
+SANITIZE_WORKER_FLAG = "--sanitize-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
@@ -7265,6 +7556,7 @@ RANK_PATHS = {
     SWAP_WORKER_FLAG: (1, {}, "swap_ranks"),
     TP_WORKER_FLAG: (1, {}, "tp_ranks"),
     SIM_WORKER_FLAG: (1, {}, "sim_ranks"),
+    SANITIZE_WORKER_FLAG: (1, SANITIZE_ENV, "sanitize_ranks"),
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
@@ -7407,6 +7699,10 @@ def two_rank_phase():
             f"{a['losses']} / {b['losses']}, peak memory per rank "
             f"{a['peak'] / 2**30:.2f} / {b['peak'] / 2**30:.2f} GiB, "
             f"launches {a['counts']}")
+    for path, a, b, steps in (("2 ranks", dp0, dp1, "DP"),
+                              ("sharded 2 ranks", sh0, sh1, "ZeRO")):
+        recorded_sequences(path, [a["seq"], b["seq"]],
+                           f"{WIRE_STEPS} {steps} steps")
     if sh0["results"] != sh1["results"]:
         raise AssertionError("sharded 2 ranks: the ranks' fused results "
                              "differ")
@@ -7441,6 +7737,7 @@ def main() -> int:
     hvd.ops.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     probe_check(card)
+    hvdlint_phase()
 
     # The "1 rank" phase scrapes this process's /metrics; the ranks the
     # multi-rank phases spawn serve none (the variable is read at init).
@@ -7513,6 +7810,10 @@ def main() -> int:
         sim_counts = spawn_ranks(
             SIM_WORKER_FLAG, 1,
             env={SIM_READINGS_ENV: json.dumps(readings)})[0]["counts"]
+        # The sanitizer's gate is read when the port is first imported:
+        # the child gets it in its environment from the start.
+        sanitize_counts = spawn_ranks(SANITIZE_WORKER_FLAG, 1,
+                                      env=SANITIZE_ENV)[0]["counts"]
         route_check(dev)
     finally:
         hvd.shutdown()
@@ -7535,7 +7836,8 @@ def main() -> int:
                "fleet 3 replicas": fleet["counts"],
                "swap 2 replicas": swap["counts"],
                "serve tp 2": tp_counts,
-               "fleet sim (host)": sim_counts}
+               "fleet sim (host)": sim_counts,
+               "sanitize serve 1 rank": sanitize_counts}
     if {row["name"] for row in rows} != set(counts):
         raise AssertionError("the kernels line does not list every kernel")
     for row in rows:

@@ -37,6 +37,7 @@ import logging
 import math
 import os
 import socket
+import threading
 from datetime import timedelta
 from typing import Optional, Union
 
@@ -93,6 +94,11 @@ class _Session:
 
 
 _session: Optional[_Session] = None
+# Serialises init and shutdown.  The session itself is a frozen snapshot
+# published by one assignment, so a reader sees the old session or the
+# new one whole; the lock keeps two threads from both starting a world
+# (or both tearing one down) between the check and the publish.
+_lifecycle_lock = threading.RLock()
 # The rendezvous store of the first group this module created from
 # torchrun's environment, kept across re-inits: each later generation
 # rendezvouses under a prefix of its own on it (``hvd_tpu_torch/gen<g>/``),
@@ -171,7 +177,12 @@ def init(config: Optional[Config] = None,
     tensors: several ranks sharing one card, which NCCL refuses).
     ``HVD_TPU_FAULT_SPEC`` is armed here when it differs from the armed
     plan (a malformed spec raises before any group is joined).
-    Idempotent."""
+    Idempotent, and safe to call from several threads at once."""
+    with _lifecycle_lock:
+        _init(config, device, backend)
+
+
+def _init(config: Optional[Config], device, backend: Optional[str]) -> None:
     global _session
     if _session is not None:
         return
@@ -353,6 +364,11 @@ def shutdown() -> None:
     """Close the timeline, stop the stall inspectors, drop the process
     sets and the topology tiers' groups, stop the scrape port and leave
     the process group (if :func:`init` created it)."""
+    with _lifecycle_lock:
+        _shutdown()
+
+
+def _shutdown() -> None:
     global _session
     if _session is None:
         return

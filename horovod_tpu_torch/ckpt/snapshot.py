@@ -299,6 +299,9 @@ class BufferPool:
         self._free: List[Dict[str, Any]] = [
             {} for _ in range(max(1, int(depth)))]
         self._outstanding = 0   # guarded-by: _lock
+        from ..analysis import sanitizer as _san
+
+        _san.maybe_register("buffer_pool", self)
 
     def acquire(self) -> Optional[Dict[str, Any]]:
         with self._lock:

@@ -213,5 +213,5 @@ class AsyncWriter:
 
     def _raise_pending_locked(self) -> None:
         if self._error is not None:
-            err, self._error = self._error, None
+            err, self._error = self._error, None  # hvdlint: disable=unguarded-mutation -- _locked suffix contract: every caller holds _cv
             raise err

@@ -422,6 +422,31 @@ def _validated_slo_spec(spec: Optional[str]) -> Optional[str]:
     return spec
 
 
+# --- pre-init knob registry --------------------------------------------------
+# Knobs read through raw ``os.environ`` outside this module: process
+# wiring, what init itself and crash paths need before a Config exists,
+# the runtime sanitizer's gate, and the probe and MFU helpers that run
+# before (or without) init.  With ``Config.from_env`` this tuple is the
+# knob namespace hvdlint's knob checker holds the package to
+# (analysis/knobs.py).  The reference's COORDINATOR_ADDR and
+# NUM_PROCESSES are left out: torchrun's variables (MASTER_ADDR,
+# WORLD_SIZE, RANK) take the JAX coordinator's place.  USE_NATIVE_FFI is
+# left out: there is no FFI tier whose registration it could gate.
+PRE_INIT_KNOBS = (
+    # process wiring (PROCESS_ID: trace.py's rank tag before init)
+    "PROCESS_ID", "SECRET_KEY",
+    # read during/before init() itself
+    "LOG_LEVEL", "LOG_HIDE_TIME", "METRICS", "FAULT_SPEC",
+    # tracing + flight recorder (lazy env gates)
+    "TRACE", "FLIGHT", "FLIGHT_DIR",
+    # runtime concurrency sanitizer (analysis/sanitizer.py)
+    "SANITIZE", "SANITIZE_REPORT",
+    # backend probe and MFU helpers (utils/backend_probe.py, utils/mfu.py)
+    "PEAK_TFLOPS", "COMPILE_CACHE", "PROBE_ATTEMPTS", "PROBE_RETRIES",
+    "PROBE_BACKOFF_S", "PROBE_BACKOFF", "PROBE_TIMEOUT_S",
+    "BENCH_EXEC_ATTEMPT",
+)
+
 # --- fault-injection spec grammar (HVD_TPU_FAULT_SPEC) ----------------------
 # ``site:key=val,key=val;site2:...``: one clause per injection site
 # (faults.py threads the sites through the layers).  Parsed here so a

@@ -151,6 +151,9 @@ class ElasticDriver:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        from ..analysis import sanitizer as _san
+
+        _san.maybe_register("elastic_slots", self)
 
     # --- membership --------------------------------------------------------
 
@@ -202,8 +205,8 @@ class ElasticDriver:
                 time.monotonic() - at >= self.blacklist_decay_s:
             # Half-open: eligible again, one strike short of the limit —
             # a single new failure re-blacklists without a full cycle.
-            del self._blacklist[host]
-            self._failures[host] = max(0, self.blacklist_after - 1)
+            del self._blacklist[host]  # hvdlint: disable=unguarded-mutation -- _locked suffix contract: every caller holds _lock (blacklisted(), reserve_slot(), poll_once())
+            self._failures[host] = max(0, self.blacklist_after - 1)  # hvdlint: disable=unguarded-mutation -- _locked suffix contract: every caller holds _lock
             _obs.on_blacklist("probation")
             logger.info("Blacklist decayed for host %s (probation)", host)
             return False

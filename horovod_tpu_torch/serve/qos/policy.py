@@ -171,7 +171,7 @@ class QosPolicy:
             if rate <= 0:
                 return None   # unlimited tenant: no bucket at all
             bucket = TokenBucket(rate, self.burst_s)
-            self._buckets[tenant] = bucket  # _locked suffix: every caller holds _lock
+            self._buckets[tenant] = bucket  # hvdlint: disable=unguarded-mutation -- _locked suffix contract: every caller holds _lock
         return bucket
 
     def charge(self, tenant: str, n_tokens: float) -> float:

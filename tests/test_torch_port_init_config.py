@@ -189,8 +189,19 @@ def test_top_level_names_match_the_reference():
 # --- the knobs ----------------------------------------------------------------
 
 # Reference fields and module names the port does not hold yet, each
-# waiting for its ROADMAP queue A item.
-NOT_YET = {"PRE_INIT_KNOBS": "item 6"}
+# waiting for its ROADMAP queue A item (none left).
+NOT_YET: dict = {}
+
+# Reference pre-init knobs the port never reads, with the reason
+# (horovod_tpu_torch/config.py says the same beside PRE_INIT_KNOBS).
+PRE_INIT_LEFT_OUT = {
+    "COORDINATOR_ADDR": "the JAX coordinator's address; torchrun's "
+                        "MASTER_ADDR/MASTER_PORT take its place",
+    "NUM_PROCESSES": "the JAX coordinator's world size; torchrun's "
+                     "WORLD_SIZE takes its place",
+    "USE_NATIVE_FFI": "gates the reference's XLA FFI registration; the "
+                      "port has no FFI tier",
+}
 
 
 def test_config_fields_match_the_reference():
@@ -213,6 +224,12 @@ def test_config_fields_match_the_reference():
               or n.startswith("parse_")}
     assert sorted(n for n in public if not hasattr(port, n)) == sorted(
         n for n in NOT_YET if n.isupper())
+    # PRE_INIT_KNOBS name by name: the reference's, in its order, less
+    # the knobs the port never reads.
+    assert [n for n in ref.PRE_INIT_KNOBS if n not in PRE_INIT_LEFT_OUT] \
+        == list(port.PRE_INIT_KNOBS)
+    assert set(PRE_INIT_LEFT_OUT) <= set(ref.PRE_INIT_KNOBS)
+    assert all(PRE_INIT_LEFT_OUT.values())
 
 
 @pytest.mark.parametrize("env", [

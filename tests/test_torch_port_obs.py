@@ -85,7 +85,13 @@ def world(tmp_path_factory):
 @pytest.fixture
 def fresh(monkeypatch):
     """Fresh default registries, open gates and empty autotune logs in
-    both packages: ``(reference registry, port registry)``."""
+    both packages: ``(reference registry, port registry)``.  The process
+    topology estimators start empty too: a topology test run earlier in
+    the same worker leaves one behind, and a step then publishes its
+    α/β gauges into the fresh registry on one side only."""
+    from horovod_tpu.topo import costmodel as jcostmodel
+    from horovod_tpu_torch.topo import costmodel
+
     regs = []
     for mod, instr in ((jmetrics, jinstr), (metrics, instrument)):
         reg = mod.MetricsRegistry()
@@ -94,6 +100,8 @@ def fresh(monkeypatch):
         monkeypatch.setattr(instr, "_autotune_log",
                             collections.deque(maxlen=64))
         regs.append(reg)
+    for cost in (jcostmodel, costmodel):
+        monkeypatch.setattr(cost, "_estimator", None)
     return tuple(regs)
 
 

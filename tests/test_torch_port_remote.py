@@ -259,6 +259,12 @@ class TestRemoteLaunch:
         open(os.path.join(sys.argv[1], f"pid{r}"), "w").write(
             str(os.getpid()))
         if r == 2:
+            # Fail once every rank is up (bounded): a loaded host can
+            # take more than a second to start the others.
+            until = time.time() + 30
+            while time.time() < until and not all(os.path.exists(
+                    os.path.join(sys.argv[1], f"pid{i}")) for i in range(4)):
+                time.sleep(0.05)
             time.sleep(1.0)
             sys.exit(7)
         time.sleep(60)   # the survivors must be ended, not waited for

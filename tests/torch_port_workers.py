@@ -2313,3 +2313,70 @@ def run_func_body(scale: float, bias: float = 0.0) -> dict:
             "cross": [hvd.cross_rank(), hvd.cross_size()],
             "sum": float(out[0, 0]) * scale + bias,
             "cloudpickle": "cloudpickle" in sys.modules}
+
+
+# --- the step's collective-sequence check (analysis/step_check.py) -------------
+
+def step_cases(microbatches: int) -> dict:
+    """This rank's recordings of the shipped factories on the live world
+    (``step_check._record_cases``), with the entries as lists."""
+    from horovod_tpu_torch.analysis import step_check
+
+    cases = step_check._record_cases(microbatches)
+    return {k: ([list(e) for e in v] if isinstance(v, list) else v)
+            for k, v in cases.items()}
+
+
+def step_checks(microbatches: int) -> list:
+    """``run_step_checks`` on the live world: every rank records, the
+    sequences are gathered and judged."""
+    from horovod_tpu_torch.analysis import step_check
+
+    return [f.as_dict()
+            for f in step_check.run_step_checks(microbatches=microbatches)]
+
+
+def rank_dependent_plan() -> list:
+    """A deliberately rank-divergent fused plan: rank 0 builds the
+    overlapped reduce-scatter + all-gather wire, every other rank the
+    plain allreduce — the two rendezvous differently.  Run it in a
+    process with no world: the check then simulates the ranks (on a live
+    world the mismatched collectives would fail the world itself)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import step_check as sc
+
+    def bad():
+        model, opt, batch = sc._toy_problem()
+        if hvd.rank() == 0:
+            return (hvd.make_train_step(sc._mse, opt, microbatches=2,
+                                        overlap=True), model, batch)
+        return hvd.make_train_step(sc._mse, opt), model, batch
+
+    return [f.as_dict() for f in sc.check_step_rank_consistency(bad)]
+
+
+def overlap_recording(microbatches: int, threshold: int,
+                      compression: str) -> dict:
+    """One overlap step of a four-leaf model whose fusion threshold cuts
+    it into several buckets, recorded; with the planner's bucket count
+    and the recorder's wire counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import step_check as sc
+    from horovod_tpu_torch.ops import fusion
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 48),
+                                torch.nn.Linear(48, 32))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    batch = (torch.ones(12, 64), torch.ones(12, 32))
+    step = hvd.make_train_step(
+        sc._mse, opt, microbatches=microbatches, overlap=True,
+        fusion_threshold=threshold,
+        compression=getattr(hvd.Compression, compression))
+    with sc.record_collectives() as seq:
+        step(model, batch)
+    _, leaves = fusion.tree_flatten(dict(model.named_parameters()))
+    plan = fusion.plan_overlap_buckets(leaves, threshold,
+                                       world_size=hvd.size())
+    return {"seq": [list(e) for e in seq], "buckets": len(plan.members),
+            "counts": list(sc.wire_counts(seq, compression))}
