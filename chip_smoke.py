@@ -14,7 +14,11 @@
    run()`` over this checkout (the AST checkers, the kernel check
    included) must give 0 unsuppressed findings and the kernel check
    must see the seven ``@kernel`` wrappers; prints the seconds, the
-   checkers and check ids run and the modules read.
+   checkers and check ids run and the modules read.  ``import
+   horovod_tpu_torch.torch`` must work; on a host without tensorflow
+   (the card's) ``import horovod_tpu_torch.tensorflow`` and ``.keras``
+   must raise an ``ImportError`` naming it, and a line says the TF and
+   Keras bindings do not run on the card.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
    version, on the card, at the shapes the main paths give it.  The int8
    kernels (B2-B4) and the fused apply kernels (B6, B7) must match bit
@@ -285,7 +289,34 @@
    the write time, bytes a save, the restore time, the commit (device to
    pinned host) and the step times with and without saves.  Its launch
    counts are run B's, the resume's and the replay's (not run A's).
-20. "elastic 2 ranks": two processes share the card over gloo in a
+20. "torch binding 2 ranks": two processes share the card over gloo
+   (``--binding-worker``).  GPT-medium at 24 layers (flash attention,
+   bf16 activations, f32 parameters from seed 0, broadcast through
+   ``horovod_tpu_torch.torch.broadcast_parameters``), AdamW(3e-4, weight
+   decay 1e-4), 8 x 1024 tokens a rank from seed ``rank``.  (a) Three
+   steps through ``horovod_tpu_torch.torch.DistributedOptimizer(...,
+   named_parameters=...)`` on ``Compression.none`` (one
+   post-accumulate hook a parameter, each ``allreduce_async_`` started
+   during backward), then three from the same weights through
+   ``make_train_step`` with ``Compression.none``: losses and parameters
+   within 1e-6 relative (both sum two f32 values and halve them, so bit
+   for bit is expected; printed), a handle in flight when each backward
+   returned, one allreduce a parameter a step.  (b) Three steps on
+   ``Compression.fp16`` with ``num_groups=4``: finite losses, step 1's
+   loss bit for bit (a)'s, step 1's reduced gradient within fp16's
+   rounding of (a)'s (|Δ| ≤ (2u(1 + u) + 2^-24) max_r |g_r| + 2^-23,
+   u = 2^-11, the Max over the ranks' local gradients an allreduce).
+   Both ranks' collective sequences (``step_check.record_collectives``)
+   equal in (a) and (b).  (c) ``SyncBatchNorm(64)`` on ``[32, 64, 112, 112]`` a
+   rank (ResNet-50's stem), f32 and bf16, the backward of ``sum(y ·
+   dy)``: rank 0 holds the output, ``running_mean``, the unbiased
+   ``running_var``, the input gradient and the ranks' summed weight and
+   bias gradients against ``nn.BatchNorm2d`` in f64 on both ranks'
+   batches concatenated (max |Δ| / max |oracle| ≤ 1e-5 in f32, 5e-2 in
+   bf16).  Prints the hook route's step times beside the fused route's
+   (gloo stages through the host: not a wire's time), the peak memory a
+   rank and B1's launches (the hook steps of (a) and (b)).
+21. "elastic 2 ranks": two processes share the card over gloo in a
    group the session owns (``init(backend="gloo")`` from torchrun's
    variables), GPT-medium's widths at WIRE_LAYERS layers, the int8+EF
    wire: an ``@elastic.run`` loop of 4 steps, each committing and
@@ -297,18 +328,19 @@
    name the spec and carry the one firing, and the final parameters
    must equal the unfaulted run's bit for bit (the sync hands both ranks
    rank 0's residual); B1-B4 must launch.
-21. "launcher 2 ranks": ``python -m horovod_tpu_torch.runner -np 2
+22. "launcher 2 ranks": ``python -m horovod_tpu_torch.runner -np 2
    --timeline-filename DIR/tl.json --timeline-mark-cycles
    --stall-check-warning-time-seconds 15 --output-filename DIR/out``
    starts two ranks of this script (``--launcher-worker DIR``), which
    share the card over gloo in a group the session owns.  Each checks
    torchrun's variables and the launch's HMAC key, the native library
    loaded, the timeline writing through ``NativeTimeline`` and the
-   cross-process monitor running; then full-depth GPT-medium, a batch
-   of 8 x 1024 from seed 0 + rank, ``dp_step``'s AdamW on the int8+EF
-   wire, 3 steps each followed by an eager ``allreduce`` of the loss:
-   finite losses, replicas bitwise equal, B1-B4 launched.  The native
-   planner's plans of the 197 leaves must equal ``plan_buckets_py``,
+   cross-process monitor running; then GPT-medium at 12 layers
+   (``LAUNCH_LAYERS``, cut from 24, widths kept), a batch of 8 x 1024
+   from seed 0 + rank, ``dp_step``'s AdamW on the int8+EF wire, 3 steps
+   each followed by an eager ``allreduce`` of the loss: finite losses,
+   replicas bitwise equal, B1-B4 launched.  The native planner's plans
+   of the step's 101 gradient leaves must equal ``plan_buckets_py``,
    and its two-phase and two-tier choices on the same bytes their
    Python twins.  The stall drill: no warning during the steps; rank 1
    sleeps 20 s before an eager ``allreduce`` named ``stall_probe``;
@@ -326,7 +358,7 @@
    seconds, the step times, each timeline's bytes and events, a
    timeline activity's host cost on each writer beside an eager
    allreduce's, and the native planner's time beside the Python one's.
-22. "remote 2 hosts": the multi-host launch on one machine: a child
+23. "remote 2 hosts": the multi-host launch on one machine: a child
    driver process (``chip_smoke.py --remote-driver DIR``) runs ``python
    -m horovod_tpu_torch.runner -H fake-host-a:1,fake-host-b:1`` with
    ``remote.ssh_exec`` replaced by ``local_exec`` (two task agents on
@@ -345,7 +377,7 @@
    both ranks sleep, the driver is killed with SIGKILL, and both agents
    must abort their ranks and exit within 30 s.  After each launch no
    agent, rank or child may be left running.
-23. "run_func 2 ranks": ``hvd.run(chip_smoke.run_func_body,
+24. "run_func 2 ranks": ``hvd.run(chip_smoke.run_func_body,
    args=("cuda:0",), np=2)`` (the function reached through the module
    ``chip_smoke``, so the standard pickle finds it in the workers), then
    the same with ``hosts="fake-host-a:1,fake-host-b:1"`` and a
@@ -355,7 +387,7 @@
    come back in rank order, the digests alike and equal to the plain
    B2/B3 composition over the same seeds computed here, B2 and B3
    launched on every rank, no process left.
-24. "serve 1 rank", in a process of its own (``--serve-worker``, a gloo
+25. "serve 1 rank", in a process of its own (``--serve-worker``, a gloo
    world of one; after bf16 serving at these prompt lengths
    ``torch.profiler`` records no device event in that process, and the
    route check needs them): GPT-medium (``benchmarks/gpt_bench.py``'s widths,
@@ -399,7 +431,7 @@
    primed prompt served again must equal the oracle (f32 margin rule):
    recomputed blocks, never stale ones.  B1 must launch exactly 24
    times an oracle forward in (a) and never in the engine's traffic.
-25. "serve 2 replicas", in a process of its own (``--replicas-worker``):
+26. "serve 2 replicas", in a process of its own (``--replicas-worker``):
    two ``InferenceServer``s on the card, each with
    its own engine of the bf16 model, behind a ``Router`` over the HMAC
    wire: 8 greedy requests sent at once must finish with one replica's
@@ -410,7 +442,7 @@
    by one, and a replay of its id answered from the router's cache (no
    lost response, no duplicate).  Prints the phase's seconds and the
    wire's.
-26. "fleet 3 replicas", in a process of its own (``--fleet-worker``):
+27. "fleet 3 replicas", in a process of its own (``--fleet-worker``):
    a prefill replica and two decode replicas (``InferenceServer``s on
    the card, each with its own engine of the bf16 model at the
    reference's defaults) behind a ``Router`` over the HMAC wire.  12
@@ -436,7 +468,7 @@
    ``migrate_ms`` p50 and p99, the bytes moved a request, TTFT and TPOT
    p50 on the disaggregated route, one request's ``migrate_ms`` alone
    on the idle fleet and the peak memory (readings).
-27. "swap 2 replicas", in a process of its own (``--swap-worker``),
+28. "swap 2 replicas", in a process of its own (``--swap-worker``),
    GPT-medium's widths at 8 layers (SWAP_LAYERS; cut from 24 for the
    script's time limit beside the TP phases):
    step 1 (the bf16 model's boot weights, f32 parameters) and step 2
@@ -456,7 +488,7 @@
    shard``: the swap is rejected, ``SwapResponse.weights_version`` is
    still 1, the boot tokens still served.  Prints the write, roll and
    swap times and the pulled bytes.
-28. "serve tp 2", in a process of its own (``--tp-worker``): GPT-medium
+29. "serve tp 2", in a process of its own (``--tp-worker``): GPT-medium
    (12 layers, TP_LAYERS, cut from 24 for the script's time;
    bf16 activations, f32 parameters from seed 0) in a
    tensor-parallel engine of two shards on the one card
@@ -491,7 +523,7 @@
    of 8 requests of 64 tokens at once on each engine (readings: two
    shards on one card cannot show tensor parallelism's gain) and the
    peak memory.
-29. "fleet sim (host)", in a process of its own (``--sim-worker``), no
+30. "fleet sim (host)", in a process of its own (``--sim-worker``), no
    device work: the port's ``FleetSim`` over the real router, fleet
    controller, QoS gate and queues on a virtual clock.  Capacity: 1000
    replicas, 10^4 requests at 2000 rps, seed 1, ``serve:p=0.001,seed=2,
@@ -507,7 +539,7 @@
    unloaded sim returns them whatever they are.  The death-spiral and migration-convoy
    drills must page within 3 collection rounds; clean seeded runs must
    stay silent.  The card's name is printed beside the readings.
-30. "sanitize serve 1 rank", in a process of its own
+31. "sanitize serve 1 rank", in a process of its own
    (``--sanitize-worker``) started with ``HVD_TPU_SANITIZE=raise`` in its
    environment: ``analysis.sanitizer.install()`` over the package, then
    GPT-medium's widths at SANITIZE_LAYERS layers (bf16 activations, f32
@@ -522,14 +554,14 @@
    held (the pool and the buffer pool registered).  Prints, not gated,
    tokens/s of the same traffic run warm with the sanitizer on and,
    after ``uninstall()``, off.
-31. Route check: the profiler's device trace must show a bf16
+32. Route check: the profiler's device trace must show a bf16
    flash_fwd call at the step's shape run the tensor-core kernel
    (flash_fwd_wgmma) and an f32 one the CUDA-core kernel, a bf16
    non-causal one at BERT-Large's shape the tensor-core kernel, and B4
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-32. Prints the ``kernels`` JSON line (all seven kernels, with their
+33. Prints the ``kernels`` JSON line (all seven kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -4461,9 +4493,12 @@ def check_elastic(res: list, seconds: float, label: str, wire: str,
 
 LAUNCHER_WORKER_FLAG = "--launcher-worker"
 LAUNCHER_RANKS, LAUNCHER_STEPS = 2, 3
+# "launcher 2 ranks" and "remote 2 hosts" (held to each other bit for
+# bit): cut from 24 layers, widths kept, for the script's time.
+LAUNCH_LAYERS = 12
 STALL_WINDOW_S = 15.0      # well above a step here (2 ranks, gloo, one card)
 LAUNCHER_TIMEOUT_S = 900.0
-PLANNER_CALLS = 200        # timed calls of each planner on the 197 leaves
+PLANNER_CALLS = 200        # timed calls of each planner on the step's leaves
 ACTIVITY_CALLS = 5000      # timed timeline activities a writer
 CONTRACT_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                  "GROUP_RANK", "GROUP_WORLD_SIZE", "MASTER_ADDR",
@@ -4489,11 +4524,11 @@ def per_call_us(fn, calls: int) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def planner_checks(plans: list) -> dict:
+def planner_checks(plans: list, n_leaves: int) -> dict:
     """The fusion plans the native planner gave the step, each against
     ``plan_buckets_py`` on the same sizes; its two-phase and two-tier
     choices on the same bytes against their Python twins; both planners'
-    host time on the 197 leaves."""
+    host time on the step's ``n_leaves`` gradient leaves."""
     from horovod_tpu_torch import basics
     from horovod_tpu_torch.native import planner as nplanner
     from horovod_tpu_torch.ops import fusion
@@ -4501,11 +4536,12 @@ def planner_checks(plans: list) -> dict:
     from horovod_tpu_torch.topo.schedule import choose_algo
     from horovod_tpu_torch.topo.topology import MeshTopology
 
-    leaves = [p for p in plans if len(p[0]) == 197]
+    leaves = [p for p in plans if len(p[0]) == n_leaves]
     if not leaves:
         raise AssertionError(
-            "launcher 2 ranks: the native planner never planned the 197 "
-            f"gradient leaves (plans of {[len(p[0]) for p in plans]} leaves)")
+            f"launcher 2 ranks: the native planner never planned the "
+            f"{n_leaves} gradient leaves (plans of "
+            f"{[len(p[0]) for p in plans]} leaves)")
     for sizes, threshold, got in plans:
         if got != fusion.plan_buckets_py(sizes, threshold):
             raise AssertionError("launcher 2 ranks: a native fusion plan "
@@ -4532,7 +4568,8 @@ def planner_checks(plans: list) -> dict:
                                  "choose_algo's")
         algos[f"{pods}x{chips}"] = sorted(set(got))
     return dict(
-        buckets=len(plan), threshold=threshold, two_phase=sum(flags),
+        leaves=n_leaves, buckets=len(plan), threshold=threshold,
+        two_phase=sum(flags),
         algos=algos,
         native_us=per_call_us(lambda: nplanner.plan_buckets(sizes,
                                                             threshold),
@@ -4645,7 +4682,8 @@ def fusion_tiers() -> list:
 
 def launch_steps(dev, rank: int, plans=None) -> dict:
     """The steps of "launcher 2 ranks" and "remote 2 hosts", one rank:
-    full-depth GPT-medium from seed 0, a batch from seed 0 + rank,
+    GPT-medium at LAUNCH_LAYERS layers from seed 0, a batch from seed 0 +
+    rank,
     ``dp_step``'s AdamW on the int8+EF wire, LAUNCHER_STEPS steps each
     followed by an eager ``allreduce`` of the loss, the launch counts set
     to 0 just before and read just after.  Deterministic algorithms are
@@ -4657,7 +4695,7 @@ def launch_steps(dev, rank: int, plans=None) -> dict:
     from horovod_tpu_torch.native import planner as nplanner
 
     torch.use_deterministic_algorithms(True, warn_only=True)
-    model, batch = gpt_medium(dev, data_seed=rank)
+    model, batch = gpt_medium(dev, n_layer=LAUNCH_LAYERS, data_seed=rank)
     step = dp_step(model)
     native_plan = nplanner.plan_buckets
 
@@ -4684,7 +4722,8 @@ def launch_steps(dev, rank: int, plans=None) -> dict:
     counts = hvd.ops.launch_counts()
     return dict(losses=losses, times=times, counts=counts,
                 peak=torch.cuda.max_memory_allocated(),
-                params=param_digest(model), tiers=fusion_tiers())
+                params=param_digest(model), tiers=fusion_tiers(),
+                leaves=sum(p.requires_grad for p in model.parameters()))
 
 
 def launcher_ranks(dev, rank: int, tmp: str) -> dict:
@@ -4705,7 +4744,7 @@ def launcher_ranks(dev, rank: int, tmp: str) -> dict:
         raise AssertionError("the cross-process monitor is not running")
     plans = []
     steps = launch_steps(dev, rank, plans)
-    planner = planner_checks(plans)
+    planner = planner_checks(plans, steps["leaves"])
     cost = timeline_cost(dev, tmp, rank)
     warns_before = stall_warns()
     reported_before = sorted(monitor._reported)
@@ -4833,13 +4872,14 @@ def check_launcher(res: list, logs: dict, files: dict, build: str,
         raise AssertionError(f"--check-build: native runtime:\n{build}")
     r0, p = res[0], res[0]["planner"]
     cost = r0["cost"]
-    log(f"{label}: GPT-medium 24 layers through python -m "
+    log(f"{label}: GPT-medium {LAUNCH_LAYERS} layers through python -m "
         f"horovod_tpu_torch.runner -np 2, losses {r0['losses']}, replicas "
         f"bitwise equal, step seconds {r0['times']} (median "
         f"{statistics.median(r0['times']):.3f}), peak memory per rank "
         f"{r0['peak'] / 2**30:.2f} / {res[1]['peak'] / 2**30:.2f} GiB, "
         f"phase {seconds:.1f} s ({wire}) on {card}")
-    log(f"{label}: native planner {p['buckets']} buckets of the 197 leaves "
+    log(f"{label}: native planner {p['buckets']} buckets of the "
+        f"{p['leaves']} leaves "
         f"(threshold {p['threshold']}) bitwise plan_buckets_py, "
         f"{p['two_phase']} two-phase, schedule choices {p['algos']} equal "
         f"to choose_algo; plan_buckets {p['native_us']:.1f} µs native "
@@ -5101,7 +5141,8 @@ def check_remote(res: list, base: list, seconds: float, card: str) -> dict:
     r0 = res[0]
     log(f"{label}: python -m horovod_tpu_torch.runner -H {REMOTE_HOSTS} "
         f"through the driver/task mesh, rendezvous {masters.pop()}; "
-        f"GPT-medium 24 layers, losses {r0['losses']} and parameters "
+        f"GPT-medium {LAUNCH_LAYERS} layers, losses {r0['losses']} and "
+        f"parameters "
         f"bitwise launcher 2 ranks', fusion tiers {r0['tiers']} (launcher "
         f"2 ranks: {base[0]['tiers']}), cross {[o['cross'] for o in res]}")
     log(f"{label}: step seconds {r0['times']} (median "
@@ -7330,8 +7371,43 @@ def hvdlint_phase() -> dict:
         f"({len(ids)} check ids) over {modules} modules in {seconds:.3f} s "
         f"on this host; the kernel check sees the {len(wrappers)} wrappers "
         f"{sorted(wrappers)}")
+    bindings_on_host()
     return dict(seconds=seconds, checkers=len(checkers), checks=len(ids),
                 modules=modules)
+
+
+def bindings_on_host() -> None:
+    """Part of "hvdlint (host)": ``import horovod_tpu_torch.torch`` must
+    work here; without tensorflow on the host, ``import
+    horovod_tpu_torch.tensorflow`` (and ``.keras``) must raise an
+    ``ImportError`` that names it.  A statement of what the host has,
+    not a fallback: the TF and Keras bindings are held to the reference
+    by the CPU tests."""
+    import importlib
+    import importlib.util
+
+    binding = importlib.import_module("horovod_tpu_torch.torch")
+    if not (binding.DistributedOptimizer and binding.SyncBatchNorm):
+        raise AssertionError("hvdlint (host): horovod_tpu_torch.torch "
+                             "lacks its optimizer or SyncBatchNorm")
+    if importlib.util.find_spec("tensorflow") is not None:
+        importlib.import_module("horovod_tpu_torch.tensorflow")
+        log("bindings (host): horovod_tpu_torch.torch and .tensorflow "
+            "import (this host has tensorflow)")
+        return
+    for name in ("horovod_tpu_torch.tensorflow", "horovod_tpu_torch.keras"):
+        try:
+            importlib.import_module(name)
+        except ImportError as e:
+            if "tensorflow" not in str(e):
+                raise AssertionError(f"hvdlint (host): import {name}: {e}")
+        else:
+            raise AssertionError(f"hvdlint (host): {name} imported on a "
+                                 "host without tensorflow")
+    log("bindings (host): horovod_tpu_torch.torch imports; this host has "
+        "no tensorflow, so the TF and Keras bindings do not run on the "
+        "card (import horovod_tpu_torch.tensorflow / .keras raise "
+        "ImportError naming tensorflow; the CPU tests hold them)")
 
 
 def recorded_sequences(path: str, seqs: list, what: str,
@@ -7526,6 +7602,308 @@ def sanitize_ranks(dev, rank: int) -> dict:
                 saved=saved)
 
 
+# --- the framework bindings: horovod_tpu_torch.torch -------------------------
+
+BINDING_STEPS = 3
+BINDING_GROUPS = 4
+BN_SHAPE = (32, 64, 112, 112)   # ResNet-50's stem output, a rank's, NCHW
+# max |Δ| over max |oracle| per compared tensor.  bf16: the reference's
+# numerics sum x and x² in the input's dtype (each sum rounded to bf16)
+# before the f64 allreduce, and normalise in bf16.
+BN_LIMIT = {"float32": 1e-5, "bfloat16": 5e-2}
+FP16_UNIT = 2.0 ** -11          # float16's unit roundoff
+# Step 1's fp16-wire average against the exact one: each rank's
+# gradient, the f16 sum and the halving round once (u each, the sum's
+# on up to 2 max_r |g_r| (1 + u)), the exact route's f32 sum once (2^-24
+# of the sum); all over 2.  Subnormal steps add at most 2^-23.
+FP16_BOUND_REL = 2 * FP16_UNIT * (1 + FP16_UNIT) + 2.0 ** -24
+FP16_BOUND_ABS = 2.0 ** -23
+
+
+def binding_model(dev, rank: int):
+    """GPT-medium (``gpt_bench.py:106-112``, 24 layers) from seed 0,
+    broadcast from rank 0 through the torch binding, and this rank's
+    batch of 8 x 1024 tokens from seed ``rank``."""
+    import horovod_tpu_torch.torch as hvd
+
+    model, batch = gpt_medium(dev, data_seed=rank, broadcast=False)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    return model, batch
+
+
+def hook_route(dev, rank: int, compression: str, num_groups: int) -> dict:
+    """BINDING_STEPS AdamW steps through the torch binding's hook-driven
+    ``DistributedOptimizer``, as its users write them; each step recorded
+    (``step_check.record_collectives``) and timed, the launch counts set
+    to 0 just before the steps and read just after.  Keeps the model,
+    step 1's local gradients (read after backward, before ``step()``
+    waits) and step 1's reduced gradients."""
+    import torch
+    import horovod_tpu_torch as core
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.analysis.step_check import record_collectives
+
+    model, batch = binding_model(dev, rank)
+    loss_fn = core.models.lm_loss_fn(model)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        named_parameters=model.named_parameters(),
+        compression=getattr(hvd.Compression, compression),
+        num_groups=num_groups)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    core.ops.reset_launch_counts()
+    losses, times, seqs, in_flight = [], [], [], []
+    local = reduced = None
+    for step in range(BINDING_STEPS):
+        t0 = time.perf_counter()
+        with record_collectives() as seq:
+            opt.zero_grad()
+            loss = loss_fn(model, batch)
+            loss.backward()
+            in_flight.append(len(opt._handles))
+            if step == 0:
+                local = {n: params[n].grad.detach().clone() for n in names}
+            opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if step == 0:
+            reduced = {n: params[n].grad.detach().clone() for n in names}
+        seqs.append([list(e) for e in seq])
+        losses.append(float(hvd.allreduce(loss.detach(), name="loss")))
+    counts = core.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    model.zero_grad(set_to_none=True)
+    return dict(model=model, local=local, reduced=reduced, losses=losses,
+                times=times, seqs=seqs, in_flight=in_flight, counts=counts,
+                peak=peak, hooks=len(names))
+
+
+def fused_route(dev, rank: int) -> dict:
+    """The same steps from the same weights through the core's
+    ``make_train_step`` with ``Compression.none`` (one fused allreduce a
+    bucket after backward), timed."""
+    import torch
+    import horovod_tpu_torch as core
+
+    model, batch = binding_model(dev, rank)
+    step = core.make_train_step(
+        core.models.lm_loss_fn(model),
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        compression=core.Compression.none)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(BINDING_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(model=model, losses=losses, times=times,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def param_delta(a, b) -> tuple:
+    """(max |a - b| over max |b|, bitwise) over two models' parameters."""
+    import torch
+
+    worst, scale, bitwise = 0.0, 0.0, True
+    with torch.no_grad():
+        for (n, p), (m, q) in zip(a.named_parameters(),
+                                  b.named_parameters()):
+            assert n == m
+            worst = max(worst, float((p - q).abs().max()))
+            scale = max(scale, float(q.abs().max()))
+            bitwise = bitwise and bitwise_equal(p, q)
+    return worst / scale, bitwise
+
+
+def fp16_excess(a: dict, local: dict, reduced: dict) -> dict:
+    """Step 1's fp16-wire average (``reduced``) against the exact one
+    (``a["reduced"]``), element by element, against fp16's rounding:
+    |Δ| ≤ FP16_BOUND_REL · max_r |g_r| + FP16_BOUND_ABS, with ``max_r
+    |g_r|`` a Max allreduce of the local gradients.  Returns the largest
+    ratio of |Δ| to that bound (≤ 1 passes) and the largest |Δ|."""
+    import horovod_tpu_torch.torch as hvd
+
+    ratio, worst = 0.0, 0.0
+    for n, g in reduced.items():
+        m = hvd.allreduce(local[n].abs(), op=hvd.Max, name=f"max.{n}")
+        delta = (g - a["reduced"][n]).abs()
+        ratio = max(ratio, float((delta / (FP16_BOUND_REL * m
+                                           + FP16_BOUND_ABS)).max()))
+        worst = max(worst, float(delta.max()))
+    return dict(ratio=ratio, max_abs=worst)
+
+
+def sync_bn_case(dev, rank: int, dtype_name: str) -> dict:
+    """(c): the torch binding's ``SyncBatchNorm(64)`` on this rank's
+    ``BN_SHAPE`` input (seed 1000 + rank), the backward of ``sum(y ·
+    dy)``; rank 0 holds every output against ``nn.BatchNorm2d`` in f64 on
+    both ranks' batches concatenated: the output, ``running_mean``, the
+    unbiased ``running_var``, the input gradient, and the ranks' summed
+    weight and bias gradients.  Returns max |Δ| / max |oracle| a tensor
+    (rank 0) and the seconds of the forward and backward."""
+    import torch
+    import horovod_tpu_torch.torch as hvd
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    x = (torch.randn(BN_SHAPE, generator=gen, device=dev) * 2 + 0.5
+         ).to(dtype).requires_grad_(True)
+    dy = torch.randn(BN_SHAPE, generator=gen, device=dev).to(dtype)
+    wgen = torch.Generator(device=dev).manual_seed(7)
+    weight = torch.rand(BN_SHAPE[1], generator=wgen, device=dev) + 0.5
+    bias = torch.randn(BN_SHAPE[1], generator=wgen, device=dev)
+    bn = hvd.SyncBatchNorm(BN_SHAPE[1]).to(dev, dtype)
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = bn(x)
+    (y * dy).sum().backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # Gathered in f32 (exact for bf16), the oracle's inputs in f64.
+    got = dict(
+        y=hvd.allgather(y.detach().float()),
+        x_grad=hvd.allgather(x.grad.float()),
+        w_grad=hvd.allreduce(bn.weight.grad.float(), op=hvd.Sum),
+        b_grad=hvd.allreduce(bn.bias.grad.float(), op=hvd.Sum),
+        running_mean=bn.running_mean, running_var=bn.running_var)
+    xs = hvd.allgather(x.detach().float())
+    dys = hvd.allgather(dy.float())
+    errs = {}
+    if rank == 0:
+        ref = torch.nn.BatchNorm2d(BN_SHAPE[1]).to(dev, torch.float64)
+        with torch.no_grad():
+            ref.weight.copy_(bn.weight)
+            ref.bias.copy_(bn.bias)
+        xr = xs.double().requires_grad_(True)
+        yr = ref(xr)
+        (yr * dys.double()).sum().backward()
+        want = dict(y=yr.detach(), x_grad=xr.grad, w_grad=ref.weight.grad,
+                    b_grad=ref.bias.grad, running_mean=ref.running_mean,
+                    running_var=ref.running_var)
+        for k, w in want.items():
+            errs[k] = float((got[k].double() - w).abs().max()
+                            / w.abs().max())
+    return dict(errs=errs, seconds=seconds)
+
+
+def binding_ranks(dev, rank: int) -> dict:
+    """Path "torch binding 2 ranks" (``--binding-worker``), one rank: (a)
+    the hook route (``Compression.none``) against the fused route from
+    the same weights; (b) the hook route on ``Compression.fp16`` with
+    ``num_groups=4``; (c) ``SyncBatchNorm`` at ResNet-50's stem shape,
+    f32 and bf16."""
+    import torch
+
+    a = hook_route(dev, rank, "none", 0)
+    del a["local"]
+    fused = fused_route(dev, rank)
+    rel, bitwise = param_delta(a["model"], fused["model"])
+    del fused["model"]
+    del a["model"]
+    torch.cuda.empty_cache()
+    b = hook_route(dev, rank, "fp16", BINDING_GROUPS)
+    del b["model"]
+    excess = fp16_excess(a, b.pop("local"), b.pop("reduced"))
+    del a["reduced"]
+    torch.cuda.empty_cache()
+    bn = {name: sync_bn_case(dev, rank, name) for name in BN_LIMIT}
+    return dict(a=a, b=b, fused=fused, rel=rel, bitwise=bitwise,
+                excess=excess, bn=bn)
+
+
+def check_binding(res: list, seconds: float, label: str, wire: str,
+                  card: str):
+    """The gates of "torch binding 2 ranks": (a) the hook route's losses
+    and parameters within 1e-6 relative of the fused route's (both sum
+    two f32 values an element and halve them: bit for bit is expected,
+    printed), handles in flight before ``backward()`` returned, one
+    allreduce a parameter; (b) finite losses, step 1's loss bit for bit
+    (a)'s, step 1's reduced gradient within fp16's rounding of (a)'s,
+    one grouped dispatch a group; both ranks' recorded sequences equal
+    in (a) and (b); (c) SyncBatchNorm within ``BN_LIMIT``; B1 launched.
+    Returns rank 0's launches over the hook-route steps of (a) and
+    (b)."""
+    for r, out in enumerate(res):
+        a, b, fused = out["a"], out["b"], out["fused"]
+        if out["rel"] > 1e-6 or any(
+                abs(x - y) > 1e-6 * abs(y)
+                for x, y in zip(a["losses"], fused["losses"])):
+            raise AssertionError(
+                f"{label}: rank {r}: hook route against fused route: "
+                f"parameters {out['rel']} relative, losses {a['losses']} "
+                f"against {fused['losses']}")
+        if not all(math.isfinite(v) for v in b["losses"]) \
+                or b["losses"][0] != a["losses"][0]:
+            raise AssertionError(f"{label}: rank {r}: fp16 losses "
+                                 f"{b['losses']} (exact {a['losses']})")
+        if out["excess"]["ratio"] > 1.0:
+            raise AssertionError(f"{label}: rank {r}: fp16 reduced gradient "
+                                 f"beyond fp16's rounding: {out['excess']}")
+        if min(a["in_flight"] + b["in_flight"]) < 1:
+            raise AssertionError(f"{label}: rank {r}: no handle in flight "
+                                 f"when backward returned: {a['in_flight']}, "
+                                 f"{b['in_flight']}")
+        reduces = [sum(e[0] == "all_reduce" for e in s) for s in a["seqs"]]
+        groups = [sum(e[0] == "all_reduce" for e in s) for s in b["seqs"]]
+        if reduces != [a["hooks"]] * BINDING_STEPS \
+                or min(groups) < BINDING_GROUPS:
+            raise AssertionError(f"{label}: rank {r}: {reduces} allreduces "
+                                 f"a step for {a['hooks']} parameters; "
+                                 f"{groups} with {BINDING_GROUPS} groups")
+        for name, case in out["bn"].items():
+            bad = {k: v for k, v in case["errs"].items()
+                   if not v <= BN_LIMIT[name]}
+            if bad or (r == 0 and len(case["errs"]) != 6):
+                raise AssertionError(f"{label}: SyncBatchNorm {name} beyond "
+                                     f"{BN_LIMIT[name]}: {case['errs']}")
+        for run in (a, b):
+            if run["counts"]["flash_fwd"] <= 0:
+                raise AssertionError(f"flash_fwd never launched on the "
+                                     f"{label} path (rank {r})")
+    for key in ("a", "b"):
+        if res[0][key]["seqs"] != res[1][key]["seqs"]:
+            raise AssertionError(f"{label}: ({key})'s recorded collective "
+                                 "sequences differ between the ranks")
+    r0 = res[0]
+    a, b, fused = r0["a"], r0["b"], r0["fused"]
+    log(f"{label}: GPT-medium 24 layers, 8 x 1024 tokens a rank, AdamW; "
+        f"(a) hook route (Compression.none) against make_train_step from "
+        f"the same weights: losses {a['losses']} / {fused['losses']}, "
+        f"parameters max |Δ| {r0['rel']} relative (limit 1e-6), bitwise "
+        f"{r0['bitwise']} (rank 1: {res[1]['bitwise']}); handles in flight "
+        f"when backward returned {a['in_flight']}; {a['hooks']} hooks, one "
+        f"allreduce each a step, sequences equal on both ranks")
+    log(f"{label}: (b) fp16 + num_groups={BINDING_GROUPS}: losses "
+        f"{b['losses']}, step 1's reduced gradient max |Δ| "
+        f"{r0['excess']['max_abs']} from (a)'s, at most "
+        f"{r0['excess']['ratio']:.4f} of fp16's rounding bound "
+        f"({FP16_BOUND_REL} max_r |g_r| + 2^-23); "
+        f"{[sum(e[0] == 'all_reduce' for e in s) for s in b['seqs']]} "
+        f"allreduces a step, sequences equal on both ranks")
+    log(f"{label}: step seconds hook {a['times']} (fp16 + groups "
+        f"{b['times']}) against fused {fused['times']} ({wire}); peak "
+        f"memory a rank {a['peak'] / 2**30:.2f} / "
+        f"{res[1]['a']['peak'] / 2**30:.2f} GiB (hook), "
+        f"{fused['peak'] / 2**30:.2f} (fused); launches (a) {a['counts']}, "
+        f"(b) {b['counts']}")
+    for name, case in r0["bn"].items():
+        log(f"{label}: (c) SyncBatchNorm {name} {list(BN_SHAPE)} a rank "
+            f"against nn.BatchNorm2d in f64 on the concatenated batch: max "
+            f"|Δ| / max |oracle| {case['errs']} (limit {BN_LIMIT[name]}); "
+            f"forward + backward {case['seconds']:.3f} s")
+    log(f"{label}: phase {seconds:.1f} s on {card}")
+    return {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+
+
 WORKER_FLAG = "--two-rank-worker"
 SET_WORKER_FLAG = "--four-rank-worker"
 MB_WORKER_FLAG = "--microbatch-worker"
@@ -7544,6 +7922,7 @@ SWAP_WORKER_FLAG = "--swap-worker"
 TP_WORKER_FLAG = "--tp-worker"
 SIM_WORKER_FLAG = "--sim-worker"
 SANITIZE_WORKER_FLAG = "--sanitize-worker"
+BINDING_WORKER_FLAG = "--binding-worker"
 # Each multi-rank path's world, environment (read by hvd.init) and body.
 RANK_PATHS = {
     PIPE_WORKER_FLAG: (SET_RANKS, {}, "pipe_ranks"),
@@ -7557,6 +7936,7 @@ RANK_PATHS = {
     TP_WORKER_FLAG: (1, {}, "tp_ranks"),
     SIM_WORKER_FLAG: (1, {}, "sim_ranks"),
     SANITIZE_WORKER_FLAG: (1, SANITIZE_ENV, "sanitize_ranks"),
+    BINDING_WORKER_FLAG: (WIRE_RANKS, {}, "binding_ranks"),
 }
 WORKER_FLAGS = (WORKER_FLAG, SET_WORKER_FLAG, MB_WORKER_FLAG,
                 RESNET_WORKER_FLAG, HIER_WORKER_FLAG, SEQ_WORKER_FLAG,
@@ -7781,6 +8161,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         durable_counts = durable_phase(dev, card)
         torch.cuda.empty_cache()
+        binding_counts = parallel_phase(
+            BINDING_WORKER_FLAG, WIRE_RANKS, check_binding,
+            "torch binding 2 ranks", card)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         elastic_counts = check_elastic(
             spawn_ranks(ELASTIC_WORKER_FLAG, WIRE_RANKS,
@@ -7828,6 +8212,7 @@ def main() -> int:
                "bert-large 1 rank": bert_counts, **convnet_counts,
                "durable 1 rank": durable_counts,
                "elastic 2 ranks": elastic_counts,
+               "torch binding 2 ranks": binding_counts,
                "launcher 2 ranks": launcher_counts,
                "remote 2 hosts": remote_counts,
                "run_func 2 ranks": run_func_counts,

@@ -82,6 +82,13 @@ the weight hot swap from a checkpoint store (``WeightSubscriber``,
 TelemetryPlane``).  ``hvd.init(config)`` takes an explicit ``Config`` in
 the place of the environment's.
 
+The framework bindings, the reference's ``horovod.torch``,
+``horovod.tensorflow`` and ``horovod.keras`` surfaces, are subpackages
+imported on demand: ``import horovod_tpu_torch.torch as hvd`` (the
+hook-driven ``DistributedOptimizer``, ``SyncBatchNorm``),
+``horovod_tpu_torch.tensorflow`` and ``horovod_tpu_torch.keras`` (these
+two need tensorflow; nothing else here imports it).
+
 ``init(device="cpu")`` runs the same code on the CPU over gloo, where
 each kernel wrapper takes its plain PyTorch version.
 """

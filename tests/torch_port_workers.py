@@ -2380,3 +2380,116 @@ def overlap_recording(microbatches: int, threshold: int,
                                        world_size=hvd.size())
     return {"seq": [list(e) for e in seq], "buckets": len(plan.members),
             "counts": list(sc.wire_counts(seq, compression))}
+
+
+# --- the framework bindings (horovod_tpu_torch.torch, .tensorflow) ------------
+
+def _binding_gpt(config: dict):
+    from horovod_tpu_torch.models import GPT, GPTConfig
+
+    cfg = GPTConfig(**{**config, "dtype": getattr(torch, config["dtype"])})
+    return GPT(cfg, device="cpu", seed=0)
+
+
+def _params_np(model) -> dict:
+    return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+
+
+def binding_routes(config: dict, tokens: np.ndarray, steps: int,
+                   compression: str = "none", num_groups: int = 0,
+                   fused: bool = True) -> dict:
+    """``steps`` AdamW steps of a narrow GPT (seed 0) through the torch
+    binding's hook-driven ``DistributedOptimizer``, each recorded
+    (``step_check.record_collectives``), then (``fused``) the same steps
+    from the same weights through the core's ``make_train_step``; this
+    rank trains on its rows of ``tokens``.  The losses are averaged over
+    the ranks on both routes."""
+    import horovod_tpu_torch as core
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.analysis import step_check as sc
+
+    mine = _my_rows(tokens)
+    batch = (mine[:, :-1], mine[:, 1:])
+    model = _binding_gpt(config)
+    loss_fn = core.models.lm_loss_fn(model)
+    opt = hvd.DistributedOptimizer(
+        _adamw(model.parameters()), named_parameters=model.named_parameters(),
+        compression=getattr(hvd.Compression, compression),
+        num_groups=num_groups)
+    losses, seqs = [], []
+    for _ in range(steps):
+        with sc.record_collectives() as seq:
+            opt.zero_grad()
+            loss = loss_fn(model, batch)
+            loss.backward()
+            opt.step()
+        seqs.append([list(e) for e in seq])
+        losses.append(float(hvd.allreduce(loss.detach())))
+    out = {"hook": {"losses": losses, "params": _params_np(model)},
+           "seqs": seqs, "hooks": len(opt._hook_handles)}
+    if fused:
+        ref = _binding_gpt(config)
+        step = core.make_train_step(core.models.lm_loss_fn(ref),
+                                    _adamw(ref.parameters()),
+                                    compression=core.Compression.none)
+        out["fused"] = {"losses": [float(step(ref, batch))
+                                   for _ in range(steps)],
+                        "params": _params_np(ref)}
+    return out
+
+
+def binding_sync_bn(x: np.ndarray, weight: np.ndarray, bias: np.ndarray,
+                    upstream: np.ndarray) -> dict:
+    """The torch binding's ``SyncBatchNorm`` over this rank's rows of
+    ``x``: one train-mode forward and the backward of ``sum(y ·
+    upstream)`` (this rank's rows of ``upstream``)."""
+    import horovod_tpu_torch.torch as hvd
+
+    xs = _rows(x).requires_grad_(True)
+    sbn = hvd.SyncBatchNorm(x.shape[1]).to(xs.dtype)
+    with torch.no_grad():
+        sbn.weight.copy_(torch.from_numpy(weight))
+        sbn.bias.copy_(torch.from_numpy(bias))
+    y = sbn(xs)
+    (y * _rows(upstream)).sum().backward()
+    return {"y": y.detach().numpy(), "x_grad": xs.grad.numpy(),
+            "w_grad": sbn.weight.grad.numpy(),
+            "b_grad": sbn.bias.grad.numpy(),
+            "running_mean": sbn.running_mean.numpy(),
+            "running_var": sbn.running_var.numpy()}
+
+
+def keras_fit(x: np.ndarray, y: np.ndarray, weights: list, lr: float,
+              epochs: int, batch_size: int) -> list:
+    """A Keras MLP from ``weights`` fit on this rank's rows of ``(x, y)``
+    through the TF binding's ``DistributedOptimizer`` (SGD), in order;
+    its weights after."""
+    import tensorflow as tf
+
+    import horovod_tpu_torch.tensorflow as hvd
+
+    model = keras_mlp(x.shape[1], y.shape[1])
+    model.set_weights(weights)
+    model.compile(optimizer=hvd.DistributedOptimizer(
+        tf.keras.optimizers.SGD(lr)), loss="mse", jit_compile=False)
+    model.fit(_my_rows(x).numpy(), _my_rows(y).numpy(), epochs=epochs,
+              batch_size=batch_size, shuffle=False, verbose=0)
+    return [np.array(w) for w in model.get_weights()]
+
+
+def import_tensorflow() -> str:
+    import tensorflow as tf
+
+    return tf.__version__
+
+
+def keras_mlp(d_in: int, d_out: int):
+    """The Keras MLP of the bindings' tests: ``d_in → 16 (tanh) →
+    d_out``."""
+    import tensorflow as tf
+
+    model = tf.keras.Sequential([
+        tf.keras.Input(shape=(d_in,)),
+        tf.keras.layers.Dense(16, activation="tanh"),
+        tf.keras.layers.Dense(d_out)])
+    return model
