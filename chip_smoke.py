@@ -205,7 +205,7 @@
    ``hvd_tpu_plan_compile`` span, and ``hvd_tpu_plan_axes`` must equal
    the plan's axes).  (1) GPT-medium's widths
    (``benchmarks/gpt_bench.py``'s: vocab 32000, 16 heads, d_model 1024,
-   d_ff 4096, bf16 activations, f32 parameters; 12 layers, SP_LAYERS,
+   d_ff 4096, bf16 activations, f32 parameters; 6 layers, SP_LAYERS,
    cut from 24 for the script's time) at 4096
    positions, ``attention='ring'`` on the ``'flash'`` engine, on the
    mesh ``{'dp': 1, 'sp': 2, 'tp': 2}`` (``examples/
@@ -225,8 +225,9 @@
    1e-6, parameters within rtol 1e-5 / atol 1e-6), B2-B4 launched.
    Prints the step seconds and peak memory per rank beside the card.
 14. "pipeline 4 ranks": four processes share the card over gloo.
-   GPT-medium (24 layers) as ``PipelinedGPT`` on ``{'pp': 4}``: four
-   stages of six blocks, 4 microbatches of 2 × 1024 tokens (the batch of
+   GPT-medium (8 layers, PIPE_LAYERS, cut from 24 for the script's
+   time) as ``PipelinedGPT`` on ``{'pp': 4}``: four stages of two
+   blocks, 4 microbatches of 2 × 1024 tokens (the batch of
    8 × 1024 from seed 0 on every rank), 7 ticks, 3 AdamW steps of
    ``make_spmd_train_step``: finite losses, the same on every rank, the
    embedding and head bitwise equal on the four ranks after every step,
@@ -236,20 +237,20 @@
    step 13's oracle); at 4 layers (one block a stage) a remat step: the
    plain step's loss (1e-6) and parameters (1e-6), B1 twice as often.
 15. "moe 4 ranks": four processes share the card over gloo.
-   GPT-medium's widths, 12 layers (MOE_LAYERS, cut from 24 for the
+   GPT-medium's widths, 6 layers (MOE_LAYERS, cut from 24 for the
    script's time), every second FFN a mixture of 8
    experts (top-2, capacity factor 1.25) on ``{'dp': 2, 'ep': 2}``
    (``shard_params``: four experts a rank), 4 × 1024 tokens from seed 0,
    3 AdamW steps on ``lm_loss_fn``: finite losses, the same on every
    rank, the replicated leaves bitwise equal on the four ranks and the
-   experts on each dp pair, B1 12 times a step; step 1 against the
+   experts on each dp pair, B1 6 times a step; step 1 against the
    one-rank MoE GPT on the whole batch, at the same depth, rank 0 alone.
 16. "fsdp 4 ranks": four processes share the card over gloo under
-   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (12 layers, FSDP_LAYERS,
+   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (6 layers, FSDP_LAYERS,
    cut from 24 for the script's time) through
    ``make_fsdp_train_step`` (each parameter cut on its largest
    divisible dim, AdamW on the slices), 2 × 1024 tokens a rank, 3 steps:
-   finite losses, the same on every rank, B1 12 times a step; step 1
+   finite losses, the same on every rank, B1 6 times a step; step 1
    against the one-rank data-parallel step on the whole batch; peak
    memory a rank beside the oracle's; at 2 layers one HSDP step
    (``data=2,fsdp=2``, derived from the session plan) against one
@@ -269,7 +270,7 @@
    inputs, 1000 classes, bf16), batch 128, one warm-up step, then one
    step on the int8 + EF wire (B2 and B4 must launch; VGG's fc6
    gradient of 102.8 M elements is the wire's largest leaf).
-19. "durable 1 rank": GPT-medium's widths at 8 layers (DURABLE_LAYERS,
+19. "durable 1 rank": GPT-medium's widths at 4 layers (DURABLE_LAYERS,
    cut from 24 for the script's time limit) with the "1 rank"
    phase's AdamW on the int8+EF wire, a batch of 8 x 1024 tokens a
    step from seed 1000 + step, deterministic algorithms on.  Run A: 6
@@ -285,7 +286,7 @@
    bit-flipped; a model from a third seed ``resume()``s at step 2 with
    the journal's 3-6, the flight ring holds the damaged-step event, and
    the replay of 3-6 must equal run A.  The temp dir's free space is
-   checked first (a save is ~2.7 GB).  Prints the save stall (p50, max),
+   checked first (a save is ~1.9 GB).  Prints the save stall (p50, max),
    the write time, bytes a save, the restore time, the commit (device to
    pinned host) and the step times with and without saves.  Its launch
    counts are run B's, the resume's and the replay's (not run A's).
@@ -335,12 +336,12 @@
    share the card over gloo in a group the session owns.  Each checks
    torchrun's variables and the launch's HMAC key, the native library
    loaded, the timeline writing through ``NativeTimeline`` and the
-   cross-process monitor running; then GPT-medium at 12 layers
+   cross-process monitor running; then GPT-medium at 6 layers
    (``LAUNCH_LAYERS``, cut from 24, widths kept), a batch of 8 x 1024
    from seed 0 + rank, ``dp_step``'s AdamW on the int8+EF wire, 3 steps
    each followed by an eager ``allreduce`` of the loss: finite losses,
    replicas bitwise equal, B1-B4 launched.  The native planner's plans
-   of the step's 101 gradient leaves must equal ``plan_buckets_py``,
+   of the step's 53 gradient leaves must equal ``plan_buckets_py``,
    and its two-phase and two-tier choices on the same bytes their
    Python twins.  The stall drill: no warning during the steps; rank 1
    sleeps 20 s before an eager ``allreduce`` named ``stall_probe``;
@@ -489,7 +490,7 @@
    still 1, the boot tokens still served.  Prints the write, roll and
    swap times and the pulled bytes.
 29. "serve tp 2", in a process of its own (``--tp-worker``): GPT-medium
-   (12 layers, TP_LAYERS, cut from 24 for the script's time;
+   (8 layers, TP_LAYERS, cut from 24 for the script's time;
    bf16 activations, f32 parameters from seed 0) in a
    tensor-parallel engine of two shards on the one card
    (``devices=["cuda:0", "cuda:0"]``) beside a tp = 1 engine on the same
@@ -598,6 +599,7 @@ OVERHEAD_TURNS = 4               # off/on pairs of builds timing the hooks
 WIRE_RANKS, WIRE_LAYERS, WIRE_STEPS = 2, 2, 2
 SET_RANKS = 4                    # the "4 ranks" phase's world
 MICROBATCHES, MB_STEPS = 4, 3    # the "microbatch 2 ranks" phase's
+MB_LAYERS = 12                   # its depth, cut from 24 (the script's time)
 IMAGE_CLASSES = 1000
 IMAGE_SIDE = {"resnet50": 224, "vgg16": 224, "inception3": 299}  # bench.py
 RESNET_BATCH, RESNET_STEPS = 256, 5          # bench.py's full preset
@@ -2269,10 +2271,12 @@ def mb_step(model, **kwargs):
         compression=hvd.Compression.int8, **kwargs)
 
 
-def microbatch_ranks(dev, rank: int) -> dict:
-    """Path "microbatch 2 ranks" (and, over NCCL on four cards,
-    ``scripts/torch_port_sets_nccl.py --microbatch``): MB_STEPS steps of :func:`mb_step` on
-    full-depth GPT-medium, each rank on its own batch of BATCH rows, the
+def microbatch_ranks(dev, rank: int,
+                     n_layer: int = GPT_MEDIUM["n_layer"]) -> dict:
+    """Path "microbatch 2 ranks" (at MB_LAYERS layers) and, over NCCL on
+    four cards, ``scripts/torch_port_sets_nccl.py --microbatch`` (full
+    depth): MB_STEPS steps of :func:`mb_step` on GPT-medium at
+    ``n_layer`` layers, each rank on its own batch of BATCH rows, the
     launch counts set to 0 just before and read just after; step 1's
     per-microbatch gradients are captured at the overlap wire's entry.
     Then (a) step 1's reduced gradients against
@@ -2286,7 +2290,7 @@ def microbatch_ranks(dev, rank: int) -> dict:
     from horovod_tpu_torch.ops import fusion
     from horovod_tpu_torch.ops.fusion import tree_flatten
 
-    model, batch = gpt_medium(dev, data_seed=1 + rank)
+    model, batch = gpt_medium(dev, n_layer, data_seed=1 + rank)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     step = mb_step(model)
     captured, plans = [], []
@@ -2376,7 +2380,7 @@ def microbatch_ranks(dev, rank: int) -> dict:
                 off_times=off_times, seconds=seconds, counts=counts,
                 peak=peak, plan_ok=plan_ok, a_bad=a_bad, buckets=buckets,
                 b_bad=b_bad, two_phase_buckets=sum(flags),
-                tp_loss=tp_loss, seqs=seqs)
+                tp_loss=tp_loss, seqs=seqs, n_layer=n_layer)
 
 
 def microbatch_phase():
@@ -2419,7 +2423,7 @@ def check_microbatch(res: list, seconds: float, label: str, wire: str):
         recorded_sequences(label, [out["seqs"][i] for out in res],
                            f"step {i + 1}", microbatches=MICROBATCHES,
                            buckets=r0["buckets"], compression="int8")
-    log(f"{label}: GPT-medium, all {GPT_MEDIUM['n_layer']} layers, "
+    log(f"{label}: GPT-medium, {r0['n_layer']} layers, "
         f"batch {BATCH} a rank in {MICROBATCHES} microbatches, int8 overlap "
         f"wire over {r0['buckets']} buckets, chunked head ({VOCAB_CHUNK}); "
         f"losses {[o['losses'] for o in res]}; replicas bitwise equal after "
@@ -3075,7 +3079,7 @@ SP_LAYOUT = {"dp": 1, "sp": 2, "tp": 2}  # examples/gpt_long_context.py, 4 slots
 SP_SEQ, SP_BATCH, SP_STEPS, SP_SHORT_LAYERS = 4096, 2, 3, 2
 # The main run's depth: cut from 24, widths kept (the script's
 # time beside the analysis tier's paths).
-SP_LAYERS = 12
+SP_LAYERS = 6
 # Step 1 against the one-rank flash step (bf16 activations both): the
 # loss within 1e-2 of it; an Adam step moves an element by at most lr
 # (plus a weight decay of lr·1e-4·|p|), so no updated parameter may
@@ -3416,16 +3420,17 @@ def check_sequence_parallel(res: list, seconds: float, label: str,
 
 PIPE_LAYOUT = {"pp": 4}
 PIPE_MICRO, PIPE_STEPS, PIPE_REMAT_LAYERS = 4, 3, 4
+PIPE_LAYERS = 8     # cut from 24, widths kept (the script's time)
 MOE_LAYOUT = {"dp": 2, "ep": 2}
 MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
            moe_every=2)                    # GPTConfig's MoE defaults
 MOE_BATCH, MOE_STEPS = 4, 3
 # Cut from 24, widths kept: the script's time beside the
 # analysis tier's paths ("hvdlint (host)", "sanitize serve 1 rank").
-MOE_LAYERS = 12
+MOE_LAYERS = 6
 FSDP_ENV = {"HVD_TPU_MESH_PLAN": "fsdp=4"}
 FSDP_STEPS, FSDP_SHORT_LAYERS = 3, 2
-FSDP_LAYERS = 12    # cut from 24, widths kept (the script's time)
+FSDP_LAYERS = 6     # cut from 24, widths kept (the script's time)
 AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
                 "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
@@ -3542,8 +3547,8 @@ def pipe_remat_check(dev) -> dict:
 
 
 def pipe_ranks(dev, rank: int) -> dict:
-    """Path "pipeline 4 ranks": GPT-medium (24 layers) as four stages of
-    six blocks, PIPE_MICRO microbatches of BATCH / PIPE_MICRO rows, the
+    """Path "pipeline 4 ranks": GPT-medium's widths at PIPE_LAYERS layers
+    as four stages, PIPE_MICRO microbatches of BATCH / PIPE_MICRO rows, the
     whole batch on every rank (dp 1), PIPE_STEPS AdamW steps of
     ``make_spmd_train_step``; step 1's parameters gathered to rank 0;
     then the remat check; then rank 0 alone runs the one-rank oracle."""
@@ -3551,7 +3556,7 @@ def pipe_ranks(dev, rank: int) -> dict:
     import horovod_tpu_torch as hvd
 
     t0 = time.perf_counter()
-    model = pipe_model(dev, GPT_MEDIUM["n_layer"])
+    model = pipe_model(dev, PIPE_LAYERS)
     step = pipe_step(model)
     batch = whole_tokens(dev, BATCH)
     first = None
@@ -3571,7 +3576,7 @@ def pipe_ranks(dev, rank: int) -> dict:
     torch.cuda.empty_cache()
     hvd.barrier()
     if rank == 0:
-        cfg = hvd.models.GPTConfig(**GPT_MEDIUM)
+        cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, "n_layer": PIPE_LAYERS})
         run["oracle"] = one_rank_oracle(dev, cfg, batch, first,
                                         run["losses"][0])
     return run
@@ -3766,7 +3771,7 @@ def check_pipeline(res: list, seconds: float, label: str, wire: str,
                    card: str):
     r0 = res[0]
     ticks = PIPE_MICRO + PIPE_LAYOUT["pp"] - 1
-    blocks = GPT_MEDIUM["n_layer"] // PIPE_LAYOUT["pp"]
+    blocks = PIPE_LAYERS // PIPE_LAYOUT["pp"]
     for r, out in enumerate(res):
         if not all(math.isfinite(v) for v in out["losses"]) \
                 or out["losses"] != r0["losses"]:
@@ -3790,7 +3795,7 @@ def check_pipeline(res: list, seconds: float, label: str, wire: str,
     if not oracle_ok(r0["oracle"]):
         raise AssertionError(f"{label}: step 1 off the one-rank step: "
                              f"{r0['oracle']}")
-    log(f"{label}: GPT-medium, {GPT_MEDIUM['n_layer']} layers as "
+    log(f"{label}: GPT-medium, {PIPE_LAYERS} layers as "
         f"{PIPE_LAYOUT['pp']} stages of {blocks}, {PIPE_MICRO} microbatches "
         f"of {BATCH // PIPE_MICRO} x {SEQ} tokens, {ticks} ticks, "
         f"{[o['params'] for o in res]} parameters a rank, AdamW, losses "
@@ -3966,8 +3971,8 @@ def check_autotune(res: list, seconds: float, label: str, wire: str,
 
 def parallel_phase(flag: str, world: int, check, label: str, card: str):
     """Run ``world`` ranks of ``flag``'s path, sharing the card over gloo,
-    and hand every rank's results to ``check``: rank 0's launch
-    counts."""
+    and hand every rank's results to ``check``; returns what it returns
+    (rank 0's launch counts)."""
     t0 = time.perf_counter()
     res = spawn_ranks(flag, world)
     return check(res, time.perf_counter() - t0, label,
@@ -4113,7 +4118,7 @@ def convnet_phase(dev, card: str):
 DURABLE_STEPS, DURABLE_EVERY, DURABLE_CRASH = 6, 2, 4
 # "durable 1 rank"'s depth, cut from 24 to keep the whole script inside
 # its time limit beside the serving fleet's phases; the widths are kept.
-DURABLE_LAYERS = 8
+DURABLE_LAYERS = 4
 DURABLE_SEED0 = 1000             # step s draws its tokens from seed 1000 + s
 ELASTIC_STEPS, ELASTIC_FAULT = 4, 2   # "elastic 2 ranks": dispatch 2 fails
 
@@ -4495,7 +4500,7 @@ LAUNCHER_WORKER_FLAG = "--launcher-worker"
 LAUNCHER_RANKS, LAUNCHER_STEPS = 2, 3
 # "launcher 2 ranks" and "remote 2 hosts" (held to each other bit for
 # bit): cut from 24 layers, widths kept, for the script's time.
-LAUNCH_LAYERS = 12
+LAUNCH_LAYERS = 6
 STALL_WINDOW_S = 15.0      # well above a step here (2 ranks, gloo, one card)
 LAUNCHER_TIMEOUT_S = 900.0
 PLANNER_CALLS = 200        # timed calls of each planner on the step's leaves
@@ -5318,6 +5323,215 @@ def run_func_phase(card: str, device: str = "cuda:0") -> dict:
         f"({want[:16]}) on both ranks and routes, on {card}; launches "
         f"{runs['local'][0][3]}")
     return runs["local"][0][3]
+
+
+# --- "spark run 2 tasks" and "ray executor 2 actors" ----------------------------
+
+SPARK_TASKS, SPARK_STEPS = 2, 2
+RAY_ACTORS = 2
+
+
+def stand_ins():
+    """The stand-ins for pyspark's barrier stage and Ray's actors
+    (``tests/torch_port_{spark,ray}_shim.py``: local processes, the
+    standard library only): the card's host has neither package."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_ray_shim
+    import torch_port_spark_shim
+
+    return torch_port_spark_shim, torch_port_ray_shim
+
+
+def spark_train_fn() -> dict:
+    """One task of "spark run 2 tasks", the function ``spark.run`` ships
+    (by reference, as ``chip_smoke.spark_train_fn``) into a session that
+    the task's ``init(device="cuda:0", backend="gloo")`` made: GPT-medium
+    at 24 layers from seed 0, broadcast through the torch binding, this
+    rank's 8 x 1024 tokens from seed ``rank``, SPARK_STEPS AdamW steps
+    through the hook-driven ``DistributedOptimizer`` on
+    ``Compression.none`` (as "torch binding 2 ranks"' (a)), each step's
+    loss averaged; the launch counts set to 0 just before the steps and
+    read just after."""
+    import torch
+    import horovod_tpu_torch as core
+    import horovod_tpu_torch.torch as hvd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank = core.device(), core.rank()
+    model, batch = binding_model(dev, rank)
+    loss_fn = core.models.lm_loss_fn(model)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **ADAMW),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.none)
+    torch.cuda.synchronize()
+    core.ops.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SPARK_STEPS):
+        opt.zero_grad()
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        losses.append(float(hvd.allreduce(loss.detach(), name="loss")))
+    torch.cuda.synchronize()
+    return dict(rank=rank, size=core.size(), device=str(dev),
+                card=torch.cuda.get_device_name(dev), losses=losses,
+                counts=core.ops.launch_counts(), pid=os.getpid(),
+                seconds=time.perf_counter() - t0,
+                env={k: os.environ.get(k) for k in CONTRACT_VARS})
+
+
+def spark_phase(card: str, want: list, device: str = "cuda:0") -> dict:
+    """"spark run 2 tasks": ``horovod_tpu_torch.spark.run(
+    chip_smoke.spark_train_fn, num_proc=2, device="cuda:0",
+    backend="gloo")`` over the pyspark stand-in.  Gates: results in rank
+    order, both tasks on cuda:0 of this card with torchrun's variables,
+    both losses bit for bit "torch binding 2 ranks" (a)'s first
+    SPARK_STEPS (``want``), B1 launched 24 x SPARK_STEPS times a task, no
+    process left."""
+    import torch
+    from horovod_tpu_torch import spark
+
+    import chip_smoke   # by name, not __main__: the tasks import it
+
+    spark_shim, _ = stand_ins()
+    torch.cuda.empty_cache()
+    spark_shim.install()
+    t0 = time.perf_counter()
+    try:
+        res = spark.run(chip_smoke.spark_train_fn, num_proc=SPARK_TASKS,
+                        device=device, backend="gloo")
+    finally:
+        spark_shim.uninstall()
+    seconds = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    flash = GPT_MEDIUM["n_layer"] * SPARK_STEPS
+    if [r["rank"] for r in res] != list(range(SPARK_TASKS)):
+        raise AssertionError(f"spark run 2 tasks: results in rank order "
+                             f"{[r['rank'] for r in res]}")
+    for r in res:
+        if (r["device"], r["card"], r["size"]) != (device, name,
+                                                   SPARK_TASKS) \
+                or r["env"]["RANK"] != str(r["rank"]) \
+                or r["env"]["WORLD_SIZE"] != str(SPARK_TASKS):
+            raise AssertionError(f"spark run 2 tasks: task {r['rank']} on "
+                                 f"{r['device']} of {r['card']}, env "
+                                 f"{r['env']}")
+        if r["losses"] != list(want[:SPARK_STEPS]):
+            raise AssertionError(
+                f"spark run 2 tasks: task {r['rank']}'s losses "
+                f"{r['losses']} are not torch binding 2 ranks' "
+                f"{want[:SPARK_STEPS]} bit for bit")
+        if r["counts"]["flash_fwd"] != flash:
+            raise AssertionError(
+                f"flash_fwd launched {r['counts']['flash_fwd']} times on "
+                f"the spark run 2 tasks path (task {r['rank']}), not "
+                f"{flash}")
+    if child_processes():
+        raise AssertionError(f"spark run 2 tasks: processes left running: "
+                             f"{child_processes()}")
+    log(f"spark run 2 tasks: spark.run(chip_smoke.spark_train_fn, "
+        f"num_proc={SPARK_TASKS}, device={device!r}, backend='gloo') over "
+        f"the pyspark stand-in (local task processes, no cluster): "
+        f"GPT-medium {GPT_MEDIUM['n_layer']} layers, {BATCH} x {SEQ} tokens "
+        f"a task, losses "
+        f"{res[0]['losses']} / {res[1]['losses']}, bit for bit torch "
+        f"binding 2 ranks' (a); tasks {[r['pid'] for r in res]} on "
+        f"{name}, env {res[1]['env']}; steps {res[0]['seconds']:.1f} s; "
+        f"launches {res[0]['counts']}; phase {seconds:.1f} s on {card}")
+    return res[0]["counts"]
+
+
+def ray_body() -> tuple:
+    """One rank of "ray executor 2 actors", the function the executor runs
+    (by reference) in the session its ``setup`` made: the int8 allreduce
+    of a RUN_FUNC_SHAPE f32 tensor from seed ``rank`` (the stack tier:
+    B2, then B3), the launch counts around it; returns ``(rank, digest,
+    device, card name, counts, pid)``."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    rank, dev = hvd.rank(), str(hvd.device())
+    x = run_func_input(rank, dev)
+    torch.cuda.synchronize()
+    hvd.ops.reset_launch_counts()
+    out = hvd.allreduce(x, compression=hvd.Compression.int8, name="ray")
+    torch.cuda.synchronize()
+    counts = hvd.ops.launch_counts()
+    return (rank, digest([out]), dev, torch.cuda.get_device_name(0), counts,
+            os.getpid())
+
+
+def ray_rank() -> tuple:
+    """``(rank, size, pid)`` of the actor it runs in."""
+    import horovod_tpu_torch as hvd
+
+    return hvd.rank(), hvd.size(), os.getpid()
+
+
+def ray_phase(card: str, device: str = "cuda:0") -> dict:
+    """"ray executor 2 actors": ``RayExecutor(num_workers=2, use_gpu=True,
+    device="cuda:0", backend="gloo")`` over the Ray stand-in: ``start()``,
+    ``run(chip_smoke.ray_body)``, ``execute_single(chip_smoke.ray_rank,
+    rank=0)``, ``shutdown()``.  Gates: results in rank order, the digest
+    bit for bit the plain B2 -> B3 over the same seeds on both ranks, B2
+    and B3 launched, no actor process left."""
+    import torch
+    from horovod_tpu_torch.ray import RayExecutor
+
+    import chip_smoke   # by name: the actors import it
+
+    _, ray_shim = stand_ins()
+    want = digest([plain_stack_allreduce(
+        [run_func_input(r, device) for r in range(RAY_ACTORS)], "average")])
+    torch.cuda.empty_cache()
+    ray_shim.install()
+    t0 = time.perf_counter()
+    try:
+        ex = RayExecutor(num_workers=RAY_ACTORS, use_gpu=True, device=device,
+                         backend="gloo")
+        ex.start()
+        try:
+            res = ex.run(chip_smoke.ray_body)
+            single = ex.execute_single(chip_smoke.ray_rank, rank=0)
+        finally:
+            ex.shutdown()
+    finally:
+        ray_shim.uninstall()
+    seconds = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    ranks = [r[0] for r in res]
+    if ranks != list(range(RAY_ACTORS)) or {r[1] for r in res} != {want} \
+            or {(r[2], r[3]) for r in res} != {(device, name)}:
+        raise AssertionError(
+            f"ray executor 2 actors: ranks {ranks}, digests "
+            f"{[r[1] for r in res]} against the plain {want}, devices "
+            f"{[(r[2], r[3]) for r in res]}")
+    if single != (0, RAY_ACTORS, res[0][5]):
+        raise AssertionError(f"ray executor 2 actors: execute_single(rank=0)"
+                             f" gave {single}, rank 0's actor is "
+                             f"{res[0][5]}")
+    for rank, *_, counts, _pid in res:
+        for kernel in ("quantize_blocks", "dequantize_accumulate"):
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{kernel} never launched on the ray "
+                                     f"executor 2 actors path (rank {rank})")
+    if ray_shim.live_actors() or child_processes():
+        raise AssertionError(f"ray executor 2 actors: actors left running: "
+                             f"{ray_shim.live_actors()} "
+                             f"{child_processes()}")
+    log(f"ray executor 2 actors: RayExecutor(num_workers={RAY_ACTORS}, "
+        f"use_gpu=True, device={device!r}, backend='gloo') over the Ray "
+        f"stand-in (local actor processes, no cluster): start, run, "
+        f"execute_single, shutdown in {seconds:.1f} s; results in rank "
+        f"order, the int8 allreduce of {list(RUN_FUNC_SHAPE)} f32 bitwise "
+        f"its plain form ({want[:16]}) on both actors, on {card}; "
+        f"launches {res[0][4]}")
+    return res[0][4]
 
 
 # --- "serve 1 rank" and "serve 2 replicas" -------------------------------------
@@ -6675,7 +6889,7 @@ TP_KILL_STEP = 2                      # the follower's decode event it dies at
 TP_LOAD_REQUESTS, TP_LOAD_PROMPT = 8, 64   # the tokens/s reading's batch
 TP_SWAP_PROMPTS = 2
 TP_SHARD_FLAG = "--tp-shard-worker"
-TP_LAYERS = 12    # cut from 24, widths kept (the script's time)
+TP_LAYERS = 8     # cut from 24, widths kept (the script's time)
 
 
 def tp_ranks(dev, rank: int) -> dict:
@@ -7377,37 +7591,77 @@ def hvdlint_phase() -> dict:
 
 
 def bindings_on_host() -> None:
-    """Part of "hvdlint (host)": ``import horovod_tpu_torch.torch`` must
-    work here; without tensorflow on the host, ``import
-    horovod_tpu_torch.tensorflow`` (and ``.keras``) must raise an
-    ``ImportError`` that names it.  A statement of what the host has,
-    not a fallback: the TF and Keras bindings are held to the reference
-    by the CPU tests."""
+    """Part of "hvdlint (host)", a statement of what the card's host has,
+    not a fallback: ``import horovod_tpu_torch.torch`` works; without
+    tensorflow, ``import horovod_tpu_torch.tensorflow`` (and ``.keras``)
+    raises an ``ImportError`` naming it, and without mxnet ``import
+    horovod_tpu_torch.mxnet`` one naming mxnet (the CPU tests hold those
+    bindings); ``.spark`` and ``.ray`` import, their ``FilesystemStore``
+    and placement math work, and ``spark.run`` / ``RayExecutor.start``
+    raise naming pyspark / ray until a stand-in is registered."""
     import importlib
     import importlib.util
+    import tempfile
 
     binding = importlib.import_module("horovod_tpu_torch.torch")
     if not (binding.DistributedOptimizer and binding.SyncBatchNorm):
         raise AssertionError("hvdlint (host): horovod_tpu_torch.torch "
                              "lacks its optimizer or SyncBatchNorm")
-    if importlib.util.find_spec("tensorflow") is not None:
-        importlib.import_module("horovod_tpu_torch.tensorflow")
-        log("bindings (host): horovod_tpu_torch.torch and .tensorflow "
-            "import (this host has tensorflow)")
-        return
-    for name in ("horovod_tpu_torch.tensorflow", "horovod_tpu_torch.keras"):
+    absent = {}
+    for package, modules in (
+            ("tensorflow", ("horovod_tpu_torch.tensorflow",
+                            "horovod_tpu_torch.keras")),
+            ("mxnet", ("horovod_tpu_torch.mxnet",))):
+        if importlib.util.find_spec(package) is not None:
+            for name in modules:
+                importlib.import_module(name)
+            continue
+        absent[package] = modules
+        for name in modules:
+            try:
+                importlib.import_module(name)
+            except ImportError as e:
+                if package not in str(e):
+                    raise AssertionError(f"hvdlint (host): import {name}: "
+                                         f"{e}")
+            else:
+                raise AssertionError(f"hvdlint (host): {name} imported on "
+                                     f"a host without {package}")
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.ray import RayExecutor, strategy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = spark.FilesystemStore(tmp)
+        path = os.path.join(store.get_checkpoint_path("r"), "x.pkl")
+        store.write_serialized(path, {"a": 1})
+        if store.read_serialized(path) != {"a": 1}:
+            raise AssertionError("hvdlint (host): FilesystemStore round "
+                                 "trip")
+    bundles = strategy.pack_bundles(3, 2, 1, 2)
+    if bundles != [{"CPU": 4, "GPU": 2}, {"CPU": 2, "GPU": 1}] \
+            or strategy.ranks_per_bundle(3, bundles, 2) != [[0, 1], [2]]:
+        raise AssertionError(f"hvdlint (host): pack_bundles {bundles}")
+    gated = []
+    for package, call in (
+            ("pyspark", lambda: spark.run(print, num_proc=2)),
+            ("ray", lambda: RayExecutor(num_workers=2).start())):
+        if importlib.util.find_spec(package) is not None:
+            continue
         try:
-            importlib.import_module(name)
+            call()
         except ImportError as e:
-            if "tensorflow" not in str(e):
-                raise AssertionError(f"hvdlint (host): import {name}: {e}")
+            if package not in str(e):
+                raise AssertionError(f"hvdlint (host): {package}: {e}")
         else:
-            raise AssertionError(f"hvdlint (host): {name} imported on a "
-                                 "host without tensorflow")
-    log("bindings (host): horovod_tpu_torch.torch imports; this host has "
-        "no tensorflow, so the TF and Keras bindings do not run on the "
-        "card (import horovod_tpu_torch.tensorflow / .keras raise "
-        "ImportError naming tensorflow; the CPU tests hold them)")
+            raise AssertionError(f"hvdlint (host): {package} not required")
+        gated.append(package)
+    log(f"bindings (host): horovod_tpu_torch.torch, .spark and .ray import "
+        f"(FilesystemStore and the placement math work); this host lacks "
+        f"{sorted(absent)}, so "
+        f"{sorted(m for ms in absent.values() for m in ms)} raise "
+        f"ImportError naming them (the CPU tests hold those bindings), and "
+        f"without {gated} spark.run / RayExecutor.start raise naming them "
+        f"(their paths run below over the stand-ins)")
 
 
 def recorded_sequences(path: str, seqs: list, what: str,
@@ -7830,8 +8084,8 @@ def check_binding(res: list, seconds: float, label: str, wire: str,
     (a)'s, step 1's reduced gradient within fp16's rounding of (a)'s,
     one grouped dispatch a group; both ranks' recorded sequences equal
     in (a) and (b); (c) SyncBatchNorm within ``BN_LIMIT``; B1 launched.
-    Returns rank 0's launches over the hook-route steps of (a) and
-    (b)."""
+    Returns rank 0's launches over the hook-route steps of (a) and (b),
+    and (a)'s losses ("spark run 2 tasks" must reproduce them)."""
     for r, out in enumerate(res):
         a, b, fused = out["a"], out["b"], out["fused"]
         if out["rel"] > 1e-6 or any(
@@ -7901,7 +8155,8 @@ def check_binding(res: list, seconds: float, label: str, wire: str,
             f"|Δ| / max |oracle| {case['errs']} (limit {BN_LIMIT[name]}); "
             f"forward + backward {case['seconds']:.3f} s")
     log(f"{label}: phase {seconds:.1f} s on {card}")
-    return {k: a["counts"][k] + b["counts"][k] for k in a["counts"]}
+    return ({k: a["counts"][k] + b["counts"][k] for k in a["counts"]},
+            a["losses"])
 
 
 WORKER_FLAG = "--two-rank-worker"
@@ -7986,7 +8241,7 @@ def rank_worker(flag: str, rank: int, tmp: str) -> None:
             torch.cuda.empty_cache()
             res = dict(dp=dp, sharded=sharded_two_ranks(hvd.device(), rank))
         elif flag == MB_WORKER_FLAG:
-            res = microbatch_ranks(hvd.device(), rank)
+            res = microbatch_ranks(hvd.device(), rank, MB_LAYERS)
         elif flag == RESNET_WORKER_FLAG:
             res = resnet_ranks(hvd.device(), rank)
         elif flag == HIER_WORKER_FLAG:
@@ -8100,6 +8355,19 @@ PATH_OF = {"dequantize_accumulate": "2 ranks", "sgd_apply": "sharded 2 ranks",
            "blocked_matmul": "sharded 2 ranks"}
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall time kept under ``label`` in
+    PHASE_SECONDS (``main`` logs them before the result lines)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[label] = round(time.perf_counter() - t0, 1)
+
+
 def main() -> int:
     import torch
 
@@ -8116,8 +8384,8 @@ def main() -> int:
     t0 = t_start = time.perf_counter()
     hvd.ops.build_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    probe_check(card)
-    hvdlint_phase()
+    timed("probe", probe_check, card)
+    timed("hvdlint (host)", hvdlint_phase)
 
     # The "1 rank" phase scrapes this process's /metrics; the ranks the
     # multi-rank phases spawn serve none (the variable is read at init).
@@ -8129,25 +8397,31 @@ def main() -> int:
     try:
         dev = hvd.device()
         gen = torch.Generator(device=dev).manual_seed(0)
-        rows = kernel_phase(dev, gen)
-        non_finite_check(dev)
-        model_check(dev)
-        counts, dp_tok_s, dp_peak, obs_seconds = train_phase(dev, card)
+        rows = timed("kernels", kernel_phase, dev, gen)
+        timed("non-finite, model", lambda: (non_finite_check(dev),
+                                             model_check(dev)))
+        counts, dp_tok_s, dp_peak, obs_seconds = timed(
+            "1 rank", train_phase, dev, card)
         torch.cuda.empty_cache()
-        xent_check(dev)
+        timed("xent", xent_check, dev)
         torch.cuda.empty_cache()
-        zero_counts = zero_phase(dev, card, dp_tok_s, dp_peak)
+        zero_counts = timed("zero 1 rank", zero_phase, dev, card, dp_tok_s,
+                            dp_peak)
         torch.cuda.empty_cache()
-        wire_counts, sharded_counts = two_rank_phase()
-        set_counts = four_rank_phase()
-        mb_counts = microbatch_phase()
-        resnet_counts, resnet_fp16_counts = resnet_phase(dev, card)
+        wire_counts, sharded_counts = timed("2 ranks, sharded 2 ranks",
+                                            two_rank_phase)
+        set_counts = timed("4 ranks", four_rank_phase)
+        mb_counts = timed("microbatch 2 ranks", microbatch_phase)
+        resnet_counts, resnet_fp16_counts = timed(
+            "resnet50 1 rank", resnet_phase, dev, card)
         torch.cuda.empty_cache()
-        resnet_ranks_counts = resnet_two_rank_phase()
-        bert_counts = bert_phase(dev, card)
+        resnet_ranks_counts = timed("resnet50 2 ranks",
+                                    resnet_two_rank_phase)
+        bert_counts = timed("bert-large 1 rank", bert_phase, dev, card)
         torch.cuda.empty_cache()
-        hier_counts = hierarchical_phase()
-        seq_counts = sequence_parallel_phase(card)
+        hier_counts = timed("hierarchical 4 ranks", hierarchical_phase)
+        seq_counts = timed("sequence-parallel 4 ranks",
+                           sequence_parallel_phase, card)
         new_paths = {}
         for flag, check, label in (
                 (PIPE_WORKER_FLAG, check_pipeline, "pipeline 4 ranks"),
@@ -8155,35 +8429,46 @@ def main() -> int:
                 (FSDP_WORKER_FLAG, check_fsdp, "fsdp 4 ranks"),
                 (AUTOTUNE_WORKER_FLAG, check_autotune, "autotune 2 ranks")):
             torch.cuda.empty_cache()
-            new_paths[label] = parallel_phase(flag, RANK_PATHS[flag][0],
-                                              check, label, card)
-        convnet_counts = convnet_phase(dev, card)
+            new_paths[label] = timed(label, parallel_phase, flag,
+                                     RANK_PATHS[flag][0], check, label,
+                                     card)
+        convnet_counts = timed("vgg16 / inception3 1 rank", convnet_phase,
+                               dev, card)
         torch.cuda.empty_cache()
-        durable_counts = durable_phase(dev, card)
+        durable_counts = timed("durable 1 rank", durable_phase, dev, card)
         torch.cuda.empty_cache()
-        binding_counts = parallel_phase(
-            BINDING_WORKER_FLAG, WIRE_RANKS, check_binding,
-            "torch binding 2 ranks", card)
+        binding_counts, binding_losses = timed(
+            "torch binding 2 ranks", parallel_phase, BINDING_WORKER_FLAG,
+            WIRE_RANKS, check_binding, "torch binding 2 ranks", card)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        elastic_counts = check_elastic(
+        elastic_counts = timed("elastic 2 ranks", lambda: check_elastic(
             spawn_ranks(ELASTIC_WORKER_FLAG, WIRE_RANKS,
                         env={"MASTER_ADDR": "127.0.0.1",
                              "MASTER_PORT": str(hvd.basics._free_port())}),
             time.perf_counter() - t0, "elastic 2 ranks",
             "gloo staging through the host, 2 ranks on one card: not a "
-            "wire's time", card)
+            "wire's time", card))
         torch.cuda.empty_cache()
-        launcher_counts, launcher_res = launcher_phase(card)
+        launcher_counts, launcher_res = timed("launcher 2 ranks",
+                                              launcher_phase, card)
         torch.cuda.empty_cache()
-        remote_counts = remote_phase(card, launcher_res)
-        run_func_counts = run_func_phase(card)
+        remote_counts = timed("remote 2 hosts", remote_phase, card,
+                              launcher_res)
+        run_func_counts = timed("run_func 2 ranks", run_func_phase, card)
         torch.cuda.empty_cache()
-        serve = spawn_ranks(SERVE_WORKER_FLAG, 1)[0]
-        replica_counts = spawn_ranks(REPLICAS_WORKER_FLAG, 1)[0]["counts"]
-        fleet = spawn_ranks(FLEET_WORKER_FLAG, 1)[0]
-        swap = spawn_ranks(SWAP_WORKER_FLAG, 1)[0]
-        tp_counts = spawn_ranks(TP_WORKER_FLAG, 1)[0]["counts"]
+        spark_counts = timed("spark run 2 tasks", spark_phase, card,
+                             binding_losses)
+        ray_counts = timed("ray executor 2 actors", ray_phase, card)
+        torch.cuda.empty_cache()
+        serve = timed("serve 1 rank", spawn_ranks, SERVE_WORKER_FLAG, 1)[0]
+        replica_counts = timed("serve 2 replicas", spawn_ranks,
+                               REPLICAS_WORKER_FLAG, 1)[0]["counts"]
+        fleet = timed("fleet 3 replicas", spawn_ranks, FLEET_WORKER_FLAG,
+                      1)[0]
+        swap = timed("swap 2 replicas", spawn_ranks, SWAP_WORKER_FLAG, 1)[0]
+        tp_counts = timed("serve tp 2", spawn_ranks, TP_WORKER_FLAG,
+                          1)[0]["counts"]
         # The simulator's profile: this run's readings of the card.
         traffic = serve["report"]["traffic"]
         readings = {k: traffic[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
@@ -8191,14 +8476,16 @@ def main() -> int:
         readings.update(migrate_ms_mean=fleet["report"]["migrate_ms_mean"],
                         migrate_ms_p99=fleet["report"]["migrate_ms_p99"],
                         swap_ms=swap["report"]["swap_ms"])
-        sim_counts = spawn_ranks(
-            SIM_WORKER_FLAG, 1,
-            env={SIM_READINGS_ENV: json.dumps(readings)})[0]["counts"]
+        sim_counts = timed("fleet sim (host)", spawn_ranks,
+                           SIM_WORKER_FLAG, 1,
+                           env={SIM_READINGS_ENV: json.dumps(readings)}
+                           )[0]["counts"]
         # The sanitizer's gate is read when the port is first imported:
         # the child gets it in its environment from the start.
-        sanitize_counts = spawn_ranks(SANITIZE_WORKER_FLAG, 1,
-                                      env=SANITIZE_ENV)[0]["counts"]
-        route_check(dev)
+        sanitize_counts = timed("sanitize serve 1 rank", spawn_ranks,
+                                SANITIZE_WORKER_FLAG, 1,
+                                env=SANITIZE_ENV)[0]["counts"]
+        timed("route check", route_check, dev)
     finally:
         hvd.shutdown()
     by_path = {"1 rank": counts, "zero 1 rank": zero_counts,
@@ -8216,6 +8503,8 @@ def main() -> int:
                "launcher 2 ranks": launcher_counts,
                "remote 2 hosts": remote_counts,
                "run_func 2 ranks": run_func_counts,
+               "spark run 2 tasks": spark_counts,
+               "ray executor 2 actors": ray_counts,
                "serve 1 rank": serve["counts"],
                "serve 2 replicas": replica_counts,
                "fleet 3 replicas": fleet["counts"],
@@ -8234,6 +8523,8 @@ def main() -> int:
             raise AssertionError(f"{row['name']} launched on no path")
     if child_processes():
         raise AssertionError(f"processes left running: {child_processes()}")
+    log("chip_smoke: seconds by phase, longest first: " + json.dumps(
+        dict(sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1]))))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
         f"{obs_seconds:.1f} s of it the \"1 rank\" phase's observability "
         f"checks (the scrape, the flight dump and {2 * OVERHEAD_TURNS} x "

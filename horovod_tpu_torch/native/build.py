@@ -37,14 +37,20 @@ CXX_FLAGS = ("-O2", "-std=c++14", "-shared", "-fPIC")
 last_error: Optional[str] = None
 
 
+# The TF-XLA adapter builds against TensorFlow's headers, by its own
+# build (``tensorflow/xla_ops.py``), and is no part of this library.
+ADAPTER_SOURCES = ("tf_xla_ops.cc",)
+
+
 def sources() -> List[Path]:
-    return sorted(SRC_DIR.glob("*.cc"))
+    return sorted(p for p in SRC_DIR.glob("*.cc")
+                  if p.name not in ADAPTER_SOURCES)
 
 
 def library_path() -> Path:
     """Where the library for the sources as they stand lives."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for path in sorted(SRC_DIR.glob("*.cc")) + sorted(SRC_DIR.glob("*.h")):
+    for path in sources() + sorted(SRC_DIR.glob("*.h")):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"libhvdtpu_native-{h.hexdigest()[:16]}.so"
 

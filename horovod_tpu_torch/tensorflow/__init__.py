@@ -11,11 +11,14 @@ and ``backward_passes_per_step`` aggregation::
 
     hvd.init()                    # cuda:<local_rank>; init(device="cpu")
     opt = hvd.DistributedOptimizer(tf.keras.optimizers.Adam(1e-3))
-    model.compile(optimizer=opt, loss=..., jit_compile=False)
+    model.compile(optimizer=opt, loss=...)     # jit_compile=True too
     hvd.broadcast_variables(model.variables, root_rank=0)
 
-Only this subpackage and ``horovod_tpu_torch.keras`` import tensorflow,
-keras or ml_dtypes; ``import horovod_tpu_torch`` does not import them.
+Import this package before the process's first ``jit_compile=True``
+trace: the import loads the TF-XLA adapter (:mod:`.xla_ops`), which
+puts the dense allreduce inside XLA-compiled steps.  Only this
+subpackage and ``horovod_tpu_torch.keras`` import tensorflow, keras or
+ml_dtypes; ``import horovod_tpu_torch`` does not import them.
 """
 
 from __future__ import annotations
@@ -53,6 +56,11 @@ from .mpi_ops import (  # noqa: F401
     grouped_allreduce, grouped_reducescatter, join, reducescatter,
     size_op, rank_op, local_rank_op, local_size_op, process_set_included_op,
 )
+from . import xla_ops as _xla_ops
+
+# TF freezes its XLA kernel registry at the first jit_compile trace; the
+# adapter's op must be registered before then (see xla_ops.preload).
+_xla_ops.preload()
 
 
 def rank() -> int:

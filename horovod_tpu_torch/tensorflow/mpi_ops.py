@@ -16,10 +16,17 @@ order and every rank dispatches in the same order (TF's executor would
 otherwise run data-independent nodes in any order).  TF runs those
 nodes on its own threads; the core's collectives accept any thread.
 
-``tf.function(jit_compile=True)`` needs the TF-XLA adapter (the
-reference's ``tensorflow/xla_ops.py`` with ``native/src/tf_xla_ops.cc``),
-which is not ported: a collective traced there raises
-``NotImplementedError`` naming it.
+Inside a graph, dense allreduce (alone, grouped, and the tape's and
+the optimizers') goes through the TF-XLA adapter (:mod:`.xla_ops`)
+where it loaded: one ``HvdTpuTorchAllreduce`` op a call (a grouped call
+concatenates each dtype's tensors in the graph first), chained the same
+way, which also compiles under ``tf.function(jit_compile=True)``; where
+it did not load, a plain graph takes the ``tf.py_function`` route and
+``jit_compile=True`` raises with the adapter's load error.  Eager calls
+need no op and always take the bridge.  The adapter covers dense
+allreduce only, as the reference's: allgather, broadcast, alltoall,
+reducescatter and ``tf.IndexedSlices`` traced under ``jit_compile=True``
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,11 +59,15 @@ Product = C.Product
 
 _BF16 = np.dtype(ml_dtypes.bfloat16)
 XLA_ADAPTER_ERROR = (
-    "{name}: a Horovod collective inside tf.function(jit_compile=True) "
-    "needs the TF-XLA adapter (tensorflow/xla_ops.py with "
-    "native/src/tf_xla_ops.cc), which horovod_tpu_torch.tensorflow does "
-    "not have yet; trace the step with tf.function without jit_compile "
-    "(Keras: model.compile(..., jit_compile=False))")
+    "{name}: inside tf.function(jit_compile=True) the TF-XLA adapter "
+    "(tensorflow/xla_ops.py) covers dense allreduce only; densify sparse "
+    "gradients (sparse_as_dense=True) or trace this collective with a "
+    "plain tf.function (Keras: model.compile(..., jit_compile=False))")
+XLA_UNAVAILABLE_ERROR = (
+    "{name}: inside tf.function(jit_compile=True) a dense allreduce needs "
+    "the TF-XLA adapter (tensorflow/xla_ops.py), {why}; trace this "
+    "collective with a plain tf.function (Keras: model.compile(..., "
+    "jit_compile=False))")
 
 
 # --- the bridge ---------------------------------------------------------------
@@ -127,14 +138,68 @@ def _set_size(process_set) -> int:
 
 # --- allreduce ---------------------------------------------------------------
 
+def _native_bridge(fn, tensor, name):
+    """The adapter's op running ``fn(np_in) -> np_out`` on ``tensor``'s
+    host value inside a graph (plain or ``jit_compile=True``), chained
+    after the graph's previous collective as :func:`_bridge` chains."""
+    from . import xla_ops
+
+    graph = tf.compat.v1.get_default_graph()
+    prev = getattr(graph, _CHAIN_ATTR, None)
+    with tf.control_dependencies([prev] if prev is not None else []):
+        out = xla_ops.allreduce(tensor, fn, name)
+    setattr(graph, _CHAIN_ATTR, out)
+    return out
+
+
+def _use_native(dtype, name: str) -> bool:
+    """Whether a dense allreduce of ``dtype`` emits the adapter's op:
+    inside a graph, where the adapter loaded and takes the dtype.  An
+    eager call needs no op (the op's closure table is trace-time state).
+    Under ``jit_compile=True`` the op is the only route, so its absence
+    raises, naming why."""
+    from . import xla_ops
+
+    if tf.executing_eagerly():
+        return False
+    if xla_ops.available() and xla_ops.supported_dtype(dtype):
+        return True
+    if _in_xla_context():
+        why = (f"which does not take {tf.as_dtype(dtype).name}"
+               if xla_ops.available()
+               else f"which did not load: {xla_ops.load_error()}")
+        raise NotImplementedError(XLA_UNAVAILABLE_ERROR.format(name=name,
+                                                               why=why))
+    return False
+
+
+def _allreduce_host(op, process_set, prescale_factor, postscale_factor,
+                    name):
+    """``fn(np_in) -> np_out`` for the adapter's op: the value onto the
+    session's device, the core's allreduce, back to the host."""
+    def run_np(value):
+        return host_array(C.allreduce(
+            host_tensor(value).to(basics.device()), op=op,
+            process_set=process_set, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, name=name))
+
+    return run_np
+
+
 def _allreduce_dense(tensor, op, process_set, prescale_factor,
                      postscale_factor, name):
-    def run(t):
-        return [C.allreduce(t, op=op, process_set=process_set,
-                            prescale_factor=prescale_factor,
-                            postscale_factor=postscale_factor, name=name)]
+    if _use_native(tensor.dtype, name):
+        out = _native_bridge(_allreduce_host(
+            op, process_set, prescale_factor, postscale_factor, name),
+            tensor, name)
+    else:
+        def run(t):
+            return [C.allreduce(t, op=op, process_set=process_set,
+                                prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor,
+                                name=name)]
 
-    out = _bridge(run, [tensor], [tensor.dtype], name)[0]
+        out = _bridge(run, [tensor], [tensor.dtype], name)[0]
     out.set_shape(tensor.shape)
     return out
 
@@ -184,13 +249,19 @@ def grouped_allreduce(tensors: Sequence, *, op: str = Average,
              else (t, None) for t in tensors]
     wires = [w for w, _ in pairs]
 
-    def run(*values):
-        return C.grouped_allreduce(
-            list(values), op=op, process_set=process_set,
-            prescale_factor=float(prescale_factor),
-            postscale_factor=float(postscale_factor), name=name)
+    if (all(_use_native(w.dtype, name) for w in wires)
+            and all(w.shape.is_fully_defined() for w in wires)):
+        outs = _grouped_native(wires, op, process_set,
+                               float(prescale_factor),
+                               float(postscale_factor), name)
+    else:
+        def run(*values):
+            return C.grouped_allreduce(
+                list(values), op=op, process_set=process_set,
+                prescale_factor=float(prescale_factor),
+                postscale_factor=float(postscale_factor), name=name)
 
-    outs = _bridge(run, wires, [w.dtype for w in wires], name)
+        outs = _bridge(run, wires, [w.dtype for w in wires], name)
     results = []
     for o, w, t, (_, c) in zip(outs, wires, tensors, pairs):
         o.set_shape(w.shape)
@@ -198,6 +269,33 @@ def grouped_allreduce(tensors: Sequence, *, op: str = Average,
             o = compression.decompress(o, c)
         results.append(tf.cast(o, t.dtype))
     return results
+
+
+def _grouped_native(wires, op, process_set, prescale, postscale,
+                    name) -> List:
+    """A grouped allreduce through the adapter: one op a dtype, on the
+    dtype's tensors concatenated in the graph (the fusion buffer, which
+    XLA compiles), for the elementwise ops; one op a tensor for Adasum,
+    whose projections are per tensor and do not commute with the
+    concatenation."""
+    if op == Adasum:
+        return [_allreduce_dense(w, op, process_set, prescale, postscale,
+                                 f"{name}[{i}]")
+                for i, w in enumerate(wires)]
+    buckets: dict = {}
+    for i, w in enumerate(wires):
+        buckets.setdefault(w.dtype, []).append(i)
+    outs: List = [None] * len(wires)
+    for dtype, idxs in buckets.items():
+        fused = tf.concat([tf.reshape(wires[i], [-1]) for i in idxs], axis=0)
+        sizes = [int(wires[i].shape.num_elements()) for i in idxs]
+        bucket = f"{name}.{dtype.name}"
+        reduced = _native_bridge(
+            _allreduce_host(op, process_set, prescale, postscale, bucket),
+            fused, bucket)
+        for i, part in zip(idxs, tf.split(reduced, sizes)):
+            outs[i] = tf.reshape(part, tf.shape(wires[i]))
+    return outs
 
 
 # --- allgather ---------------------------------------------------------------

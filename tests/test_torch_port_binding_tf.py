@@ -10,7 +10,13 @@ inside ``tf.function`` (alltoall's splits too), the weights after
 tape, ``num_groups``, ``backward_passes_per_step`` with ``None``
 gradients, the four callbacks, and ``TensorFlowKerasState``'s commit,
 restore, sync, ``save_to`` and ``load_from`` (a bf16 variable too).
-The ``jit_compile=True`` error is pinned.  On a 2-rank gloo world
+Under ``jit_compile=True`` the allgather's error is pinned (dense
+allreduce compiles through the TF-XLA adapter, held in
+``tests/test_torch_port_tf_xla.py``).  The dense allreduce's routes:
+the bridge when eager, the adapter's op in graphs, and, with the
+adapter made unavailable, ``tf.py_function`` in a plain graph (bit for
+bit the reference's) and an error naming the load failure under
+``jit_compile=True``.  On a 2-rank gloo world
 (``tests/torch_port_workers.py``, TF imported in each rank's own
 process): a Keras MLP fit through the port's binding against the same
 model stepped in one process on the concatenated batch (1e-6).  In a
@@ -18,7 +24,7 @@ subprocess with tensorflow, keras, ml_dtypes, jax and ``horovod_tpu``
 hidden: every port module outside ``tensorflow/`` and ``keras/``
 imports, ``python -m horovod_tpu_torch.analysis`` runs, and
 ``import horovod_tpu_torch.tensorflow`` raises an ``ImportError`` that
-names tensorflow.
+names tensorflow (``horovod_tpu_torch.mxnet`` one that names mxnet).
 """
 
 import os
@@ -204,7 +210,9 @@ class TestSingleWorkerOps:
         _same(out, want)
 
     def test_collectives_chain_in_trace_order(self):
-        """Inside a graph each collective waits for the previous one."""
+        """Inside a graph each collective waits for the previous one (the
+        allreduce is the TF-XLA adapter's op, the allgather a
+        ``tf.py_function``)."""
         @tf.function
         def step(x):
             a = hvd.allreduce(x, op=hvd.Sum)
@@ -214,8 +222,9 @@ class TestSingleWorkerOps:
         graph = step.get_concrete_function(
             tf.TensorSpec([2], tf.float32)).graph
         calls = [op for op in graph.get_operations()
-                 if op.type == "EagerPyFunc"]
-        assert len(calls) == 2
+                 if op.type in ("HvdTpuTorchAllreduce", "EagerPyFunc")]
+        assert [op.type for op in calls] == ["HvdTpuTorchAllreduce",
+                                             "EagerPyFunc"]
         assert calls[0] in calls[1].control_inputs
         a, b = step(tf.constant([1.0, 2.0]))
         _same(a, b)
@@ -263,38 +272,111 @@ class TestOpConstants:
 
 @pytest.mark.usefixtures("session")
 class TestJitCompileError:
-    """``jit_compile=True`` needs the TF-XLA adapter, which the port does
-    not have yet: a collective traced there raises, naming it."""
+    """Under ``jit_compile=True`` the TF-XLA adapter covers dense allreduce
+    only: a collective outside it raises, naming the way out."""
 
-    @pytest.mark.parametrize("kind", ["allreduce", "grouped", "allgather",
-                                      "tape"])
+    @pytest.mark.parametrize("kind", ["allgather"])
     def test_collective_under_jit_compile_names_the_adapter(self, kind):
-        v = tf.Variable([1.0, 2.0])
+        @tf.function(jit_compile=True)
+        def f(x):
+            return hvd.allgather(x)
 
+        with pytest.raises(NotImplementedError,
+                           match=r"jit_compile=True\) the TF-XLA adapter "
+                                 r"\(tensorflow/xla_ops.py\) covers dense "
+                                 r"allreduce only; densify sparse gradients "
+                                 r"\(sparse_as_dense=True\) or trace this "
+                                 r"collective with a plain tf.function"):
+            f(tf.ones((2,)))
+
+
+@pytest.fixture()
+def adapter_unavailable(monkeypatch):
+    """The port as it runs where its TF-XLA adapter did not build."""
+    from horovod_tpu_torch.tensorflow import xla_ops
+
+    monkeypatch.setattr(xla_ops, "available", lambda: False)
+    monkeypatch.setattr(xla_ops, "load_error",
+                        lambda: "g++ exited with status 1")
+
+
+def _graph_collectives(fn, *specs):
+    graph = tf.function(fn).get_concrete_function(*specs).graph
+    return [op.type for op in graph.get_operations()
+            if op.type in ("HvdTpuTorchAllreduce", "EagerPyFunc")]
+
+
+@pytest.mark.usefixtures("session")
+class TestAdapterRoutes:
+    """Which route a dense allreduce takes: the bridge when eager, the
+    adapter's op inside a graph where it loaded, ``tf.py_function`` in a
+    plain graph where it did not, and an error naming the load failure
+    under ``jit_compile=True`` then."""
+
+    def test_eager_calls_take_the_bridge(self, monkeypatch):
+        from horovod_tpu_torch.tensorflow import mpi_ops, xla_ops
+
+        def no_op(*_args, **_kwargs):
+            raise AssertionError("an eager call took the adapter's route")
+
+        monkeypatch.setattr(xla_ops, "allreduce", no_op)
+        monkeypatch.setattr(mpi_ops, "_native_bridge", no_op)
+        t = tf.constant([1.0, -2.0, 3.5])
+        ts = [t, tf.constant([1, 2], tf.int32)]
+        _same(*_both(lambda b: b.allreduce(t, op=b.Sum,
+                                           prescale_factor=2.0)))
+        _same(*_both(lambda b: b.grouped_allreduce(ts, op=b.Sum)))
+
+    def test_graphs_take_the_adapter_where_it_loaded(self):
+        assert _graph_collectives(
+            lambda x, y: hvd.grouped_allreduce([x, y], op=hvd.Sum),
+            tf.TensorSpec([3], tf.float32),
+            tf.TensorSpec([2], tf.int32)) == ["HvdTpuTorchAllreduce"] * 2
+
+    @pytest.mark.usefixtures("adapter_unavailable")
+    def test_plain_graphs_take_py_function_without_the_adapter(self):
+        x = tf.constant([1.0, -2.0, 3.5])
+        i = tf.constant([1, 2], tf.int32)
+        v = tf.Variable([0.5, 1.5, -1.0])
+
+        def step(b):
+            def f(x, i):
+                with tf.GradientTape() as tape:
+                    loss = tf.reduce_sum(v * v * x)
+                grad = b.DistributedGradientTape(tape).gradient(loss, v)
+                return ([b.allreduce(x, op=b.Sum, postscale_factor=0.5)]
+                        + b.grouped_allreduce([x, i], op=b.Sum) + [grad])
+            return f
+
+        specs = (tf.TensorSpec([3], tf.float32), tf.TensorSpec([2], tf.int32))
+        assert set(_graph_collectives(step(hvd), *specs)) == {"EagerPyFunc"}
+        _same(tf.function(step(hvd))(x, i), tf.function(step(ref))(x, i))
+
+    @pytest.mark.usefixtures("adapter_unavailable")
+    @pytest.mark.parametrize("kind", ["allreduce", "grouped"])
+    def test_jit_compile_without_the_adapter_names_its_load_error(self,
+                                                                  kind):
         @tf.function(jit_compile=True)
         def f(x):
             if kind == "allreduce":
-                return hvd.allreduce(x)
-            if kind == "grouped":
-                return hvd.grouped_allreduce([x, x])[0]
-            if kind == "allgather":
-                return hvd.allgather(x)
-            with hvd.DistributedGradientTape(tf.GradientTape()) as tape:
-                loss = tf.reduce_sum(v * x)
-            return tape.gradient(loss, [v])[0]
+                return hvd.allreduce(x, name="dense")
+            return hvd.grouped_allreduce([x, x], name="dense")[0]
 
         with pytest.raises(NotImplementedError,
-                           match=r"jit_compile=True\) needs the TF-XLA "
-                                 r"adapter \(tensorflow/xla_ops.py"):
+                           match=r"dense: inside tf.function\(jit_compile="
+                                 r"True\) a dense allreduce needs the TF-XLA "
+                                 r"adapter \(tensorflow/xla_ops.py\), which "
+                                 r"did not load: g\+\+ exited with status 1"):
             f(tf.ones((2,)))
 
-    def test_keras_fit_with_jit_compile(self):
-        model = _mlp()
-        model.compile(optimizer=hvd.DistributedOptimizer(
-            tf.keras.optimizers.SGD(0.1)), loss="mse", jit_compile=True)
-        x, y = _data()
-        with pytest.raises(NotImplementedError, match="TF-XLA adapter"):
-            model.fit(x, y, epochs=1, batch_size=4, verbose=0)
+    def test_jit_compile_names_a_dtype_the_adapter_does_not_take(self):
+        @tf.function(jit_compile=True)
+        def f(x):
+            return hvd.allreduce(x, op=hvd.Sum, name="bytes")
+
+        with pytest.raises(NotImplementedError,
+                           match=r"bytes: .* which does not take uint8"):
+            f(tf.ones((2,), tf.uint8))
 
 
 # --- the optimizer and the tape ---------------------------------------------------
@@ -638,7 +720,8 @@ _ISOLATED = textwrap.dedent("""
     import horovod_tpu_torch
     import horovod_tpu_torch.torch as hvd
     assert hvd.DistributedOptimizer and hvd.SyncBatchNorm
-    skipped = ("horovod_tpu_torch.tensorflow", "horovod_tpu_torch.keras")
+    skipped = ("horovod_tpu_torch.tensorflow", "horovod_tpu_torch.keras",
+               "horovod_tpu_torch.mxnet")
     n = 0
     for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
                                    "horovod_tpu_torch."):
@@ -650,7 +733,8 @@ _ISOLATED = textwrap.dedent("""
         try:
             importlib.import_module(name)
         except ImportError as e:
-            assert "tensorflow" in str(e), e
+            assert ("mxnet" if name.endswith("mxnet") else "tensorflow") \
+                in str(e), e
         else:
             raise AssertionError(name + " imported without tensorflow")
     print("modules", n)

@@ -971,6 +971,7 @@ def _drill(ckpt_dir, fault_spec=None, kill_after=None):
     return params, executed
 
 
+@pytest.mark.chaos
 class TestKillMidSaveDrill:
     def _chaos_knobs(self):
         step = int(os.environ.get("HVD_TPU_CHAOS_STEP", "6"))

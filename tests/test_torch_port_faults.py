@@ -17,6 +17,7 @@ ranks in ``tests/test_torch_port_elastic.py``.
 
 import dataclasses
 import json
+import os
 import random
 import subprocess
 import time
@@ -363,6 +364,57 @@ def test_elastic_run_recovers_from_injected_fault(session, monkeypatch):
     assert total == 4.0 * hvd.size()
     assert sleeps and all(s > 0 for s in sleeps)   # backoff happened
     assert hvd.is_initialized() and hvd.device() == torch.device("cpu")
+
+
+@pytest.mark.chaos
+class TestChaosRecoverySingleController:
+    """Seeded recovery in a world of one: the twin of the reference's
+    ``tests/test_faults.py::TestChaosRecoverySingleController`` with the
+    same knobs (``HVD_TPU_CHAOS_STEP`` / ``_SEED``), which
+    ``scripts/torch_port_chaos_soak.py --mode train`` loops."""
+
+    def test_injected_fault_rolls_back_and_converges(self, session,
+                                                     monkeypatch):
+        from horovod_tpu_torch.elastic import TorchState, run
+        from horovod_tpu_torch.elastic import state as state_mod
+
+        monkeypatch.setattr(state_mod.time, "sleep", lambda s: None)
+        fault_step = int(os.environ.get("HVD_TPU_CHAOS_STEP", "5"))
+        seed = int(os.environ.get("HVD_TPU_CHAOS_SEED", "0"))
+        total = max(8, fault_step + 2)
+
+        model = torch.nn.Linear(2, 1, bias=False)
+        with torch.no_grad():
+            model.weight.zero_()
+        state = TorchState(model=model, step=0, accum=0.0)
+        meta = {"tries": 0}
+
+        @run
+        def train(state):
+            meta["tries"] += 1
+            if meta["tries"] == 2:
+                expect = sum(hvd.size() * t for t in range(int(state.step)))
+                assert abs(float(state.accum) - expect) < 1e-6
+            while int(state.step) < total:
+                s = int(state.step)
+                x = torch.full((2,), float(s))
+                out = float(hvd.allreduce(x, op=hvd.Sum)[0])
+                state.accum = float(state.accum) + out
+                with torch.no_grad():
+                    state.model.weight.add_(1.0)
+                state.step = s + 1
+                state.commit()
+            return state
+
+        with faults.inject(f"collective:step={fault_step},seed={seed}"):
+            train(state)
+            fired = [h for h in faults.history() if h[0] == "collective"]
+        assert len(fired) == 1 and fired[0][1] == fault_step, fired
+        assert meta["tries"] == 2, meta
+        want = sum(hvd.size() * t for t in range(total))
+        assert abs(float(state.accum) - want) < 1e-6, (state.accum, want)
+        assert float(state.model.weight[0, 0]) == float(total)
+        assert hvd.is_initialized() and hvd.device() == torch.device("cpu")
 
 
 def test_elastic_reinit_preserves_armed_plan(monkeypatch):

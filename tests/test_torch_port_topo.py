@@ -26,6 +26,7 @@ gauges and the ``hvd_tpu_topo_*`` metrics (observability, item 10),
 import contextlib
 import dataclasses
 import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -1264,14 +1265,19 @@ def test_dcn_fault_site_fires_at_the_cross_pod_stage(world):
             r["clean"], np.broadcast_to(stack.sum(axis=0), stack.shape))
 
 
+@pytest.mark.chaos
 def test_dcn_fault_rolls_back_and_converges(world, tmp_path):
-    """Mirrors ``TestChaosDcnRecovery``: ``dcn:step=5`` fails the
-    cross-pod exchange of step 5 once; the ``@elastic.run`` loop rolls
-    back to the step-5 commit, re-inits over a new rendezvous and
-    converges to the flat total, every rank with two tries."""
-    fault_step, total = 5, 8
+    """Mirrors ``TestChaosDcnRecovery``, with its knobs
+    (``HVD_TPU_CHAOS_STEP``, default 5, and ``_SEED``; ``scripts/
+    torch_port_chaos_soak.py --mode dcn`` loops it): ``dcn:step=N``
+    fails the cross-pod exchange of step N once; the ``@elastic.run``
+    loop rolls back to the step-N commit, re-inits over a new rendezvous
+    and converges to the flat total, every rank with two tries."""
+    fault_step = int(os.environ.get("HVD_TPU_CHAOS_STEP", "5"))
+    seed = int(os.environ.get("HVD_TPU_CHAOS_SEED", "0"))
+    total = max(8, fault_step + 2)
     res = world.run("dcn_chaos", store=str(tmp_path / "store2"),
-                    fault_step=fault_step, total=total)
+                    fault_step=fault_step, total=total, seed=seed)
     for r in res:
         assert len(r["fired"]) == 1 and r["fired"][0][1] == fault_step
         assert r["tries"] == 2

@@ -2101,7 +2101,8 @@ def global_mean_step(x: np.ndarray, y: np.ndarray, mask: np.ndarray,
     return {"w": model.weight.detach().numpy().copy(), "loss": float(loss)}
 
 
-def dcn_chaos(store: str, fault_step: int, total: int) -> dict:
+def dcn_chaos(store: str, fault_step: int, total: int,
+              seed: int = 0) -> dict:
     """The counterpart of ``tests/test_topo.py::TestChaosDcnRecovery`` on
     this world: an ``@elastic.run`` loop whose step ``s`` reduces a
     per-rank constant ``s`` over the hierarchical schedule of a 2 x 2
@@ -2142,7 +2143,7 @@ def dcn_chaos(store: str, fault_step: int, total: int) -> dict:
                     state.commit()
                 return state
 
-            with faults.inject(f"dcn:step={fault_step}"):
+            with faults.inject(f"dcn:step={fault_step},seed={seed}"):
                 train(state)
                 fired = [h for h in faults.history() if h[0] == "dcn"]
             return {"fired": fired, "tries": meta["tries"],
@@ -2478,7 +2479,10 @@ def keras_fit(x: np.ndarray, y: np.ndarray, weights: list, lr: float,
 
 
 def import_tensorflow() -> str:
+    """TF and the port's TF binding (whose import loads the TF-XLA
+    adapter, before this rank compiles anything)."""
     import tensorflow as tf
+    import horovod_tpu_torch.tensorflow  # noqa: F401
 
     return tf.__version__
 
@@ -2493,3 +2497,138 @@ def keras_mlp(d_in: int, d_out: int):
         tf.keras.layers.Dense(16, activation="tanh"),
         tf.keras.layers.Dense(d_out)])
     return model
+
+
+TF_XLA_DTYPES = ("float32", "float64", "float16", "bfloat16", "int32",
+                 "int64")
+TF_XLA_OPS = ("Sum", "Average", "Min", "Max", "Product")
+# (prescale, postscale) of the float cases: powers of two and 3, exact on
+# the small integers of the test in every float dtype.
+TF_XLA_SCALES = {"Sum": (0.5, 3.0), "Average": (2.0, 0.25)}
+
+
+def tf_xla_allreduce(a: np.ndarray, b: np.ndarray,
+                     v: np.ndarray, w: np.ndarray) -> dict:
+    """Rank 0 holds ``a`` and ``v``, rank 1 ``b`` and ``w``.  Under
+    ``tf.function(jit_compile=True)`` and eagerly: the dense allreduce of
+    every dtype × op, the float dtypes' pre- and post-scaled Sum and
+    Average, one mixed-dtype grouped Sum and Average, the Adasum of
+    ``v`` (f32) alone and grouped with its f64 copy; the adapter ops in
+    the compiled graph.  bfloat16 results come back as float32 (exact)."""
+    import tensorflow as tf
+    import horovod_tpu_torch.tensorflow as hvd
+
+    mine = a if hvd.rank() == 0 else b
+    vec = v if hvd.rank() == 0 else w
+
+    def step(x, y):
+        out = {}
+        for dtype in TF_XLA_DTYPES:
+            t = tf.cast(x, dtype)
+            for op in TF_XLA_OPS:
+                out[f"{dtype}-{op}"] = hvd.allreduce(
+                    t, op=getattr(hvd, op), name=f"{dtype}-{op}")
+            if dtype.startswith("float") or dtype == "bfloat16":
+                for op, (pre, post) in TF_XLA_SCALES.items():
+                    out[f"{dtype}-{op}-scaled"] = hvd.allreduce(
+                        t, op=getattr(hvd, op), prescale_factor=pre,
+                        postscale_factor=post, name=f"{dtype}-{op}-scaled")
+        for op in ("Sum", "Average"):
+            group = hvd.grouped_allreduce(
+                [tf.cast(x, d) for d in TF_XLA_DTYPES], op=getattr(hvd, op),
+                name=f"mixed-{op}")
+            out.update({f"mixed-{op}-{d}": g
+                        for d, g in zip(TF_XLA_DTYPES, group)})
+        out["adasum"] = hvd.allreduce(y, op=hvd.Adasum, name="adasum")
+        g32, g64 = hvd.grouped_allreduce([y, tf.cast(y, tf.float64)],
+                                         op=hvd.Adasum, name="adasum-grouped")
+        out.update({"adasum-grouped-float32": g32,
+                    "adasum-grouped-float64": g64})
+        return out
+
+    def host(outs):
+        return {k: (t.numpy().astype(np.float32) if t.dtype == tf.bfloat16
+                    else t.numpy()) for k, t in outs.items()}
+
+    x, y = tf.constant(mine), tf.constant(vec)
+    f = tf.function(step, jit_compile=True)
+    ops = sorted({op.type for op in f.get_concrete_function(
+        x, y).graph.get_operations() if op.type.startswith("HvdTpu")})
+    return {"ops": ops, "jit": host(f(x, y)), "eager": host(step(x, y))}
+
+
+def mxnet_trainer(grad: np.ndarray, x: np.ndarray, lr: float) -> dict:
+    """Through the port's MXNet binding on the reference's API stand-in
+    (``tests/mxnet_shim.py``): one ``DistributedTrainer`` SGD step on this
+    rank's gradient ``grad * (rank + 1)`` from a zero weight, the
+    in-place Sum of ``x * (rank + 1)`` and the broadcast of rank 0's
+    ``x``."""
+    import mxnet_shim
+
+    mx = mxnet_shim.install()
+    try:
+        import horovod_tpu_torch.mxnet as hvd
+
+        k = hvd.rank() + 1
+        p = mx.Parameter("w", np.zeros_like(grad), grad * k)
+        trainer = hvd.DistributedTrainer({"w": p}, "sgd",
+                                         {"learning_rate": lr})
+        trainer.step(batch_size=1)
+        summed = mx.nd.array(x * k)
+        hvd.allreduce_(summed, op=hvd.Sum)
+        sent = mx.nd.array(x if k == 1 else x * 0)
+        return {"weight": p.list_data()[0].asnumpy(),
+                "sum": summed.asnumpy(),
+                "broadcast": hvd.broadcast(sent, root_rank=0).asnumpy()}
+    finally:
+        mxnet_shim.uninstall()
+        for m in list(sys.modules):
+            if m.startswith("horovod_tpu_torch.mxnet"):
+                del sys.modules[m]
+
+
+# --- the spark and Ray control planes' task bodies (shipped by reference) -------
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                 "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "GROUP_WORLD_SIZE")
+
+
+def launched_rank(x: np.ndarray) -> dict:
+    """A rank started by ``spark.run`` or ``RayExecutor`` (the session is
+    up): torchrun's variables it was given, the session's facts, and the
+    Sum of ``x * (rank + 1)``."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+
+    k = hvd.rank() + 1
+    out = hvd.allreduce(torch.from_numpy(x * k), op=hvd.Sum, name="launched")
+    return {"env": {v: os.environ.get(v) for v in TORCHRUN_VARS},
+            "rank": hvd.rank(), "size": hvd.size(),
+            "local_rank": hvd.local_rank(), "local_size": hvd.local_size(),
+            "device": str(hvd.device()), "backend": dist.get_backend(),
+            "pid": os.getpid(), "sum": out.numpy()}
+
+
+def failing_rank(message: str) -> int:
+    """Raises on rank 1 (after both ranks joined the world)."""
+    import horovod_tpu_torch as hvd
+
+    if hvd.rank() == 1:
+        raise ValueError(message)
+    return hvd.rank()
+
+
+def rank_and_pid() -> tuple:
+    import horovod_tpu_torch as hvd
+
+    return hvd.rank(), os.getpid()
+
+
+def session_device() -> dict:
+    """The device this rank's ``init`` chose and the cards it sees."""
+    import horovod_tpu_torch as hvd
+
+    return {"rank": hvd.rank(), "local_rank": hvd.local_rank(),
+            "device": str(hvd.device()),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
