@@ -245,14 +245,24 @@
    rank, the replicated leaves bitwise equal on the four ranks and the
    experts on each dp pair, B1 6 times a step; step 1 against the
    one-rank MoE GPT on the whole batch, at the same depth, rank 0 alone.
+   Then, in the same world, 2 layers (MOE_SP_LAYERS) on ``{'sp': 2,
+   'ep': 2}`` with ring attention on the flash engine (each rank 4 × 512
+   tokens, routed over the global token order): one AdamW step, its
+   loss, aux loss and replicated leaves the same on every rank, B1
+   launched on every rank, against the one-rank MoE GPT at 2 layers.
 16. "fsdp 4 ranks": four processes share the card over gloo under
-   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (6 layers, FSDP_LAYERS,
+   ``HVD_TPU_MESH_PLAN=fsdp=4``.  GPT-medium (8 layers, FSDP_LAYERS,
    cut from 24 for the script's time) through
    ``make_fsdp_train_step`` (each parameter cut on its largest
-   divisible dim, AdamW on the slices), 2 × 1024 tokens a rank, 3 steps:
-   finite losses, the same on every rank, B1 6 times a step; step 1
-   against the one-rank data-parallel step on the whole batch; peak
-   memory a rank beside the oracle's; at 2 layers one HSDP step
+   divisible dim, AdamW on the slices, a block's parameters gathered
+   for its forward and again for its backward), 2 × 1024 tokens a rank,
+   3 steps: finite losses, the same on every rank, B1 8 times a step;
+   every rank's ``peak_gathered_bytes`` at most the root's bytes plus
+   twice the largest block's and below half the whole model's; step 1's
+   recorded collectives equal on every rank; step 1 against the
+   one-rank data-parallel step on the whole batch; peak memory a rank
+   beside the oracle's, the resting bytes (slices and AdamW state) and
+   the whole model's; at 2 layers one HSDP step
    (``data=2,fsdp=2``, derived from the session plan) against one
    ``fsdp=4`` step (loss within 1e-5, parameters within step 13's
    limits), the data replicas' slices bitwise equal.
@@ -3428,9 +3438,15 @@ MOE_BATCH, MOE_STEPS = 4, 3
 # Cut from 24, widths kept: the script's time beside the
 # analysis tier's paths ("hvdlint (host)", "sanitize serve 1 rank").
 MOE_LAYERS = 6
+# The sequence-parallel MoE step: routing over the global token order
+# under sp, ring attention on the flash engine.
+MOE_SP_LAYOUT, MOE_SP_LAYERS = {"sp": 2, "ep": 2}, 2
 FSDP_ENV = {"HVD_TPU_MESH_PLAN": "fsdp=4"}
 FSDP_STEPS, FSDP_SHORT_LAYERS = 3, 2
-FSDP_LAYERS = 6     # cut from 24, widths kept (the script's time)
+# Cut from 24, widths kept (the script's time); 8, not 6, so that the
+# blocks outweigh the root (embeddings, lm_head) and the gathered peak
+# (the root and one block) falls below half the whole model.
+FSDP_LAYERS = 8
 AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
                 "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
                 "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
@@ -3629,11 +3645,54 @@ def moe_ranks(dev, rank: int) -> dict:
                params=sum(p.numel() for p in model.parameters()))
     del model, opt, step
     torch.cuda.empty_cache()
+    run["sp"], sp_first = moe_sp_step(dev, rank, whole)
+    torch.cuda.empty_cache()
     hvd.barrier()
     if rank == 0:
         run["oracle"] = one_rank_oracle(dev, cfg, whole, first,
                                         run["losses"][0])
+        del first
+        torch.cuda.empty_cache()
+        run["sp"]["oracle"] = one_rank_oracle(
+            dev, hvd.models.GPTConfig(**{**GPT_MEDIUM, **MOE,
+                                         "n_layer": MOE_SP_LAYERS}),
+            whole, sp_first, run["sp"]["losses"][0])
     return run
+
+
+def moe_sp_step(dev, rank: int, whole) -> tuple:
+    """The MoE GPT at MOE_SP_LAYERS layers on MOE_SP_LAYOUT (each rank a
+    ``[MOE_BATCH, SEQ / 2]`` block of ``whole``, the experts over ep),
+    ring attention on the flash engine: one AdamW step of
+    ``make_spmd_train_step`` (launch counts from 0), the aux loss after
+    it, and its parameters gathered (rank 0's on the host, ``{}``
+    elsewhere)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (gather_params, init_opt_state,
+                                            make_mesh, make_spmd_train_step,
+                                            moe_aux_loss, param_shardings,
+                                            shard_batch, shard_params)
+    from horovod_tpu_torch.plan import P
+
+    cfg = hvd.models.GPTConfig(**{**GPT_MEDIUM, **MOE,
+                                  "n_layer": MOE_SP_LAYERS,
+                                  "attention": "ring",
+                                  "attention_engine": "flash"})
+    mesh = make_mesh(MOE_SP_LAYOUT)
+    model = shard_params(hvd.models.GPT(cfg, mesh=mesh, device=dev, seed=0),
+                         mesh)
+    opt = init_opt_state(lambda ps: torch.optim.AdamW(ps, **ADAMW), model)
+    step = make_spmd_train_step(hvd.models.lm_loss_fn(model), opt)
+    replicated = [n for n, s in param_shardings(model, mesh).items()
+                  if not any(s)]
+    run = parallel_steps(step, model, shard_batch(whole, mesh, P("dp", "sp")),
+                         1, lambda m: [p for n, p in m.named_parameters()
+                                       if n in replicated])
+    run["aux"] = float(moe_aux_loss(model, weight=1.0))
+    first = gather_params(model, mesh, to="cpu")
+    del model, opt, step
+    return run, (first if rank == 0 else {})
 
 
 def fsdp_model_step(dev, n_layer: int):
@@ -3692,19 +3751,40 @@ def fsdp_short(dev, rank: int) -> dict:
     return short
 
 
+def fsdp_bytes(step, model, opt) -> dict:
+    """The units' whole bytes (the root's, the largest block's, every
+    parameter's) and the rank's resting bytes (its slices and the
+    optimizer state)."""
+    size = {n: p.numel() * p.element_size()
+            * (1 if step.split[n] is None else step.n)
+            for n, p in model.named_parameters()}
+    root, blocks = step.units(model)
+    resting = sum(p.numel() * p.element_size() for p in model.parameters())
+    resting += sum(v.numel() * v.element_size() for st in opt.state.values()
+                   for v in st.values() if hasattr(v, "numel"))
+    return dict(root_bytes=sum(size[n] for n in root),
+                block_bytes=max(sum(size[n] for n in names)
+                                for _, names in blocks),
+                whole_bytes=sum(size.values()), resting=resting)
+
+
 def fsdp_ranks(dev, rank: int) -> dict:
     """Path "fsdp 4 ranks" under ``HVD_TPU_MESH_PLAN=fsdp=4``: GPT-medium
     (FSDP_LAYERS layers) through ``make_fsdp_train_step`` (every parameter cut on
-    its largest divisible dim over the four ranks, AdamW on the slices),
-    BATCH / 4 rows a rank, FSDP_STEPS steps; step 1's parameters gathered
-    to the host; the HSDP check at FSDP_SHORT_LAYERS layers; then rank 0
-    alone runs the one-rank data-parallel step on the whole batch."""
+    its largest divisible dim over the four ranks, AdamW on the slices; a
+    block's parameters gathered for its forward and again for its
+    backward), BATCH / 4 rows a rank, FSDP_STEPS steps, step 1's
+    collectives recorded, each step's ``peak_gathered_bytes``; step 1's
+    parameters gathered to the host; the HSDP check at FSDP_SHORT_LAYERS
+    layers; then rank 0 alone runs the one-rank data-parallel step on the
+    whole batch."""
     import torch
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis.step_check import record_collectives
 
     t0 = time.perf_counter()
     model, opt, step = fsdp_model_step(dev, FSDP_LAYERS)
-    first = None
+    first, gathered, seq = None, [], []
 
     def slices_then_gather(m):
         nonlocal first
@@ -3715,11 +3795,21 @@ def fsdp_ranks(dev, rank: int) -> dict:
             del whole
         return [p for _, p in sorted(m.named_parameters())]
 
-    run = parallel_steps(lambda m, b: step(m, opt, b), model,
-                         fsdp_rows(dev, rank, SET_RANKS), FSDP_STEPS,
-                         slices_then_gather)
+    def one_step(m, b):
+        if gathered:
+            loss = step(m, opt, b)
+        else:
+            with record_collectives() as calls:
+                loss = step(m, opt, b)
+            seq.extend(list(e) for e in calls)
+        gathered.append(step.peak_gathered_bytes)
+        return loss
+
+    run = parallel_steps(one_step, model, fsdp_rows(dev, rank, SET_RANKS),
+                         FSDP_STEPS, slices_then_gather)
     run.update(seconds=time.perf_counter() - t0,
-               params=sum(p.numel() for p in model.parameters()))
+               params=sum(p.numel() for p in model.parameters()),
+               gathered=gathered, seq=seq, **fsdp_bytes(step, model, opt))
     del model, opt, step
     torch.cuda.empty_cache()
     run["short"] = fsdp_short(dev, rank)
@@ -3839,6 +3929,22 @@ def check_moe(res: list, seconds: float, label: str, wire: str, card: str):
     if not oracle_ok(r0["oracle"]):
         raise AssertionError(f"{label}: step 1 off the one-rank step: "
                              f"{r0['oracle']}")
+    sp0 = r0["sp"]
+    for r, out in enumerate(res):
+        sp = out["sp"]
+        if not (math.isfinite(sp["losses"][0])
+                and sp["losses"] == sp0["losses"]
+                and sp["digests"] == sp0["digests"]
+                and sp["aux"] == sp0["aux"]):
+            raise AssertionError(f"{label}: the sp step's loss, aux loss or "
+                                 f"replicated leaves differ on rank {r}: "
+                                 f"{sp['losses']} {sp['aux']}")
+        if sp["counts"]["flash_fwd"] <= 0:
+            raise AssertionError(f"{label}: flash_fwd never launched on the "
+                                 f"sp step (rank {r})")
+    if not oracle_ok(sp0["oracle"]):
+        raise AssertionError(f"{label}: the sp step off the one-rank step: "
+                             f"{sp0['oracle']}")
     layout = ",".join(f"{k}={v}" for k, v in MOE_LAYOUT.items())
     log(f"{label}: GPT-medium widths, {MOE_LAYERS} layers, "
         f"{MOE_LAYERS // MOE['moe_every']} MoE blocks of "
@@ -3849,6 +3955,15 @@ def check_moe(res: list, seconds: float, label: str, wire: str, card: str):
         f"after {r0['aux']}; replicated leaves bitwise equal on the four "
         f"ranks, experts on each dp pair, after every step")
     log(oracle_line(label, r0["oracle"]))
+    sp_layout = ",".join(f"{k}={v}" for k, v in MOE_SP_LAYOUT.items())
+    log(f"{label}: {MOE_SP_LAYERS} layers on {sp_layout}, ring attention on "
+        f"the flash engine, {MOE_BATCH} x {SEQ // MOE_SP_LAYOUT['sp']} "
+        f"tokens a rank, routed over the global token order: loss "
+        f"{sp0['losses']}, aux loss {sp0['aux']} (every rank), replicated "
+        f"leaves bitwise equal; step seconds "
+        f"{[o['sp']['times'] for o in res]}; flash_fwd launches per rank "
+        f"{[o['sp']['counts']['flash_fwd'] for o in res]}")
+    log(oracle_line(f"{label} (sp)", sp0["oracle"]))
     log(f"{label}: step seconds {[o['times'] for o in res]} ({wire}); peak "
         f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB; "
         f"on {card}")
@@ -3879,9 +3994,17 @@ def check_fsdp(res: list, seconds: float, label: str, wire: str, card: str):
             raise AssertionError(f"{label}: HSDP off FSDP at "
                                  f"{FSDP_SHORT_LAYERS} layers on rank {r}: "
                                  f"{s}")
+        bound = out["root_bytes"] + 2 * out["block_bytes"]
+        if not all(p <= bound and 2 * p < out["whole_bytes"]
+                   for p in out["gathered"]):
+            raise AssertionError(
+                f"{label}: rank {r}'s gathered peaks {out['gathered']} over "
+                f"the root and two blocks ({bound}) or not below half the "
+                f"model ({out['whole_bytes']})")
     if not oracle_ok(r0["oracle"]):
         raise AssertionError(f"{label}: step 1 off the one-rank step: "
                              f"{r0['oracle']}")
+    recorded_sequences(label, [o["seq"] for o in res], "step 1")
     log(f"{label}: GPT-medium, {FSDP_LAYERS} layers, "
         f"make_fsdp_train_step under HVD_TPU_MESH_PLAN="
         f"{FSDP_ENV['HVD_TPU_MESH_PLAN']}, {BATCH // SET_RANKS} x {SEQ} "
@@ -3897,6 +4020,14 @@ def check_fsdp(res: list, seconds: float, label: str, wire: str, card: str):
         f"memory per rank {[round(o['peak'] / 2**30, 2) for o in res]} GiB "
         f"(the one-rank step's {r0['oracle']['peak'] / 2**30:.2f}); on "
         f"{card}")
+    log(f"{label}: peak_gathered_bytes per rank and step "
+        f"{[o['gathered'] for o in res]} (limit: the root "
+        f"{r0['root_bytes']} + twice the largest block's {r0['block_bytes']} "
+        f"= {r0['root_bytes'] + 2 * r0['block_bytes']}, and below half of "
+        f"the whole model's {r0['whole_bytes']}); peak memory a rank "
+        f"{r0['peak']} bytes beside its resting "
+        f"{[o['resting'] for o in res]} (slices and AdamW state) and the "
+        f"whole model's {r0['whole_bytes']}")
     log(f"{label}: {seconds:.1f} s for the phase; flash_fwd launches per "
         f"rank {[o['counts']['flash_fwd'] for o in res]}; rank 0's "
         f"{r0['counts']}")

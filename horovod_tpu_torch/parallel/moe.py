@@ -8,14 +8,19 @@ normalised before the drops, and the experts' weights cut over ``ep``
 :func:`.sharding.shard_params`.
 
 The reference traces the layer with the global batch, so its routing is
-global: ``S`` counts every token of every batch shard, the capacity is
-``ceil(K·S/E·cf)``, a token's slot is a cumsum over the global token
-order, and the load-balancing loss averages over the global tokens.
-Here a rank holds its batch shard's tokens, so each round of the top-k
-assignment all-gathers the ``[E]`` per-expert counts over the batch
-group (a rank's positions start after the lower ranks' tokens) and sums
-the kept counts; the loss's two means are sums over the batch group.
-The keep/drop decisions are the reference's.
+global whatever the mesh: ``S`` counts every token of every batch shard,
+the capacity is ``ceil(K·S/E·cf)``, a token's slot is a cumsum over the
+global token order (row-major over the global ``[B, T]``), and the
+load-balancing loss averages over the global tokens.  Here a rank holds
+its batch shard's tokens: a ``[b, t]`` block, rows cut over the batch
+axes but ``sp`` (dp index ``i``) and the sequence over ``sp`` (index
+``j``), so its local token ``(r, c)`` is the global token ``(i·b + r)·T
++ j·t + c`` with ``T = t·sp``.  Each round of the top-k assignment
+all-gathers the ``[b, E]`` per-row counts over the batch group; a row's
+positions start after every row of the lower dp indices and after its
+own row's tokens on the lower sp indices; the kept counts are summed
+over the group, and the loss's two means are sums over it.  The
+keep/drop decisions are the reference's.
 
 Dispatch is by index (a gather and ``index_add``) where the reference
 multiplies one-hot ``[S, E, cap]`` tensors: an expert's slot holds
@@ -55,13 +60,47 @@ def _expert_axes(plan):
 
 
 def _gather_counts(counts: torch.Tensor, group) -> torch.Tensor:
-    """``[n, E]``: every batch-group member's ``counts``, in group
-    order (f32 on the wire; counts are exact integers far below 2^24)."""
+    """``[n, *counts.shape]``: every batch-group member's ``counts``, in
+    group order (f32 on the wire; counts are exact integers far below
+    2^24)."""
     if group.size == 1:
         return counts[None]
     out = counts.new_empty(group.size * counts.numel())
-    dist.all_gather_into_tensor(out, counts.contiguous(), group=group.group)
-    return out.view(group.size, -1)
+    dist.all_gather_into_tensor(out, counts.reshape(-1), group=group.group)
+    return out.view(group.size, *counts.shape)
+
+
+def _token_blocks(plan, group) -> list:
+    """``(rows, sequence)`` of each batch-group member, in group order:
+    the C-order index of its block of rows over the batch axes but
+    ``sp``, and its ``sp`` index."""
+    axes = [a for a in plan.batch_axes() if a != "sp"]
+    out = []
+    for rank in group.ranks:
+        coords = plan.coords(rank)
+        rows = 0
+        for a in axes:
+            rows = rows * plan.axis_size(a) + coords[a]
+        out.append((rows, coords.get("sp", 0)))
+    return out
+
+
+def _row_offsets(every: torch.Tensor, blocks: list, me: int) -> torch.Tensor:
+    """``[b, E]``: for each local row, the tokens per expert before the
+    row's first local token in the global order, from every member's
+    per-row counts ``every [n, b, E]``: every row of a lower row block,
+    the lower rows of this row block, and this row's tokens on the
+    lower sp indices."""
+    rows, seq = blocks[me]
+    offset = torch.zeros_like(every[0])
+    for counts, (rows_m, seq_m) in zip(every, blocks):
+        if rows_m < rows:
+            offset = offset + counts.sum(dim=0)
+        elif rows_m == rows:
+            offset = offset + counts.cumsum(dim=0) - counts
+            if seq_m < seq:
+                offset = offset + counts
+    return offset
 
 
 def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -105,9 +144,6 @@ class MoEMlp(nn.Module):
         plan = self.plan
         if plan is None:
             return AxisGroup((0,), 0, None)
-        if plan.has_axis("sp") and plan.axis_size("sp") > 1:
-            raise ValueError("MoEMlp routes over the global token order; a "
-                             "sequence-sharded (sp) mesh is not supported")
         return plan.group(plan.batch_axes())
 
     def forward(self, x):
@@ -124,6 +160,8 @@ class MoEMlp(nn.Module):
         gates = torch.softmax(self.router(xf.to(torch.float32)), dim=-1)
 
         # --- top-k assignment with capacity (GShard), global order ---
+        blocks = (_token_blocks(self.plan, batch) if batch.size > 1
+                  else [(0, 0)])
         fill = gates.new_zeros(E)
         remaining = gates
         routes, top1 = [], None
@@ -133,9 +171,11 @@ class MoEMlp(nn.Module):
             if top1 is None:
                 top1 = mask
             gate_k = (gates * mask).sum(dim=-1)
-            every = _gather_counts(mask.sum(dim=0).detach(), batch)
-            offset = every[:batch.index].sum(dim=0)
-            pos = torch.cumsum(mask, dim=0) - 1.0 + offset + fill
+            rows = mask.detach().view(b, t, E)
+            offset = _row_offsets(_gather_counts(rows.sum(dim=1), batch),
+                                  blocks, batch.index)
+            pos = (torch.cumsum(rows, dim=1) - 1.0 + offset[:, None]
+                   + fill).view(S, E)
             pos = (pos * mask).sum(dim=-1).detach()
             keep = (pos < cap) & (gate_k > 0)
             fill = fill + _group_sum(
@@ -157,7 +197,9 @@ class MoEMlp(nn.Module):
 
     def _experts(self, xf, routes, weights, cap):
         """The kept routes through this rank's experts, combined and
-        summed over the ``ep × tp`` group."""
+        summed over the ``ep × tp`` group.  Its members hold the same
+        tokens: a group along ``ep``/``tp`` pins every other axis, ``dp``
+        and ``sp`` too."""
         S, c = xf.shape
         ep_ax, tp_ax = _expert_axes(self.plan)
         e_local, f_local = self.w_up.shape[0], self.w_up.shape[2]

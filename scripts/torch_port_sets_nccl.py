@@ -5,6 +5,8 @@
     python3 scripts/torch_port_sets_nccl.py --microbatch
     python3 scripts/torch_port_sets_nccl.py --topology 2x2
     python3 scripts/torch_port_sets_nccl.py --spmd
+    python3 scripts/torch_port_sets_nccl.py --fsdp
+    python3 scripts/torch_port_sets_nccl.py --moe
 
 ``chip_smoke.py`` runs its four ranks on one card over gloo, since NCCL
 refuses several ranks on one device.  This script runs the same path
@@ -32,9 +34,17 @@ at 4096 tokens on ``{'dp': 1, 'sp': 2, 'tp': 2}``, ring attention on the
 flash engine, ``make_spmd_train_step``; the short checks; the one-rank
 oracle on rank 0's card) under ``HVD_TPU_MESH_PLAN=data=2,fsdp=2``, held
 to ``chip_smoke.check_sequence_parallel``: the ring's K/V rotation and
-the tensor-parallel sums then travel over NVLink.  One host's four cards
-are all NVLink, so its step times say nothing of a network between
-nodes.
+the tensor-parallel sums then travel over NVLink.  With ``--fsdp`` it
+runs the "fsdp 4 ranks" path (``chip_smoke.fsdp_ranks``: GPT-medium
+through ``make_fsdp_train_step`` under ``HVD_TPU_MESH_PLAN=fsdp=4``, a
+block gathered for its forward and again for its backward, the HSDP
+check, the one-rank oracle) and with ``--moe`` the "moe 4 ranks" path
+(``chip_smoke.moe_ranks``: the MoE GPT on ``{'dp': 2, 'ep': 2}``, then
+the ``{'sp': 2, 'ep': 2}`` step with ring attention), both at the full
+24 layers, held to ``chip_smoke.check_fsdp`` and ``check_moe``; each
+rank has a card of its own, so its peak memory is that card's.  One
+host's four cards are all NVLink, so its step times say nothing of a
+network between nodes.
 It prints each card's name and power limit, and exits non-zero, with no
 result line, on a failure or with fewer than four cards.
 """
@@ -56,8 +66,17 @@ WORKER_FLAG = "--nccl-worker"
 MICROBATCH_FLAG = "--microbatch"
 TOPOLOGY_FLAG = "--topology"
 SPMD_FLAG = "--spmd"
+FSDP_FLAG = "--fsdp"
+MOE_FLAG = "--moe"
 PATHS = {"sets": "set_ranks", "microbatch": "microbatch_ranks",
-         "topology": "hier_ranks", "spmd": "seq_ranks"}
+         "topology": "hier_ranks", "spmd": "seq_ranks",
+         "fsdp": "fsdp_ranks", "moe": "moe_ranks"}
+
+
+def _full_depth(cs) -> None:
+    """The fsdp and moe paths at GPT-medium's 24 layers: one rank a card
+    has the memory the shared card lacks."""
+    cs.FSDP_LAYERS = cs.MOE_LAYERS = cs.GPT_MEDIUM["n_layer"]
 
 
 def worker(rank: int, tmp: str, path: str) -> None:
@@ -69,6 +88,7 @@ def worker(rank: int, tmp: str, path: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hvd.init()                                   # cuda:<LOCAL_RANK>, NCCL
+    _full_depth(cs)
     try:
         res = getattr(cs, PATHS[path])(hvd.device(), rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -95,7 +115,9 @@ def main(path: str) -> int:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     world = cs.SET_RANKS
-    knobs = {"topology": cs.HIER_ENV, "spmd": cs.SEQ_ENV}.get(path, {})
+    knobs = {"topology": cs.HIER_ENV, "spmd": cs.SEQ_ENV,
+             "fsdp": cs.FSDP_ENV}.get(path, {})
+    _full_depth(cs)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         procs = []
@@ -127,17 +149,22 @@ def main(path: str) -> int:
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 res.append(json.load(f))
         seconds = time.perf_counter() - t0
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        nvlink = "NCCL, one rank a card, all four on one host's NVLink"
         if path == "microbatch":
             counts = cs.check_microbatch(res, seconds, "microbatch 4 ranks",
                                          "NCCL, one rank a card")
         elif path == "spmd":
-            card = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True, text=True,
-                check=True).stdout.strip().splitlines()[0]
             counts = cs.check_sequence_parallel(
-                res, seconds, "sequence-parallel 4 ranks (NCCL)",
-                "NCCL, one rank a card, all four on one host's NVLink", card)
+                res, seconds, "sequence-parallel 4 ranks (NCCL)", nvlink,
+                card)
+        elif path in ("fsdp", "moe"):
+            check = cs.check_fsdp if path == "fsdp" else cs.check_moe
+            counts = check(res, seconds, f"{path} 4 ranks (NCCL)", nvlink,
+                           card)
         elif path == "topology":
             counts = cs.check_hierarchical(
                 res, seconds, "hierarchical 4 ranks (NCCL)",
@@ -148,7 +175,9 @@ def main(path: str) -> int:
                       "launches": counts,
                       "seconds_per_rank": [o["seconds"] for o in res],
                       **({"step_seconds": [o["times"] for o in res]}
-                         if path == "spmd" else {}),
+                         if path in ("spmd", "fsdp", "moe") else {}),
+                      **({"peak_gathered_bytes": [o["gathered"] for o in res]}
+                         if path == "fsdp" else {}),
                       "peak_bytes": [o["peak"] for o in res]}))
     return 0
 
@@ -164,6 +193,10 @@ def _path(argv) -> str:
         return "topology"
     if SPMD_FLAG in argv:
         return "spmd"
+    if FSDP_FLAG in argv:
+        return "fsdp"
+    if MOE_FLAG in argv:
+        return "moe"
     return "microbatch" if MICROBATCH_FLAG in argv else "sets"
 
 

@@ -9,16 +9,17 @@ same numpy-seeded weights and inputs: output and aux loss within 1e-6
 of ``sum(out²) + aux`` within 1e-5 + 1e-4 of each one's largest value.
 
 The GPT cases run in one 4-rank gloo world (``tests/
-torch_port_workers.py``) at ``{dp: 2, ep: 2}`` and ``{ep: 2, tp: 2}``
-(2 layers, d_model 32, 4 experts, top-2, capacity factor 0.5 so that
-tokens overflow), against the reference's MoE GPT run on the whole
-batch on one device: each rank's logits within 1e-4 of its rows of the
-reference's, the aux loss within 1e-6 relative, the loss within 1e-5,
-and one AdamW step's gathered parameters at most 0.1% more than 2e-6
-from the reference's and none more than lr (the contract of
-``test_torch_port_spmd.py``), with ``lm_loss_fn`` alone and with the aux
-loss added.  Routing is global, so the dp shards keep and drop the
-tokens the whole batch does.
+torch_port_workers.py``) at ``{dp: 2, ep: 2}``, ``{ep: 2, tp: 2}`` and,
+with ring attention, the sequence-parallel ``{sp: 2, ep: 2}`` and ``{dp:
+2, sp: 2}`` (2 layers, d_model 32, 4 experts, top-2, capacity factor 0.5
+so that tokens overflow), against the reference's MoE GPT run on the
+whole batch on one device (full attention): each rank's logits within
+1e-4 of its ``[b, t]`` block of the reference's, the aux loss within
+1e-6 relative, the loss within 1e-5, and one AdamW step's gathered
+parameters at most 0.1% more than 2e-6 from the reference's and none
+more than lr (the contract of ``test_torch_port_spmd.py``), with
+``lm_loss_fn`` alone and with the aux loss added.  Routing is global, so
+the dp and sp shards keep and drop the tokens the whole batch does.
 """
 
 import jax
@@ -48,7 +49,9 @@ N = 4
 CFG = dict(vocab_size=64, n_layer=2, n_head=4, d_model=32, d_ff=64,
            max_seq_len=16, attention="full", moe_experts=4, moe_top_k=2,
            moe_every=2, moe_capacity_factor=0.5)
-LAYOUTS = {"dp2_ep2": {"dp": 2, "ep": 2}, "ep2_tp2": {"ep": 2, "tp": 2}}
+LAYOUTS = {"dp2_ep2": {"dp": 2, "ep": 2}, "ep2_tp2": {"ep": 2, "tp": 2},
+           "sp2_ep2": {"sp": 2, "ep": 2}, "dp2_sp2": {"dp": 2, "sp": 2}}
+SP_LAYOUTS = ("sp2_ep2", "dp2_sp2")        # ring attention over sp
 AUX_WEIGHT = 1e-2
 LR = 3e-4
 
@@ -205,6 +208,21 @@ def test_param_shardings_match_the_reference():
     assert got["block_1.moe.w_down"] == P("ep", "tp", None)
 
 
+@pytest.mark.parametrize("layout", [{"sp": 2, "ep": 2},
+                                    {"dp": 2, "sp": 2, "ep": 2},
+                                    {"sp": 2, "ep": 2, "tp": 2}])
+def test_expert_groups_hold_one_token_block(layout):
+    """``copy_to``/``reduce_from`` over the ``ep × tp`` group need its
+    members to hold the same tokens: every group pins the dp and sp
+    indices."""
+    mesh = make_mesh(layout, world=int(np.prod(list(layout.values()))))
+    axes = [a for a in ("ep", "tp") if a in layout]
+    for members in mesh.groups(axes):
+        blocks = {(mesh.coords(r).get("dp", 0), mesh.coords(r)["sp"])
+                  for r in members}
+        assert len(blocks) == 1, (members, blocks)
+
+
 def _ref_gpt(tokens):
     """The reference's MoE GPT on the whole batch, one device: params,
     logits, aux loss, and one AdamW step with and without the aux loss
@@ -243,17 +261,25 @@ def runs(tmp_path_factory):
                      x=x)
         ref = _ref_gpt(tokens)
         cfg = {**CFG, "dtype": "float32"}
+        ring = {**cfg, "attention": "ring"}
         for name, layout in LAYOUTS.items():
-            world.submit("moe_gpt", config=cfg, layout=layout,
-                         params=ref["params"], tokens=tokens, steps=1)
+            world.submit("moe_gpt", config=ring if name in SP_LAYOUTS else cfg,
+                         layout=layout, params=ref["params"], tokens=tokens,
+                         steps=1)
         world.submit("moe_gpt", config=cfg, layout=LAYOUTS["dp2_ep2"],
                      params=ref["params"], tokens=tokens, steps=1,
                      aux_weight=AUX_WEIGHT)
+        for name in SP_LAYOUTS:
+            world.submit("moe_gpt", config=ring, layout=LAYOUTS[name],
+                         params=ref["params"], tokens=tokens, steps=1,
+                         aux_weight=AUX_WEIGHT)
         ref["planner"] = np.asarray(layer.apply(variables, jnp.asarray(x)))
         port = {"planner": world.collect("planner")}
         for name in LAYOUTS:
             port[name] = world.collect(name)
         port["aux_step"] = world.collect("aux step")
+        for name in SP_LAYOUTS:
+            port[f"aux_{name}"] = world.collect(f"aux step {name}")
     finally:
         world.close()
     return port, ref
@@ -264,12 +290,14 @@ def test_moe_gpt_matches_the_unsharded_reference(runs, name):
     port, ref = runs
     layout = LAYOUTS[name]
     mesh = make_mesh(layout, world=N)
-    dp = layout.get("dp", 1)
-    rows = ref["logits"].shape[0] // dp
+    rows = ref["logits"].shape[0] // layout.get("dp", 1)
+    cols = ref["logits"].shape[1] // layout.get("sp", 1)
     for r, out in enumerate(port[name]):
-        index = mesh.coords(r).get("dp", 0)
+        coords = mesh.coords(r)
+        i, j = coords.get("dp", 0), coords.get("sp", 0)
         np.testing.assert_allclose(
-            out["logits"], ref["logits"][index * rows:(index + 1) * rows],
+            out["logits"], ref["logits"][i * rows:(i + 1) * rows,
+                                         j * cols:(j + 1) * cols],
             rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(out["aux"], ref["aux"], rtol=1e-6)
     _check_step(port[name], ref["lm"], mesh)
@@ -281,6 +309,15 @@ def test_moe_gpt_with_the_aux_loss(runs):
     port, ref = runs
     _check_step(port["aux_step"], ref["lm_aux"],
                 make_mesh(LAYOUTS["dp2_ep2"], world=N))
+
+
+@pytest.mark.parametrize("name", SP_LAYOUTS)
+def test_moe_gpt_sp_with_the_aux_loss(runs, name):
+    """The aux loss under sequence parallelism: its means and the
+    router's gradient over every dp and sp shard."""
+    port, ref = runs
+    _check_step(port[f"aux_{name}"], ref["lm_aux"],
+                make_mesh(LAYOUTS[name], world=N))
 
 
 def _check_step(outs, ref_step, mesh):

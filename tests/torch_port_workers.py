@@ -1466,7 +1466,8 @@ def moe_gpt(config: dict, layout: dict, params: dict, tokens: np.ndarray,
             steps: int, aux_weight: float = 0.0) -> dict:
     """The MoE GPT on ``layout`` from the reference's flax tree:
     ``shard_params`` (experts over ``ep``, their FFN over ``tp``), this
-    rank's dp rows: the first forward's logits and aux loss, then
+    rank's ``[b, t]`` block (rows over dp, the sequence over sp): the
+    first forward's logits and aux loss, then
     ``steps`` AdamW steps of ``make_spmd_train_step`` on ``lm_loss_fn``
     (plus ``aux_weight`` × the load-balancing loss when it is not 0).
     Returns the gathered parameters and the local slices."""
@@ -1482,7 +1483,7 @@ def moe_gpt(config: dict, layout: dict, params: dict, tokens: np.ndarray,
     model = GPT(_gpt_config(config), mesh=mesh, device="cpu")
     load_jax_params(model, params)
     shard_params(model, mesh)
-    batch = shard_batch((tokens[:, :-1], tokens[:, 1:]), mesh, P("dp", None))
+    batch = shard_batch((tokens[:, :-1], tokens[:, 1:]), mesh, P("dp", "sp"))
     with torch.no_grad():
         logits = model(batch[0]).numpy()
         aux = float(moe_aux_loss(model, weight=1.0))
@@ -1630,6 +1631,131 @@ def fsdp_toy(kind: str, params: dict, x: np.ndarray, y: np.ndarray,
                    params={n: t.numpy().copy()
                            for n, t in step.gather(model).items()})
     return out
+
+
+def _fsdp_steps(step, model, opt, batch, steps: int) -> dict:
+    """``steps`` steps of an FSDP ``step``, the first recorded
+    (``analysis.step_check``): the losses, each step's
+    ``peak_gathered_bytes``, the recorded sequence, the whole parameters,
+    each one's split dim and the units."""
+    from horovod_tpu_torch.analysis.step_check import record_collectives
+
+    with record_collectives() as first:
+        losses = [float(step(model, opt, batch))]
+    peaks = [step.peak_gathered_bytes]
+    for _ in range(steps - 1):
+        losses.append(float(step(model, opt, batch)))
+        peaks.append(step.peak_gathered_bytes)
+    root, blocks = step.units(model)
+    return dict(losses=losses, peaks=peaks, seq=[list(e) for e in first],
+                params={n: t.numpy().copy()
+                        for n, t in step.gather(model).items()},
+                split=dict(step.split), root=root,
+                blocks=[[b, names] for b, names in blocks])
+
+
+def fsdp_gpt(config: dict, params: dict, tokens: np.ndarray, steps: int,
+             kind: str = "fsdp", chunk: int = 0, max_grad_norm=None,
+             sgd: bool = False) -> dict:
+    """``steps`` AdamW(1e-2, weight decay 1e-4) steps (with ``sgd``,
+    SGD(0.1)) of the port's GPT from the reference's flax tree through
+    ``make_fsdp_train_step`` on ``lm_loss_fn(vocab_chunk_size=chunk)``,
+    each rank on its rows of ``tokens``: ``kind`` "fsdp" (the session's
+    1-D axis) or "hsdp" (a ``{dcn: 2, ici: 2}`` mesh,
+    ``dp_axis='dcn'``).  Returns :func:`_fsdp_steps`'s readings and
+    ``model_freed``: whether, with the collector off, the model went with
+    its last reference (no cycle holds it)."""
+    import gc
+    import weakref
+
+    from horovod_tpu_torch.models import GPT, load_jax_params
+    from horovod_tpu_torch.models.transformer import lm_loss_fn
+    from horovod_tpu_torch.optim import make_fsdp_train_step
+    from horovod_tpu_torch.parallel import make_mesh
+
+    gc.disable()             # a reference cycle then keeps the model alive
+    try:
+        model = GPT(_gpt_config(config), device="cpu")
+        load_jax_params(model, params)
+        kwargs = {}
+        if kind == "hsdp":
+            kwargs = dict(mesh=make_mesh({"dcn": 2, "ici": 2}),
+                          axis_name="ici", dp_axis="dcn")
+        shard, step = make_fsdp_train_step(
+            lm_loss_fn(model, vocab_chunk_size=chunk),
+            lambda ps: (torch.optim.SGD(ps, lr=0.1) if sgd else
+                        torch.optim.AdamW(ps, lr=1e-2, weight_decay=1e-4)),
+            max_grad_norm=max_grad_norm, **kwargs)
+        model, opt = shard(model)
+        mine = _my_rows(tokens).long()
+        out = _fsdp_steps(step, model, opt, (mine[:, :-1], mine[:, 1:]),
+                          steps)
+        held = weakref.ref(model)
+        del model, opt, shard, step
+        out["model_freed"] = held() is None
+    finally:
+        gc.enable()
+    return out
+
+
+class _Blk(torch.nn.Module):
+    """``h + tanh(lin(h)) * scale``: the tied toy's repeated block."""
+
+    def __init__(self, w: np.ndarray, b, scale: np.ndarray) -> None:
+        super().__init__()
+        self.lin = torch.nn.Linear(*w.shape[::-1])
+        with torch.no_grad():
+            self.lin.weight.copy_(torch.from_numpy(w))
+        if isinstance(b, torch.nn.Parameter):
+            self.lin.bias = b
+        else:
+            with torch.no_grad():
+                self.lin.bias.copy_(torch.from_numpy(b))
+        self.scale = torch.nn.Parameter(torch.from_numpy(scale.copy()))
+
+    def forward(self, h):
+        return h + torch.tanh(self.lin(h)) * self.scale
+
+
+class _TiedBlocks(torch.nn.Module):
+    """An embedding tied to the head (``head.weight is emb.weight``) and
+    two blocks sharing one bias: both shared leaves are the root's."""
+
+    def __init__(self, leaves: dict) -> None:
+        super().__init__()
+        self.emb = torch.nn.Embedding(*leaves["emb.weight"].shape)
+        with torch.no_grad():
+            self.emb.weight.copy_(torch.from_numpy(leaves["emb.weight"]))
+        self.block_0 = _Blk(leaves["block_0.lin.weight"],
+                            leaves["block_0.lin.bias"],
+                            leaves["block_0.scale"])
+        self.block_1 = _Blk(leaves["block_1.lin.weight"],
+                            self.block_0.lin.bias, leaves["block_1.scale"])
+        self.head = torch.nn.Linear(self.emb.weight.shape[1],
+                                    self.emb.weight.shape[0], bias=False)
+        self.head.weight = self.emb.weight
+
+
+def _tied_blocks_loss(module, batch):
+    tokens, targets = batch
+    h = module.block_1(module.block_0(module.emb(tokens)))
+    logits = module.head(h)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+
+def fsdp_tied_blocks(leaves: dict, tokens: np.ndarray, targets: np.ndarray,
+                     steps: int) -> dict:
+    """``steps`` Adam(1e-2) steps of ``_TiedBlocks`` through
+    ``make_fsdp_train_step``, each rank on its rows; returns
+    :func:`_fsdp_steps`'s readings."""
+    from horovod_tpu_torch.optim import make_fsdp_train_step
+
+    shard, step = make_fsdp_train_step(
+        _tied_blocks_loss, lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    model, opt = shard(_TiedBlocks(leaves))
+    batch = (_my_rows(tokens).long(), _my_rows(targets).long())
+    return _fsdp_steps(step, model, opt, batch, steps)
 
 
 def zero_plan(spec: str, w: np.ndarray, b: np.ndarray, x: np.ndarray,
