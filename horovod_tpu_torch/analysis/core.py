@@ -105,10 +105,11 @@ CHECK_CATALOG: "Dict[str, Tuple[str, str]]" = {
                  "tenant-id label is a memory leak per tenant)"),
     "span-name": (
         "error", "trace span violates naming rules (hvd_tpu_ prefix on "
-                 "every literal span/record_span/instant name)"),
+                 "every literal span/record_span/instant/layer name)"),
     "span-doc-drift": (
         "error", "recorded trace span missing from the docs/tracing.md "
-                 "span catalog"),
+                 "span catalog and the port's own "
+                 "(horovod_tpu_torch/obs/spans.md)"),
     "detector-doc-drift": (
         "error", "alert/detector id in the obs/detect.py DETECTORS "
                  "catalog missing from the docs/observability.md "
@@ -308,6 +309,7 @@ class LintConfig:
     fault_doc: str = "docs/fault_injection.md"
     metrics_doc: str = "docs/metrics.md"
     tracing_doc: str = "docs/tracing.md"
+    port_tracing_doc: str = "horovod_tpu_torch/obs/spans.md"
     serving_doc: str = "docs/serving.md"
     observability_doc: str = "docs/observability.md"
     select: Optional[Sequence[str]] = None   # None = all checks

@@ -248,7 +248,7 @@ class MetricNameChecker(Checker):
 class SpanNameChecker(Checker):
     checks = ("span-name", "span-doc-drift")
 
-    _FUNCS = ("span", "record_span", "instant")
+    _FUNCS = ("span", "record_span", "instant", "layer")
     _FORWARDER = "_record_phase"
 
     def __init__(self, cfg: LintConfig) -> None:
@@ -285,7 +285,10 @@ class SpanNameChecker(Checker):
             self.spans.setdefault(name, (mod.path, node.lineno))
 
     def finalize(self) -> None:
-        doc = self.cfg.doc_text(self.cfg.tracing_doc)
+        # The port's own spans have a catalog of their own; the message
+        # stays the reference's, letter for letter.
+        doc = (self.cfg.doc_text(self.cfg.tracing_doc)
+               + self.cfg.doc_text(self.cfg.port_tracing_doc))
         documented = set(re.findall(r"hvd_tpu_[a-z0-9_]+", doc))
         for name, (path, line) in sorted(self.spans.items()):
             if name not in documented:

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..obs import trace
 from ..ops import flash_attention as _flash
 from ..parallel.ring_attention import full_attention
 from .layers import Dense, Embed, Init, LayerNorm
@@ -98,7 +99,9 @@ class BertBlock(nn.Module):
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, init)
 
     def forward(self, x, key_mask=None):
+        trace.layer("hvd_tpu_layer_attn", x)
         x = self.ln1(x + self.attn(x, key_mask))
+        trace.layer("hvd_tpu_layer_mlp", x)
         return self.ln2(x + self.ffn_down(_gelu(self.ffn_up(x))))
 
 
@@ -120,7 +123,12 @@ class BertEncoder(nn.Module):
         self.pooler = Dense(cfg.d_model, cfg.d_model, cfg.dtype, init,
                             bias=True)
 
+    @trace.layer_scope
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        """Under a profiler: ``hvd_tpu_layer_embed`` to ``ln_embed``, the
+        blocks' layer ranges, then ``hvd_tpu_layer_head`` from the pooler
+        on (:func:`..obs.trace.layer`)."""
+        trace.layer("hvd_tpu_layer_embed")
         cfg = self.cfg
         t = input_ids.shape[1]
         if token_type_ids is None:
@@ -132,6 +140,7 @@ class BertEncoder(nn.Module):
         key_mask = None if attention_mask is None else attention_mask > 0
         for i in range(cfg.n_layer):
             x = getattr(self, f"block_{i}")(x, key_mask)
+        trace.layer("hvd_tpu_layer_head", x)
         return x, torch.tanh(self.pooler(x[:, 0]))
 
 
@@ -172,6 +181,7 @@ class BertForMaskedLM(nn.Module):
         self.mlm_bias = nn.Parameter(torch.zeros(
             cfg.vocab_size, dtype=torch.float32, device=init.device))
 
+    @trace.layer_scope
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 return_hidden: bool = False):
         seq, _ = self.bert(input_ids, token_type_ids, attention_mask)
@@ -198,27 +208,33 @@ def masked_lm_loss_fn(model: BertForMaskedLM, *,
     labels, label_mask)``.  ``vocab_chunk_size > 0`` takes the chunked
     head (:func:`..ops.xent.chunked_lm_xent`, the tied decoder's product
     in f32 a chunk at a time), so the ``[B, T, V]`` logits are never
-    materialized."""
+    materialized.  Both run in the model's layer-range scope, so under a
+    profiler ``hvd_tpu_layer_head`` runs on through the loss (as
+    :func:`.transformer.lm_loss_fn`'s)."""
     del model  # the module in training is the step's argument
     if vocab_chunk_size:
         from ..ops.xent import chunked_lm_xent
 
+        @trace.layer_scope
         def chunked_loss(module: nn.Module, batch) -> torch.Tensor:
             input_ids, attention_mask, labels, label_mask = _mlm_batch(batch)
             h = module(input_ids, None, attention_mask, return_hidden=True)
-            return chunked_lm_xent(h, module.bert.tok_embed.embedding.t(),
-                                   labels, chunk_size=vocab_chunk_size,
-                                   bias=module.mlm_bias, mask=label_mask)
+            return trace.layer_loss(chunked_lm_xent(
+                h, module.bert.tok_embed.embedding.t(), labels,
+                chunk_size=vocab_chunk_size, bias=module.mlm_bias,
+                mask=label_mask))
 
         return chunked_loss
 
+    @trace.layer_scope
     def dense_loss(module: nn.Module, batch) -> torch.Tensor:
         input_ids, attention_mask, labels, label_mask = _mlm_batch(batch)
         logp = torch.log_softmax(module(input_ids, None, attention_mask),
                                  dim=-1)
         ll = torch.gather(logp, -1, labels[..., None])[..., 0]
         m = label_mask.to(torch.float32)
-        return -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return trace.layer_loss(
+            -(ll * m).sum() / torch.clamp_min(m.sum(), 1.0))
 
     return dense_loss
 

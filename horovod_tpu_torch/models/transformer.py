@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..obs import trace
 from ..ops import flash_attention as _flash
 from ..parallel.comm import copy_to, reduce_from
 from ..parallel.moe import MoEMlp
@@ -349,12 +350,14 @@ class Block(nn.Module):
         """With ``cache`` (and ``positions``) returns ``(x,
         new_cache)``."""
         new_cache = None
+        trace.layer("hvd_tpu_layer_attn", x)
         if cache is not None:
             a, new_cache = self.attn(self.ln1(x), cache=cache,
                                      positions=positions)
         else:
             a = self.attn(self.ln1(x))
         x = x + a
+        trace.layer("hvd_tpu_layer_mlp", x)
         ffn = self.moe if self.use_moe else self.mlp
         x = x + ffn(self.ln2(x))
         if cache is not None:
@@ -405,6 +408,7 @@ class GPT(nn.Module):
         """The model's :class:`..plan.MeshPlan`, or None off a mesh."""
         return self.plan
 
+    @trace.layer_scope
     def forward(self, tokens, return_hidden: bool = False,
                 kv_caches=None, positions=None):
         """Logits, or with ``return_hidden`` the pre-head activations
@@ -416,7 +420,14 @@ class GPT(nn.Module):
         ``positions`` (``[B, T]`` absolute positions of the chunk)
         return ``(logits, new_caches)``.  A position past the
         positional table (the engine's trash rows) reads its last row,
-        as the reference's clamped gather does."""
+        as the reference's clamped gather does.
+
+        Under a profiler the forward and its backward run in layer
+        ranges (:func:`..obs.trace.layer`): ``hvd_tpu_layer_embed``, each
+        block's ``hvd_tpu_layer_attn`` and ``hvd_tpu_layer_mlp``, and
+        ``hvd_tpu_layer_head`` from ``ln_f`` on, which a loss function
+        in the same scope (:func:`lm_loss_fn`) keeps open."""
+        trace.layer("hvd_tpu_layer_embed")
         cfg = self.config
         t = tokens.shape[1]
         if kv_caches is not None:
@@ -436,6 +447,7 @@ class GPT(nn.Module):
                 x, c = getattr(self, f"block_{i}")(
                     x, cache=kv_caches[i], positions=positions)
                 new_caches.append(c)
+            trace.layer("hvd_tpu_layer_head", x)
             x = self.ln_f(x)
             if return_hidden:
                 return x
@@ -448,6 +460,7 @@ class GPT(nn.Module):
         x = self.embed(tokens) + pos.to(cfg.dtype)
         for i in range(cfg.n_layer):
             x = getattr(self, f"block_{i}")(x)
+        trace.layer("hvd_tpu_layer_head", x)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -508,25 +521,31 @@ def lm_loss_fn(model: GPT, *, vocab_chunk_size: int = 0) -> Callable:
 
     ``vocab_chunk_size > 0`` takes the chunked head
     (:func:`..ops.xent.chunked_lm_xent`): the ``[B, T, V]`` logits are
-    never materialized; equal to the dense loss at f32 tolerance."""
+    never materialized; equal to the dense loss at f32 tolerance.
+
+    Both run in the model's layer-range scope (:meth:`GPT.forward`), so
+    under a profiler ``hvd_tpu_layer_head`` runs on through the loss and
+    its backward starts at the loss's gradient."""
     del model  # the module in training is the step's argument
     if vocab_chunk_size:
         from ..ops.xent import chunked_lm_xent
 
+        @trace.layer_scope
         def chunked_loss_fn(module: nn.Module, batch) -> torch.Tensor:
             inputs, targets = batch
             hidden = module(inputs, return_hidden=True)
-            return _global_mean(module, chunked_lm_xent(
+            return trace.layer_loss(_global_mean(module, chunked_lm_xent(
                 hidden, module.lm_head.kernel, targets,
-                chunk_size=vocab_chunk_size))
+                chunk_size=vocab_chunk_size)))
 
         return chunked_loss_fn
 
+    @trace.layer_scope
     def loss_fn(module: nn.Module, batch) -> torch.Tensor:
         inputs, targets = batch
         logp = torch.log_softmax(module(inputs), dim=-1)
         ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-        return _global_mean(module, -ll.mean())
+        return trace.layer_loss(_global_mean(module, -ll.mean()))
 
     return loss_fn
 

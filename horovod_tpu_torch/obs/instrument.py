@@ -21,14 +21,24 @@ Eager torch has no trace time, so three contracts are the port's own:
   what the reference's jitted step counts.  Outside a wrapped step (an
   eager call of ``fused_allreduce_pytree``) every call records, as the
   reference's eager calls do.
-* **Stage spans fire every step.**  The topology schedule's stage spans
-  (``hvd_tpu_topo_rs_intra`` / ``_xpod`` / ``_ag_intra``) wrap the eager
-  stages on every step, under that step's root ``hvd_tpu_step``; the
-  trace ring (``HVD_TPU_TRACE_RING``) bounds them.
+* **Stage spans fire every step.**  Under each step's root
+  ``hvd_tpu_step`` the gradient reduction runs in ``hvd_tpu_wire`` and
+  the optimizer's update in ``hvd_tpu_apply``
+  (``optim/distributed_optimizer.py``); the topology schedule's stage
+  spans (``hvd_tpu_topo_rs_intra`` / ``_xpod`` / ``_ag_intra``) wrap the
+  eager stages, inside the wire (the microbatch overlap wire's, which
+  runs between microbatches, directly under the root).  The trace ring
+  (``HVD_TPU_TRACE_RING``) bounds them.
 * **No tracer bypass.**  A torch step is never traced inside another
   program, so :func:`wrap_step` has no bypass.  Each step mirrors its
   ``step_time_ms`` and ``tokens_per_s`` onto the live timeline's
   counter track (:func:`_timeline_counter`).
+
+Two gauges of the shared catalog are the reference's alone: the port
+never sets ``hvd_tpu_mfu_pct`` (its benchmark computes its own
+``mfu_pct``), and sets ``hvd_tpu_hidden_comm_frac`` (with
+``hvd_tpu_est_wire_cost_us`` / ``_hidden_us``) from its fusion plans
+only (:func:`on_fusion_plan`), never from a FLOPs-based estimate.
 
 Label cardinality discipline: ``tier``/``site``/``kind``/``transition``
 labels come from closed sets; the collective ``op`` label is the entry
@@ -54,7 +64,7 @@ __all__ = [
     "on_retry",
     "on_fault", "on_elastic_reset", "on_blacklist", "on_membership_loss",
     "on_stall", "on_autotune_window", "on_autotune_apply", "autotune_log",
-    "set_mfu", "set_hidden_comm_estimate", "on_topo_plan",
+    "on_topo_plan",
     "on_topo_estimator", "on_ckpt_save", "on_ckpt_write",
     "on_ckpt_restore", "on_ckpt_journal", "on_ckpt_coalesced",
     "on_ckpt_inflight", "on_qos_shed", "on_qos_preempt",
@@ -223,33 +233,6 @@ def _timeline_counter(name: str, values: Dict[str, float]) -> None:
     tl = basics.peek("timeline")   # fail-soft: None pre-init
     if tl is not None and tl.enabled:
         tl.counter(name, values)
-
-
-def set_hidden_comm_estimate(wire_us: float, hidden_us: float) -> None:
-    """Record a hidden-communication estimate computed outside a full
-    schedule plan (``fusion.estimate_overlap_hidden_fraction`` — the
-    microbatch overlap wire's model, where per-microbatch compute time
-    is known: the benches' FLOPs-based path)."""
-    if not _m.enabled():
-        return
-    reg = _reg()
-    reg.gauge("hvd_tpu_est_wire_cost_us",
-              "cost-model makespan of the latest schedule").set(wire_us)
-    reg.gauge("hvd_tpu_est_hidden_us",
-              "cost-model wire time hidden under compute").set(hidden_us)
-    if wire_us > 0:
-        reg.gauge("hvd_tpu_hidden_comm_frac",
-                  "hidden / total modeled wire time").set(
-                      hidden_us / wire_us)
-
-
-def set_mfu(pct: float) -> None:
-    """Record model-FLOPs utilization, computed where the FLOPs are
-    known (``utils.mfu`` via the benchmarks' AOT-compiled cost)."""
-    if not _m.enabled():
-        return
-    _reg().gauge("hvd_tpu_mfu_pct",
-                 "model FLOPs utilization, percent of chip peak").set(pct)
 
 
 def record_microbatch_plan(mb: int, *, overlap: bool) -> None:

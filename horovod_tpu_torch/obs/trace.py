@@ -1,7 +1,8 @@
 """Cross-rank distributed tracing: W3C-style span contexts.
 
 Counterpart of ``horovod_tpu/obs/trace.py``, a copy of it but for where
-a rank comes from (:func:`process_rank` reads ``torch.distributed``).
+a rank comes from (:func:`process_rank` reads ``torch.distributed``) and
+for the profiler's copy of each span and the layer ranges (below).
 Each finished span is mirrored onto the live timeline
 (``basics.timeline``) as a slice, with flow arrows for RPC spans.  Every
 *step* gets an identity that survives process boundaries:
@@ -26,12 +27,36 @@ then reports which hop/phase dominated a trace's wall time.
 
 Hot-path contract: one :func:`enabled` check per call site;
 ``HVD_TPU_TRACE=0`` turns every span into a single boolean test.
+
+**The profiler's copy.**  While a ``torch.profiler`` session records
+(:func:`profiling`, one module-flag read), :func:`span` also opens a
+``record_function`` range of the same name, so the span shows in the
+profiler's host trace as a ``user_annotation`` and the kernels launched
+inside it are tied to it by correlation id.  The ring and the profiler
+share one clock: the profiler stamps the host's realtime clock too, so a
+span's ``start_us`` and its copy's ``baseTimeNanoseconds / 1e3 + ts`` in
+the exported Chrome trace differ by the time between the two stamps
+(``tests/test_torch_port_layer_spans.py`` holds them within 1 ms).
+
+**Layer ranges** (:func:`layer_scope`, :func:`layer`,
+:func:`layer_loss`) are the model's fine-grained ranges, for the
+profiler alone: no ring entry, no timeline slice, no ids, and nothing at
+all (one boolean check) while no profiler records.  A model's forward
+is a chain of adjacent ranges on its thread (embeddings, each block's
+attention and MLP sublayers, the loss head); each switch hooks the
+gradient of the tensor that enters the new layer, so the backward, on
+the autograd engine's thread, runs the same names in reverse order:
+the loss's hook opens the last layer's range, the hook of each layer's
+input closes that layer's range and opens the one before it, and the
+engine's final callback closes the first layer's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -43,6 +68,7 @@ __all__ = [
     "now_us", "inject", "extract", "snapshot", "clear",
     "estimate_clock_offset", "merge_traces", "unresolved_parents",
     "critical_path", "trace_ids", "dump_merged",
+    "profiling", "layer_scope", "layer", "layer_loss",
 ]
 
 _TRUE = {"1", "true", "yes", "on"}
@@ -234,6 +260,9 @@ def span(name: str, *, root: bool = False,
     if not enabled():
         yield None
         return
+    # The profiler's copy opens first, so that its start and the ring's
+    # are stamped back to back.
+    copy = _range_enter(name) if profiling() else None
     if root:
         ctx_parent: Optional[Tuple[str, str]] = None
     elif parent is not None:
@@ -255,6 +284,8 @@ def span(name: str, *, root: bool = False,
         span_args["error"] = type(e).__name__
         raise
     finally:
+        if copy is not None:
+            _range_exit(copy)
         _tls.ctx = prev
         rec = {
             "name": name,
@@ -270,6 +301,121 @@ def span(name: str, *, root: bool = False,
         }
         _append(rec)
         _emit_timeline(rec)
+
+
+# --- the profiler's ranges ---------------------------------------------------
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` (or autograd profiler) session
+    records: one read of the profiler module's flag, False before torch
+    is imported."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+def _range_enter(name: str):
+    import torch
+
+    return torch.ops.profiler._record_function_enter_new(name, None)
+
+
+def _range_exit(handle) -> None:
+    import torch
+
+    torch.ops.profiler._record_function_exit._RecordFunction(handle)
+
+
+class _Chain:
+    """The open layer range of one thread's forward, or of the backward
+    on one thread: its name and the profiler's handle."""
+
+    __slots__ = ("name", "handle")
+
+    def __init__(self) -> None:
+        self.name: Optional[str] = None
+        self.handle = None
+
+    def switch(self, name: Optional[str]) -> None:
+        if self.handle is not None:
+            _range_exit(self.handle)
+        self.name = name
+        self.handle = _range_enter(name) if name is not None else None
+
+
+class _LayerRanges:
+    """:func:`layer_scope`'s context: the outermost one on a thread owns
+    the chain and closes its last range on exit; inner ones join."""
+
+    __slots__ = ("owner",)
+
+    def __enter__(self) -> None:
+        self.owner = getattr(_tls, "layers", None) is None
+        if self.owner:
+            _tls.layers = _Chain()
+
+    def __exit__(self, *exc) -> bool:
+        if self.owner:
+            chain, _tls.layers = _tls.layers, None
+            chain.switch(None)
+        return False
+
+
+def layer_scope(fn):
+    """Decorate a model's ``forward`` or a loss function around it to
+    run in the scope of one forward's layer chain: :func:`layer`
+    switches the chain's range, and the outermost scope on the thread
+    ends the last one.  While no profiler records, a plain call."""
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+        if not profiling():
+            return fn(*args, **kwargs)
+        with _LayerRanges():
+            return fn(*args, **kwargs)
+
+    return scoped
+
+
+def layer(name: str, x=None) -> None:
+    """Inside :func:`layer_scope`, end the forward's open layer range
+    and open ``name``; ``x``, the tensor entering the layer, gets a
+    gradient hook that ends ``name``'s backward range and opens the
+    range of the layer before it.  Switching to the open name, or with
+    no scope on the thread, does nothing; no hook without a gradient."""
+    if not profiling():
+        return
+    chain = getattr(_tls, "layers", None)
+    if chain is None or chain.name == name:
+        return
+    before = chain.name
+    chain.switch(name)
+    if x is not None and x.requires_grad:
+        x.register_hook(functools.partial(_backward_into, before))
+
+
+def layer_loss(loss):
+    """Hook ``loss`` (the chain's output) so that its gradient opens the
+    backward range of the forward's last layer; returns ``loss``."""
+    if profiling() and loss.requires_grad:
+        chain = getattr(_tls, "layers", None)
+        if chain is not None:
+            loss.register_hook(functools.partial(_backward_into, chain.name))
+    return loss
+
+
+def _backward_into(name: Optional[str], _grad) -> None:
+    """A layer hook, on the thread that runs the backward: end the
+    range open there and open ``name``'s (None: none).  The first
+    opening of a backward queues the engine's final callback, which
+    ends the last range."""
+    chain = getattr(_tls, "backward", None)
+    if chain is None:
+        chain = _tls.backward = _Chain()
+    if chain.name is None and name is not None:
+        from torch.autograd import Variable
+
+        Variable._execution_engine.queue_callback(
+            functools.partial(chain.switch, None))
+    chain.switch(name)
 
 
 # --- wire propagation --------------------------------------------------------

@@ -53,6 +53,8 @@ its ``topo=``.
 Each built step is instrumented (:func:`..obs.instrument.build_step`):
 the step time, steps, samples and tokens, a root span a call, and the
 step's plan records (fusion, microbatches, topology) once per build.
+Under that root, the gradient reduction runs in the span
+``hvd_tpu_wire`` and the wrapped optimizer's step in ``hvd_tpu_apply``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from .. import basics
 from .. import faults as _faults
 from ..config import DEFAULT_COST_ALPHA_US, DEFAULT_COST_BETA_GBPS
 from ..obs import instrument as _obs
+from ..obs import trace as _trace
 from ..ops import collectives as C
 from ..ops import fusion
 from ..ops.adasum import adasum_pytree
@@ -325,26 +328,30 @@ class DistributedOptimizer:
         return _filled_grads((name, p) for p, name in self._names.items())
 
     def synchronize(self) -> None:
-        """Reduce every parameter's ``.grad`` in place over the set."""
-        grads = self._grads()
-        group = _reduce_group(self.process_set, "DistributedOptimizer")
-        comp = _resolve_compression(self.compression)
-        if (self._error_feedback_on() and comp is not Compression.none
-                and self.op != C.Adasum):
-            n = dist.get_world_size(group)
-            for name, g in grads.items():
-                r = self.residual.get(name)
-                if r is not None:
-                    g.add_(r)
-                self.residual[name] = comp.local_error(
-                    g, block_size=wire_block_size(g.numel(), n))
-        _write_back(grads, _reduce_grads(
-            grads, op=self.op, group=group, comp=comp,
-            threshold=_threshold(self.fusion_threshold),
-            two_phase=self.two_phase, pipeline_depth=self.pipeline_depth))
+        """Reduce every parameter's ``.grad`` in place over the set,
+        inside the span ``hvd_tpu_wire``."""
+        with _trace.span("hvd_tpu_wire"):
+            grads = self._grads()
+            group = _reduce_group(self.process_set, "DistributedOptimizer")
+            comp = _resolve_compression(self.compression)
+            if (self._error_feedback_on() and comp is not Compression.none
+                    and self.op != C.Adasum):
+                n = dist.get_world_size(group)
+                for name, g in grads.items():
+                    r = self.residual.get(name)
+                    if r is not None:
+                        g.add_(r)
+                    self.residual[name] = comp.local_error(
+                        g, block_size=wire_block_size(g.numel(), n))
+            _write_back(grads, _reduce_grads(
+                grads, op=self.op, group=group, comp=comp,
+                threshold=_threshold(self.fusion_threshold),
+                two_phase=self.two_phase,
+                pipeline_depth=self.pipeline_depth))
 
     def step(self, closure=None):
-        """Reduce and step; with ``backward_passes_per_step=k``, only on
+        """Reduce and step, the wrapped optimizer's step inside the span
+        ``hvd_tpu_apply``; with ``backward_passes_per_step=k``, only on
         every ``k``-th call (the others add the gradients up and return
         None)."""
         k = self.backward_passes_per_step
@@ -362,7 +369,8 @@ class DistributedOptimizer:
                     p.grad = (acc / k if self.average_aggregated_gradients
                               else acc)
         self.synchronize()
-        return self.optimizer.step(closure)
+        with _trace.span("hvd_tpu_apply"):
+            return self.optimizer.step(closure)
 
 
 def snap_microbatches(requested: int, rows: int) -> int:
@@ -643,11 +651,17 @@ def make_train_step(loss_fn: Callable, optimizer, *, mesh=None,
             loss, aux = _loss_and_aux(loss_fn, model, batch, has_aux)
             loss.backward()
         if reduce_here and not reduced:
-            grads = _filled_grads(zip(names, params))
-            _write_back(grads, _reduce_grads(
-                grads, op=op, group=group, comp=comp, threshold=threshold,
-                two_phase=two_phase, pipeline_depth=pipeline_depth))
-        optimizer.step()
+            with _trace.span("hvd_tpu_wire"):
+                grads = _filled_grads(zip(names, params))
+                _write_back(grads, _reduce_grads(
+                    grads, op=op, group=group, comp=comp,
+                    threshold=threshold, two_phase=two_phase,
+                    pipeline_depth=pipeline_depth))
+        if is_dist:
+            optimizer.step()
+        else:
+            with _trace.span("hvd_tpu_apply"):
+                optimizer.step()
         loss = C.reduce_raw(loss.detach(), C.Average, group=group)
         return (loss, aux) if has_aux else loss
 

@@ -594,6 +594,31 @@ def test_fixture_parity_with_the_reference(case, tmp_path):
         assert frag in text, (frag, text)
 
 
+PORT_SPANS = ("from ..obs import trace\n\n"
+              "def hop(x):\n"
+              '    with trace.span("hvd_tpu_shared"):\n'
+              '        trace.layer("hvd_tpu_port_only", x)\n')
+
+
+@pytest.mark.parametrize("port_doc, count", [
+    ("| `hvd_tpu_port_only` | layer range |\n", 0),   # either catalog
+    ("", 1),                                         # in neither
+])
+def test_port_span_catalog_beside_the_shared_one(tmp_path, port_doc, count):
+    """``span-doc-drift`` reads ``docs/tracing.md`` and the port's own
+    catalog, ``LintConfig.port_tracing_doc``; ``trace.layer``'s literal
+    names are spans to both checks."""
+    fs = lint(tmp_path, {"m.py": PORT_SPANS}, [registries.SpanNameChecker],
+              docs={"tracing.md": "| `hvd_tpu_shared` |\n"},
+              extra={"horovod_tpu_torch/obs/spans.md": port_doc})
+    assert [f.check for f in fs] == ["span-doc-drift"] * count
+    assert all("hvd_tpu_port_only" in f.message for f in fs)
+    bare = lint(tmp_path, {"m.py": PORT_SPANS.replace("hvd_tpu_port_only",
+                                                      "port_only")},
+                [registries.SpanNameChecker])
+    assert [f.check for f in bare] == ["span-name"]
+
+
 def test_select_group_aliases_expand():
     assert core.expand_select(["protocol,waits"]) == [
         "unhandled-request-frame", "mismatched-response",

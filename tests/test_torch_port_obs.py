@@ -356,8 +356,6 @@ HOOKS = [
     ("on_topo_estimator", ("dcn", 100.0, 10.0), {}),
     ("set_plan_axes", ({"data": 2, "fsdp": 2},), {}),
     ("on_plan_relayout", (), {}),
-    ("set_mfu", (41.5,), {}),
-    ("set_hidden_comm_estimate", (100.0, 25.0), {}),
     ("on_autotune_window", (123.45678, {"fusion_threshold": 1 << 20}), {}),
     ("on_autotune_window", (5.0, None), {}),
     ("on_autotune_apply", ({"fusion_threshold": 1 << 22, "mode": "x"},

@@ -1179,13 +1179,14 @@ def _ref_stage_spans(numel, compression, kernel):
 @pytest.mark.parametrize("compression,kernel", [("int8", "spmd"),
                                                 ("none", "pallas")])
 def test_stage_spans_and_topo_metrics(world, compression, kernel):
-    """Every step's root holds the three stage spans of its hierarchical
-    bucket (the reference's fire once, at trace time, under the first
-    step's root); the spans of one ``execute_schedule`` and of the
-    overlap wire's halves equal the reference's (names, args, parents);
-    the build records its plan once (3 steps: one hierarchical schedule,
-    one ``two_phase`` fusion record), and the estimator fed by the steps
-    publishes both tiers' β."""
+    """Every step's root holds the wire and apply spans, and the wire
+    the three stage spans of its hierarchical bucket (the reference's
+    fire once, at trace time, under the first step's root); the spans of
+    one ``execute_schedule`` and of the overlap wire's halves equal the
+    reference's (names, args, parents); the build records its plan once
+    (3 steps: one hierarchical schedule, one ``two_phase`` fusion
+    record), and the estimator fed by the steps publishes both tiers'
+    β."""
     x, y = _data()
     numel = 1024
     out = world.run("topo_obs", x=x, y=y, steps=3, numel=numel,
@@ -1196,6 +1197,8 @@ def test_stage_spans_and_topo_metrics(world, compression, kernel):
     for r in range(N):
         o = out[r]
         assert [[name for name, _ in kids] for kids in o["per_step"]] == \
+            [["hvd_tpu_wire", "hvd_tpu_apply"]] * 3
+        assert [[name for name, _ in kids] for kids in o["per_wire"]] == \
             [stages] * 3
         assert [[list(t) for t in o["schedule"]]] == \
             [[list(t) for t in want]]

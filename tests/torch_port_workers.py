@@ -2000,11 +2000,11 @@ def topo_obs(x: np.ndarray, y: np.ndarray, steps: int, numel: int,
              compression: str, kernel: str) -> dict:
     """The topology layer's telemetry on this rank, from a fresh registry
     and span ring: ``steps`` SGD steps of the toy regression under a 2x2
-    hierarchical schedule (each step root's span tree, the ``topo``
-    metrics, the estimator's gauges), then one hierarchical
-    ``execute_schedule`` of ``numel`` elements and the overlap wire's
-    two halves on ``compression`` with the IR's ``kernel``, each under a
-    root span of its own."""
+    hierarchical schedule (each step root's children and the children
+    of its ``hvd_tpu_wire``, the ``topo`` metrics, the estimator's
+    gauges), then one hierarchical ``execute_schedule`` of ``numel``
+    elements and the overlap wire's two halves on ``compression`` with
+    the IR's ``kernel``, each under a root span of its own."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.obs import metrics, trace
     from horovod_tpu_torch.topo import costmodel, schedule
@@ -2027,6 +2027,10 @@ def topo_obs(x: np.ndarray, y: np.ndarray, steps: int, numel: int,
     tree = _span_tree(spans)
     per_step = [[(name, args) for name, args, parent in tree
                  if parent == r] for r in roots]
+    wires = [i for i, (name, _, parent) in enumerate(tree)
+             if name == "hvd_tpu_wire" and parent in roots]
+    per_wire = [[(name, args) for name, args, parent in tree
+                 if parent == w] for w in wires]
     snap = metrics.registry().snapshot()
 
     trace.clear()
@@ -2041,7 +2045,7 @@ def topo_obs(x: np.ndarray, y: np.ndarray, steps: int, numel: int,
                                                      compression=comp)
         schedule.hierarchical_all_gather(shard, sched, compression=comp)
     costmodel.reset_estimator()
-    return {"per_step": per_step, "snapshot": snap,
+    return {"per_step": per_step, "per_wire": per_wire, "snapshot": snap,
             "schedule": _span_tree(trace.snapshot())}
 
 
