@@ -13,7 +13,7 @@
    other card).  Then "hvdlint (host)": ``horovod_tpu_torch.analysis.
    run()`` over this checkout (the AST checkers, the kernel check
    included) must give 0 unsuppressed findings and the kernel check
-   must see the seven ``@kernel`` wrappers; prints the seconds, the
+   must see the eight ``@kernel`` wrappers; prints the seconds, the
    checkers and check ids run and the modules read.  ``import
    horovod_tpu_torch.torch`` must work; on a host without tensorflow
    (the card's) ``import horovod_tpu_torch.tensorflow`` and ``.keras``
@@ -31,7 +31,11 @@
    pipeline, moe and fsdp paths runs (causal) and at the "serve 1
    rank" oracle's ragged forwards (B*H 16, causal, T 17 and 900 in
    bf16, T 17 and 931 through the f32 CUDA-core kernel within 2e-5 on
-   O, 1e-4 on lse, 1e-2 row-relative); the blocked
+   O, 1e-4 on lse, 1e-2 row-relative); the flash backward (bf16
+   tensor-core kernels) at the benchmark cells' layers (GPT: B*H 256, T
+   1024, causal; BERT: B*H 2048, T 128, non-causal), each of dQ, dK and
+   dV within 1.25x of the plain version's own bf16 error against the
+   plain version on f32 upcasts of the same inputs; the blocked
    matmul (B5) with a bf16 and with an f32 x within twice its plain
    version's error against an f64 product plus 1e-6 of the product's
    largest |value|.  B1 and B5 also print their TFLOP/s beside the
@@ -39,7 +43,8 @@
    kernel's median time, its plain version's, its bound and, where one
    PyTorch call computes the same function, that call's time as a
    yardstick the port never calls: ``q * s[:, None]`` for the
-   dequantize, ``F.scaled_dot_product_attention`` for flash attention,
+   dequantize, ``F.scaled_dot_product_attention`` for flash attention
+   (its backward through ``torch.autograd.grad`` for the backward),
    ``torch.addcmul`` for the SGD apply, ``torch.matmul`` of the f32
    operands for B5.  B4 and B3 run their vector route at the main
    shapes, B3 also at the two-rank paths' 2 contributors (bitwise, NaN
@@ -572,7 +577,7 @@
    and B3 at rows of 1024 run their vector kernel and at rows of 1023
    only their scalar one.  It runs last, so that the profiler touches
    none of the timed phases.
-33. Prints the ``kernels`` JSON line (all seven kernels, with their
+33. Prints the ``kernels`` JSON line (all eight kernels, with their
    launches on every path; ``launches`` is the count on the path that
    reaches the kernel; B4's and B3's rows give their ``kernel_route`` and
    a ``scalar_route``), then the result line.  Every kernel must have
@@ -742,6 +747,7 @@ def kernel_phase(dev, gen):
     rows.append(dequantize_row(dev, gen, q, s))
     rows.append(dequantize_accumulate_row(dev, gen))
     rows.append(flash_kernel_row(dev, gen))
+    rows.append(flash_bwd_kernel_row(dev, gen))
     rows += apply_kernel_rows(dev, gen)
     rows.append(matmul_kernel_row(dev, gen))
     for row in rows:
@@ -764,6 +770,13 @@ def kernel_phase(dev, gen):
                 f"bound {bl['bound_ms']} ms ({bl['bound_by']}; bytes "
                 f"{bl['bytes_ms']} ms, operations {bl['ops_ms']} ms), SDPA "
                 f"{bl['library_ms']} ms")
+        if "f32" in row:
+            f = row["f32"]
+            log(f"kernel {row['name']}: at {f['shape']} "
+                f"{'causal' if f['causal'] else 'non-causal'} f32 (the CUDA-"
+                f"core route) {f['ms']} ms, plain {f['plain_ms']} ms, bound "
+                f"{f['bound_ms']} ms ({f['bound_by']}; bytes {f['bytes_ms']} "
+                f"ms, operations {f['ops_ms']} ms)")
         if "rank_rows" in row:
             rr = row["rank_rows"]
             log(f"kernel {row['name']}: at {rr['shape']} causal (two rows: "
@@ -1095,6 +1108,129 @@ def flash_kernel_row(dev, gen):
                 replaces="horovod_tpu/ops/pallas_attention.py:38",
                 **row, bert_large=bert, ring_block=ring, rank_rows=rank_rows,
                 serve_oracle=serve)
+
+
+FLASH_BWD_SPLIT_LIMIT = 1.25    # x the plain version's own bf16 error
+
+
+def flash_bwd_case(dev, gen, bh: int, t: int, causal: bool,
+                   label: str) -> dict:
+    """The flash backward at ``[bh, t, 64]`` bf16 from the forward
+    kernel's O and lse: each of dQ, dK and dV within
+    ``FLASH_BWD_SPLIT_LIMIT`` times the plain version's own relative
+    Frobenius error against the plain version on f32 upcasts; then its
+    time, its plain version's, SDPA's backward's and its bound (five
+    products of 2·BH·pairs·D; Q, O, dO, dQ, K, V, dK, dV in bf16 and the
+    f32 lse and delta, each moved once)."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    d = 64
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (torch.randn((bh, t, d), generator=gen,
+                                   device=dev).bfloat16() for _ in range(4))
+    o3, lse = fa.flash_fwd(q3, k3, v3, scale, causal)
+    args = (q3, k3, v3, o3, lse, do3)
+    got = fa.flash_bwd(*args, scale, causal)
+    f32 = [x.float() for x in args]
+    ref = fa.flash_bwd_plain(*f32[:4], lse, f32[5], scale=scale,
+                             causal=causal)
+    plain = fa.flash_bwd_plain(*args, scale=scale, causal=causal)
+
+    def rel(a, r):
+        return float((a.double() - r.double()).norm() / r.double().norm())
+
+    ratios = [rel(a, r) / rel(p, r) for a, p, r in zip(got, plain, ref)]
+    log(f"kernel flash_bwd ({label}): dQ, dK, dV relative error "
+        f"{[rel(a, r) for a, r in zip(got, ref)]}, "
+        f"{ratios} x the plain version's bf16 output's")
+    if max(ratios) > FLASH_BWD_SPLIT_LIMIT:
+        raise AssertionError(f"flash_bwd ({label}) beyond its split "
+                             f"contract: {ratios}")
+    del ref, f32
+    ms = time_ms(lambda: fa.flash_bwd(*args, scale, causal))
+    plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args, scale=scale,
+                                                  causal=causal))
+    q4, k4, v4 = (x.reshape(bh // 16, 16, t, d).detach().requires_grad_()
+                  for x in (q3, k3, v3))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    dout = do3.reshape(out.shape)
+    lib = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), dout,
+                                              retain_graph=True))
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 10 * bh * pairs * d
+    bnd = bound(2 * bh * d * 8 * t + 4 * 2 * bh * t, flops, BF16_FLOPS)
+    log(f"kernel flash_bwd ({label}): {flops / ms / 1e9} TFLOP/s, SDPA "
+        f"backward {flops / lib / 1e9} TFLOP/s")
+    return dict(shape=[bh, t, d], causal=causal,
+                max_abs_err=max(float((a.float() - p.float()).abs().max())
+                                for a, p in zip(got, plain)),
+                split_ratios=ratios, tflops=flops / ms / 1e9,
+                library_tflops=flops / lib / 1e9, ms=ms, plain_ms=plain_ms,
+                **bnd, library_ms=lib)
+
+
+def flash_bwd_f32_case(dev, gen, bh: int, t: int, causal: bool) -> dict:
+    """The f32 route (the CUDA-core kernels) at ``[bh, t, 64]``: each of
+    dQ, dK and dV against float64 attention within B5's f64 rule (twice
+    the plain version's largest error plus 1e-6 of the largest |value|);
+    then its time, its plain version's and its bound (five products of
+    2·BH·pairs·D at the f32 rate; the eight tensors f32, lse and delta,
+    once)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    d = 64
+    scale = d ** -0.5
+    q3, k3, v3, do3 = (torch.randn((bh, t, d), generator=gen, device=dev)
+                       for _ in range(4))
+    o3, lse = fa.flash_fwd(q3, k3, v3, scale, causal)
+    args = (q3, k3, v3, o3, lse, do3)
+    got = fa.flash_bwd(*args, scale, causal)
+    plain = fa.flash_bwd_plain(*args, scale=scale, causal=causal)
+    q, k, v, do = (x.double() for x in (q3, k3, v3, do3))
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool,
+                                      device=dev).tril(), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    ds = p * (torch.matmul(do, v.transpose(1, 2))
+              - (do * torch.matmul(p, v)).sum(-1)[..., None]) * scale
+    ref = (torch.matmul(ds, k), torch.matmul(ds.transpose(1, 2), q),
+           torch.matmul(p.transpose(1, 2), do))
+    errs = [(float((a.double() - r).abs().max()),
+             float((b.double() - r).abs().max()), float(r.abs().max()))
+            for a, b, r in zip(got, plain, ref)]
+    log(f"kernel flash_bwd (f32, [{bh}, {t}, {d}], causal {causal}): dQ, "
+        f"dK, dV max |kernel - f64|, max |plain - f64|, max |f64| {errs}")
+    if not all(e <= 2 * ep + 1e-6 * m for e, ep, m in errs):
+        raise AssertionError(f"flash_bwd (f32) outside the f64 rule: {errs}")
+    del ref, s, p, ds
+    ms = time_ms(lambda: fa.flash_bwd(*args, scale, causal))
+    plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args, scale=scale,
+                                                  causal=causal))
+    pairs = t * (t + 1) // 2 if causal else t * t
+    bnd = bound(4 * bh * d * 8 * t + 4 * 2 * bh * t, 10 * bh * pairs * d,
+                F32_FLOPS)
+    return dict(shape=[bh, t, d], causal=causal,
+                max_abs_err=max(e for e, _, _ in errs), ms=ms,
+                plain_ms=plain_ms, **bnd)
+
+
+def flash_bwd_kernel_row(dev, gen):
+    """The flash backward at the GPT cell's layer (B*H 16*16, T 1024,
+    causal), the row's main shape, at the BERT cell's (B*H 128*16, T 128,
+    non-causal) as its ``bert_large`` shape, and the f32 route at the
+    "bert-large 1 rank" phase's f32 check (B*H 32*16, T 128) as ``f32``."""
+    row = flash_bwd_case(dev, gen, 256, 1024, True, "GPT cell")
+    bert = flash_bwd_case(dev, gen, 2048, 128, False, "BERT cell")
+    f32 = flash_bwd_f32_case(dev, gen, 512, 128, False)
+    del row["causal"]
+    return dict(name="flash_bwd", route="cuda",
+                source="horovod_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="none (pallas_attention._flash_bwd is plain jnp)",
+                **row, bert_large=bert, f32=f32)
 
 
 def apply_kernel_rows(dev, gen):
@@ -2786,8 +2922,9 @@ TOPO_STAGES = ("hvd_tpu_topo_rs_intra", "hvd_tpu_topo_xpod",
 
 def obs_hier_checks(spans: list, beta: list) -> dict:
     """The "hierarchical 4 ranks" phase's observability record: the topology
-    metrics, the stage spans under each step's root (by stage name, a
-    step) and the estimator's β gauge read after the first step."""
+    metrics, the stage spans under each step's ``hvd_tpu_wire`` span, the
+    root's child (by stage name, a step) and the estimator's β gauge read
+    after the first step."""
     from horovod_tpu_torch.obs import metrics
 
     snap = metrics.registry().snapshot()
@@ -2800,8 +2937,9 @@ def obs_hier_checks(spans: list, beta: list) -> dict:
              and sp["parent_id"] is None]
     stages = []
     for root in roots:
-        kids = [sp["name"] for sp in spans
-                if sp["parent_id"] == root["span_id"]]
+        wires = {sp["span_id"] for sp in spans if sp["name"] == "hvd_tpu_wire"
+                 and sp["parent_id"] == root["span_id"]}
+        kids = [sp["name"] for sp in spans if sp["parent_id"] in wires]
         stages.append({name: kids.count(name) for name in TOPO_STAGES})
     return dict(schedules=by("hvd_tpu_topo_schedules_total", "algo"),
                 tier_bytes=by("hvd_tpu_topo_wire_bytes_total", "tier"),
@@ -3066,7 +3204,7 @@ def check_hierarchical(res: list, seconds: float, label: str, wire: str):
     o0 = s0["obs"]
     log(f"{label}: hvd_tpu_topo_schedules_total {o0['schedules']}, "
         f"hvd_tpu_topo_wire_bytes_total {o0['tier_bytes']}; every step's "
-        f"root holds {o0['stages'][0]} stage spans ({len(s0['algos'])} "
+        f"wire span holds {o0['stages'][0]} stage spans ({len(s0['algos'])} "
         f"hierarchical buckets); hvd_tpu_topo_cost_beta_gbps after step 1 "
         f"{o0['beta']}")
     log(f"{label}: step seconds hierarchical "
@@ -4194,13 +4332,20 @@ def mlm_check(dev) -> None:
                             generator=gen, device=dev)
     mask = (torch.rand((BERT_BATCH, BERT_SEQ), generator=gen, device=dev)
             < 0.15).float()
+    before = hvd.ops.launch_counts()["flash_bwd"]
     runs = dense_and_chunked(
         model, lambda chunk: hvd.models.masked_lm_loss_fn(
             model, vocab_chunk_size=chunk), (ids, targets, mask),
         lambda: model.bert.tok_embed.embedding)
+    bwd = hvd.ops.launch_counts()["flash_bwd"] - before
+    if bwd != 2 * cfg.n_layer:
+        raise AssertionError(f"bert-large mlm: flash_bwd launched {bwd} "
+                             f"times in two backwards of {cfg.n_layer} "
+                             "layers")
     dense, chunked, err = heads_agree("masked LM head", runs)
     log(f"bert-large mlm: f32, batch {BERT_BATCH} x {BERT_SEQ}, loss dense "
-        f"{dense} chunked {chunked} (chunk {VOCAB_CHUNK}), tied embedding "
+        f"{dense} chunked {chunked} (chunk {VOCAB_CHUNK}), the f32 flash "
+        f"backward {bwd} launches, tied embedding "
         f"gradient max_abs_err {err}; peak memory dense "
         f"{runs[0][2] / 2**30:.3f} GiB, chunked "
         f"{runs[VOCAB_CHUNK][2] / 2**30:.3f} GiB")
@@ -7690,7 +7835,7 @@ SANITIZE_ENV = {"HVD_TPU_SANITIZE": "raise"}
 def hvdlint_phase() -> dict:
     """Path "hvdlint (host)": ``horovod_tpu_torch.analysis.run()`` over
     this checkout must give 0 unsuppressed findings, and the kernel check
-    must see all seven ``@kernel`` wrappers.  Prints the seconds, the
+    must see all eight ``@kernel`` wrappers.  Prints the seconds, the
     checkers and check ids run and the modules read."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import analysis

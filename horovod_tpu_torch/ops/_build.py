@@ -25,7 +25,8 @@ from typing import Dict, List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("int8_kernels", "flash_attention", "fused_apply", "matmul")
+SOURCES = ("int8_kernels", "flash_attention", "flash_attention_bwd",
+           "fused_apply", "matmul")
 
 # No --use_fast_math: the int8 and apply kernels must round as the
 # reference does.

@@ -1,4 +1,4 @@
-"""Flash attention: a hand-written CUDA forward and a chunked backward.
+"""Flash attention: hand-written CUDA kernels forward and backward.
 
 Counterpart of ``horovod_tpu/ops/pallas_attention.py``, with the same
 contract: q/k/v ``[B, T, H, D]`` → ``[B, T, H, D]``, and the row
@@ -6,10 +6,13 @@ logsumexp as ``[B, H, T]`` float32.  The forward is kernel
 :func:`flash_fwd` (``csrc/flash_attention.cu``, replacing
 ``_fwd_kernel``): bfloat16 inputs run on the tensor cores (wgmma, TMA),
 float32 ones on the CUDA cores; what bounds each on the card is in the
-note at the top of the CUDA source.  The backward is a port of
-``_flash_bwd``: plain torch ops, chunked over key blocks, recomputing the
-probabilities from the saved lse in float32, with the lse cotangent
-folded into Δ.
+note at the top of the CUDA source.  The backward is kernel
+:func:`flash_bwd` (``csrc/flash_attention_bwd.cu``): bfloat16 on the
+tensor cores, float32 on the CUDA cores; its plain version
+:func:`flash_bwd_plain`, a port of the reference's ``_flash_bwd`` (plain
+torch ops, chunked over key blocks, recomputing the probabilities from
+the saved lse in float32, with the lse cotangent folded into Δ), runs
+for CPU tensors.
 
 The kernel masks its own ragged edge, so any sequence length runs
 without padding; :func:`flash_attention_padded` keeps its name for the
@@ -28,7 +31,7 @@ from .kernel_common import (check_operand, kernel, on_card, raise_on_error,
                             stream_of)
 
 NEG_INF = -1e30
-BLOCK_K = 128          # key-block width of the plain version and backward
+BLOCK_K = 128          # key-block width of the plain versions
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 _P = ctypes.c_void_p
@@ -36,6 +39,10 @@ _signatures = {
     "hvd_flash_fwd": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, _P],
+}
+_bwd_signatures = {
+    "hvd_flash_bwd": [_P] * 11 + [ctypes.c_int] * 4
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
 }
 
 
@@ -69,6 +76,34 @@ def flash_fwd_plain(q3, k3, v3, scale: float, causal: bool,
     return o, m + torch.log(den)
 
 
+def _kernel_operands(q3, k3, v3, **like_q):
+    """q, k, v and the ``like_q`` tensors (named, shaped as q) as the
+    kernels take them, or raise: contiguous CUDA tensors of one dtype,
+    bfloat16 or float32, q ``[BH, T, D]``, k/v ``[BH, Tk, D]``, D in
+    ``KERNEL_HEAD_DIMS``, BH within the grid's 65535 and some keys.  The
+    kernels read through TMA and 16-byte loads, which want 16-byte aligned
+    bases: an unaligned tensor is returned as a fresh copy, which is."""
+    named = {"q": q3, "k": k3, "v": v3, **like_q}
+    for name, t in named.items():
+        check_operand(t, name, (torch.bfloat16, torch.float32), 3)
+    if len({t.dtype for t in named.values()}) != 1:
+        raise ValueError(f"{', '.join(named)} must share one dtype")
+    bh, t, d = q3.shape
+    if ((k3.shape[0], k3.shape[2]) != (bh, d) or v3.shape != k3.shape
+            or any(x.shape != q3.shape for x in like_q.values())):
+        raise ValueError("shapes " + " ".join(
+            f"{name} {tuple(x.shape)}" for name, x in named.items())
+            + " do not agree")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if bh > 65535:
+        raise ValueError(f"batch*heads {bh} exceeds the grid's 65535")
+    if k3.shape[1] == 0:
+        raise ValueError("no keys")
+    return [x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in named.values()]
+
+
 @kernel
 def flash_fwd(q3, k3, v3, scale: float, causal: bool):
     """Flash-attention forward on ``[BH, T, D]`` q and ``[BH, Tk, D]``
@@ -78,39 +113,22 @@ def flash_fwd(q3, k3, v3, scale: float, causal: bool):
     limits), float32 the CUDA-core one (``flash_fwd``, the f32 limits)."""
     if not on_card(q3):
         return flash_fwd_plain(q3, k3, v3, scale, causal)
-    for name, t in (("q", q3), ("k", k3), ("v", v3)):
-        check_operand(t, name, (torch.bfloat16, torch.float32), 3)
-    if not q3.dtype == k3.dtype == v3.dtype:
-        raise ValueError("q, k and v must share one dtype")
+    q3, k3, v3 = _kernel_operands(q3, k3, v3)
     bh, t, d = q3.shape
-    tk = k3.shape[1]
-    if (k3.shape[0], k3.shape[2]) != (bh, d) or v3.shape != k3.shape:
-        raise ValueError(f"shapes q {tuple(q3.shape)} k {tuple(k3.shape)} "
-                         f"v {tuple(v3.shape)} do not agree")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
-    if bh > 65535:
-        raise ValueError(f"batch*heads {bh} exceeds the grid's 65535")
-    if tk == 0:
-        raise ValueError("no keys")
-    # The bf16 kernel reads q, k and v through TMA, which wants 16-byte
-    # aligned bases; a fresh copy is.
-    q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
-                  for x in (q3, k3, v3))
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     lib = _build.load("flash_attention", _signatures)
     rc = lib.hvd_flash_fwd(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(), bh, t, tk, d,
-                           float(scale), int(bool(causal)),
+                           o.data_ptr(), lse.data_ptr(), bh, t, k3.shape[1],
+                           d, float(scale), int(bool(causal)),
                            int(q3.dtype == torch.bfloat16), stream_of(q3))
     raise_on_error(rc, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
 
 
-def _flash_bwd(q3, k3, v3, o3, lse, do3, *, scale, causal,
-               block_k: int = BLOCK_K, dlse=None):
+def flash_bwd_plain(q3, k3, v3, o3, lse, do3, *, scale, causal,
+                    block_k: int = BLOCK_K, dlse=None):
     """Chunked flash backward (recompute), float32 accumulation: a port
     of ``pallas_attention._flash_bwd``.  ``dlse`` folds into Δ, since
     ∂lse_i/∂s_ik = p_ik: dS = P·(dP − Δ + dlse)."""
@@ -141,6 +159,48 @@ def _flash_bwd(q3, k3, v3, o3, lse, do3, *, scale, causal,
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
+@kernel
+def flash_bwd(q3, k3, v3, o3, lse, do3, scale: float, causal: bool,
+              dlse=None):
+    """Flash-attention backward: (dQ, dK, dV) in the input type from the
+    forward's ``[BH, T, D]`` q, O and ``[BH, Tk, D]`` k/v, its lse
+    ``[BH, T]`` f32, the cotangent ``do3`` and, where lse is used, its
+    cotangent ``dlse``.  bfloat16 launches the tensor-core kernels
+    (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``), which
+    carry P and dS as bf16 hi/lo pairs, so the gradients round only where
+    the plain version rounds them; float32 the CUDA-core ones
+    (``flash_bwd_f32_delta``, ``_dkdv``, ``_dq``), as the forward's f32
+    route: the f32 limits are beyond bf16 tensor cores (the note at the
+    top of ``csrc/flash_attention_bwd.cu``)."""
+    if not on_card(q3):
+        return flash_bwd_plain(q3, k3, v3, o3, lse, do3, scale=scale,
+                               causal=causal, dlse=dlse)
+    q3, k3, v3, o3, do3 = _kernel_operands(q3, k3, v3, o=o3, do=do3)
+    bh, t, d = q3.shape
+    tk = k3.shape[1]
+    check_operand(lse, "lse", (torch.float32,), 2)
+    if lse.shape != (bh, t) or (dlse is not None
+                                and tuple(dlse.shape) != (bh, t)):
+        raise ValueError(f"lse and dlse must be [{bh}, {t}]")
+    if dlse is not None:
+        dlse = dlse.to(torch.float32).contiguous()
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    delta = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
+    lib = _build.load("flash_attention_bwd", _bwd_signatures)
+    rc = lib.hvd_flash_bwd(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                           o3.data_ptr(), lse.data_ptr(), do3.data_ptr(),
+                           None if dlse is None else dlse.data_ptr(),
+                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), bh, t, tk, d, float(scale),
+                           int(bool(causal)),
+                           int(q3.dtype == torch.bfloat16), stream_of(q3))
+    raise_on_error(rc, "flash_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
 class _Flash3(torch.autograd.Function):
     """``[BH, T, D]`` flash attention with both outputs differentiable."""
 
@@ -154,9 +214,8 @@ class _Flash3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q3, k3, v3, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q3, k3, v3, o, lse, do.contiguous(),
-                                scale=ctx.scale, causal=ctx.causal,
-                                dlse=dlse)
+        dq, dk, dv = flash_bwd(q3, k3, v3, o, lse, do.contiguous(),
+                               ctx.scale, ctx.causal, dlse=dlse)
         return dq, dk, dv, None, None
 
 

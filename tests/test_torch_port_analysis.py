@@ -14,7 +14,7 @@ Three layers:
   lock checker's call resolution (no edge through a receiver nobody can
   type), the kernel wrappers' discipline, and the CLI's exit contract.
 * **The gate** — the whole package, linted once for this module, has
-  zero unsuppressed findings; the kernel check sees all seven wrappers;
+  zero unsuppressed findings; the kernel check sees all eight wrappers;
   the catalog agrees with ``docs/lint.md`` for the shared ids and with
   the README's port section for the port's own.
 """
@@ -1011,7 +1011,7 @@ def test_kernel_check_sees_every_wrapper():
 
     seen = kernels.kernel_wrappers(REPO)
     assert sorted(seen) == sorted(launch_counts()) == sorted([
-        "flash_fwd", "quantize_blocks", "dequantize_blocks",
+        "flash_fwd", "flash_bwd", "quantize_blocks", "dequantize_blocks",
         "dequantize_accumulate", "blocked_matmul", "sgd_apply",
         "adam_apply"])
     for name, (path, line, plain) in seen.items():

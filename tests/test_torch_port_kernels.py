@@ -320,6 +320,93 @@ class TestFlashAttention:
         with pytest.raises(ValueError, match="Tq == Tk"):
             fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal,tk,with_dlse", [
+        (True, 40, False), (False, 40, True), (False, 72, True)])
+    def test_flash_bwd_on_cpu_is_the_plain_version(self, dtype, causal, tk,
+                                                   with_dlse):
+        """CPU tensors take ``flash_bwd_plain`` bit for bit, ``dlse``
+        included, and launch nothing."""
+        q3, k3, v3, o3, lse, do3, dlse = _bwd_inputs(6, 40, tk, 16, causal,
+                                                     dtype, with_dlse)
+        kc.reset_launch_counts()
+        got = fa.flash_bwd(q3, k3, v3, o3, lse, do3, 0.25, causal,
+                           dlse=dlse)
+        want = fa.flash_bwd_plain(q3, k3, v3, o3, lse, do3, scale=0.25,
+                                  causal=causal, dlse=dlse)
+        assert kc.launch_counts()["flash_bwd"] == 0
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+
+    @pytest.mark.parametrize("bh,t,tk,d,causal", [
+        (8, 256, 256, 64, True), (32, 128, 128, 64, False),
+        (8, 96, 160, 16, False), (6, 200, 200, 128, True)])
+    @pytest.mark.parametrize("pieces,within", [(2, True), (1, False)])
+    def test_split_contract(self, bh, t, tk, d, causal, pieces, within):
+        """The card's backward in torch ops, P and dS entering each
+        product as ``pieces`` bf16 values: as the hi/lo pair (2) it is
+        within 1.25x of the plain bf16 version's own error against the
+        f32 one (both round only dQ, dK and dV), rounded once (1) it is
+        not: dS's rows sum to zero, and dQ, dK carry the rounding."""
+        q3, k3, v3, o3, lse, do3, dlse = _bwd_inputs(
+            bh, t, tk, d, causal, torch.bfloat16, True, seed=bh + t + d)
+        scale = d ** -0.5
+        f32 = [x.float() for x in (q3, k3, v3, o3)]
+        ref = fa.flash_bwd_plain(*f32, lse, do3.float(), scale=scale,
+                                 causal=causal, dlse=dlse)
+        plain = fa.flash_bwd_plain(q3, k3, v3, o3, lse, do3, scale=scale,
+                                   causal=causal, dlse=dlse)
+        split = _split_bwd(q3, k3, v3, o3, lse, do3, scale, causal, dlse,
+                           pieces)
+        ratios = [_rel_err(a, r) / _rel_err(p, r)
+                  for a, p, r in zip(split, plain, ref)]
+        if within:
+            assert max(ratios) <= 1.25, ratios
+        else:
+            assert max(ratios) > 1.25, ratios
+
+
+def _bwd_inputs(bh, t, tk, d, causal, dtype, with_dlse, seed=0):
+    """q, k, v, the forward's O and lse on them, a cotangent dO and,
+    when asked, a lse cotangent, made with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    q3, k3, v3 = (torch.from_numpy(rng.randn(bh, n, d).astype(np.float32))
+                  .to(dtype) for n in (t, tk, tk))
+    o3, lse = fa.flash_fwd_plain(q3, k3, v3, d ** -0.5, causal)
+    do3 = torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)).to(dtype)
+    dlse = (torch.from_numpy(rng.randn(bh, t).astype(np.float32))
+            if with_dlse else None)
+    return q3, k3, v3, o3, lse, do3, dlse
+
+
+def _rel_err(a, ref):
+    return ((a.double() - ref.double()).norm() / ref.double().norm()).item()
+
+
+def _split_bwd(q3, k3, v3, o3, lse, do3, scale, causal, dlse, pieces):
+    """``flash_bwd``'s arithmetic on the card, in torch ops: f32 S, P, dP
+    and dS as the plain version computes them, then each product with P
+    or dS as the sum of ``pieces`` bf16 parts (hi = bf16(x), lo =
+    bf16(x - hi)); the gradients rounded to bf16 once."""
+    def parts(x):
+        hi = x.to(torch.bfloat16).float()
+        return [hi, (x - hi).to(torch.bfloat16).float()][:pieces]
+
+    qf, kf, vf, dof = (x.float() for x in (q3, k3, v3, do3))
+    delta = (dof * o3.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse
+    s = qf @ kf.transpose(1, 2) * scale
+    if causal:
+        keep = torch.ones(s.shape[1:], dtype=torch.bool).tril()
+        s = torch.where(keep, s, fa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None]) * scale
+    dq = sum(x @ kf for x in parts(ds))
+    dk = sum(x.transpose(1, 2) @ qf for x in parts(ds))
+    dv = sum(x.transpose(1, 2) @ dof for x in parts(p))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
 
 # --- fusion planner, dispatch, import hygiene ---------------------------------
 
